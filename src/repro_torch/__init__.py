@@ -1,0 +1,66 @@
+"""AlphaSparse on PyTorch and CUDA: machine-designed SpMV formats with
+hand-written Hopper kernels.
+
+This package is the port of ``repro`` (JAX/Pallas, kept beside it as the
+reference). It imports ``torch`` and never ``jax``. Public surface::
+
+    import repro_torch
+    plan = repro_torch.compile(matrix, repro_torch.Target())   # on the GPU
+    y = plan(x)                       # x: (n_cols,) -> (n_rows,)
+    plan.save("matrix.plan.npz")
+    plan2 = repro_torch.SpmvPlan.load("matrix.plan.npz")
+
+``Target(backend="cuda")`` (the default) runs the CUDA kernels and raises
+when no GPU is present; ``Target(backend="torch")`` runs their plain
+PyTorch versions on the CPU.
+
+Attribute access is lazy (PEP 562): ``import repro_torch`` imports
+neither torch nor numpy until a name is used.
+"""
+
+_EXPORTS = {
+    # the compile API
+    "compile": "repro_torch.api",
+    "Target": "repro_torch.api",
+    "SpmvPlan": "repro_torch.api",
+    "PlanIntegrityError": "repro_torch.api",
+    "load_plan": "repro_torch.api",
+    # core containers & search surface
+    "SparseMatrix": "repro_torch.core.matrices",
+    "read_matrix_market": "repro_torch.core.matrices",
+    "make_suite": "repro_torch.core.matrices",
+    "OperatorGraph": "repro_torch.core.graph",
+    "SearchConfig": "repro_torch.core.search",
+    "SearchResult": "repro_torch.core.search",
+    "ProgramCache": "repro_torch.core.search",
+    "run_search": "repro_torch.core.search",
+    # the pluggable design space (repro_torch.design)
+    "design": None,                     # submodule, imported lazily
+    "register_operator": "repro_torch.design.registry",
+    "unregister_operator": "repro_torch.design.registry",
+    "Operator": "repro_torch.design.registry",
+    "OpSpec": "repro_torch.design.registry",
+    "DesignSpace": "repro_torch.design.space",
+    "SearchStrategy": "repro_torch.design.strategies",
+    "AnnealStrategy": "repro_torch.design.strategies",
+    "GridStrategy": "repro_torch.design.strategies",
+    "CostModelGuidedStrategy": "repro_torch.design.strategies",
+    "register_strategy": "repro_torch.design.strategies",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(
+            f"module 'repro_torch' has no attribute {name!r}")
+    import importlib
+    module = _EXPORTS[name]
+    if module is None:                  # submodule export (repro_torch.design)
+        return importlib.import_module(f"repro_torch.{name}")
+    return getattr(importlib.import_module(module), name)
+
+
+def __dir__():
+    return __all__

@@ -1,0 +1,424 @@
+"""The compile API on PyTorch: ``repro_torch.compile(matrix, target)``.
+
+Port of the dense (single-device) path of ``repro.api``:
+
+* :class:`Target` — where the plan runs: backend ``"cuda"`` (default, the
+  hand-written Hopper kernels; raises without a GPU) or ``"torch"`` (the
+  plain PyTorch versions on the CPU), decode batch size, dtype. The field
+  names are the reference's, so plan headers stay comparable; ``mesh``
+  must be None here (sharded plans are a later slice).
+* :func:`compile` — matrix + Target (+ search budget) in, :class:`SpmvPlan`
+  out. ``budget`` is a ``SearchConfig`` (or seconds); ``graph=`` skips the
+  search and designs with a fixed Operator Graph.
+* :class:`SpmvPlan` — the program artifact: format tensors on the device
+  plus the winning Operator Graph, kernel spec and Target. Its npz layout
+  is the reference's (header, sha256 checksum, bf16 stored as uint16
+  under ``bf16!`` keys, ``format_version``), so :func:`load_plan` reads a
+  plan saved by either package, mapping the reference's backends
+  ``pallas -> cuda`` and ``jax -> torch``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import hashlib
+import json
+import os
+import tempfile
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import OperatorGraph, run_graph
+from repro_torch.core.kernel_builder import (build_kernel, build_program,
+                                             resolve_device)
+from repro_torch.core.matrices import SparseMatrix
+from repro_torch.core.search import (ProgramCache, SearchConfig, SearchResult,
+                                     _graph_from_jsonable, _graph_to_jsonable,
+                                     run_search)
+
+__all__ = ["Target", "SpmvPlan", "PlanIntegrityError", "compile",
+           "load_plan"]
+
+# Version 2 adds bf16 storage (arrays saved as uint16 views under
+# "bf16!"-marked keys). Plans without bf16 arrays are written as version 1.
+PLAN_FORMAT_VERSION = 2
+
+# backends of plans saved by the reference package
+_REFERENCE_BACKENDS = {"pallas": "cuda", "jax": "torch"}
+
+
+class PlanIntegrityError(ValueError):
+    """A saved plan's content checksum does not match its arrays."""
+
+
+def _content_checksum(header: dict, arrays: dict) -> str:
+    """sha256 over the header (checksum field excluded) and every array's
+    (key, dtype, shape, bytes), in sorted key order."""
+    h = hashlib.sha256()
+    h.update(json.dumps({k: v for k, v in header.items()
+                         if k != "checksum"}, sort_keys=True).encode())
+    for k in sorted(arrays):
+        a = np.ascontiguousarray(arrays[k])
+        h.update(k.encode())
+        h.update(str(a.dtype).encode())
+        h.update(str(a.shape).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _atomic_savez(path, header: dict, arrays: dict) -> None:
+    """Crash-safe plan write: checksum the content, write to a tempfile in
+    the destination directory, fsync, then ``os.replace``. ``np.savez``
+    gets an open file because the path form appends ".npz"."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    header = dict(header)
+    header["checksum"] = _content_checksum(header, arrays)
+    fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=path.name + ".",
+                               suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, __plan__=np.str_(json.dumps(header)), **arrays)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+# --------------------------------- Target ----------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Target:
+    """Where a compiled plan runs.
+
+    ``backend="cuda"`` runs the hand-written CUDA kernels on the current
+    GPU and raises when there is none; ``"torch"`` runs their plain
+    PyTorch versions on the CPU. ``dtype`` is the activation AND preferred
+    storage dtype: ``"bfloat16"`` feeds x as bf16 and lets the search
+    choose bf16-stored vals (+ int16 cols where n_cols fits) per matrix;
+    outputs stay fp32. ``interpret``, ``axis_name``, ``partition`` and
+    ``balance`` are kept for header parity with the reference; sharded
+    targets (``mesh``) and ``batch_size > 1`` are later slices.
+    """
+
+    backend: str = "cuda"
+    interpret: bool = True
+    mesh: Optional[object] = None
+    axis_name: str = "data"
+    partition: str = "row"
+    balance: str = "nnz"
+    batch_size: int = 1
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.backend not in ("cuda", "torch"):
+            raise ValueError(f"unknown backend {self.backend!r} "
+                             "(cuda | torch)")
+        if self.partition not in ("row", "col"):
+            raise ValueError(f"unknown partition {self.partition!r}")
+        if self.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unsupported dtype {self.dtype!r} "
+                             "(float32 | bfloat16)")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "sharded targets (mesh) are not ported yet; see ROADMAP "
+                "queue 1, item 12")
+
+    def spec_dict(self) -> dict:
+        """JSON-able identity (the reference's field set)."""
+        d = {f.name: getattr(self, f.name)
+             for f in dataclasses.fields(self) if f.name != "mesh"}
+        d["mesh"] = None
+        return d
+
+    def key(self) -> str:
+        blob = json.dumps(self.spec_dict(), sort_keys=True)
+        return hashlib.sha1(blob.encode()).hexdigest()[:8]
+
+
+def _x_dtype(target: Target) -> torch.dtype:
+    return torch.bfloat16 if target.dtype == "bfloat16" else torch.float32
+
+
+# npz cannot hold bfloat16: bf16 arrays travel as uint16 views under a
+# marked key and are view-cast back on load — a bit-identical round trip.
+_BF16_PREFIX = "bf16!"
+
+
+def _npz_arrays(prefix: str, tensors: dict) -> dict:
+    out = {}
+    for k, t in tensors.items():
+        t = t.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            out[f"{prefix}::{_BF16_PREFIX}{k}"] = (
+                t.view(torch.int16).numpy().view(np.uint16))
+        else:
+            out[f"{prefix}::{k}"] = t.numpy()
+    return out
+
+
+def _format_version(npz_arrays: dict) -> int:
+    """1 for plans any reader can restore; 2 when bf16 keys are present."""
+    tag = f"::{_BF16_PREFIX}"
+    return 2 if any(tag in k for k in npz_arrays) else 1
+
+
+def _npz_restore(prefix: str, z, device) -> dict:
+    tag = f"{prefix}::"
+    out = {}
+    for k in z.files:
+        if not k.startswith(tag):
+            continue
+        name = k[len(tag):]
+        a = np.array(z[k])
+        if name.startswith(_BF16_PREFIX):
+            name = name[len(_BF16_PREFIX):]
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
+        out[name] = t.to(device)
+    return out
+
+
+# ------------------------------ dense plans ---------------------------------
+
+@functools.lru_cache(maxsize=256)
+def _dense_kernel(spec_json: str, backend: str):
+    return build_kernel(json.loads(spec_json), backend=backend)
+
+
+@dataclasses.dataclass(eq=False)
+class SpmvPlan:
+    """A compiled single-device SpMV program artifact: the format tensors
+    (``fmt``, on the backend's device) plus the static kernel spec, the
+    winning Operator Graph and the Target."""
+
+    fmt: dict                       # name -> torch.Tensor
+    spec_json: str                  # kernel spec (kernel_builder schema)
+    graph_json: Optional[str]       # winning OperatorGraph, if any
+    target: Target
+    search_gflops: Optional[float] = None
+    # failure-reason counts of the search that produced this plan, as a
+    # sorted tuple of (taxonomy bucket, count) pairs; serialized
+    failure_counts: Optional[tuple] = None
+    plan_version: int = 0
+    # the full SearchResult when this plan came from a search in this
+    # process (not serialized)
+    search_result: Optional[SearchResult] = dataclasses.field(
+        default=None, compare=False, repr=False)
+
+    # -- geometry ----------------------------------------------------------
+    @functools.cached_property
+    def spec(self) -> dict:
+        return json.loads(self.spec_json)
+
+    @property
+    def n_rows(self) -> int:
+        return self.spec["n_rows"]
+
+    @property
+    def n_cols(self) -> int:
+        return self.spec["n_cols"]
+
+    @property
+    def nnz(self) -> int:
+        return self.spec["nnz"]
+
+    @property
+    def graph(self) -> Optional[OperatorGraph]:
+        if self.graph_json is None:
+            return None
+        return _graph_from_jsonable(json.loads(self.graph_json))
+
+    @property
+    def stored_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.fmt.values())
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.fmt.values())).device
+
+    # -- execution ---------------------------------------------------------
+    def __call__(self, x) -> torch.Tensor:
+        """x: (n_cols,) -> fp32 (n_rows,) on the plan's device. A 2-D x
+        (multi-RHS) raises ``NotImplementedError`` in this slice."""
+        x = torch.as_tensor(x).to(self.device, _x_dtype(self.target))
+        fn = _dense_kernel(self.spec_json, self.target.backend)
+        return fn(self.fmt, x.contiguous())
+
+    # -- reporting ---------------------------------------------------------
+    def describe(self) -> str:
+        spec = self.spec
+        g = self.graph
+        lines = [f"SpmvPlan {spec['n_rows']}x{spec['n_cols']} "
+                 f"nnz={spec['nnz']} padded={spec['padded_nnz']} "
+                 f"stored={self.stored_bytes}B",
+                 f"  target: backend={self.target.backend} "
+                 f"batch_size={self.target.batch_size} "
+                 f"dtype={self.target.dtype}",
+                 f"  graph: {g.label() if g else '(heuristic)'}"]
+        if self.search_gflops is not None:
+            lines.append(f"  searched: {self.search_gflops:.3f} GFLOPS")
+        if self.failure_counts:
+            buckets = ", ".join(f"{k}={v}" for k, v in self.failure_counts)
+            lines.append(f"  search failures: {buckets}")
+        for s in spec["steps"]:
+            lines.append(f"  step {s['key']}: {s['report']}")
+        return "\n".join(lines)
+
+    # -- serialization -----------------------------------------------------
+    def save(self, path) -> None:
+        arrays = _npz_arrays("fmt", self.fmt)
+        header = {"format_version": _format_version(arrays), "kind": "dense",
+                  "spec": self.spec, "graph": (None if self.graph_json is None
+                                               else json.loads(self.graph_json)),
+                  "target": self.target.spec_dict(),
+                  "search_gflops": self.search_gflops,
+                  "plan_version": int(self.plan_version),
+                  "failure_counts": (None if self.failure_counts is None
+                                     else [list(p)
+                                           for p in self.failure_counts])}
+        _atomic_savez(path, header, arrays)
+
+    @staticmethod
+    def load(path, backend: Optional[str] = None) -> "SpmvPlan":
+        return load_plan(path, backend=backend)
+
+
+def load_plan(path, backend: Optional[str] = None) -> SpmvPlan:
+    """Load a dense plan saved by this package or by the reference.
+
+    The reference's backends map ``pallas -> cuda`` and ``jax -> torch``;
+    ``backend`` overrides the saved one (``"torch"`` runs a GPU plan's
+    format on the CPU). The format tensors come back bit-identical, bf16
+    included, on the backend's device."""
+    with np.load(path, allow_pickle=False) as z:
+        header = json.loads(str(z["__plan__"]))
+        if header.get("format_version", 0) > PLAN_FORMAT_VERSION:
+            raise ValueError(f"plan {path} has format_version "
+                             f"{header['format_version']} > supported "
+                             f"{PLAN_FORMAT_VERSION}")
+        want = header.get("checksum")
+        if want is not None:
+            arrays = {k: z[k] for k in z.files if k != "__plan__"}
+            got = _content_checksum(header, arrays)
+            if got != want:
+                raise PlanIntegrityError(
+                    f"plan {path} failed its content checksum "
+                    f"(stored {want[:12]}…, computed {got[:12]}…): the "
+                    "file is corrupt or was modified after save")
+        if header["kind"] != "dense":
+            raise NotImplementedError(
+                f"plan {path} is {header['kind']!r}; only dense plans are "
+                "ported yet")
+        kw = {k: v for k, v in header["target"].items() if k != "mesh"}
+        kw["backend"] = backend or _REFERENCE_BACKENDS.get(kw["backend"],
+                                                           kw["backend"])
+        target = Target(**kw)
+        fc = header.get("failure_counts")
+        return SpmvPlan(
+            fmt=_npz_restore("fmt", z, resolve_device(target.backend)),
+            spec_json=json.dumps(header["spec"]),
+            graph_json=(None if header["graph"] is None
+                        else json.dumps(header["graph"])),
+            target=target,
+            search_gflops=header.get("search_gflops"),
+            failure_counts=(None if fc is None
+                            else tuple((k, int(v)) for k, v in fc)),
+            plan_version=int(header.get("plan_version", 0)))
+
+
+# -------------------------------- compile -----------------------------------
+
+def _as_search_config(budget, target: Target) -> SearchConfig:
+    if budget is None:
+        cfg = SearchConfig()
+    elif isinstance(budget, SearchConfig):
+        cfg = budget
+    elif isinstance(budget, (int, float)):
+        cfg = SearchConfig(max_seconds=float(budget))
+    else:
+        raise TypeError(f"budget must be a SearchConfig or seconds, got "
+                        f"{type(budget).__name__}")
+    bsz = target.batch_size if target.batch_size > 1 else cfg.batch_size
+    cfg = dataclasses.replace(cfg, backend=target.backend,
+                              batch_size=max(bsz, 1))
+    # widen the SET_RESOURCES knob choices from the Target, but only when
+    # the budget left them at None ("auto"): cuda kernels have the fused
+    # path, so the search tunes tiles_per_step; dtype="bfloat16" means
+    # both precisions are searched and the winner is picked per matrix
+    if target.backend == "cuda" and cfg.tiles_per_step_choices is None:
+        cfg = dataclasses.replace(cfg, tiles_per_step_choices=(1, 4, 8))
+    if target.dtype == "bfloat16" and cfg.dtype_choices is None:
+        cfg = dataclasses.replace(cfg,
+                                  dtype_choices=("float32", "bfloat16"))
+    return cfg
+
+
+def _plan_from_program(prog, graph: Optional[OperatorGraph],
+                       target: Target, search_result=None) -> SpmvPlan:
+    graph_json = (None if graph is None
+                  else json.dumps(_graph_to_jsonable(graph)))
+    failure_counts = None
+    if search_result is not None and search_result.failure_counts:
+        failure_counts = tuple(sorted(search_result.failure_counts.items()))
+    return SpmvPlan(fmt=dict(prog.fmt), spec_json=json.dumps(prog.spec),
+                    graph_json=graph_json, target=target,
+                    search_gflops=(search_result.gflops
+                                   if search_result else None),
+                    failure_counts=failure_counts,
+                    search_result=search_result)
+
+
+def compile(matrix: SparseMatrix, target: Optional[Target] = None,
+            budget=None, *, graph: Optional[OperatorGraph] = None,
+            strategy=None, warm_start=None, deadline_s: Optional[float] = None,
+            cache: Optional[ProgramCache] = None) -> SpmvPlan:
+    """Matrix in, machine-designed program artifact out (paper §III).
+
+    * ``target`` — where the plan runs (default ``Target()``: the CUDA
+      kernels on the current GPU; raises when there is none).
+    * ``budget`` — search budget: a ``SearchConfig``, a number of seconds,
+      or None for the default budget.
+    * ``graph`` — skip the search and design with this Operator Graph.
+    * ``strategy`` — the search policy: a ``SearchStrategy`` instance or
+      class, or a registered name ("anneal" | "grid" | "cost_model").
+    * ``warm_start`` — ``OperatorGraph`` objects timed before the walk.
+    * ``deadline_s`` — hard wall-clock budget for the whole search.
+    * ``cache`` — a ``ProgramCache`` memoising raw search results.
+
+    On a cuda target the kernel libraries are built before the search
+    starts, so a failed ``nvcc`` raises here instead of turning every
+    candidate into a crash and the plan into a fallback.
+    """
+    target = target or Target()
+    resolve_device(target.backend)
+    if target.backend == "cuda":
+        from repro_torch.kernels import build
+        build.build_all()
+    if graph is not None:
+        meta = run_graph(matrix, graph)
+        # Target.dtype overrides the storage dtype for fixed-graph
+        # compiles (searched compiles pick it via SET_RESOURCES)
+        prog = build_program(meta, backend=target.backend,
+                             storage_dtype=(target.dtype
+                                            if target.dtype != "float32"
+                                            else None))
+        return _plan_from_program(prog, graph, target)
+    cfg = _as_search_config(budget, target)
+    if deadline_s is not None:
+        cfg = dataclasses.replace(
+            cfg, max_seconds=min(cfg.max_seconds, float(deadline_s)),
+            hard_deadline=True)
+    res = run_search(matrix, cfg, cache=cache, strategy=strategy,
+                     warm_start=warm_start)
+    return _plan_from_program(res.best_program, res.best_graph, target,
+                              search_result=res)

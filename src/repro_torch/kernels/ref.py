@@ -1,0 +1,103 @@
+"""Plain PyTorch versions of the 1-RHS SpMV kernels K1-K6.
+
+Port of ``repro.kernels.ref``, plus plain versions of the two fused
+kernels. Each is the definition its CUDA kernel is held to: the wrappers
+in ``ell_spmv.py`` / ``seg_spmv.py`` call these for CPU tensors, the
+``torch`` backend of the kernel builder runs them, and ``chip_smoke.py``
+compares every kernel with its plain version on the card. Like the
+kernels they upcast mixed-precision storage (bfloat16 vals, int16 cols)
+and accumulate in float32.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["ell_spmv_ref", "ell_spmv_direct_ref", "ell_spmv_fused_ref",
+           "seg_spmv_ref", "seg_spmv_fused_ref", "SEG_MODES"]
+
+SEG_MODES = ("seg_scan", "onehot_mxu")
+
+
+def _gather(x, cols):
+    return x[cols.long()].float()
+
+
+def ell_spmv_ref(vals, cols, x) -> torch.Tensor:
+    """K1. vals, cols: (T, R, W); x: (n_cols,) -> fp32 partials (T, R),
+    ``out[t, r] = sum_w vals[t, r, w] * x[cols[t, r, w]]``.
+    Padded entries must carry val=0."""
+    return (vals.float() * _gather(x, cols)).sum(dim=-1)
+
+
+def ell_spmv_direct_ref(vals, cols, x) -> torch.Tensor:
+    """K2. K1's sums as the flat (T*R,) slab of contiguous output rows."""
+    return ell_spmv_ref(vals, cols, x).reshape(-1)
+
+
+def ell_spmv_fused_ref(vals, cols, x, *, n_rows: int, row0: int = 0,
+                       out=None) -> torch.Tensor:
+    """K5. Tile row ``i = t*R + r`` is output row ``row0 + i`` (affine
+    slope-1 rowmap); its sum is added to ``out`` (fresh zeros when None)
+    and rows ``>= n_rows`` are dropped. Returns ``out``.
+
+    The Pallas kernel processes ``tiles_per_step`` tiles per grid step
+    and pads the tile count with zero tiles; neither changes the sums,
+    so the definition has no such parameter."""
+    flat = ell_spmv_ref(vals, cols, x).reshape(-1)
+    if out is None:
+        out = torch.zeros(n_rows, dtype=torch.float32, device=flat.device)
+    hi = min(row0 + flat.numel(), n_rows)
+    if hi > row0:
+        out[row0:hi] += flat[:hi - row0]
+    return out
+
+
+def seg_spmv_ref(vals, cols, local_row, seg_end, x, seg_rows: int,
+                 mode: str = "seg_scan") -> torch.Tensor:
+    """K3 / K4. vals/cols/local_row: (T, S, L); seg_end: (T, M) exclusive
+    in-tile end positions -> per-tile fp32 row partials (T, M).
+
+    mode='seg_scan'  : in-tile inclusive cumsum ``cs`` of the products,
+                       ``g[m] = cs[end[m]-1]`` (0 where ``end[m] = 0``),
+                       partial ``g[m] - g[m-1]`` (K3).
+    mode='onehot_mxu': ``partial[m] = sum_c prod[c] * [local[c] = m]``;
+                       slots outside [0, M) contribute nothing (K4).
+    """
+    T = vals.shape[0]
+    prod = (vals.float() * _gather(x, cols)).reshape(T, -1)
+    if mode == "onehot_mxu":
+        local = local_row.reshape(T, -1).long()
+        hit = (local >= 0) & (local < seg_rows)
+        out = torch.zeros(T, seg_rows, dtype=torch.float32,
+                          device=prod.device)
+        return out.scatter_add_(1, torch.where(hit, local, 0),
+                                torch.where(hit, prod, 0.0))
+    if mode != "seg_scan":
+        raise ValueError(f"unknown mode {mode!r} (seg_scan | onehot_mxu)")
+    cs = torch.cumsum(prod, dim=1)
+    end = seg_end.long()
+    g = torch.where(end > 0,
+                    torch.gather(cs, 1, (end - 1).clamp(min=0)),
+                    torch.zeros((), dtype=torch.float32, device=cs.device))
+    g_prev = torch.cat([torch.zeros_like(g[:, :1]), g[:, :-1]], dim=1)
+    return g - g_prev
+
+
+def seg_spmv_fused_ref(vals, cols, local_row, seg_end, r0, x, seg_rows: int,
+                       *, n_rows: int, mode: str = "seg_scan",
+                       out=None) -> torch.Tensor:
+    """K6. K3 or K4 partials *added* at ``out[r0[t] + m]``: a row that
+    straddles tiles receives one add per tile. Rows ``>= n_rows`` are
+    dropped. Returns ``out`` (fresh zeros when None).
+
+    As for K5, the Pallas kernel's ``tiles_per_step`` megatiles and zero
+    padding tiles add exactly zero, so they are not part of the
+    definition."""
+    part = seg_spmv_ref(vals, cols, local_row, seg_end, x, seg_rows, mode)
+    rows = r0.long()[:, None] + torch.arange(seg_rows, device=part.device)
+    keep = rows < n_rows
+    if out is None:
+        out = torch.zeros(n_rows, dtype=torch.float32, device=part.device)
+    out.index_add_(0, torch.where(keep, rows, 0).reshape(-1),
+                   torch.where(keep, part, 0.0).reshape(-1))
+    return out

@@ -1,0 +1,66 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither jax nor the reference package ``repro``."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and _forbidden(node.args[0].value)):
+            bad.append(node.args[0].value)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_compile_in_fresh_process_never_loads_jax():
+    code = """
+import sys
+import numpy as np
+import repro_torch
+from repro_torch.core.matrices import powerlaw_matrix
+m = powerlaw_matrix(200, 180, 5.0, 1.2, seed=0)
+plan = repro_torch.compile(m, repro_torch.Target(backend="torch"),
+                           budget=repro_torch.SearchConfig(
+                               max_seconds=10, max_structures=1,
+                               coarse_samples=1, timing_repeats=1))
+x = np.random.default_rng(0).standard_normal(m.n_cols).astype(np.float32)
+y = plan(x).numpy()
+o = m.spmv_dense_oracle(x)
+assert np.abs(y - o).max() <= 1e-4 * np.abs(o).max()
+leaked = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not leaked, leaked
+print("ok")
+"""
+    env_path = str(ROOT / "src")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={"PYTHONPATH": env_path, "PATH": "/usr/bin:/bin",
+                              "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
