@@ -2,35 +2,54 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, ``repro_torch.compile(matrix, Target) ->
-SpmvPlan``, at realistic sizes and holds every CUDA kernel it runs (K1-K6)
-against its plain PyTorch version. Phases, each printing its seconds:
+Drives the port's two paths at realistic sizes and holds every CUDA kernel
+they run (K1-K11) against its plain PyTorch version. The compile path is
+``repro_torch.compile(matrix, Target) -> SpmvPlan`` with a 1-D x (kernels
+K1-K6); the serving path is ``prune_magnitude`` -> ``compile(...,
+Target(batch_size=8), store=)`` -> ``PlanExecutor`` -> ``SpmvEngine``
+with a ``PlanStore`` hot-swap (the multi-RHS kernels K7-K11). Phases,
+each printing its seconds:
 
 1. device: the card's name and power limit, the kernels' nvcc build;
-2. kernels on small odd shapes (T not a multiple of tiles_per_step,
+2. SpMV kernels on small odd shapes (T not a multiple of tiles_per_step,
    tiles_per_step in {1, 3, 8}, every storage type) against the plain
-   versions;
+   versions; 2b. the same for the SpMM kernels at B in {1, 3, 8, 17},
+   plus one seg tile of C = 8192 slots at B = 8;
 3. a searched compile of ``banded_matrix(2**21, 4)`` (18.87 M nnz) on the
    default Target, checked against the float64 oracle, plus a save/load
    round trip;
-4. fixed-graph compiles that force every kernel: ELL on the banded matrix
-   (scatter K1, grid_acc K2, fused K5 at tiles_per_step 1 and 8, bf16),
-   and the seg family on ``powerlaw_matrix(2**20, 2**20, 8.0, 1.5)``
-   (8.4 M nnz; seg_scan, onehot and gmem_atom, fused K6 and unfused
-   K3/K4), each checked against the oracle;
-5. kernel report: each kernel at the operands of a phase-4 plan against
-   its plain version (fp32 and bf16 storage), its median time over CUDA
-   events, the plain version's and the cuSPARSE yardstick's
+4. fixed-graph compiles that force every SpMV kernel: ELL on the banded
+   matrix (scatter K1, grid_acc K2, fused K5 at tiles_per_step 1 and 8,
+   bf16), and the seg family on ``powerlaw_matrix(2**20, 2**20, 8.0,
+   1.5)`` (7,845,296 nnz; seg_scan, onehot and gmem_atom, fused K6 and
+   unfused K3/K4), each checked against the oracle;
+5. SpMV kernel report: each kernel at the operands of a phase-4 plan
+   against its plain version (fp32 and bf16 storage), its median time over
+   CUDA events, the plain version's and the cuSPARSE yardstick's
    (``torch.sparse_csr_tensor @ x``, never used by the port), and its
    bound (bytes each input read once and each output written once over
    3.35 TB/s, or 2 flops per stored slot over 67 TFLOP/s fp32, the
-   larger).
+   larger);
+6. the serving path at full width: Qwen3-8B's FFN up-projection
+   (d_ff x d_model = 12288 x 4096) magnitude-pruned to density 0.08
+   (4,026,531 nnz), a searched ``Target(batch_size=8)`` compile through a
+   ``PlanStore``, ``PlanExecutor`` with buckets (1, 2, 4, 8), and
+   ``SpmvEngine`` serving 200 requests in ragged waves while a fixed-graph
+   plan lands in the store and is hot-swapped in; every answer is checked
+   against the float64 oracle;
+7. fixed-graph compiles on the same matrix that force every SpMM kernel
+   at B = 8 (ELL scatter K7, grid_acc K8, fused K9 at tiles_per_step 1
+   and 8 and bf16; seg_scan, onehot and gmem_atom, unfused K10a/K10b and
+   fused K11), each checked against the oracle;
+8. SpMM kernel report at the phase-7 operands, as phase 5, with the
+   cuSPARSE SpMM yardstick ``torch.sparse_csr_tensor @ X``, X (n_cols, 8).
 
-Phases 3-4 are the main path: every launch counter is set to 0 before
-them and read after, and each kernel must have launched. The last two
-lines are the kernel report and ``{"ok": true, "device": {...}}``. The
-script exits non-zero, printing no result, without a GPU or outside a
-checkout of the repository. It imports neither jax nor ``repro``.
+Phases 3-4 and phases 6-7 are the two paths: the launch counters are set
+to 0 before each and read after it, and each of its kernels must have
+launched. The last two lines are the kernel report (all twelve kernels)
+and ``{"ok": true, "device": {...}}``. The script exits non-zero,
+printing no result, without a GPU or outside a checkout of the
+repository. It imports neither jax nor ``repro``.
 """
 from __future__ import annotations
 
@@ -64,7 +83,26 @@ KERNELS = {
            "src/repro/kernels/ell_spmv.py:249"),
     "K6": ("seg_spmv_fused", "src/repro_torch/kernels/csrc/seg_spmv.cu",
            "src/repro/kernels/seg_spmv.py:274"),
+    "K7": ("ell_spmm", "src/repro_torch/kernels/csrc/ell_spmm.cu",
+           "src/repro/kernels/ell_spmv.py:146"),
+    "K8": ("ell_spmm_direct", "src/repro_torch/kernels/csrc/ell_spmm.cu",
+           "src/repro/kernels/ell_spmv.py:174"),
+    "K9": ("ell_spmm_fused", "src/repro_torch/kernels/csrc/ell_spmm.cu",
+           "src/repro/kernels/ell_spmv.py:284"),
+    "K10a": ("seg_spmm[seg_scan]", "src/repro_torch/kernels/csrc/seg_spmm.cu",
+             "src/repro/kernels/seg_spmv.py:170"),
+    "K10b": ("seg_spmm[onehot_mxu]",
+             "src/repro_torch/kernels/csrc/seg_spmm.cu",
+             "src/repro/kernels/seg_spmv.py:170"),
+    "K11": ("seg_spmm_fused", "src/repro_torch/kernels/csrc/seg_spmm.cu",
+            "src/repro/kernels/seg_spmv.py:319"),
 }
+SPMV_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
+SPMM_KERNELS = ("K7", "K8", "K9", "K10a", "K10b", "K11")
+SERVE_B = 8                      # the serving plan's searched batch size
+STORAGES = [(torch.float32, torch.int32, torch.float32),
+            (torch.bfloat16, torch.int16, torch.float32),
+            (torch.bfloat16, torch.int16, torch.bfloat16)]
 
 
 class SmokeFailure(RuntimeError):
@@ -206,6 +244,66 @@ def small_kernels_phase():
     done()
 
 
+def small_spmm_phase():
+    from repro_torch.kernels import ops, ref
+    done = phase("2b SpMM kernels on small odd shapes")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    n_cols = 5000
+    g = lambda t: t.to(dev)
+    for (vd, cd, xd), b in [(st, b) for st in STORAGES
+                            for b in (1, 3, 8, 17)]:
+        tag = f"{str(vd)[6:]}/{str(cd)[6:]}/x:{str(xd)[6:]} B={b}"
+        x = torch.from_numpy(rng.standard_normal((n_cols, b))).to(xd)
+        T, R, W = 7, 24, 37
+        v = torch.from_numpy(rng.standard_normal((T, R, W))).to(vd)
+        c = torch.from_numpy(rng.integers(0, n_cols, (T, R, W))).to(cd)
+        check_kernel(f"K7 {tag}", ops.ell_spmm(g(v), g(c), g(x)),
+                     ref.ell_spmm_ref(v, c, x))
+        check_kernel(f"K8 {tag}", ops.ell_spmm_direct(g(v), g(c), g(x)),
+                     ref.ell_spmm_direct_ref(v, c, x))
+        for k in (1, 3, 8):
+            check_kernel(f"K9 {tag} K={k}", ops.ell_spmm_fused(
+                g(v), g(c), g(x), n_rows=150, row0=11, tiles_per_step=k),
+                ref.ell_spmm_fused_ref(v, c, x, n_rows=150, row0=11))
+        T, S, L, M = 7, 12, 128, 200
+        local, end = seg_case(rng, T, S, L, M)
+        end[-1] = 0                       # a padding tile
+        v = torch.from_numpy(rng.standard_normal((T, S, L))).to(vd)
+        v[-1] = 0
+        c = torch.from_numpy(rng.integers(0, n_cols, (T, S, L))).to(cd)
+        r0 = torch.from_numpy((np.arange(T) * 150).astype(np.int32))
+        for mode, kid in (("seg_scan", "K10a"), ("onehot_mxu", "K10b")):
+            check_kernel(f"{kid} {tag}", ops.seg_spmm(
+                g(v), g(c), g(local), g(end), g(x), M, mode=mode),
+                ref.seg_spmm_ref(v, c, local, end, x, M, mode))
+            for k in (1, 3, 8):
+                check_kernel(f"K11[{mode}] {tag} K={k}", ops.seg_spmm_fused(
+                    g(v), g(c), g(local), g(end), g(r0), g(x), M,
+                    n_rows=1000, mode=mode, tiles_per_step=k),
+                    ref.seg_spmm_fused_ref(v, c, local, end, r0, x, M,
+                                           n_rows=1000, mode=mode))
+    # one tile of C = 8192 slots (LANE_NNZ_BLOCK's largest chunk) at B = 8:
+    # a stored (C, B) scan would not fit a block's shared memory
+    T, S, L, M = 3, 64, 128, 700
+    local, end = seg_case(rng, T, S, L, M)
+    v = torch.from_numpy(rng.standard_normal((T, S, L)).astype(np.float32))
+    c = torch.from_numpy(rng.integers(0, n_cols, (T, S, L)).astype(np.int32))
+    x = torch.from_numpy(rng.standard_normal((n_cols, 8)).astype(np.float32))
+    r0 = torch.from_numpy((np.arange(T) * 600).astype(np.int32))
+    for mode, kid in (("seg_scan", "K10a"), ("onehot_mxu", "K10b")):
+        check_kernel(f"{kid} C=8192 B=8", ops.seg_spmm(
+            g(v), g(c), g(local), g(end), g(x), M, mode=mode),
+            ref.seg_spmm_ref(v, c, local, end, x, M, mode))
+        check_kernel(f"K11[{mode}] C=8192 B=8", ops.seg_spmm_fused(
+            g(v), g(c), g(local), g(end), g(r0), g(x), M, n_rows=1900,
+            mode=mode, tiles_per_step=3),
+            ref.seg_spmm_fused_ref(v, c, local, end, r0, x, M, n_rows=1900,
+                                   mode=mode))
+    torch.cuda.synchronize()
+    done()
+
+
 # ----------------------------- phases 3 and 4 -----------------------------
 
 def chain(*ops):
@@ -308,16 +406,21 @@ def fixed_phase(B, xb, oracle_b, P, xp, oracle_p, designer):
 
 # -------------------------------- phase 5 ---------------------------------
 
-def _step(prog):
-    """Spec step 0 and its operands (cols materialized if model-elided)."""
+def _operands(prog, step) -> dict:
+    """A spec step's operands (cols materialized if model-elided)."""
     from repro_torch.core.kernel_builder import _step_cols
-    step = prog.spec["steps"][0]
     fmt = prog.fmt
     key = step["key"]
-    return step, {"vals": fmt[f"{key}_vals"],
-                  "cols": _step_cols(step, fmt, fmt[f"{key}_vals"].device),
-                  "local": fmt.get(f"{key}_local"),
-                  "end": fmt.get(f"{key}_end"), "r0": fmt.get(f"{key}_r0")}
+    return {"vals": fmt[f"{key}_vals"],
+            "cols": _step_cols(step, fmt, fmt[f"{key}_vals"].device),
+            "local": fmt.get(f"{key}_local"),
+            "end": fmt.get(f"{key}_end"), "r0": fmt.get(f"{key}_r0")}
+
+
+def _step(prog):
+    """Spec step 0 and its operands."""
+    step = prog.spec["steps"][0]
+    return step, _operands(prog, step)
 
 
 def nbytes(*ts) -> int:
@@ -439,15 +542,318 @@ def launch_counts() -> dict:
             "K3": ops.seg_spmv.launches["seg_scan"],
             "K4": ops.seg_spmv.launches["onehot_mxu"],
             "K5": ops.ell_spmv_fused.launches,
-            "K6": ops.seg_spmv_fused.launches}
+            "K6": ops.seg_spmv_fused.launches,
+            "K7": ops.ell_spmm.launches,
+            "K8": ops.ell_spmm_direct.launches,
+            "K9": ops.ell_spmm_fused.launches,
+            "K10a": ops.seg_spmm.launches["seg_scan"],
+            "K10b": ops.seg_spmm.launches["onehot_mxu"],
+            "K11": ops.seg_spmm_fused.launches}
 
 
 def reset_launch_counts() -> None:
     from repro_torch.kernels import ops
     for fn in (ops.ell_spmv, ops.ell_spmv_direct, ops.ell_spmv_fused,
-               ops.seg_spmv_fused):
+               ops.seg_spmv_fused, ops.ell_spmm, ops.ell_spmm_direct,
+               ops.ell_spmm_fused, ops.seg_spmm_fused):
         fn.launches = 0
-    ops.seg_spmv.launches = {m: 0 for m in ops.seg_spmv.launches}
+    for fn in (ops.seg_spmv, ops.seg_spmm):
+        fn.launches = {m: 0 for m in fn.launches}
+
+
+# ----------------------------- phases 6 and 7 -----------------------------
+
+def serving_matrix(designer):
+    """Qwen3-8B's FFN up-projection (d_ff x d_model, from the reference's
+    configs/qwen3_8b.py), random weights from seed 0, magnitude-pruned to
+    the serving example's density 0.08."""
+    from repro_torch.serve import prune_magnitude
+    w = np.random.default_rng(0).standard_normal((12288, 4096),
+                                                 dtype=np.float32)
+    m = timed("prune_magnitude(12288 x 4096, 0.08)", designer,
+              prune_magnitude, w, 0.08)
+    print(f"  pruned {m.n_rows}x{m.n_cols} nnz={m.nnz} in "
+          f"{designer['prune_magnitude(12288 x 4096, 0.08)']:.2f} s")
+    require(m.nnz == int(w.size * 0.08), "prune_magnitude kept the wrong k")
+    return m
+
+
+def oracle_cols(m, xt: np.ndarray, chunk: int = 40) -> np.ndarray:
+    """``m.spmm_dense_oracle`` of an (n_cols, n) stack, in column chunks
+    (the float64 product of all 200 columns at once needs gigabytes)."""
+    return np.concatenate([m.spmm_dense_oracle(xt[:, i:i + chunk])
+                           for i in range(0, xt.shape[1], chunk)], axis=1)
+
+
+def serving_phase(W, designer, store_dir):
+    import repro_torch
+    from repro_torch.serve import MatvecRequest, PlanExecutor, SpmvEngine
+    from repro_torch.serve.engine import _percentile as percentile
+    done = phase("6 serving path, pruned 12288x4096 at B=8")
+    target = repro_torch.Target(batch_size=SERVE_B)
+    cfg = repro_torch.SearchConfig(max_seconds=30.0, max_structures=2,
+                                   coarse_samples=2, fine_eval_budget=0,
+                                   use_cost_model=False, timing_repeats=3,
+                                   seed=0)
+    store = repro_torch.PlanStore(store_dir)
+    plan = timed("search serving (wall)", designer, repro_torch.compile, W,
+                 target, budget=cfg, store=store)
+    res = plan.search_result
+    require(res is not None, "the serving compile was a store hit")
+    print(f"  searched {res.n_evaluations} candidates in "
+          f"{res.wall_seconds:.1f} s; failures {res.failure_counts}; "
+          f"winner {plan.graph.label()} at {res.best_seconds * 1e3:.3f} ms "
+          f"for B={SERVE_B} ({res.gflops:.1f} GFLOP/s)")
+    for rec in sorted(res.records, key=lambda r: r.seconds)[:6]:
+        print(f"    {rec.seconds * 1e3:9.3f} ms  {rec.graph.label()}")
+    require(res.fallback is False, "the serving plan is a fallback")
+    bad = {"crash", "wrong_result", "oom"} & set(res.failure_counts)
+    require(not bad, f"search failures {bad}")
+    swap_in = timed("compile serving ELL grid_acc (fixed graph)", designer,
+                    repro_torch.compile, W, target, graph=chain(
+                        ("COMPRESS", {}), ("TILE_ROW_BLOCK", {"rows": 128}),
+                        ("LANE_ROW_BLOCK", {}),
+                        ("LANE_TOTAL_RED", {"combine": "grid_acc"})))
+    ex = PlanExecutor(plan, W, watch=store.watch(W, target, cfg))
+    require(ex.buckets == (1, 2, 4, 8), f"buckets {ex.buckets}")
+    t0 = time.perf_counter()
+    ex.warmup()
+    print(f"  warmup of buckets {ex.buckets}: "
+          f"{time.perf_counter() - t0:.3f} s")
+    eng = SpmvEngine(ex)
+    rng = np.random.default_rng(2)
+    xs = rng.standard_normal((200, W.n_cols)).astype(np.float32)
+    reqs = [MatvecRequest(i, xs[i]) for i in range(200)]
+    waves, lo, wall, wave_ms = (13, 5, 1, 2, 3, 176), 0, 0.0, []
+    for i, n in enumerate(waves):
+        if i == 2:       # a fixed-graph plan lands under the serving key
+            store.put(W, target, cfg, None, swap_in)
+        if i == 4:       # ... and the searched plan comes back
+            store.put(W, target, cfg, None, plan)
+        out = eng.run(reqs[lo:lo + n])
+        lo += n
+        wall += out["wall_s"]
+        wave_ms.append(out["wall_s"] * 1e3)
+        print(f"  wave of {n}: {out['wall_s'] * 1e3:.2f} ms, hot_swaps "
+              f"{out['hot_swaps']}, health {out['health']}")
+    torch.cuda.synchronize()
+    require(all(r.status == "ok" for r in reqs), "a request is not ok")
+    require(eng.failed == 0, f"{eng.failed} failed requests")
+    dropped = sum(r.status == "pending" for r in reqs)
+    require(dropped == 0, f"{dropped} dropped requests")
+    require(eng.hot_swaps >= 1, "no hot-swap happened under load")
+    t0 = time.perf_counter()
+    oracle = oracle_cols(W, xs.T)
+    designer["oracle serving (200 columns)"] = round(
+        time.perf_counter() - t0, 3)
+    got = np.stack([r.y for r in reqs], axis=1)
+    check_oracle("served answers (n_rows, 200)", torch.from_numpy(got),
+                 oracle, plan.spec["storage_dtype"])
+    lats = sorted(r.latency_s for r in reqs)
+    stats = {"requests": len(reqs), "wall_s": wall,
+             "throughput_rps": len(reqs) / wall,
+             "latency_p50_ms": percentile(lats, 50) * 1e3,
+             "latency_p99_ms": percentile(lats, 99) * 1e3,
+             "wave_ms": dict(zip(map(str, waves), wave_ms)),
+             # the last wave (22 full buckets) has no hot-swap in it
+             "steady_rps": waves[-1] / (wave_ms[-1] / 1e3),
+             "hot_swaps": eng.hot_swaps,
+             "rejected_swaps": ex.rejected_swaps,
+             "failed": eng.failed, "dropped": dropped,
+             "winner": plan.graph.label(),
+             "winner_ms": res.best_seconds * 1e3,
+             "swapped_in": swap_in.graph.label()}
+    print("serving " + json.dumps(stats))
+    done()
+    return swap_in, oracle[:, :SERVE_B], xs[:SERVE_B].T.copy()
+
+
+def spmm_fixed_phase(W, swap_in, x8, oracle8, designer):
+    import repro_torch
+    from repro_torch.core.graph import run_graph
+    from repro_torch.core.kernel_builder import build_program
+    done = phase("7 fixed-graph SpMM compiles at B=8")
+    xd = torch.from_numpy(x8).cuda()
+    ell = [("COMPRESS", {}), ("TILE_ROW_BLOCK", {"rows": 128}),
+           ("LANE_ROW_BLOCK", {})]
+    g_grid = chain(*ell, ("LANE_TOTAL_RED", {"combine": "grid_acc"}))
+    progs = {}
+    meta = timed("run_graph serving ELL scatter", designer, run_graph, W,
+                 chain(*ell, ("LANE_TOTAL_RED", {})))
+    progs["K7 scatter"] = build_program(meta, "cuda", fuse_combine=False)
+    meta = timed("run_graph serving ELL grid_acc", designer, run_graph, W,
+                 g_grid)
+    progs["K8 direct"] = build_program(meta, "cuda", fuse_combine=False)
+    progs["K9 fused K=1"] = swap_in
+    progs["K9 fused K=8"] = build_program(meta, "cuda", tiles_per_step=8)
+    progs["K9 fused bf16"] = repro_torch.compile(
+        W, repro_torch.Target(batch_size=SERVE_B, dtype="bfloat16"),
+        graph=g_grid)
+    # the tiles' widths (358-397 here) fall into 26 buckets, and only the
+    # single-tile buckets have contiguous rows; padding every width to 400
+    # makes one bucket of all 96 tiles, so K8 and K9 also run over the
+    # whole matrix in one launch (the operands of their report rows)
+    meta = timed("run_graph serving ELL grid_acc pad 400", designer,
+                 run_graph, W, chain(*ell[:2], ("LANE_PAD", {"pad_to": 400}),
+                                     *ell[2:], ("LANE_TOTAL_RED",
+                                                {"combine": "grid_acc"})))
+    progs["K8 direct padded"] = build_program(meta, "cuda",
+                                              fuse_combine=False)
+    progs["K9 fused padded"] = build_program(meta, "cuda")
+    for red in ("SEG_SCAN_RED", "ONEHOT_MXU_RED", "GMEM_ATOM_RED"):
+        g = chain(("COMPRESS", {}), ("LANE_NNZ_BLOCK", {"chunk": 2048}),
+                  (red, {}))
+        meta = timed(f"run_graph serving {red}", designer, run_graph, W, g)
+        progs[f"{red} fused"] = build_program(meta, "cuda", tiles_per_step=4)
+        progs[f"{red} unfused"] = build_program(meta, "cuda",
+                                                fuse_combine=False)
+    for name, prog in progs.items():
+        y = prog(xd if "bf16" not in name else xd.to(torch.bfloat16))
+        check_oracle(f"serving {name} ({len(prog.spec['steps'])} steps)", y,
+                     oracle8, prog.spec["storage_dtype"])
+    torch.cuda.synchronize()
+    done()
+    return progs, xd
+
+
+# -------------------------------- phase 8 ---------------------------------
+
+def spmm_cases(progs, xd, n_rows):
+    """For K7-K11: the spec steps of a phase-7 plan that dispatch to the
+    kernel, as (run, plain, bytes, flops, shape) over all of them (an ELL
+    plan has one step per tile-width bucket). ``run(vals_list)`` launches
+    the kernel once per step; the fused kernels add into ``out``."""
+    from repro_torch.kernels import ops, ref
+    B = xd.shape[1]
+    x_bytes = nbytes(xd)
+
+    def ell(prog_name, kid):
+        prog = progs[prog_name]
+        steps = []
+        for step in prog.spec["steps"]:
+            comb = step["combine"]
+            affine = comb["mode"] == "affine"
+            fused = bool(step.get("fused")) and affine
+            direct = affine and comb["direct"] and not fused
+            if {"K7": not fused and not direct, "K8": direct,
+                    "K9": fused}[kid]:
+                steps.append((step, _operands(prog, step)))
+        require(steps, f"{prog_name} has no step for {kid}")
+        k = prog.spec["tiles_per_step"]
+
+        def launch(fused, unfused, vals, cols, out):
+            """One call per step: the fused kernel adds every step into
+            ``out`` (fresh zeros when None); the others are concatenated."""
+            if kid != "K9":
+                return torch.cat([unfused(v, c, xd).reshape(-1, B)
+                                  for v, c in zip(vals, cols)])
+            if out is None:
+                out = torch.zeros((n_rows, B), device=xd.device)
+            for (step, _), v, c in zip(steps, vals, cols):
+                fused(v, c, step["combine"]["b0"], out)
+            return out
+
+        kern = {"K7": ops.ell_spmm, "K8": ops.ell_spmm_direct}.get(kid)
+        plain = {"K7": ref.ell_spmm_ref,
+                 "K8": ref.ell_spmm_direct_ref}.get(kid)
+        fused_kern = lambda v, c, b0, out: ops.ell_spmm_fused(
+            v, c, xd, n_rows=n_rows, row0=b0, tiles_per_step=k, out=out)
+        fused_plain = lambda v, c, b0, out: ref.ell_spmm_fused_ref(
+            v, c, xd, n_rows=n_rows, row0=b0, out=out)
+        vals = [o["vals"] for _, o in steps]
+        cols = [o["cols"] for _, o in steps]
+        rows = sum(v.shape[0] * v.shape[1] for v in vals)
+        out_bytes = (8 if kid == "K9" else 4) * rows * B
+        return {"vals": vals, "cols": cols,
+                "run": lambda vs, cs, out=None: launch(fused_kern, kern, vs,
+                                                       cs, out),
+                "plain": lambda vs, cs: launch(fused_plain, plain, vs, cs,
+                                               None),
+                "bytes": lambda vs, cs: nbytes(*vs, *cs) + x_bytes
+                + out_bytes,
+                "flops": 2 * sum(v.numel() for v in vals) * B,
+                "shape": f"{len(vals)} steps, T={sum(v.shape[0] for v in vals)}"
+                         f", R={vals[0].shape[1]}, W={min(v.shape[2] for v in vals)}"
+                         f"-{max(v.shape[2] for v in vals)}"}
+
+    def segk(prog_name, kid, mode):
+        prog = progs[prog_name]
+        step = prog.spec["steps"][0]
+        require(len(prog.spec["steps"]) == 1, f"{prog_name}: one seg step")
+        o = _operands(prog, step)
+        local, end, r0 = o["local"], o["end"], o["r0"]
+        M = step["seg_rows"]
+        aux = end if mode == "seg_scan" else local
+        v0 = o["vals"]
+        T = v0.shape[0]
+        k = prog.spec["tiles_per_step"]
+        if kid == "K11":
+            run = lambda vs, cs, out=None: ops.seg_spmm_fused(
+                vs[0], cs[0], local, end, r0, xd, M, n_rows=n_rows,
+                mode=mode, tiles_per_step=k, out=out)
+            plain = lambda vs, cs: ref.seg_spmm_fused_ref(
+                vs[0], cs[0], local, end, r0, xd, M, n_rows=n_rows,
+                mode=mode)
+            out_bytes = 8 * n_rows * B
+        else:
+            run = lambda vs, cs, out=None: ops.seg_spmm(
+                vs[0], cs[0], local, end, xd, M, mode=mode)
+            plain = lambda vs, cs: ref.seg_spmm_ref(vs[0], cs[0], local,
+                                                    end, xd, M, mode)
+            out_bytes = 4 * T * M * B
+        return {"vals": [v0], "cols": [o["cols"]], "run": run,
+                "plain": plain,
+                "bytes": lambda vs, cs: nbytes(*vs, *cs, aux, r0 if kid ==
+                                               "K11" else None)
+                + x_bytes + out_bytes,
+                "flops": 2 * v0.numel() * B,
+                "shape": f"T={T}, S={v0.shape[1]}, L={v0.shape[2]}, M={M}"}
+
+    return {"K7": ell("K7 scatter", "K7"),
+            "K8": ell("K8 direct padded", "K8"),
+            "K9": ell("K9 fused padded", "K9"),
+            "K10a": segk("SEG_SCAN_RED unfused", "K10a", "seg_scan"),
+            "K10b": segk("ONEHOT_MXU_RED unfused", "K10b", "onehot_mxu"),
+            "K11": segk("SEG_SCAN_RED fused", "K11", "seg_scan")}
+
+
+def spmm_report_phase(cases, launches, csr, xd, n_rows):
+    done = phase("8 SpMM kernel report")
+    library = cuda_ms(lambda: csr @ xd)
+    print(f"  library (torch.sparse_csr_tensor @ X, X {tuple(xd.shape)}) "
+          f"ms: {library:.4f}")
+    rows = []
+    for kid, case in cases.items():
+        name, source, replaces = KERNELS[kid]
+        vs, cs = case["vals"], case["cols"]
+        err = check_kernel(f"{kid} {name} fp32 ({case['shape']})",
+                           case["run"](vs, cs), case["plain"](vs, cs))
+        v16 = [v.to(torch.bfloat16) for v in vs]
+        c16 = [c.to(torch.int16) for c in cs]
+        check_kernel(f"{kid} {name} bf16/int16", case["run"](v16, c16),
+                     case["plain"](v16, c16))
+        out = torch.zeros((n_rows, xd.shape[1]), device=xd.device)
+        ms = cuda_ms(lambda: case["run"](vs, cs, out))
+        plain_ms = cuda_ms(lambda: case["plain"](vs, cs), reps=5)
+        byt = case["bytes"](vs, cs)
+        b_ms = byt / HBM_BYTES_PER_S * 1e3
+        f_ms = case["flops"] / FP32_FLOPS_PER_S * 1e3
+        rows.append({"name": f"{kid} {name}", "route": "cuda",
+                     "source": source, "replaces": replaces,
+                     "launches": launches[kid], "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": max(b_ms, f_ms),
+                     "bound_by": "bytes" if b_ms >= f_ms else "operations",
+                     "library_ms": library, "shape": case["shape"],
+                     "matrix": "qwen3_8b_ffn_up_pruned_0.08",
+                     "B": int(xd.shape[1]), "bytes": byt})
+        print(f"  {kid}: {ms:.4f} ms, bound {max(b_ms, f_ms):.4f} ms "
+              f"({100 * max(b_ms, f_ms) / ms:.1f}% of bound), plain "
+              f"{plain_ms:.4f} ms, library {library:.4f} ms, "
+              f"launches {launches[kid]}")
+    torch.cuda.synchronize()
+    done()
+    return rows
 
 
 def main() -> int:
@@ -462,6 +868,7 @@ def main() -> int:
     t_start = time.perf_counter()
     device_phase()
     small_kernels_phase()
+    small_spmm_phase()
 
     designer = {}
     done = phase("matrices")
@@ -479,20 +886,40 @@ def main() -> int:
           f"{P.n_rows}x{P.n_cols} nnz={P.nnz}")
     done()
 
-    reset_launch_counts()                    # the main path starts here
+    reset_launch_counts()                    # the compile path starts here
     searched_phase(B, xb, oracle_b, designer)
     banded, seg = fixed_phase(B, xb, oracle_b, P, xp, oracle_p, designer)
     torch.cuda.synchronize()
     launches = launch_counts()               # ... and ends here
-    print(f"  main-path launches: {launches}")
-    require(all(n > 0 for n in launches.values()),
-            f"a kernel of the main path never launched: {launches}")
-    print("designer " + json.dumps({"host_seconds": designer}))
+    print(f"  compile-path launches: {launches}")
+    require(all(launches[k] > 0 for k in SPMV_KERNELS),
+            f"a kernel of the compile path never launched: {launches}")
 
     cases = kernel_cases(banded, seg, xb, xp, B.n_rows, P.n_rows)
     csr = {"banded": csr_on_device(B), "powerlaw": csr_on_device(P)}
     rows = report_phase(cases, launches, csr, {"banded": xb, "powerlaw": xp},
                         {"banded": B.n_rows, "powerlaw": P.n_rows})
+    del banded, seg, cases, csr
+
+    done = phase("serving matrix")
+    W = serving_matrix(designer)
+    done()
+    scratch = ROOT / "results"               # listed in .gitignore
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as store_dir:
+        reset_launch_counts()                # the serving path starts here
+        swap_in, oracle8, x8 = serving_phase(W, designer, store_dir)
+        progs, xd = spmm_fixed_phase(W, swap_in, x8, oracle8, designer)
+        torch.cuda.synchronize()
+        serve_launches = launch_counts()     # ... and ends here
+    print(f"  serving-path launches: {serve_launches}")
+    require(all(serve_launches[k] > 0 for k in SPMM_KERNELS),
+            f"a kernel of the serving path never launched: {serve_launches}")
+    launches.update({k: serve_launches[k] for k in SPMM_KERNELS})
+    print("designer " + json.dumps({"host_seconds": designer}))
+    rows += spmm_report_phase(spmm_cases(progs, xd, W.n_rows), launches,
+                              csr_on_device(W), xd, W.n_rows)
+    require(len(rows) == len(KERNELS), "the report misses a kernel")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,7 @@ reference). It imports ``torch`` and never ``jax``. Public surface::
     import repro_torch
     plan = repro_torch.compile(matrix, repro_torch.Target())   # on the GPU
     y = plan(x)                       # x: (n_cols,) -> (n_rows,)
+    Y = plan(X)                       # X: (n_cols, B) -> (n_rows, B)
     plan.save("matrix.plan.npz")
     plan2 = repro_torch.SpmvPlan.load("matrix.plan.npz")
 
@@ -24,6 +25,8 @@ _EXPORTS = {
     "Target": "repro_torch.api",
     "SpmvPlan": "repro_torch.api",
     "PlanIntegrityError": "repro_torch.api",
+    "PlanStore": "repro_torch.api",
+    "PlanWatch": "repro_torch.api",
     "load_plan": "repro_torch.api",
     # core containers & search surface
     "SparseMatrix": "repro_torch.core.matrices",
@@ -34,8 +37,11 @@ _EXPORTS = {
     "SearchResult": "repro_torch.core.search",
     "ProgramCache": "repro_torch.core.search",
     "run_search": "repro_torch.core.search",
-    # the pluggable design space (repro_torch.design)
-    "design": None,                     # submodule, imported lazily
+    # submodules, imported lazily: the pluggable design space, the matvec
+    # serving plane and the fault-tolerance manager
+    "design": None,
+    "serve": None,
+    "ft": None,
     "register_operator": "repro_torch.design.registry",
     "unregister_operator": "repro_torch.design.registry",
     "Operator": "repro_torch.design.registry",
@@ -57,7 +63,7 @@ def __getattr__(name):
             f"module 'repro_torch' has no attribute {name!r}")
     import importlib
     module = _EXPORTS[name]
-    if module is None:                  # submodule export (repro_torch.design)
+    if module is None:                  # submodule export
         return importlib.import_module(f"repro_torch.{name}")
     return getattr(importlib.import_module(module), name)
 

@@ -9,13 +9,19 @@ Port of the dense (single-device) path of ``repro.api``:
   must be None here (sharded plans are a later slice).
 * :func:`compile` — matrix + Target (+ search budget) in, :class:`SpmvPlan`
   out. ``budget`` is a ``SearchConfig`` (or seconds); ``graph=`` skips the
-  search and designs with a fixed Operator Graph.
+  search and designs with a fixed Operator Graph; ``store=`` loads a prior
+  plan from a :class:`PlanStore` instead of recompiling.
 * :class:`SpmvPlan` — the program artifact: format tensors on the device
-  plus the winning Operator Graph, kernel spec and Target. Its npz layout
-  is the reference's (header, sha256 checksum, bf16 stored as uint16
-  under ``bf16!`` keys, ``format_version``), so :func:`load_plan` reads a
-  plan saved by either package, mapping the reference's backends
+  plus the winning Operator Graph, kernel spec and Target. It calls on a
+  1-D x (SpMV) or an (n_cols, B) x (SpMM). Its npz layout is the
+  reference's (header, sha256 checksum, bf16 stored as uint16 under
+  ``bf16!`` keys, ``format_version``), so :func:`load_plan` reads a plan
+  saved by either package, mapping the reference's backends
   ``pallas -> cuda`` and ``jax -> torch``.
+* :class:`PlanStore` — a directory of saved plans keyed by (matrix
+  fingerprint, budget, Target, strategy), with integrity sweeps
+  (``verify`` / ``repair``), statistics-keyed warm starts (``suggest``)
+  and :class:`PlanWatch`, the serving plane's hot-swap hook.
 """
 from __future__ import annotations
 
@@ -23,8 +29,10 @@ import dataclasses
 import functools
 import hashlib
 import json
+import math
 import os
 import tempfile
+import warnings
 from pathlib import Path
 from typing import Optional
 
@@ -39,8 +47,8 @@ from repro_torch.core.search import (ProgramCache, SearchConfig, SearchResult,
                                      _graph_from_jsonable, _graph_to_jsonable,
                                      run_search)
 
-__all__ = ["Target", "SpmvPlan", "PlanIntegrityError", "compile",
-           "load_plan"]
+__all__ = ["Target", "SpmvPlan", "PlanStore", "PlanWatch",
+           "PlanIntegrityError", "compile", "load_plan"]
 
 # Version 2 adds bf16 storage (arrays saved as uint16 views under
 # "bf16!"-marked keys). Plans without bf16 arrays are written as version 1.
@@ -93,6 +101,24 @@ def _atomic_savez(path, header: dict, arrays: dict) -> None:
         raise
 
 
+def _atomic_write_text(path, text: str) -> None:
+    path = Path(path)
+    fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=path.name + ".",
+                               suffix=".tmp")
+    try:
+        with os.fdopen(fd, "w") as f:
+            f.write(text)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
 # --------------------------------- Target ----------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -106,7 +132,11 @@ class Target:
     choose bf16-stored vals (+ int16 cols where n_cols fits) per matrix;
     outputs stay fp32. ``interpret``, ``axis_name``, ``partition`` and
     ``balance`` are kept for header parity with the reference; sharded
-    targets (``mesh``) and ``batch_size > 1`` are later slices.
+    targets (``mesh``) are a later slice. ``batch_size`` is the number of
+    right-hand sides the plan is tuned for: B > 1 makes the search check
+    and time candidates on (n_cols, B) inputs through the SpMM kernels,
+    and it is the top bucket of the serving plane's batches
+    (``repro_torch.serve.decode_buckets``).
     """
 
     backend: str = "cuda"
@@ -197,9 +227,11 @@ def _dense_kernel(spec_json: str, backend: str):
 
 @dataclasses.dataclass(eq=False)
 class SpmvPlan:
-    """A compiled single-device SpMV program artifact: the format tensors
-    (``fmt``, on the backend's device) plus the static kernel spec, the
-    winning Operator Graph and the Target."""
+    """A compiled single-device SpMV/SpMM program artifact: the format
+    tensors (``fmt``, on the backend's device) plus the static kernel
+    spec, the winning Operator Graph and the Target."""
+
+    supports_batch = True
 
     fmt: dict                       # name -> torch.Tensor
     spec_json: str                  # kernel spec (kernel_builder schema)
@@ -248,11 +280,19 @@ class SpmvPlan:
 
     # -- execution ---------------------------------------------------------
     def __call__(self, x) -> torch.Tensor:
-        """x: (n_cols,) -> fp32 (n_rows,) on the plan's device. A 2-D x
-        (multi-RHS) raises ``NotImplementedError`` in this slice."""
+        """x: (n_cols,) -> fp32 (n_rows,), or (n_cols, B) -> (n_rows, B),
+        on the plan's device (x is copied there first)."""
         x = torch.as_tensor(x).to(self.device, _x_dtype(self.target))
         fn = _dense_kernel(self.spec_json, self.target.backend)
         return fn(self.fmt, x.contiguous())
+
+    # -- dynamic sparsity --------------------------------------------------
+    def update(self, delta) -> "SpmvPlan":
+        """Patch-in-place dynamic-sparsity step: not ported yet."""
+        raise NotImplementedError(
+            "SpmvPlan.update (dynamic sparsity, repro.dyn) is not ported "
+            "yet (ROADMAP queue 1, item 10); re-run repro_torch.compile on "
+            "the mutated matrix")
 
     # -- reporting ---------------------------------------------------------
     def describe(self) -> str:
@@ -381,7 +421,8 @@ def _plan_from_program(prog, graph: Optional[OperatorGraph],
 def compile(matrix: SparseMatrix, target: Optional[Target] = None,
             budget=None, *, graph: Optional[OperatorGraph] = None,
             strategy=None, warm_start=None, deadline_s: Optional[float] = None,
-            cache: Optional[ProgramCache] = None) -> SpmvPlan:
+            cache: Optional[ProgramCache] = None,
+            store: Optional["PlanStore"] = None) -> SpmvPlan:
     """Matrix in, machine-designed program artifact out (paper §III).
 
     * ``target`` — where the plan runs (default ``Target()``: the CUDA
@@ -394,6 +435,11 @@ def compile(matrix: SparseMatrix, target: Optional[Target] = None,
     * ``warm_start`` — ``OperatorGraph`` objects timed before the walk.
     * ``deadline_s`` — hard wall-clock budget for the whole search.
     * ``cache`` — a ``ProgramCache`` memoising raw search results.
+    * ``store`` — a :class:`PlanStore`; a prior plan for the same
+      (matrix, budget, target) is loaded instead of recompiled, and new
+      plans are saved. Without an explicit ``warm_start``,
+      ``store.suggest(matrix)`` seeds the search. Store hits carry no
+      ``search_result``; ``search_gflops`` survives the round trip.
 
     On a cuda target the kernel libraries are built before the search
     starts, so a failed ``nvcc`` raises here instead of turning every
@@ -401,6 +447,14 @@ def compile(matrix: SparseMatrix, target: Optional[Target] = None,
     """
     target = target or Target()
     resolve_device(target.backend)
+    if store is not None:
+        hit = store.get(matrix, target, budget, graph, strategy)
+        if hit is not None:
+            return hit
+        if warm_start is None and graph is None:
+            # statistics-keyed warm start from the nearest stored plan
+            suggested = store.suggest(matrix)
+            warm_start = (suggested,) if suggested is not None else None
     if target.backend == "cuda":
         from repro_torch.kernels import build
         build.build_all()
@@ -412,13 +466,255 @@ def compile(matrix: SparseMatrix, target: Optional[Target] = None,
                              storage_dtype=(target.dtype
                                             if target.dtype != "float32"
                                             else None))
-        return _plan_from_program(prog, graph, target)
-    cfg = _as_search_config(budget, target)
-    if deadline_s is not None:
-        cfg = dataclasses.replace(
-            cfg, max_seconds=min(cfg.max_seconds, float(deadline_s)),
-            hard_deadline=True)
-    res = run_search(matrix, cfg, cache=cache, strategy=strategy,
-                     warm_start=warm_start)
-    return _plan_from_program(res.best_program, res.best_graph, target,
-                              search_result=res)
+        plan = _plan_from_program(prog, graph, target)
+    else:
+        cfg = _as_search_config(budget, target)
+        if deadline_s is not None:
+            cfg = dataclasses.replace(
+                cfg, max_seconds=min(cfg.max_seconds, float(deadline_s)),
+                hard_deadline=True)
+        res = run_search(matrix, cfg, cache=cache, strategy=strategy,
+                         warm_start=warm_start)
+        plan = _plan_from_program(res.best_program, res.best_graph, target,
+                                  search_result=res)
+    if store is not None:
+        store.put(matrix, target, budget, graph, plan, strategy)
+    return plan
+
+
+# -------------------------------- PlanStore ---------------------------------
+
+def _matrix_stats(matrix: SparseMatrix) -> list[float]:
+    """Statistics key for nearest-plan lookup: row count and the mean,
+    std and coefficient of variation of nnz per row (the axes of the
+    §VI-B pruning rules)."""
+    lengths = np.bincount(np.asarray(matrix.rows, np.int64),
+                          minlength=matrix.n_rows).astype(np.float64)
+    mean = float(lengths.mean()) if lengths.size else 0.0
+    std = float(lengths.std()) if lengths.size else 0.0
+    cv = std / mean if mean > 0 else 0.0
+    return [float(matrix.n_rows), mean, std, cv]
+
+
+def _stats_distance(a, b) -> float:
+    """Scale-normalized distance: log-scale for counts, linear for CV."""
+    d = 0.0
+    d += (np.log10(1.0 + a[0]) - np.log10(1.0 + b[0])) ** 2
+    d += (np.log10(1.0 + a[1]) - np.log10(1.0 + b[1])) ** 2
+    d += (np.log10(1.0 + a[2]) - np.log10(1.0 + b[2])) ** 2
+    d += (a[3] - b[3]) ** 2
+    return float(np.sqrt(d))
+
+
+class PlanWatch:
+    """Poll one PlanStore entry for changes (the serving hot-swap hook).
+
+    Created by :meth:`PlanStore.watch`. ``poll()`` stats the entry's file
+    and returns a freshly loaded plan iff its (mtime_ns, size) stamp
+    changed since the last observation, None otherwise. A half-written or
+    corrupt entry is skipped (the old plan keeps serving) and retried on
+    the next poll.
+    """
+
+    def __init__(self, store: "PlanStore", key: str):
+        self.store = store
+        self.key = key
+        self._seen = self._stamp()
+
+    @property
+    def path(self) -> Path:
+        return self.store._path(self.key)
+
+    def _stamp(self):
+        try:
+            st = self.path.stat()
+            return (st.st_mtime_ns, st.st_size)
+        except OSError:
+            return None
+
+    def poll(self):
+        stamp = self._stamp()
+        if stamp is None or stamp == self._seen:
+            return None
+        try:
+            plan = load_plan(self.path)
+        except Exception:
+            return None   # mid-write or corrupt: retry on the next poll
+        self._seen = stamp
+        return plan
+
+
+class PlanStore:
+    """A directory of saved plans keyed by (matrix, budget/graph, strategy,
+    Target).
+
+    A hit is a load of the full artifact (spec + format tensors),
+    bit-identical to the saved plan, with no Designer replay. Each ``put``
+    also writes a small ``.stats.json`` sidecar (matrix row statistics,
+    corpus features, winning graph) that :meth:`suggest` reads to
+    warm-start the search of a statistically similar matrix. The file
+    layout is the reference's, so either package reads the other's
+    plans.
+    """
+
+    def __init__(self, cache_dir):
+        self.cache_dir = Path(cache_dir)
+        self.hits = 0
+        self.misses = 0
+        # suggest() sidecar index: path -> ((mtime_ns, size), payload);
+        # payload None for a corrupt sidecar. Revalidated only when the
+        # directory's mtime moves (sidecars are written atomically).
+        self._sidecars: dict[Path, tuple[tuple[int, int], Optional[dict]]] = {}
+        self._sidecar_dir_stamp: Optional[int] = None
+
+    @staticmethod
+    def key(matrix: SparseMatrix, target: Target, budget=None,
+            graph: Optional[OperatorGraph] = None, strategy=None) -> str:
+        from repro_torch.design.strategies import make_strategy
+        mfp = ProgramCache.matrix_fingerprint(matrix)
+        if graph is not None:
+            bkey = "g" + hashlib.sha1(json.dumps(
+                _graph_to_jsonable(graph)).encode()).hexdigest()[:8]
+        elif budget is None:
+            bkey = "default"
+        elif dataclasses.is_dataclass(budget):   # SearchConfig
+            blob = json.dumps(dataclasses.asdict(budget), sort_keys=True,
+                              default=str)
+            bkey = hashlib.sha1(blob.encode()).hexdigest()[:8]
+        else:
+            bkey = f"s{float(budget):g}"
+        if graph is None:
+            # a grid-searched plan must not serve an anneal-searched
+            # request for the same matrix/budget
+            bkey += "-" + hashlib.sha1(
+                make_strategy(strategy).key().encode()).hexdigest()[:8]
+        return f"{mfp}-{bkey}-{target.key()}"
+
+    def _path(self, key: str) -> Path:
+        return self.cache_dir / f"{key}.plan.npz"
+
+    def get(self, matrix, target, budget=None, graph=None, strategy=None):
+        path = self._path(self.key(matrix, target, budget, graph, strategy))
+        if not path.exists():
+            self.misses += 1
+            return None
+        try:
+            plan = load_plan(path)
+        except Exception as e:  # truncated/corrupt npz or checksum mismatch
+            warnings.warn(f"plan store entry {path} unusable ({e!r}); "
+                          "recompiling", RuntimeWarning)
+            self.misses += 1
+            return None
+        self.hits += 1
+        return plan
+
+    def put(self, matrix, target, budget, graph, plan,
+            strategy=None) -> None:
+        self.cache_dir.mkdir(parents=True, exist_ok=True)
+        key = self.key(matrix, target, budget, graph, strategy)
+        plan.save(self._path(key))
+        graph_json = getattr(plan, "graph_json", None)
+        if graph_json is not None:
+            from repro_torch.corpus.features import matrix_features
+            sidecar = {"stats": _matrix_stats(matrix),
+                       "features": matrix_features(matrix).tolist(),
+                       "graph": json.loads(graph_json),
+                       "gflops": getattr(plan, "search_gflops", None)}
+            _atomic_write_text(self.cache_dir / f"{key}.stats.json",
+                               json.dumps(sidecar))
+
+    def verify(self) -> dict:
+        """Integrity sweep: load every ``*.plan.npz`` on the CPU and
+        return ``{"ok": [keys], "corrupt": [(key, reason)]}``. Nothing is
+        modified; :meth:`repair` quarantines the corrupt entries."""
+        ok, corrupt = [], []
+        if self.cache_dir.is_dir():
+            for path in sorted(self.cache_dir.glob("*.plan.npz")):
+                key = path.name[:-len(".plan.npz")]
+                try:
+                    load_plan(path, backend="torch")
+                except Exception as e:
+                    corrupt.append((key, repr(e)))
+                else:
+                    ok.append(key)
+        return {"ok": ok, "corrupt": corrupt}
+
+    def repair(self) -> list[str]:
+        """Move every corrupt entry found by :meth:`verify` (and its
+        sidecar) into ``quarantine/``; the next ``get`` for that key
+        recompiles. Returns the quarantined keys."""
+        quarantined = []
+        qdir = self.cache_dir / "quarantine"
+        for key, _reason in self.verify()["corrupt"]:
+            qdir.mkdir(parents=True, exist_ok=True)
+            for suffix in (".plan.npz", ".stats.json"):
+                src = self.cache_dir / f"{key}{suffix}"
+                if src.exists():
+                    os.replace(src, qdir / src.name)
+            quarantined.append(key)
+        return quarantined
+
+    def watch(self, matrix, target, budget=None, graph=None,
+              strategy=None) -> PlanWatch:
+        """A :class:`PlanWatch` on this key. It records the entry's stamp
+        at creation, so only later puts trigger a reload; the serving
+        executor polls it between batches."""
+        return PlanWatch(self, self.key(matrix, target, budget, graph,
+                                        strategy))
+
+    def _refresh_sidecars(self) -> None:
+        """Revalidate the in-memory sidecar index, O(changed files)."""
+        try:
+            dir_stamp = self.cache_dir.stat().st_mtime_ns
+        except OSError:
+            self._sidecars.clear()
+            self._sidecar_dir_stamp = None
+            return
+        if dir_stamp == self._sidecar_dir_stamp:
+            return
+        seen = set()
+        for path in self.cache_dir.glob("*.stats.json"):
+            try:
+                st = path.stat()
+            except OSError:
+                continue   # removed between glob and stat
+            seen.add(path)
+            stamp = (st.st_mtime_ns, st.st_size)
+            cached = self._sidecars.get(path)
+            if cached is not None and cached[0] == stamp:
+                continue
+            try:
+                payload = json.loads(path.read_text())
+                payload["stats"][0]   # shape check: stats must index
+                payload["graph"]
+            except (OSError, ValueError, KeyError, IndexError, TypeError):
+                payload = None        # negative cache: skip until it changes
+            self._sidecars[path] = (stamp, payload)
+        for path in list(self._sidecars):
+            if path not in seen:
+                del self._sidecars[path]
+        self._sidecar_dir_stamp = dir_stamp
+
+    def suggest(self, matrix: SparseMatrix, max_distance: float = 1.0,
+                with_distance: bool = False):
+        """Winning graph of the statistically nearest stored plan, or None
+        when nothing lies within ``max_distance`` (inclusive). With
+        ``with_distance=True`` returns ``(graph_or_None, distance)``."""
+        if not self.cache_dir.is_dir():
+            return (None, math.inf) if with_distance else None
+        self._refresh_sidecars()
+        want = _matrix_stats(matrix)
+        best_d, best_graph = math.inf, None
+        for _stamp, payload in self._sidecars.values():
+            if payload is None:
+                continue
+            try:
+                d = _stats_distance(want, payload["stats"])
+            except (ValueError, KeyError, IndexError, TypeError):
+                continue
+            if d < best_d:
+                best_d, best_graph = d, payload["graph"]
+        if best_graph is None or best_d > max_distance:
+            return (None, math.inf) if with_distance else None
+        graph = _graph_from_jsonable(best_graph)
+        return (graph, best_d) if with_distance else graph

@@ -17,8 +17,10 @@ The generator is two explicit stages, as in the reference:
 2. ``build_kernel(spec, backend)`` interprets the spec into the runnable
    ``fn(fmt, x)``.
 
-Only 1-D ``x`` runs in this package so far; a 2-D ``x`` (multi-RHS SpMM)
-raises ``NotImplementedError``.
+``x`` is ``(n_cols,)`` (SpMV kernels K1-K6) or ``(n_cols, B)`` (the
+multi-RHS SpMM kernels K7-K11, format read once for all B columns; the
+output is ``(n_rows, B)``). A 2-D x with ``B = 1`` also takes the SpMM
+kernels, as in the reference.
 
 Model-Driven Format Compression (``compress.py``) runs here: fitted arrays
 are elided from the stored format and recomputed at call time; an affine
@@ -45,8 +47,8 @@ from . import compress
 from .metadata import Block, EllTileLayout, MetadataSet, SegTileLayout
 
 __all__ = ["SpmvProgram", "build_program", "plan_format", "build_kernel",
-           "register_layout_planner", "resolve_device", "SPEC_VERSION",
-           "BACKENDS"]
+           "register_layout_planner", "resolve_device", "run_spec_step",
+           "SPEC_VERSION", "BACKENDS"]
 
 SPEC_VERSION = 2
 
@@ -345,17 +347,20 @@ def _step_cols(step: dict, fmt: dict, device):
 
 
 def _add_rows(y, rm, flat):
-    """y[rm[i]] += flat[i] for every rm[i] >= 0 (the scatter combine).
-    Masking instead of boolean indexing keeps the call free of host
-    syncs on the GPU."""
+    """y[rm[i]] += flat[i] for every rm[i] >= 0 (the scatter combine);
+    ``flat`` is (N,) or (N, B). Masking instead of boolean indexing keeps
+    the call free of host syncs on the GPU."""
     rm = rm.reshape(-1)
     keep = rm >= 0
-    y.index_add_(0, torch.where(keep, rm, 0).long(),
-                 torch.where(keep, flat, 0.0))
+    idx = torch.where(keep, rm, 0).long()
+    if flat.ndim == 2:
+        keep = keep[:, None]
+    y.index_add_(0, idx, torch.where(keep, flat, 0.0))
 
 
 def _run_ell_step(step: dict, fmt: dict, x, y, n_rows: int,
                   backend: str, tiles_per_step: int = 1):
+    rhs = tuple(x.shape[1:])
     key = step["key"]
     vals = fmt[f"{key}_vals"]
     cols = _step_cols(step, fmt, x.device)
@@ -364,17 +369,20 @@ def _run_ell_step(step: dict, fmt: dict, x, y, n_rows: int,
         from repro_torch.kernels import ops as kops  # lazy: keeps core light
         if step.get("fused") and comb["mode"] == "affine":
             # fused combine: the kernel adds its rows straight into y
-            kops.ell_spmv_fused(vals, cols, x, row0=comb["b0"], n_rows=n_rows,
-                                tiles_per_step=tiles_per_step, out=y)
+            op = kops.ell_spmm_fused if rhs else kops.ell_spmv_fused
+            op(vals, cols, x, row0=comb["b0"], n_rows=n_rows,
+               tiles_per_step=tiles_per_step, out=y)
             return y
         if comb["mode"] == "affine" and comb["direct"]:
-            partial = kops.ell_spmv_direct(vals, cols, x)
+            op = kops.ell_spmm_direct if rhs else kops.ell_spmv_direct
         else:
-            partial = kops.ell_spmv(vals, cols, x)
+            op = kops.ell_spmm if rhs else kops.ell_spmv
+        partial = op(vals, cols, x)
     else:
         from repro_torch.kernels import ref as kref
-        partial = kref.ell_spmv_ref(vals, cols, x)
-    flat = partial.reshape(-1)
+        op = kref.ell_spmm_ref if rhs else kref.ell_spmv_ref
+        partial = op(vals, cols, x)
+    flat = partial.reshape((-1,) + rhs)
     if comb["mode"] == "rowmap":
         _add_rows(y, fmt[comb["key"]], flat)
         return y
@@ -385,6 +393,7 @@ def _run_ell_step(step: dict, fmt: dict, x, y, n_rows: int,
 
 def _run_seg_step(step: dict, fmt: dict, x, y, n_rows: int,
                   backend: str, tiles_per_step: int = 1):
+    rhs = tuple(x.shape[1:])
     key = step["key"]
     kind = step["reduce"]
     vals = fmt[f"{key}_vals"]
@@ -393,7 +402,9 @@ def _run_seg_step(step: dict, fmt: dict, x, y, n_rows: int,
         # GMEM_ATOM_RED: one global reduction of the product stream; rows
         # stored directly in the format (padded entries carry val=0 and a
         # valid row -> no masking)
-        prod = (vals.float() * x[cols.long()].float()).reshape(-1)
+        g = x[cols.long()].float()
+        v = vals.float()[..., None] if rhs else vals.float()
+        prod = (v * g).reshape((-1,) + rhs)
         y.index_add_(0, fmt[f"{key}_rows"].reshape(-1).long(), prod)
         return y
     local = fmt.get(f"{key}_local")
@@ -405,41 +416,51 @@ def _run_seg_step(step: dict, fmt: dict, x, y, n_rows: int,
         # gmem_atom runs through the seg_scan kernel, as on the TPU
         pk = "seg_scan" if kind == "gmem_atom" else kind
         if step.get("fused") and f"{key}_r0" in fmt:
-            kops.seg_spmv_fused(vals, cols, local, seg_end, fmt[f"{key}_r0"],
-                                x, seg_rows, n_rows=n_rows, mode=pk,
-                                tiles_per_step=tiles_per_step, out=y)
+            op = kops.seg_spmm_fused if rhs else kops.seg_spmv_fused
+            op(vals, cols, local, seg_end, fmt[f"{key}_r0"], x, seg_rows,
+               n_rows=n_rows, mode=pk, tiles_per_step=tiles_per_step, out=y)
             return y
-        partial = kops.seg_spmv(vals, cols, local, seg_end, x, seg_rows,
-                                mode=pk)
+        op = kops.seg_spmm if rhs else kops.seg_spmv
+        partial = op(vals, cols, local, seg_end, x, seg_rows, mode=pk)
     else:
         from repro_torch.kernels import ref as kref
-        partial = kref.seg_spmv_ref(vals, cols, local, seg_end, x, seg_rows,
-                                    mode=kind)
-    _add_rows(y, fmt[f"{key}_rowmap"], partial.reshape(-1))
+        op = kref.seg_spmm_ref if rhs else kref.seg_spmv_ref
+        partial = op(vals, cols, local, seg_end, x, seg_rows, mode=kind)
+    _add_rows(y, fmt[f"{key}_rowmap"], partial.reshape((-1,) + rhs))
     return y
+
+
+def run_spec_step(step: dict, fmt: dict, x, y, n_rows: int,
+                  backend: str, tiles_per_step: int = 1):
+    """Accumulate one spec step's contribution into y in place and return
+    y; ``x`` is (n_cols,) or (n_cols, B) and y (n_rows,) or (n_rows, B)."""
+    if step["kind"] == "ell":
+        return _run_ell_step(step, fmt, x, y, n_rows, backend,
+                             tiles_per_step)
+    return _run_seg_step(step, fmt, x, y, n_rows, backend, tiles_per_step)
 
 
 def build_kernel(spec: dict, backend: str = "cuda") -> Callable:
     """Stage 2: interpret a kernel spec into the runnable ``fn(fmt, x)``.
 
-    ``fn`` takes a 1-D ``x`` on the format's device and returns a fresh
-    fp32 ``(n_rows,)`` tensor; the steps accumulate into it in place."""
+    ``fn`` takes an x on the format's device, ``(n_cols,)`` or
+    ``(n_cols, B)``, and returns a fresh fp32 ``(n_rows,)`` or
+    ``(n_rows, B)`` tensor; the steps accumulate into it in place."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (cuda | torch)")
     n_rows = spec["n_rows"]
     steps = spec["steps"]
     tiles_per_step = int(spec.get("tiles_per_step", 1))
-    run_step = {"ell": _run_ell_step, "seg": _run_seg_step}
 
     def run(fmt, x):
-        if x.ndim != 1:
-            raise NotImplementedError(
-                "multi-RHS x (n_cols, B) is not ported yet (SpMM kernels "
-                "K7-K11 are a later slice); pass a 1-D x")
-        y = torch.zeros(n_rows, dtype=torch.float32, device=x.device)
+        if x.ndim not in (1, 2):
+            raise ValueError(f"x must be (n_cols,) or (n_cols, B), got "
+                             f"shape {tuple(x.shape)}")
+        y = torch.zeros((n_rows,) + tuple(x.shape[1:]), dtype=torch.float32,
+                        device=x.device)
         for step in steps:
-            y = run_step[step["kind"]](step, fmt, x, y, n_rows, backend,
-                                       tiles_per_step)
+            y = run_spec_step(step, fmt, x, y, n_rows, backend,
+                              tiles_per_step)
         return y
 
     return run

@@ -367,12 +367,17 @@ class AlphaSparseSearch:
         self.m = matrix
         self.cfg = config or SearchConfig()
         self.rng = np.random.default_rng(self.cfg.seed)
-        if max(int(self.cfg.batch_size), 1) > 1:
-            raise NotImplementedError(
-                "multi-RHS search (batch_size > 1) needs the SpMM kernels "
-                "K7-K11, which are not ported yet")
-        self._x = self.rng.standard_normal(matrix.n_cols).astype(np.float32)
-        self._oracle = matrix.spmv_dense_oracle(self._x)
+        bsz = max(int(self.cfg.batch_size), 1)
+        if bsz > 1:
+            # multi-RHS search: candidates are checked and *timed* on the
+            # SpMM kernels, so the design reflects batched execution
+            self._x = self.rng.standard_normal(
+                (matrix.n_cols, bsz)).astype(np.float32)
+            self._oracle = matrix.spmm_dense_oracle(self._x)
+        else:
+            self._x = self.rng.standard_normal(
+                matrix.n_cols).astype(np.float32)
+            self._oracle = matrix.spmv_dense_oracle(self._x)
         # copied to the device once per search, so that the timed calls
         # measure the program and not a host-to-device copy
         self._x_dev = torch.from_numpy(self._x).to(
@@ -618,8 +623,8 @@ class AlphaSparseSearch:
                 f"({dict(self.failure_counts)}); returning the baseline "
                 "program", RuntimeWarning)
         wall = time.perf_counter() - t_start
-        # useful flops: 2*nnz
-        gflops = 2.0 * self.m.nnz / best_s / 1e9
+        # useful flops: 2*nnz per right-hand side
+        gflops = 2.0 * self.m.nnz * max(self.cfg.batch_size, 1) / best_s / 1e9
         return SearchResult(best_graph=best_g, best_program=best_p,
                             best_seconds=best_s, gflops=gflops,
                             n_evaluations=len(self._memo),

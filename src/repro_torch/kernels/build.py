@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "build_all", "load_library", "check", "KernelBuildError",
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("ell_spmv", "seg_spmv")
+SOURCES = ("ell_spmv", "seg_spmv", "ell_spmm", "seg_spmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the 1-RHS SpMV kernels K1-K6.
+"""Plain PyTorch versions of the SpMV kernels K1-K6 and of the multi-RHS
+(SpMM) kernels K7-K11.
 
-Port of ``repro.kernels.ref``, plus plain versions of the two fused
+Port of ``repro.kernels.ref``, plus plain versions of the four fused
 kernels. Each is the definition its CUDA kernel is held to: the wrappers
 in ``ell_spmv.py`` / ``seg_spmv.py`` call these for CPU tensors, the
 ``torch`` backend of the kernel builder runs them, and ``chip_smoke.py``
@@ -13,7 +14,9 @@ from __future__ import annotations
 import torch
 
 __all__ = ["ell_spmv_ref", "ell_spmv_direct_ref", "ell_spmv_fused_ref",
-           "seg_spmv_ref", "seg_spmv_fused_ref", "SEG_MODES"]
+           "seg_spmv_ref", "seg_spmv_fused_ref", "ell_spmm_ref",
+           "ell_spmm_direct_ref", "ell_spmm_fused_ref", "seg_spmm_ref",
+           "seg_spmm_fused_ref", "SEG_MODES"]
 
 SEG_MODES = ("seg_scan", "onehot_mxu")
 
@@ -100,4 +103,83 @@ def seg_spmv_fused_ref(vals, cols, local_row, seg_end, r0, x, seg_rows: int,
         out = torch.zeros(n_rows, dtype=torch.float32, device=part.device)
     out.index_add_(0, torch.where(keep, rows, 0).reshape(-1),
                    torch.where(keep, part, 0.0).reshape(-1))
+    return out
+
+
+# ----------------------------- multi-RHS (SpMM) -----------------------------
+# x is (n_cols, B): column b is the b-th right-hand side, and one gathered
+# row x[col] holds all B values.
+
+def ell_spmm_ref(vals, cols, x) -> torch.Tensor:
+    """K7. vals, cols: (T, R, W); x: (n_cols, B) -> fp32 (T, R, B),
+    ``out[t, r, b] = sum_w vals[t, r, w] * x[cols[t, r, w], b]``."""
+    return (vals.float().unsqueeze(-1) * _gather(x, cols)).sum(dim=-2)
+
+
+def ell_spmm_direct_ref(vals, cols, x) -> torch.Tensor:
+    """K8. K7's sums as the (T*R, B) slab of contiguous output rows."""
+    out = ell_spmm_ref(vals, cols, x)
+    return out.reshape(-1, out.shape[-1])
+
+
+def ell_spmm_fused_ref(vals, cols, x, *, n_rows: int, row0: int = 0,
+                       out=None) -> torch.Tensor:
+    """K9. Tile row ``i = t*R + r`` is output row ``row0 + i``; its B sums
+    are added to ``out`` (fresh (n_rows, B) zeros when None) and rows
+    ``>= n_rows`` are dropped. Returns ``out``."""
+    flat = ell_spmm_direct_ref(vals, cols, x)
+    if out is None:
+        out = torch.zeros((n_rows, flat.shape[1]), dtype=torch.float32,
+                          device=flat.device)
+    hi = min(row0 + flat.shape[0], n_rows)
+    if hi > row0:
+        out[row0:hi] += flat[:hi - row0]
+    return out
+
+
+def seg_spmm_ref(vals, cols, local_row, seg_end, x, seg_rows: int,
+                 mode: str = "seg_scan") -> torch.Tensor:
+    """K10a / K10b. vals/cols/local_row: (T, S, L); seg_end: (T, M);
+    x: (n_cols, B) -> fp32 (T, M, B). The two modes of ``seg_spmv_ref``,
+    run once for all B columns: ``seg_scan`` scans the (C, B) products
+    along the nnz axis and takes ``g[m] - g[m-1]`` with
+    ``g[m] = cs[end[m]-1]`` (0 where ``end[m] = 0``); ``onehot_mxu`` sums
+    each product into its local row (slots outside [0, M) add nothing)."""
+    T = vals.shape[0]
+    B = x.shape[1]
+    prod = (vals.float().unsqueeze(-1) * _gather(x, cols)).reshape(T, -1, B)
+    if mode == "onehot_mxu":
+        local = local_row.reshape(T, -1).long()
+        hit = (local >= 0) & (local < seg_rows)
+        out = torch.zeros(T, seg_rows, B, dtype=torch.float32,
+                          device=prod.device)
+        idx = torch.where(hit, local, 0).unsqueeze(-1).expand(-1, -1, B)
+        return out.scatter_add_(1, idx,
+                                torch.where(hit.unsqueeze(-1), prod, 0.0))
+    if mode != "seg_scan":
+        raise ValueError(f"unknown mode {mode!r} (seg_scan | onehot_mxu)")
+    cs = torch.cumsum(prod, dim=1)
+    end = seg_end.long()
+    at = (end - 1).clamp(min=0).unsqueeze(-1).expand(-1, -1, B)
+    g = torch.where((end > 0).unsqueeze(-1), torch.gather(cs, 1, at),
+                    torch.zeros((), dtype=torch.float32, device=cs.device))
+    g_prev = torch.cat([torch.zeros_like(g[:, :1]), g[:, :-1]], dim=1)
+    return g - g_prev
+
+
+def seg_spmm_fused_ref(vals, cols, local_row, seg_end, r0, x, seg_rows: int,
+                       *, n_rows: int, mode: str = "seg_scan",
+                       out=None) -> torch.Tensor:
+    """K11. K10 partials *added* at ``out[r0[t] + m, :]``: a row that
+    straddles tiles receives one add per tile. Rows ``>= n_rows`` are
+    dropped. Returns ``out`` (fresh (n_rows, B) zeros when None)."""
+    part = seg_spmm_ref(vals, cols, local_row, seg_end, x, seg_rows, mode)
+    B = part.shape[-1]
+    rows = r0.long()[:, None] + torch.arange(seg_rows, device=part.device)
+    keep = rows < n_rows
+    if out is None:
+        out = torch.zeros((n_rows, B), dtype=torch.float32,
+                          device=part.device)
+    out.index_add_(0, torch.where(keep, rows, 0).reshape(-1),
+                   torch.where(keep.unsqueeze(-1), part, 0.0).reshape(-1, B))
     return out

@@ -1,16 +1,19 @@
-"""Per-tile segmented SpMV kernels K3, K4, K6: wrappers over
-``csrc/seg_spmv.cu``.
+"""Per-tile segmented kernels: SpMV K3, K4, K6 (wrappers over
+``csrc/seg_spmv.cu``) and multi-RHS SpMM K10a, K10b, K11 (over
+``csrc/seg_spmm.cu``).
 
 Each wrapper runs its plain PyTorch version (``ref.py``) when the tensors
 lie on the CPU, and launches its CUDA kernel when they lie on a GPU; it
-never falls back from one to the other. ``seg_spmv.launches`` counts
-launches per mode (K3 ``seg_scan``, K4 ``onehot_mxu``);
-``seg_spmv_fused.launches`` counts K6 launches in either mode.
+never falls back from one to the other. ``seg_spmv.launches`` and
+``seg_spmm.launches`` count launches per mode (K3/K10a ``seg_scan``,
+K4/K10b ``onehot_mxu``); ``seg_spmv_fused.launches`` and
+``seg_spmm_fused.launches`` count K6 and K11 launches in either mode.
 
 Replaced TPU kernels (``src/repro/kernels/seg_spmv.py``): K3/K4
-``seg_spmv_pallas`` and K6 ``seg_spmv_fused_pallas``. What bounds them on
-the H100 and how the CUDA design answers it is written at the top of
-``csrc/seg_spmv.cu``.
+``seg_spmv_pallas``, K6 ``seg_spmv_fused_pallas``, K10a/K10b
+``seg_spmm_pallas`` and K11 ``seg_spmm_fused_pallas``. What bounds them on
+the H100 and how the CUDA designs answer it is written at the top of the
+two sources.
 """
 from __future__ import annotations
 
@@ -20,9 +23,10 @@ import torch
 
 from . import build
 from .ell_spmv import _check_tiles, _stream, _type_args
-from .ref import SEG_MODES, seg_spmv_fused_ref, seg_spmv_ref
+from .ref import (SEG_MODES, seg_spmm_fused_ref, seg_spmm_ref,
+                  seg_spmv_fused_ref, seg_spmv_ref)
 
-__all__ = ["seg_spmv", "seg_spmv_fused"]
+__all__ = ["seg_spmv", "seg_spmv_fused", "seg_spmm", "seg_spmm_fused"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -36,10 +40,20 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(vals, cols, local_row, seg_end, x, seg_rows, mode, out, r0,
-            n_rows, tiles_per_step) -> None:
-    """Check the operands and launch ``seg_tiles`` (fused when r0 given)."""
-    _check_tiles(vals, cols, x)
+def _spmm_lib() -> ctypes.CDLL:
+    lib = build.load_library("seg_spmm")
+    if lib.seg_spmm.argtypes is None:
+        lib.seg_spmm.argtypes = [_P, _I, _P, _I, _P, _I, _I, _I, _P, _L, _I,
+                                 _I, _I, _I, _P, _P, _L, _I, _P]
+        lib.seg_spmm.restype = _I
+    return lib
+
+
+def _check_seg(vals, cols, local_row, seg_end, x, seg_rows, mode, out, r0,
+               x_ndim):
+    """Check the operands of a seg kernel; returns its aux array
+    (seg_end for seg_scan, local_row for onehot_mxu)."""
+    _check_tiles(vals, cols, x, x_ndim)
     if mode not in SEG_MODES:
         raise ValueError(f"unknown mode {mode!r} (seg_scan | onehot_mxu)")
     T = vals.shape[0]
@@ -59,6 +73,16 @@ def _launch(vals, cols, local_row, seg_end, x, seg_rows, mode, out, r0,
         raise ValueError(f"r0 must be int32 of shape ({T},)")
     if seg_rows <= 0:
         raise ValueError(f"seg_rows must be positive, got {seg_rows}")
+    return aux
+
+
+def _launch(vals, cols, local_row, seg_end, x, seg_rows, mode, out, r0,
+            n_rows, tiles_per_step) -> None:
+    """Check the operands and launch ``seg_tiles`` (fused when r0 given)."""
+    aux = _check_seg(vals, cols, local_row, seg_end, x, seg_rows, mode, out,
+                     r0, 1)
+    T = vals.shape[0]
+    c = vals.shape[1] * vals.shape[2]
     k = max(min(int(tiles_per_step), T), 1)
     lib = _lib()
     build.check(lib, lib.seg_tiles(
@@ -105,5 +129,67 @@ def seg_spmv_fused(vals, cols, local_row, seg_end, r0, x, seg_rows: int, *,
     return out
 
 
+# ----------------------------- multi-RHS (SpMM) -----------------------------
+
+def _spmm_launch(vals, cols, local_row, seg_end, x, seg_rows, mode, out, r0,
+                 n_rows, tiles_per_step) -> None:
+    """Check the operands and launch ``seg_spmm`` (fused when r0 given)."""
+    aux = _check_seg(vals, cols, local_row, seg_end, x, seg_rows, mode, out,
+                     r0, 2)
+    T = vals.shape[0]
+    c = vals.shape[1] * vals.shape[2]
+    k = max(min(int(tiles_per_step), T), 1)
+    lib = _spmm_lib()
+    build.check(lib, lib.seg_spmm(
+        *_type_args(vals, cols, x), x.shape[1], aux.data_ptr(), T, c,
+        seg_rows, SEG_MODES.index(mode), int(r0 is not None), out.data_ptr(),
+        0 if r0 is None else r0.data_ptr(), n_rows, k, _stream(vals)),
+        "seg_spmm")
+
+
+def seg_spmm(vals, cols, local_row, seg_end, x, seg_rows: int,
+             mode: str = "seg_scan") -> torch.Tensor:
+    """K10a (``seg_scan``) / K10b (``onehot_mxu``): (T, S, L) nnz-split
+    tiles, x (n_cols, B) -> (T, seg_rows, B) fp32 segment partials."""
+    if not vals.is_cuda:
+        return seg_spmm_ref(vals, cols, local_row, seg_end, x, seg_rows,
+                            mode)
+    _check_tiles(vals, cols, x, 2)
+    out = torch.empty((vals.shape[0], seg_rows, x.shape[1]),
+                      dtype=torch.float32, device=vals.device)
+    _spmm_launch(vals, cols, local_row, seg_end, x, seg_rows, mode, out,
+                 None, 0, 1)
+    seg_spmm.launches[mode] += 1
+    return out
+
+
+def seg_spmm_fused(vals, cols, local_row, seg_end, r0, x, seg_rows: int, *,
+                   n_rows: int, mode: str = "seg_scan",
+                   tiles_per_step: int = 1, out=None) -> torch.Tensor:
+    """K11: add tile t's (seg_rows, B) partials into ``out[r0[t] + m, :]``
+    (rows ``>= n_rows`` dropped) and return ``out``, a fresh fp32
+    (n_rows, B) zero tensor when None. Requires per-tile contiguous rows.
+    ``tiles_per_step`` is the number of tiles one GPU block (one-hot) or
+    one column of the grid (seg_scan) covers, clamped to [1, T]; it does
+    not change the result."""
+    if not vals.is_cuda:
+        return seg_spmm_fused_ref(vals, cols, local_row, seg_end, r0, x,
+                                  seg_rows, n_rows=n_rows, mode=mode,
+                                  out=out)
+    _check_tiles(vals, cols, x, 2)
+    B = x.shape[1]
+    if out is None:
+        out = torch.zeros((n_rows, B), dtype=torch.float32,
+                          device=vals.device)
+    if out.dtype != torch.float32 or out.shape != (n_rows, B):
+        raise ValueError("out must be an fp32 (n_rows, B) tensor")
+    _spmm_launch(vals, cols, local_row, seg_end, x, seg_rows, mode, out, r0,
+                 n_rows, tiles_per_step)
+    seg_spmm_fused.launches += 1
+    return out
+
+
 seg_spmv.launches = {m: 0 for m in SEG_MODES}
 seg_spmv_fused.launches = 0
+seg_spmm.launches = {m: 0 for m in SEG_MODES}
+seg_spmm_fused.launches = 0

@@ -206,16 +206,15 @@ def test_default_target_is_cuda_and_never_runs_on_cpu():
 
 
 def test_later_slices_raise():
+    """Sharded targets, dynamic-sparsity updates and the corpus strategies
+    are later slices (the multi-RHS path is ported: tests/test_torch_spmm.py)."""
     m = _port(banded_matrix(64, 2, seed=0))
     plan = repro_torch.compile(m, repro_torch.Target(backend="torch"),
                                graph=_port_graph(FAMILIES["ell"]))
-    with pytest.raises(NotImplementedError):
-        plan(np.zeros((m.n_cols, 2), np.float32))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        plan.update(None)
     with pytest.raises(NotImplementedError):
         repro_torch.Target(backend="torch", mesh=object())
-    with pytest.raises(NotImplementedError):
-        repro_torch.compile(m, repro_torch.Target(backend="torch",
-                                                  batch_size=4), budget=5)
     for name in ("learned", "portfolio"):
         with pytest.raises(NotImplementedError):
             repro_torch.compile(m, repro_torch.Target(backend="torch"),

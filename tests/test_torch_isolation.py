@@ -1,5 +1,7 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither jax nor the reference package ``repro``."""
+neither jax nor the reference package ``repro``, and a fresh process
+compiles and serves a request on the ``torch`` backend without loading
+either."""
 import ast
 import subprocess
 import sys
@@ -52,6 +54,12 @@ x = np.random.default_rng(0).standard_normal(m.n_cols).astype(np.float32)
 y = plan(x).numpy()
 o = m.spmv_dense_oracle(x)
 assert np.abs(y - o).max() <= 1e-4 * np.abs(o).max()
+import repro_torch.ft
+from repro_torch.serve import MatvecRequest, PlanExecutor, SpmvEngine
+eng = SpmvEngine(PlanExecutor(plan, m), ft=repro_torch.ft.FaultToleranceManager())
+req = MatvecRequest(0, x)
+assert eng.run([req])["failed"] == 0 and req.status == "ok"
+assert np.abs(req.y - o).max() <= 1e-4 * np.abs(o).max()
 leaked = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
