@@ -13,8 +13,12 @@ each printing its seconds:
 1. device: the card's name and power limit, the kernels' nvcc build;
 2. SpMV kernels on small odd shapes (T not a multiple of tiles_per_step,
    tiles_per_step in {1, 3, 8}, every storage type) against the plain
-   versions; 2b. the same for the SpMM kernels at B in {1, 3, 8, 17},
-   plus one seg tile of C = 8192 slots at B = 8;
+   versions, with K1/K2 at W in {1, 9, 31, 32, 33, 400, 1000} (the slab
+   and split-row mappings; row counts not multiples of 32) and columns
+   outside [0, n_cols); 2b. the same for the SpMM kernels at B in
+   {1, 3, 8, 17, 40}, K7-K9 at those widths, at 5120 rows and at one
+   serving tile (T = 1, R = 128, W = 397, B = 8), plus one seg tile of
+   C = 8192 slots at B = 8;
 3. a searched compile of ``banded_matrix(2**21, 4)`` (18.87 M nnz) on the
    default Target, checked against the float64 oracle, plus a save/load
    round trip;
@@ -29,7 +33,9 @@ each printing its seconds:
    (``torch.sparse_csr_tensor @ x``, never used by the port), and its
    bound (bytes each input read once and each output written once over
    3.35 TB/s, or 2 flops per stored slot over 67 TFLOP/s fp32, the
-   larger);
+   larger). ``ms`` is what a caller sees (events around the call, host
+   time included); ``device_ms`` (and ``library_device_ms``) times the
+   card alone, with the host's enqueueing hidden behind a sleep kernel;
 6. the serving path at full width: Qwen3-8B's FFN up-projection
    (d_ff x d_model = 12288 x 4096) magnitude-pruned to density 0.08
    (4,026,531 nnz), a searched ``Target(batch_size=8)`` compile through a
@@ -43,6 +49,10 @@ each printing its seconds:
    fused K11), each checked against the oracle;
 8. SpMM kernel report at the phase-7 operands, as phase 5, with the
    cuSPARSE SpMM yardstick ``torch.sparse_csr_tensor @ X``, X (n_cols, 8).
+   The K7 row adds the host time of one wrapper call (``host_us_per_call``:
+   the 26 calls of the ELL plan on the host clock, before any
+   synchronise, over 26) and the device time of one single-tile launch
+   (``one_tile_ms``).
 
 Phases 3-4 and phases 6-7 are the two paths: the launch counters are set
 to 0 before each and read after it, and each of its kernels must have
@@ -165,6 +175,33 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median time of ``fn`` on the card alone, in ms: a sleep kernel keeps
+    the card busy while the host enqueues ``fn``, so the events bracket
+    only the card's work. A sample counts only if the host finished
+    enqueueing before the card reached the first event; otherwise the
+    sleep is doubled."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles, times = 1 << 22, []
+    while len(times) < reps:
+        require(cycles < 1 << 34, "device_ms: the host never got ahead")
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        fn()
+        b.record()
+        ahead = not a.query()
+        b.synchronize()
+        if ahead:
+            times.append(a.elapsed_time(b))
+        else:
+            cycles *= 2
+    return statistics.median(times)
+
+
 # ------------------------------- phase 1 ----------------------------------
 
 def device_phase():
@@ -200,6 +237,32 @@ def seg_case(rng, t, s, l, m):
         seg_end[ti] = np.where(starts < c, starts, c)
     return (torch.from_numpy(local.astype(np.int32).reshape(t, s, l)),
             torch.from_numpy(seg_end))
+
+
+# (T, R, W) of the width sweep: K1/K2 take the 32-row slab kernel up to
+# W = 32 and split rows over warps above it; 72 and 5 rows are not
+# multiples of the slab's 32 rows. K7-K9 split a row over 1, 2, 4 or 8
+# warps by row count, W and B (8 at one serving tile at B = 8).
+ELL_WIDTHS = [(3, 24, 1), (3, 24, 9), (3, 24, 31), (3, 24, 32), (3, 24, 33),
+              (1, 24, 400), (1, 5, 1000)]
+ONE_TILE = (1, 128, 397)         # a single-tile bucket of the serving plan
+
+
+def ell_case(rng, shape, n_cols, vd, cd):
+    v = torch.from_numpy(rng.standard_normal(shape)).to(vd)
+    c = torch.from_numpy(rng.integers(0, n_cols, shape)).to(cd)
+    return v, c
+
+
+def out_of_range(rng, v, c, n_cols):
+    """``c`` with about a tenth of its slots (and the first) outside
+    [0, n_cols), and the plain versions' operands for the same sums: those
+    slots at column 0 with value 0."""
+    bad = torch.from_numpy(rng.random(tuple(c.shape)) < 0.1)
+    bad.view(-1)[0] = True
+    far = c.masked_fill(bad, n_cols + 7)
+    far.view(-1)[0] = -1
+    return far, v.masked_fill(bad, 0), c.masked_fill(bad, 0)
 
 
 def small_kernels_phase():
@@ -240,6 +303,19 @@ def small_kernels_phase():
                     n_rows=1000, mode=mode, tiles_per_step=k),
                     ref.seg_spmv_fused_ref(v, c, local, end, r0, x, M,
                                            n_rows=1000, mode=mode))
+        for shape in ELL_WIDTHS:
+            v, c = ell_case(rng, shape, n_cols, vd, cd)
+            check_kernel(f"K1 {tag} {shape}", ops.ell_spmv(g(v), g(c), g(x)),
+                         ref.ell_spmv_ref(v, c, x))
+            check_kernel(f"K2 {tag} {shape}",
+                         ops.ell_spmv_direct(g(v), g(c), g(x)),
+                         ref.ell_spmv_direct_ref(v, c, x))
+        for shape in ((3, 24, 9), (1, 24, 400)):
+            v, c = ell_case(rng, shape, n_cols, vd, cd)
+            far, v0, c0 = out_of_range(rng, v, c, n_cols)
+            check_kernel(f"K1 {tag} {shape} columns out of range",
+                         ops.ell_spmv(g(v), g(far), g(x)),
+                         ref.ell_spmv_ref(v0, c0, x))
     torch.cuda.synchronize()
     done()
 
@@ -252,7 +328,7 @@ def small_spmm_phase():
     n_cols = 5000
     g = lambda t: t.to(dev)
     for (vd, cd, xd), b in [(st, b) for st in STORAGES
-                            for b in (1, 3, 8, 17)]:
+                            for b in (1, 3, 8, 17, 40)]:
         tag = f"{str(vd)[6:]}/{str(cd)[6:]}/x:{str(xd)[6:]} B={b}"
         x = torch.from_numpy(rng.standard_normal((n_cols, b))).to(xd)
         T, R, W = 7, 24, 37
@@ -283,6 +359,28 @@ def small_spmm_phase():
                     n_rows=1000, mode=mode, tiles_per_step=k),
                     ref.seg_spmm_fused_ref(v, c, local, end, r0, x, M,
                                            n_rows=1000, mode=mode))
+        shapes = ELL_WIDTHS + [ONE_TILE, (40, 128, 20)] if b == 8 else \
+            [(1, 24, 400), ONE_TILE]
+        for T, R, W in shapes:
+            v, c = ell_case(rng, (T, R, W), n_cols, vd, cd)
+            n_rows = 11 + T * R - R // 2        # cuts into the last tile
+            check_kernel(f"K7 {tag} {(T, R, W)}", ops.ell_spmm(
+                g(v), g(c), g(x)), ref.ell_spmm_ref(v, c, x))
+            check_kernel(f"K8 {tag} {(T, R, W)}", ops.ell_spmm_direct(
+                g(v), g(c), g(x)), ref.ell_spmm_direct_ref(v, c, x))
+            check_kernel(f"K9 {tag} {(T, R, W)} K=3", ops.ell_spmm_fused(
+                g(v), g(c), g(x), n_rows=n_rows, row0=11, tiles_per_step=3),
+                ref.ell_spmm_fused_ref(v, c, x, n_rows=n_rows, row0=11))
+        if b == 8:
+            v, c = ell_case(rng, ONE_TILE, n_cols, vd, cd)
+            far, v0, c0 = out_of_range(rng, v, c, n_cols)
+            check_kernel(f"K7 {tag} {ONE_TILE} columns out of range",
+                         ops.ell_spmm(g(v), g(far), g(x)),
+                         ref.ell_spmm_ref(v0, c0, x))
+            # x one element off the vector alignment: one column per lane
+            flat = g(torch.cat([x.new_zeros(1), x.reshape(-1)]))
+            check_kernel(f"K7 {tag} {ONE_TILE} unaligned x", ops.ell_spmm(
+                g(v), g(c), flat[1:].view(x.shape)), ref.ell_spmm_ref(v, c, x))
     # one tile of C = 8192 slots (LANE_NNZ_BLOCK's largest chunk) at B = 8:
     # a stored (C, B) scan would not fit a block's shared memory
     T, S, L, M = 3, 64, 128, 700
@@ -502,7 +600,10 @@ def report_phase(cases, launches, csr, xs, n_rows):
     done = phase("5 kernel report")
     library = {name: cuda_ms(lambda A=A, x=xs[name]: A @ x)
                for name, A in csr.items()}
-    print(f"  library (torch.sparse_csr_tensor @ x) ms: {library}")
+    library_dev = {name: device_ms(lambda A=A, x=xs[name]: A @ x)
+                   for name, A in csr.items()}
+    print(f"  library (torch.sparse_csr_tensor @ x) ms: {library}, on the "
+          f"card alone: {library_dev}")
     rows = []
     for kid, (v, c, run, plain, byt, flops, mat) in cases.items():
         name, source, replaces = KERNELS[kid]
@@ -514,6 +615,7 @@ def report_phase(cases, launches, csr, xs, n_rows):
                      run(v16, c16), plain(v16, c16))
         out = torch.zeros(n_rows[mat], device=v.device)
         ms = cuda_ms(lambda: run(v, c, out))
+        dev_ms = device_ms(lambda: run(v, c, out))
         plain_ms = cuda_ms(lambda: plain(v, c), reps=5)
         b_ms = byt(v, c) / HBM_BYTES_PER_S * 1e3
         f_ms = flops / FP32_FLOPS_PER_S * 1e3
@@ -524,12 +626,15 @@ def report_phase(cases, launches, csr, xs, n_rows):
                      "bound_ms": max(b_ms, f_ms),
                      "bound_by": "bytes" if b_ms >= f_ms else "operations",
                      "library_ms": library[mat],
+                     "device_ms": dev_ms,
+                     "library_device_ms": library_dev[mat],
                      "shape": list(v.shape), "matrix": mat,
                      "bytes": byt(v, c)})
-        print(f"  {kid}: {ms:.4f} ms, bound {max(b_ms, f_ms):.4f} ms "
-              f"({100 * max(b_ms, f_ms) / ms:.1f}% of bound), plain "
-              f"{plain_ms:.4f} ms, library {library[mat]:.4f} ms, "
-              f"launches {launches[kid]}")
+        print(f"  {kid}: {ms:.4f} ms ({dev_ms:.4f} on the card), bound "
+              f"{max(b_ms, f_ms):.4f} ms ({100 * max(b_ms, f_ms) / ms:.1f}% "
+              f"of bound), plain {plain_ms:.4f} ms, library "
+              f"{library[mat]:.4f} ms ({library_dev[mat]:.4f}), launches "
+              f"{launches[kid]}")
     torch.cuda.synchronize()
     done()
     return rows
@@ -817,11 +922,33 @@ def spmm_cases(progs, xd, n_rows):
             "K11": segk("SEG_SCAN_RED fused", "K11", "seg_scan")}
 
 
+def k7_host_and_one_tile(vals, cols, xd, reps: int = 10) -> dict:
+    """The K7 wrapper's host time per call (the plan's calls on the host
+    clock before any synchronise, over their number; median of ``reps``)
+    and one single-tile launch on the card alone."""
+    from repro_torch.kernels import ops
+    per_call = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for v, c in zip(vals, cols):
+            ops.ell_spmm(v, c, xd)
+        per_call.append((time.perf_counter() - t0) / len(vals) * 1e6)
+    torch.cuda.synchronize()
+    i = min(range(len(vals)), key=lambda k: vals[k].shape[0])
+    require(vals[i].shape[0] == 1, "the ELL plan has no single-tile step")
+    one = device_ms(lambda: ops.ell_spmm(vals[i], cols[i], xd))
+    return {"host_us_per_call": statistics.median(per_call),
+            "host_calls": len(vals), "one_tile_ms": one,
+            "one_tile_shape": list(vals[i].shape)}
+
+
 def spmm_report_phase(cases, launches, csr, xd, n_rows):
     done = phase("8 SpMM kernel report")
     library = cuda_ms(lambda: csr @ xd)
+    library_dev = device_ms(lambda: csr @ xd)
     print(f"  library (torch.sparse_csr_tensor @ X, X {tuple(xd.shape)}) "
-          f"ms: {library:.4f}")
+          f"ms: {library:.4f} ({library_dev:.4f} on the card alone)")
     rows = []
     for kid, case in cases.items():
         name, source, replaces = KERNELS[kid]
@@ -834,6 +961,7 @@ def spmm_report_phase(cases, launches, csr, xd, n_rows):
                      case["plain"](v16, c16))
         out = torch.zeros((n_rows, xd.shape[1]), device=xd.device)
         ms = cuda_ms(lambda: case["run"](vs, cs, out))
+        dev_ms = device_ms(lambda: case["run"](vs, cs, out))
         plain_ms = cuda_ms(lambda: case["plain"](vs, cs), reps=5)
         byt = case["bytes"](vs, cs)
         b_ms = byt / HBM_BYTES_PER_S * 1e3
@@ -844,13 +972,23 @@ def spmm_report_phase(cases, launches, csr, xd, n_rows):
                      "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": max(b_ms, f_ms),
                      "bound_by": "bytes" if b_ms >= f_ms else "operations",
-                     "library_ms": library, "shape": case["shape"],
+                     "library_ms": library, "device_ms": dev_ms,
+                     "library_device_ms": library_dev,
+                     "shape": case["shape"],
                      "matrix": "qwen3_8b_ffn_up_pruned_0.08",
                      "B": int(xd.shape[1]), "bytes": byt})
-        print(f"  {kid}: {ms:.4f} ms, bound {max(b_ms, f_ms):.4f} ms "
-              f"({100 * max(b_ms, f_ms) / ms:.1f}% of bound), plain "
-              f"{plain_ms:.4f} ms, library {library:.4f} ms, "
-              f"launches {launches[kid]}")
+        if kid == "K7":
+            rows[-1].update(k7_host_and_one_tile(vs, cs, xd))
+        print(f"  {kid}: {ms:.4f} ms ({dev_ms:.4f} on the card), bound "
+              f"{max(b_ms, f_ms):.4f} ms ({100 * max(b_ms, f_ms) / ms:.1f}% "
+              f"of bound), plain {plain_ms:.4f} ms, library {library:.4f} "
+              f"ms ({library_dev:.4f}), launches {launches[kid]}")
+        if kid == "K7":
+            print(f"  K7 host per wrapper call "
+                  f"{rows[-1]['host_us_per_call']:.1f} us over "
+                  f"{len(vs)} calls; one tile "
+                  f"{tuple(rows[-1]['one_tile_shape'])} "
+                  f"{rows[-1]['one_tile_ms']:.4f} ms on the card")
     torch.cuda.synchronize()
     done()
     return rows

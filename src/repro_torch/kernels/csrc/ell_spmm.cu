@@ -13,13 +13,25 @@
 // still far below the card's ~20 flops per byte at fp32. x (n_cols * B
 // values) is gathered row by row and re-read from L2, where it fits.
 //
-// Design: one warp per tile row (the TPU contracts a whole (R, W) tile
-// against the (W, B) gather on its matrix unit; rows are independent, so
-// the GPU maps warps to rows, which fills the card even when a bucket has
-// few tiles). The warp's lanes split into groups of bc lanes (spmm.cuh):
-// lane j of a group owns column c0 + j, the groups stride over the row's W
-// slots, and xor shuffles combine the groups. Columns beyond 32 are taken
-// in further chunks of 32.
+// Design. A serving bucket holds 1-5 tiles of ~380-slot rows, so a launch
+// has only 128-640 rows; with one warp walking a row in a chain of
+// dependent loads (cols, then the x gather, then one FMA) a launch would
+// last as long as that chain. Hence (spmm.cuh, split_rows):
+// - each group of lanes takes kUnroll = 4 slots per pass whose cols/vals
+//   loads are independent, so a lane has 4 loads, then 4 x loads, in
+//   flight (8 measured slower on the H100: more registers, fewer warps);
+//   cols/vals are loaded evict-first, so the gathered x stays in L1;
+// - when B is a multiple of 4 and x is aligned for it, a lane owns 4
+//   columns and reads them with one 16-byte (fp32) or 8-byte (bf16) load,
+//   so a slot at B = 8 takes a group of 2 lanes instead of 8; otherwise a
+//   lane owns one column (groups of bc lanes, bc the smallest power of two
+//   >= min(B, 32)). Any B works; wider B is taken in column chunks;
+// - one row is split over wpr warps of a block (1, 2, 4 or 8), which add
+//   their partial sums in shared memory; the host picks wpr from T*R and
+//   W so that a launch has about kFillWarps = 4096 warps while each warp
+//   keeps at least half a pass of the row. A single-tile bucket (128 rows,
+//   W ~ 400) at B = 8 runs 8 warps per row; the padded 96-tile launch
+//   (12288 rows) one.
 //
 // K9: the TPU kernel zeroes a resident output block at grid step 0 and
 // writes rows in sequential grid order. Blocks on the GPU run in parallel
@@ -36,40 +48,37 @@
 namespace {
 
 using spmm::kThreads;
-using spmm::kWarps;
+
+constexpr int kUnroll = 4;
 
 // fused = 0: out[row, b] for every tile row (the (T*R, B) slab);
-// fused = 1: y[row0 + row, b] += sum, masked at n_rows.
-template <typename V, typename C, typename X>
+// fused = 1: y[row0 + row, b] += sum, masked at n_rows. CPL columns per
+// lane (1 or 4), bc lanes per column group.
+template <int CPL, typename V, typename C, typename X>
 __global__ void __launch_bounds__(kThreads)
 ell_spmm_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
                 const X* __restrict__ x, int n_cols, int B, int bc,
                 float* __restrict__ out, long long T, int R, int W,
                 int fused, long long row0, long long n_rows,
-                int tiles_per_block) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane / bc, j = lane % bc, groups = 32 / bc;
+                int tiles_per_block, int wpr) {
   const long long t0 = (long long)blockIdx.x * tiles_per_block;
   const long long t1 = min(t0 + tiles_per_block, T);
-  const long long stride = (long long)gridDim.y * kWarps;
-  for (long long row = t0 * R + (long long)blockIdx.y * kWarps +
-                       (threadIdx.x >> 5);
-       row < t1 * R; row += stride) {  // warp-uniform
-    const long long base = row * W;
-    for (int c0 = 0; c0 < B; c0 += bc) {
-      const int b = c0 + j;
-      float acc = spmm::range_dot(vals, cols, x, n_cols, B, base, base + W,
-                                  b, g, groups);
-      acc = spmm::reduce_groups(acc, bc);
-      if (g != 0 || b >= B) continue;
-      if (fused) {
-        const long long yrow = row0 + row;
-        if (yrow < n_rows) out[yrow * B + b] += acc;
-      } else {
-        out[row * B + b] = acc;
-      }
-    }
-  }
+  spmm::split_rows<kUnroll, CPL>(vals, cols, x, n_cols, B, bc, W, wpr,
+                                 t0 * R, t1 * R,
+                                 spmm::RowSink{out, B, fused, row0, n_rows});
+}
+
+// One launch at CPL columns per lane (see the entry point below).
+template <int CPL>
+void launch(const void* vals, int vals_bf16, const void* cols, int cols_i16,
+            const void* x, int x_bf16, int n_cols, int B, int bc, float* out,
+            long long T, int R, int W, int fused, long long row0,
+            long long n_rows, int tiles_per_block, int wpr, dim3 grid,
+            cudaStream_t s) {
+  SPMV_DISPATCH(vals_bf16, cols_i16, x_bf16,
+                ell_spmm_kernel<CPL, V, C, X><<<grid, kThreads, 0, s>>>(
+                    (const V*)vals, (const C*)cols, (const X*)x, n_cols, B, bc,
+                    out, T, R, W, fused, row0, n_rows, tiles_per_block, wpr));
 }
 
 }  // namespace
@@ -81,12 +90,16 @@ extern "C" int ell_spmm(const void* vals, int vals_bf16, const void* cols,
                         int B, float* out, long long T, int R, int W,
                         int fused, long long row0, long long n_rows,
                         int tiles_per_block, void* stream) {
-  const int bc = spmm::col_chunk(B);
-  const dim3 grid = spmm::item_grid(T, R, tiles_per_block);
-  cudaStream_t s = (cudaStream_t)stream;
-  SPMV_DISPATCH(vals_bf16, cols_i16, x_bf16,
-                ell_spmm_kernel<V, C, X><<<grid, kThreads, 0, s>>>(
-                    (const V*)vals, (const C*)cols, (const X*)x, n_cols, B,
-                    bc, out, T, R, W, fused, row0, n_rows, tiles_per_block));
+  // four columns per lane when B and x's alignment allow one load for them
+  const size_t x_align = x_bf16 ? 8 : 16;
+  const int cpl = (B % 4 == 0 && (uintptr_t)x % x_align == 0) ? 4 : 1;
+  const int bc = spmm::col_chunk(B / cpl);
+  const int wpr = spmm::warps_per_row((long long)T * R, W, 32 / bc, kUnroll);
+  // blocks of kWarps / wpr rows: as many blocks as item_grid gives for
+  // R * wpr warp-sized items per tile
+  const dim3 grid = spmm::item_grid(T, R * wpr, tiles_per_block);
+  (cpl == 4 ? launch<4> : launch<1>)(
+      vals, vals_bf16, cols, cols_i16, x, x_bf16, n_cols, B, bc, out, T, R, W,
+      fused, row0, n_rows, tiles_per_block, wpr, grid, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,6 @@
-// Shared helpers of the multi-RHS (SpMM) kernels K7-K11.
+// Shared helpers of the multi-RHS (SpMM) kernels K7-K11, and of K1/K2's
+// ell_rows_wide_kernel (rows wider than 32 slots), which runs split_rows
+// with B = 1.
 //
 // x is row-major (n_cols, B): one gathered row x[col] is B contiguous
 // values. A warp works on one output row (ELL) or one segment (seg_scan)
@@ -8,7 +10,11 @@
 // one group read the same vals/cols element (a broadcast) and neighbouring
 // x values; the groups' sums are combined with xor shuffles. B = 1 gives
 // the 1-RHS layout (32 groups of one lane); B > 32 loops over chunks of 32
-// columns. All loads are scalar, so no B or element size needs alignment.
+// columns. range_dot (K10-K11) loads scalars, so no B or element size needs
+// alignment there. split_rows with CPL = 4 (K7-K9) does not: its load_cols
+// reads four columns with one 16-byte (fp32) or 8-byte (bf16) load, which
+// needs B % 4 == 0 and x aligned to that size; ell_spmm checks both on the
+// host and otherwise runs CPL = 1, one scalar load per column.
 #pragma once
 
 #include "common.cuh"
@@ -66,6 +72,169 @@ inline dim3 item_grid(long long T, int items_per_tile, int tiles_per_block) {
   if (gy > 65535) gy = 65535;  // the warps then stride over the rest
   if (gy < 1) gy = 1;
   return dim3((unsigned)gx, (unsigned)gy, 1);
+}
+
+// ---- Split-row ELL sums (K7-K9, and K1's rows wider than 32 slots) ----
+//
+// An ELL row is W contiguous slots. One row is split over `wpr` warps of a
+// block (a power of two <= kWarps): warp k of the row takes slots
+// [k*W/wpr, (k+1)*W/wpr), walks them with range_dot_cols, and the row's
+// wpr partial sums are added in shared memory, in warp order. A block thus
+// covers kWarps / wpr rows at a time. warps_per_row picks wpr on the host
+// so that a launch of few rows (a serving bucket of one tile is 128 rows)
+// still has some thousands of warps in flight.
+//
+// A lane owns CPL consecutive columns of x: CPL = 1 is the layout above
+// (bc lanes per group); with CPL = 4 (B a multiple of 4 and x aligned for
+// it) one 16-byte (fp32) or 8-byte (bf16) load brings a lane its four x
+// values, so a slot at B = 8 takes 2 lanes instead of 8: four times fewer
+// instructions for the same bytes.
+
+constexpr int kFillWarps = 4096;  // warps a launch should keep in flight
+
+// x[p], x[p + 1], ..., CPL values upcast to float (zeros when !in)
+template <int CPL>
+__device__ __forceinline__ void load_cols(const float* __restrict__ p,
+                                          bool in, float (&xv)[CPL]) {
+  if constexpr (CPL == 4) {
+    const float4 q = in ? *reinterpret_cast<const float4*>(p)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+    xv[0] = q.x, xv[1] = q.y, xv[2] = q.z, xv[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) xv[k] = in ? p[k] : 0.f;
+  }
+}
+template <int CPL>
+__device__ __forceinline__ void load_cols(const __nv_bfloat16* __restrict__ p,
+                                          bool in, float (&xv)[CPL]) {
+  if constexpr (CPL == 4) {
+    // four bf16 in 8 bytes; a bf16 is the top half of its float
+    const uint2 q = in ? *reinterpret_cast<const uint2*>(p) : make_uint2(0, 0);
+    xv[0] = __uint_as_float(q.x << 16);
+    xv[1] = __uint_as_float(q.x & 0xffff0000u);
+    xv[2] = __uint_as_float(q.y << 16);
+    xv[3] = __uint_as_float(q.y & 0xffff0000u);
+  } else {
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) xv[k] = in ? __bfloat162float(p[k]) : 0.f;
+  }
+}
+
+// This lane's share of sum_{i in [lo, hi)} vals[i] * x[cols[i], b + k] for
+// k < CPL, over slots i = lo + g, lo + g + groups, ..., U of them per pass
+// and independent of each other: the U cols/vals loads issue first, then
+// the U x loads, then the FMAs, so a lane has U loads in flight instead of
+// one chain of dependent loads. cols and vals, read once, are loaded
+// evict-first (__ldcs) so that they do not push the gathered x out of
+// L1. A column outside [0, n_cols) and a column b >= B contribute 0 (with
+// CPL = 4, B is a multiple of 4).
+template <int U, int CPL, typename V, typename C, typename X>
+__device__ __forceinline__ void range_dot_cols(
+    const V* __restrict__ vals, const C* __restrict__ cols,
+    const X* __restrict__ x, int n_cols, int B, long long lo, long long hi,
+    int b, int g, int groups, float (&acc)[CPL]) {
+#pragma unroll
+  for (int k = 0; k < CPL; ++k) acc[k] = 0.f;
+  if (b >= B) return;
+  for (long long i0 = lo + g; i0 < hi; i0 += (long long)groups * U) {
+    int col[U];
+    float v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long i = i0 + (long long)u * groups;
+      col[u] = i < hi ? to_i32(__ldcs(cols + i)) : -1;
+      v[u] = i < hi ? to_f32(__ldcs(vals + i)) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool in = (unsigned)col[u] < (unsigned)n_cols;
+      float xv[CPL];
+      load_cols<CPL>(x + (long long)(in ? col[u] : 0) * B + b, in, xv);
+#pragma unroll
+      for (int k = 0; k < CPL; ++k) acc[k] += v[u] * xv[k];
+    }
+  }
+}
+
+// Warps per row: doubled from 1 while the launch has fewer than kFillWarps
+// warps and each warp still gets at least half a pass (groups * U / 2
+// slots) of the row.
+inline int warps_per_row(long long rows, long long W, int groups, int U) {
+  int wpr = 1;
+  while (wpr < kWarps && rows * wpr < kFillWarps &&
+         W >= (long long)wpr * groups * U) {
+    wpr <<= 1;
+  }
+  return wpr;
+}
+
+// Where a row's B sums go: out[row, b] = sum (the (rows, B) slab), or, when
+// fused, y[row0 + row, b] += sum, masked at n_rows.
+struct RowSink {
+  float* out;
+  int B;
+  int fused;
+  long long row0, n_rows;
+  __device__ __forceinline__ void operator()(long long row, int b,
+                                             float sum) const {
+    if (!fused) {
+      out[row * B + b] = sum;
+      return;
+    }
+    const long long yrow = row0 + row;
+    if (yrow < n_rows) out[yrow * B + b] += sum;
+  }
+};
+
+// Rows [r_begin, r_end) of this grid column, kWarps / wpr rows per block
+// and pass, the passes strided over the grid's y axis; bc lanes per group,
+// each owning CPL columns, so a column chunk is bc * CPL columns. Every
+// thread of the block runs the same passes and column chunks, so the
+// __syncthreads are reached by all of them.
+template <int U, int CPL, typename V, typename C, typename X>
+__device__ __forceinline__ void split_rows(
+    const V* __restrict__ vals, const C* __restrict__ cols,
+    const X* __restrict__ x, int n_cols, int B, int bc, long long W, int wpr,
+    long long r_begin, long long r_end, RowSink sink) {
+  __shared__ float part[kWarps][32 * CPL];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane / bc, j = lane % bc, groups = 32 / bc;
+  const int rows_per_pass = kWarps / wpr, sub = warp % wpr;
+  for (long long r = r_begin + (long long)blockIdx.y * rows_per_pass;
+       r < r_end; r += (long long)gridDim.y * rows_per_pass) {
+    const long long row = r + warp / wpr;
+    const bool live = row < r_end;
+    const long long lo = row * W + W * sub / wpr;
+    const long long hi = row * W + W * (sub + 1) / wpr;
+    for (int c0 = 0; c0 < B; c0 += bc * CPL) {
+      const int b = c0 + j * CPL;
+      float acc[CPL];
+      range_dot_cols<U, CPL>(vals, cols, x, n_cols, B, lo, live ? hi : lo,
+                             b, g, groups, acc);
+#pragma unroll
+      for (int k = 0; k < CPL; ++k) acc[k] = reduce_groups(acc[k], bc);
+      const bool mine = g == 0 && live && b < B;
+      if (wpr > 1) {  // grid-uniform
+        if (g == 0) {
+#pragma unroll
+          for (int k = 0; k < CPL; ++k) part[warp][j * CPL + k] = acc[k];
+        }
+        __syncthreads();
+        if (sub == 0 && mine) {
+          for (int w = 1; w < wpr; ++w) {
+#pragma unroll
+            for (int k = 0; k < CPL; ++k) acc[k] += part[warp + w][j * CPL + k];
+          }
+        }
+        __syncthreads();
+      }
+      if (mine && sub == 0) {
+#pragma unroll
+        for (int k = 0; k < CPL; ++k) sink(row, b + k, acc[k]);
+      }
+    }
+  }
 }
 
 }  // namespace spmm

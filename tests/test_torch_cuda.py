@@ -53,21 +53,69 @@ def _seg_case(rng, t, s, l, m):
             torch.from_numpy(seg_end))
 
 
+# (T, R, W): K1/K2 take the 32-row slab kernel up to W = 32 and split rows
+# over warps above it; 72 and 5 rows are not multiples of the slab's 32
+ELL_SHAPES = [(11, 16, 45), (3, 24, 1), (3, 24, 9), (3, 24, 31), (3, 24, 32),
+              (3, 24, 33), (1, 24, 400), (1, 5, 1000), (300, 128, 3)]
+
+
+@pytest.mark.parametrize("t,r,w", ELL_SHAPES)
 @pytest.mark.parametrize("vd", VALS)
 @pytest.mark.parametrize("cd", COLS)
-def test_ell_kernels_match_plain(dev, vd, cd):
-    rng = np.random.default_rng(0)
+def test_ell_kernels_match_plain(dev, vd, cd, t, r, w):
+    rng = np.random.default_rng(t * 1000 + w)
     n_cols = 3000
-    T, R, W = 11, 16, 45
-    vals = torch.from_numpy(rng.standard_normal((T, R, W))).to(vd)
-    cols = torch.from_numpy(rng.integers(0, n_cols, (T, R, W))).to(cd)
+    vals = torch.from_numpy(rng.standard_normal((t, r, w))).to(vd)
+    cols = torch.from_numpy(rng.integers(0, n_cols, (t, r, w))).to(cd)
     x = torch.from_numpy(rng.standard_normal(n_cols).astype(np.float32))
-    g = [t.to(dev) for t in (vals, cols, x)]
+    g = [z.to(dev) for z in (vals, cols, x)]
     _close(ops.ell_spmv(*g), ref.ell_spmv_ref(vals, cols, x))
     _close(ops.ell_spmv_direct(*g), ref.ell_spmv_direct_ref(vals, cols, x))
     for k in (1, 3, 8):
         _close(ops.ell_spmv_fused(*g, n_rows=170, row0=7, tiles_per_step=k),
                ref.ell_spmv_fused_ref(vals, cols, x, n_rows=170, row0=7))
+    torch.cuda.synchronize()
+
+
+def _out_of_range(rng, cols, n_cols, vals):
+    """``cols`` with about a tenth of its slots (and the first) moved outside
+    [0, n_cols), and the plain versions' inputs for the same sums: those
+    slots at column 0 with value 0."""
+    bad = torch.from_numpy(rng.random(tuple(cols.shape)) < 0.1)
+    bad.view(-1)[0] = True
+    got = cols.masked_fill(bad, n_cols + 7)
+    got.view(-1)[0] = -1
+    return got, cols.masked_fill(bad, 0), vals.masked_fill(bad, 0)
+
+
+@pytest.mark.parametrize("t,r,w", [(3, 24, 9), (1, 24, 400)])
+@pytest.mark.parametrize("vd,cd,xd", [
+    (torch.float32, torch.int32, torch.float32),
+    (torch.bfloat16, torch.int16, torch.bfloat16)])
+def test_ell_kernels_skip_out_of_range_columns(dev, t, r, w, vd, cd, xd):
+    """A column outside [0, n_cols) contributes 0 in K1, K2, K5 and
+    K7-K9, on the slab and the split-row mappings alike."""
+    rng = np.random.default_rng(w)
+    n_cols = 2000
+    vals = torch.from_numpy(rng.standard_normal((t, r, w))).to(vd)
+    cols = torch.from_numpy(rng.integers(0, n_cols, (t, r, w))).to(cd)
+    cols, ok_cols, ok_vals = _out_of_range(rng, cols, n_cols, vals)
+    x1 = torch.from_numpy(rng.standard_normal(n_cols)).to(xd)
+    x8 = torch.from_numpy(rng.standard_normal((n_cols, 8))).to(xd)
+    v, c = vals.to(dev), cols.to(dev)
+    _close(ops.ell_spmv(v, c, x1.to(dev)),
+           ref.ell_spmv_ref(ok_vals, ok_cols, x1))
+    _close(ops.ell_spmv_direct(v, c, x1.to(dev)),
+           ref.ell_spmv_direct_ref(ok_vals, ok_cols, x1))
+    _close(ops.ell_spmv_fused(v, c, x1.to(dev), n_rows=t * r),
+           ref.ell_spmv_fused_ref(ok_vals, ok_cols, x1, n_rows=t * r))
+    _close(ops.ell_spmm(v, c, x8.to(dev)),
+           ref.ell_spmm_ref(ok_vals, ok_cols, x8))
+    _close(ops.ell_spmm_direct(v, c, x8.to(dev)),
+           ref.ell_spmm_direct_ref(ok_vals, ok_cols, x8))
+    _close(ops.ell_spmm_fused(v, c, x8.to(dev), n_rows=t * r,
+                              tiles_per_step=3),
+           ref.ell_spmm_fused_ref(ok_vals, ok_cols, x8, n_rows=t * r))
     torch.cuda.synchronize()
 
 
@@ -120,23 +168,53 @@ STORAGE = [(torch.float32, torch.int32, torch.float32),
            (torch.bfloat16, torch.int16, torch.bfloat16)]
 
 
+# (T, R, W): warps per row 1 (W = 9, 33, 37; 5120 rows) up to 8 (W = 400
+# and 1000 at few rows); the serving bucket of one tile, W = 397
+ELL_SPMM_SHAPES = [(7, 24, 37), (3, 24, 9), (3, 24, 33), (1, 128, 397),
+                   (2, 16, 400), (1, 5, 1000), (40, 128, 20)]
+
+
+@pytest.mark.parametrize("t,r,w", ELL_SPMM_SHAPES)
 @pytest.mark.parametrize("b", [1, 3, 8, 17, 40])
 @pytest.mark.parametrize("vd,cd,xd", STORAGE)
-def test_ell_spmm_kernels_match_plain(dev, b, vd, cd, xd):
-    """K7, K8 and K9 (T = 7 not a multiple of tiles_per_step 3 or 8; n_rows
+def test_ell_spmm_kernels_match_plain(dev, b, vd, cd, xd, t, r, w):
+    """K7, K8 and K9 (T not a multiple of tiles_per_step 3 or 8; n_rows
     cuts into the last tile; B above the 32-column chunk)."""
-    rng = np.random.default_rng(b)
+    rng = np.random.default_rng(b * 1000 + w)
     n_cols = 3000
-    T, R, W = 7, 24, 37
-    vals = torch.from_numpy(rng.standard_normal((T, R, W))).to(vd)
-    cols = torch.from_numpy(rng.integers(0, n_cols, (T, R, W))).to(cd)
+    vals = torch.from_numpy(rng.standard_normal((t, r, w))).to(vd)
+    cols = torch.from_numpy(rng.integers(0, n_cols, (t, r, w))).to(cd)
     x = torch.from_numpy(rng.standard_normal((n_cols, b))).to(xd)
-    g = [t.to(dev) for t in (vals, cols, x)]
+    g = [z.to(dev) for z in (vals, cols, x)]
     _close(ops.ell_spmm(*g), ref.ell_spmm_ref(vals, cols, x))
     _close(ops.ell_spmm_direct(*g), ref.ell_spmm_direct_ref(vals, cols, x))
+    n_rows = 11 + t * r - r // 2
     for k in (1, 3, 8):
-        _close(ops.ell_spmm_fused(*g, n_rows=150, row0=11, tiles_per_step=k),
-               ref.ell_spmm_fused_ref(vals, cols, x, n_rows=150, row0=11))
+        _close(ops.ell_spmm_fused(*g, n_rows=n_rows, row0=11,
+                                  tiles_per_step=k),
+               ref.ell_spmm_fused_ref(vals, cols, x, n_rows=n_rows, row0=11))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("b", [4, 8, 40])
+@pytest.mark.parametrize("vd,cd,xd", STORAGE)
+def test_ell_spmm_unaligned_x(dev, b, vd, cd, xd):
+    """B a multiple of 4 but x one element off the 16-byte (8-byte for
+    bf16) alignment: K7-K9 take one column per lane instead of four."""
+    rng = np.random.default_rng(b)
+    n_cols = 1000
+    vals = torch.from_numpy(rng.standard_normal((3, 16, 45))).to(vd)
+    cols = torch.from_numpy(rng.integers(0, n_cols, (3, 16, 45))).to(cd)
+    x = torch.from_numpy(rng.standard_normal((n_cols, b))).to(xd)
+    flat = torch.empty(x.numel() + 1, dtype=xd, device=dev)
+    flat[1:] = x.reshape(-1).to(dev)
+    xs = flat[1:].view(n_cols, b)
+    v, c = vals.to(dev), cols.to(dev)
+    _close(ops.ell_spmm(v, c, xs), ref.ell_spmm_ref(vals, cols, x))
+    _close(ops.ell_spmm_direct(v, c, xs),
+           ref.ell_spmm_direct_ref(vals, cols, x))
+    _close(ops.ell_spmm_fused(v, c, xs, n_rows=40, row0=2, tiles_per_step=3),
+           ref.ell_spmm_fused_ref(vals, cols, x, n_rows=40, row0=2))
     torch.cuda.synchronize()
 
 

@@ -67,7 +67,8 @@ def _rand_seg(rng, t, s, l, m, n_cols):
 
 @pytest.mark.parametrize("storage", sorted(STORAGE))
 @pytest.mark.parametrize("t,r,w", [(1, 8, 4), (3, 8, 16), (5, 16, 1),
-                                   (2, 32, 33), (7, 8, 128)])
+                                   (2, 32, 33), (7, 8, 128), (2, 64, 9),
+                                   (1, 128, 1), (3, 8, 33)])
 def test_ell_plain_versions_match_pallas(t, r, w, storage):
     """K1, K2 and K5 (row0 > 0, n_rows cutting the last tile, K in 1, 3)."""
     rng = np.random.default_rng(t * 100 + r + w)

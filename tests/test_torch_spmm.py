@@ -86,7 +86,8 @@ def _rand_seg(rng, t, s, l, m, n_cols):
 
 @pytest.mark.parametrize("storage", sorted(STORAGE))
 @pytest.mark.parametrize("b", BATCHES)
-@pytest.mark.parametrize("t,r,w", [(3, 8, 16), (4, 16, 5), (2, 32, 33)])
+@pytest.mark.parametrize("t,r,w", [(3, 8, 16), (4, 16, 5), (2, 32, 33),
+                                   (1, 16, 397), (2, 8, 400)])
 def test_ell_spmm_plain_versions_match_pallas(t, r, w, b, storage):
     """K7, K8 and K9 (row0 > 0, n_rows cutting the last tile, K in 1, 3)."""
     rng = np.random.default_rng(t * 100 + r + w + b)
