@@ -13,12 +13,14 @@ each printing its seconds:
 1. device: the card's name and power limit, the kernels' nvcc build;
 2. SpMV kernels on small odd shapes (T not a multiple of tiles_per_step,
    tiles_per_step in {1, 3, 8}, every storage type) against the plain
-   versions, with K1/K2 at W in {1, 9, 31, 32, 33, 400, 1000} (the slab
-   and split-row mappings; row counts not multiples of 32) and columns
-   outside [0, n_cols); 2b. the same for the SpMM kernels at B in
-   {1, 3, 8, 17, 40}, K7-K9 at those widths, at 5120 rows and at one
-   serving tile (T = 1, R = 128, W = 397, B = 8), plus one seg tile of
-   C = 8192 slots at B = 8;
+   versions, with K1/K2/K5 at W in {1, 9, 31, 32, 33, 400, 1000} (the
+   slab and split-row mappings; row counts not multiples of 32; K5 from
+   row 11 into a prefilled y, n_rows cutting a slab), K4/K6 in one-hot
+   mode on unsorted local rows with some outside [0, M) (C = 1536 and
+   21), and columns outside [0, n_cols); 2b. the same for the SpMM
+   kernels at B in {1, 3, 8, 17, 40}, K7-K9 at those widths, at 5120
+   rows and at one serving tile (T = 1, R = 128, W = 397, B = 8), plus
+   one seg tile of C = 8192 slots at B = 8;
 3. a searched compile of ``banded_matrix(2**21, 4)`` (18.87 M nnz) on the
    default Target, checked against the float64 oracle, plus a save/load
    round trip;
@@ -35,7 +37,9 @@ each printing its seconds:
    3.35 TB/s, or 2 flops per stored slot over 67 TFLOP/s fp32, the
    larger). ``ms`` is what a caller sees (events around the call, host
    time included); ``device_ms`` (and ``library_device_ms``) times the
-   card alone, with the host's enqueueing hidden behind a sleep kernel;
+   card alone, with the host's enqueueing hidden behind a sleep kernel.
+   K6 in one-hot mode (the fused ONEHOT_MXU_RED plan) is timed the same
+   way and printed on a line of its own (``K6[onehot_mxu] {...}``);
 6. the serving path at full width: Qwen3-8B's FFN up-projection
    (d_ff x d_model = 12288 x 4096) magnitude-pruned to density 0.08
    (4,026,531 nnz), a searched ``Target(batch_size=8)`` compile through a
@@ -108,6 +112,7 @@ KERNELS = {
             "src/repro/kernels/seg_spmv.py:319"),
 }
 SPMV_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
+ONEHOT_K6 = "K6[onehot_mxu]"     # reported apart from the twelve rows
 SPMM_KERNELS = ("K7", "K8", "K9", "K10a", "K10b", "K11")
 SERVE_B = 8                      # the serving plan's searched batch size
 STORAGES = [(torch.float32, torch.int32, torch.float32),
@@ -227,6 +232,16 @@ def device_phase():
 
 # ------------------------------- phase 2 ----------------------------------
 
+def onehot_rows(rng, t, c, m):
+    """(t, c) int32 local rows in no order, about a fifth of them outside
+    [0, m) (-1, m, m + 100, which add nothing): the one-hot kernels must
+    sum these as the one-hot matrix does."""
+    local = rng.integers(0, m, (t, c))
+    bad = rng.random((t, c)) < 0.2
+    local[bad] = rng.choice([-1, m, m + 100], int(bad.sum()))
+    return torch.from_numpy(local.astype(np.int32))
+
+
 def seg_case(rng, t, s, l, m):
     c = s * l
     local = np.sort(rng.integers(0, m, (t, c)), axis=1)
@@ -303,6 +318,22 @@ def small_kernels_phase():
                     n_rows=1000, mode=mode, tiles_per_step=k),
                     ref.seg_spmv_fused_ref(v, c, local, end, r0, x, M,
                                            n_rows=1000, mode=mode))
+        for T, S, L, M in ((7, 12, 128, 200), (5, 3, 7, 5)):
+            local = onehot_rows(rng, T, S * L, M).reshape(T, S, L)
+            end = torch.zeros((T, M), dtype=torch.int32)  # one-hot: unread
+            v = torch.from_numpy(rng.standard_normal((T, S, L))).to(vd)
+            c = torch.from_numpy(rng.integers(0, n_cols, (T, S, L))).to(cd)
+            r0 = torch.from_numpy((np.arange(T) * 150).astype(np.int32))
+            what = f"{tag} C={S * L} unsorted, rows out of range"
+            check_kernel(f"K4 {what}", ops.seg_spmv(
+                g(v), g(c), g(local), g(end), g(x), M, mode="onehot_mxu"),
+                ref.seg_spmv_ref(v, c, local, end, x, M, "onehot_mxu"))
+            for k in (1, 3, 8):
+                check_kernel(f"{ONEHOT_K6} {what} K={k}", ops.seg_spmv_fused(
+                    g(v), g(c), g(local), g(end), g(r0), g(x), M,
+                    n_rows=1000, mode="onehot_mxu", tiles_per_step=k),
+                    ref.seg_spmv_fused_ref(v, c, local, end, r0, x, M,
+                                           n_rows=1000, mode="onehot_mxu"))
         for shape in ELL_WIDTHS:
             v, c = ell_case(rng, shape, n_cols, vd, cd)
             check_kernel(f"K1 {tag} {shape}", ops.ell_spmv(g(v), g(c), g(x)),
@@ -310,6 +341,14 @@ def small_kernels_phase():
             check_kernel(f"K2 {tag} {shape}",
                          ops.ell_spmv_direct(g(v), g(c), g(x)),
                          ref.ell_spmv_direct_ref(v, c, x))
+            # K5 adds into a prefilled y from row 11; n_rows cuts a slab
+            rows = shape[0] * shape[1]
+            n_rows = 11 + rows - min(13, rows // 2)
+            y0 = torch.from_numpy(rng.standard_normal(n_rows)).float()
+            check_kernel(f"K5 {tag} {shape} K=3", ops.ell_spmv_fused(
+                g(v), g(c), g(x), n_rows=n_rows, row0=11, tiles_per_step=3,
+                out=g(y0.clone())), ref.ell_spmv_fused_ref(
+                    v, c, x, n_rows=n_rows, row0=11, out=y0.clone()))
         for shape in ((3, 24, 9), (1, 24, 400)):
             v, c = ell_case(rng, shape, n_cols, vd, cd)
             far, v0, c0 = out_of_range(rng, v, c, n_cols)
@@ -584,7 +623,8 @@ def kernel_cases(banded, seg, xb, xp, n_b, n_p):
             "K3": segk("SEG_SCAN_RED unfused", "K3", "seg_scan"),
             "K4": segk("ONEHOT_MXU_RED unfused", "K4", "onehot_mxu"),
             "K5": ell("K5 fused K=1", "K5"),
-            "K6": segk("SEG_SCAN_RED fused", "K6", "seg_scan")}
+            "K6": segk("SEG_SCAN_RED fused", "K6", "seg_scan"),
+            ONEHOT_K6: segk("ONEHOT_MXU_RED fused", "K6", "onehot_mxu")}
 
 
 def csr_on_device(m):
@@ -606,7 +646,7 @@ def report_phase(cases, launches, csr, xs, n_rows):
           f"card alone: {library_dev}")
     rows = []
     for kid, (v, c, run, plain, byt, flops, mat) in cases.items():
-        name, source, replaces = KERNELS[kid]
+        name, source, replaces = KERNELS[kid[:2]]
         err = check_kernel(f"{kid} {name} fp32 {tuple(v.shape)}",
                            run(v, c), plain(v, c))
         v16 = v.to(torch.bfloat16)
@@ -619,22 +659,26 @@ def report_phase(cases, launches, csr, xs, n_rows):
         plain_ms = cuda_ms(lambda: plain(v, c), reps=5)
         b_ms = byt(v, c) / HBM_BYTES_PER_S * 1e3
         f_ms = flops / FP32_FLOPS_PER_S * 1e3
-        rows.append({"name": f"{kid} {name}", "route": "cuda",
-                     "source": source, "replaces": replaces,
-                     "launches": launches[kid], "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": max(b_ms, f_ms),
-                     "bound_by": "bytes" if b_ms >= f_ms else "operations",
-                     "library_ms": library[mat],
-                     "device_ms": dev_ms,
-                     "library_device_ms": library_dev[mat],
-                     "shape": list(v.shape), "matrix": mat,
-                     "bytes": byt(v, c)})
+        row = {"name": f"{kid} {name}", "route": "cuda",
+               "source": source, "replaces": replaces,
+               "launches": launches[kid[:2]], "max_abs_err": err,
+               "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(b_ms, f_ms),
+               "bound_by": "bytes" if b_ms >= f_ms else "operations",
+               "library_ms": library[mat],
+               "device_ms": dev_ms,
+               "library_device_ms": library_dev[mat],
+               "shape": list(v.shape), "matrix": mat,
+               "bytes": byt(v, c)}
+        if kid == ONEHOT_K6:     # not one of the twelve rows: a line apart
+            print(f"{ONEHOT_K6} {json.dumps(row)}")
+        else:
+            rows.append(row)
         print(f"  {kid}: {ms:.4f} ms ({dev_ms:.4f} on the card), bound "
               f"{max(b_ms, f_ms):.4f} ms ({100 * max(b_ms, f_ms) / ms:.1f}% "
               f"of bound), plain {plain_ms:.4f} ms, library "
               f"{library[mat]:.4f} ms ({library_dev[mat]:.4f}), launches "
-              f"{launches[kid]}")
+              f"{launches[kid[:2]]}")
     torch.cuda.synchronize()
     done()
     return rows

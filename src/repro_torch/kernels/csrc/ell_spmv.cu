@@ -11,11 +11,11 @@
 // card's ~20 flops per byte at fp32. x is gathered; it is re-read from L2
 // when it fits there (50 MB), otherwise from device memory.
 //
-// Design of ell_rows (K1, K2). One warp per row would keep 9 of 32 lanes
-// busy at W = 9 (the banded operand) with 72 bytes in flight, far too
-// little to cover the latency of device memory. The (T, R, W) tiles are
-// row-major and contiguous, so the mapping follows W, chosen per launch on
-// the host:
+// Design (K1, K2 and K5 share one pair of kernels). One warp per row
+// would keep 9 of 32 lanes busy at W = 9 (the banded operand) with 72
+// bytes in flight, far too little to cover the latency of device memory.
+// The (T, R, W) tiles are row-major and contiguous, so the mapping follows
+// W over the flat T*R row space, chosen per launch on the host:
 // - W <= 32 (ell_rows_kernel): a warp owns a slab of 32 consecutive rows,
 //   32*W contiguous slots. Lane l loads slots l, l + 32, ... (neighbouring
 //   lanes on neighbouring addresses, every lane busy), kSlabUnroll of them
@@ -26,41 +26,25 @@
 // - W > 32 (ell_rows_wide_kernel): spmm.cuh's split_rows with one column:
 //   the 32 lanes stride over the row, kWideUnroll slots each per pass, and
 //   a row is split over up to 8 warps when the launch has few rows.
-//
-// K5 (ell_fused) gives one warp to one tile row. The 32 lanes stride over
-// the W slots of the row, so neighbouring lanes read neighbouring
-// addresses of vals and cols (coalesced), and a shuffle reduction
-// combines the lanes.
+// Both hand each row sum to a spmm::RowSink: K1/K2 store out[row] = sum
+// (the (T, R) partials), K5 adds y[row0 + row] += sum.
 //
 // K5: the TPU kernel zeroes a resident output block at grid step 0 and
 // writes rows in sequential grid order. Blocks on the GPU run in parallel
-// and in any order, so ell_fused adds each row straight into y: the rows
-// of one bucket are disjoint (affine slope-1 rowmap), so no two threads
-// write the same element and no atomics are needed. Rows >= n_rows (the
+// and in any order, so the sink adds each row straight into y: the rows
+// of one bucket are disjoint (affine slope-1 rowmap) and a plan launches
+// its buckets one after another on one stream, so no two threads write
+// the same element at once and no atomics are needed. Rows >= n_rows (the
 // padding rows of the last tile) are masked, since an out-of-range write
-// is not clamped on the GPU. tiles_per_block (the TPU's tiles_per_step)
-// only sets how many tiles one block walks; the sums do not depend on it.
+// is not clamped on the GPU. The grid covers the T*R rows whatever
+// tiles_per_block (the TPU's tiles_per_step) is: ell_fused accepts it and
+// ignores it, and the sums do not depend on it.
 #include "spmm.cuh"
 
 namespace {
 
 using spmm::kThreads;
 using spmm::kWarps;
-
-template <typename V, typename C, typename X>
-__device__ __forceinline__ float row_dot(const V* __restrict__ vals,
-                                         const C* __restrict__ cols,
-                                         const X* __restrict__ x, int n_cols,
-                                         long long row, int W, int lane) {
-  float acc = 0.f;
-  const long long base = row * W;
-  for (int w = lane; w < W; w += 32) {
-    acc += nz_product(vals, cols, x, n_cols, base + w);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  return acc;
-}
 
 constexpr int kSlabRows = 32;   // rows per warp in ell_rows_kernel
 constexpr int kSlabUnroll = 8;  // slots in flight per lane there
@@ -69,21 +53,22 @@ constexpr int kWideUnroll = 4;  // ... and per lane and pass for W > 32
 // a slot's place in the slab buffer: one padding word every 32 slots
 __device__ __forceinline__ int slab_at(int s) { return s + (s >> 5); }
 
-// out[row] = sum_w vals[row, w] * x[cols[row, w]] over all T*R tile rows,
-// for W <= kSlabRows (dynamic shared memory: kWarps * 33 * W floats)
+// sink(row, sum_w vals[row, w] * x[cols[row, w]]) for every one of the
+// n_tile_rows tile rows, for W <= kSlabRows (dynamic shared memory:
+// kWarps * 33 * W floats)
 template <typename V, typename C, typename X>
 __global__ void __launch_bounds__(kThreads)
 ell_rows_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
-                const X* __restrict__ x, int n_cols, float* __restrict__ out,
-                long long n_tile_rows, int W) {
+                const X* __restrict__ x, int n_cols, long long n_tile_rows,
+                int W, spmm::RowSink sink) {
   extern __shared__ float slab[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long row0 =
+  const long long first =
       ((long long)blockIdx.x * kWarps + warp) * kSlabRows;
-  if (row0 >= n_tile_rows) return;  // whole warp leaves together
+  if (first >= n_tile_rows) return;  // whole warp leaves together
   float* buf = slab + warp * (33 * W);
-  const long long base = row0 * W;
-  const int rows = (int)min((long long)kSlabRows, n_tile_rows - row0);
+  const long long base = first * W;
+  const int rows = (int)min((long long)kSlabRows, n_tile_rows - first);
   const int n = rows * W;  // slots of this slab
   for (int s0 = lane; s0 < n; s0 += 32 * kSlabUnroll) {
     int col[kSlabUnroll];
@@ -106,7 +91,7 @@ ell_rows_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
   if (lane < rows) {
     float acc = 0.f;
     for (int w = 0; w < W; ++w) acc += buf[slab_at(lane * W + w)];
-    out[row0 + lane] = acc;
+    sink(first + lane, 0, acc);
   }
 }
 
@@ -115,38 +100,17 @@ template <typename V, typename C, typename X>
 __global__ void __launch_bounds__(kThreads)
 ell_rows_wide_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
                      const X* __restrict__ x, int n_cols,
-                     float* __restrict__ out, long long n_tile_rows, int W,
-                     int wpr) {
+                     long long n_tile_rows, int W, int wpr,
+                     spmm::RowSink sink) {
   spmm::split_rows<kWideUnroll, 1>(vals, cols, x, n_cols, 1, 1, W, wpr, 0,
-                                   n_tile_rows,
-                                   spmm::RowSink{out, 1, 0, 0, 0});
+                                   n_tile_rows, sink);
 }
 
-// y[row0 + t*R + r] += row sum, for t in this block's tiles, masked at n_rows
-template <typename V, typename C, typename X>
-__global__ void __launch_bounds__(kThreads)
-ell_fused_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
-                 const X* __restrict__ x, int n_cols, float* __restrict__ y,
-                 long long T, int R, int W, long long row0, long long n_rows,
-                 int tiles_per_block) {
-  const long long t0 = (long long)blockIdx.x * tiles_per_block;
-  const long long t1 = min(t0 + tiles_per_block, T);
-  const int lane = threadIdx.x & 31;
-  for (long long row = t0 * R + (threadIdx.x >> 5); row < t1 * R;
-       row += kWarps) {
-    const float acc = row_dot(vals, cols, x, n_cols, row, W, lane);
-    const long long yrow = row0 + row;
-    if (lane == 0 && yrow < n_rows) y[yrow] += acc;
-  }
-}
-
-}  // namespace
-
-extern "C" int ell_rows(const void* vals, int vals_bf16, const void* cols,
-                        int cols_i16, const void* x, int x_bf16, int n_cols,
-                        float* out, long long n_tile_rows, int W,
-                        void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+// Launch the row sums of n_tile_rows rows of W slots into sink.
+int launch_rows(const void* vals, int vals_bf16, const void* cols,
+                int cols_i16, const void* x, int x_bf16, int n_cols,
+                long long n_tile_rows, int W, spmm::RowSink sink,
+                cudaStream_t s) {
   if (W <= kSlabRows) {
     const long long per_block = (long long)kWarps * kSlabRows;
     const unsigned blocks =
@@ -155,7 +119,7 @@ extern "C" int ell_rows(const void* vals, int vals_bf16, const void* cols,
     SPMV_DISPATCH(vals_bf16, cols_i16, x_bf16,
                   ell_rows_kernel<V, C, X><<<blocks, kThreads, smem, s>>>(
                       (const V*)vals, (const C*)cols, (const X*)x, n_cols,
-                      out, n_tile_rows, W));
+                      n_tile_rows, W, sink));
     return (int)cudaGetLastError();
   }
   const int wpr = spmm::warps_per_row(n_tile_rows, W, 32, kWideUnroll);
@@ -165,22 +129,30 @@ extern "C" int ell_rows(const void* vals, int vals_bf16, const void* cols,
   const dim3 grid = spmm::item_grid(1, (int)(n_tile_rows * wpr), 1);
   SPMV_DISPATCH(vals_bf16, cols_i16, x_bf16,
                 ell_rows_wide_kernel<V, C, X><<<grid, kThreads, 0, s>>>(
-                    (const V*)vals, (const C*)cols, (const X*)x, n_cols, out,
-                    n_tile_rows, W, wpr));
+                    (const V*)vals, (const C*)cols, (const X*)x, n_cols,
+                    n_tile_rows, W, wpr, sink));
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+extern "C" int ell_rows(const void* vals, int vals_bf16, const void* cols,
+                        int cols_i16, const void* x, int x_bf16, int n_cols,
+                        float* out, long long n_tile_rows, int W,
+                        void* stream) {
+  return launch_rows(vals, vals_bf16, cols, cols_i16, x, x_bf16, n_cols,
+                     n_tile_rows, W, spmm::RowSink{out, 1, 0, 0, 0},
+                     (cudaStream_t)stream);
+}
+
+// tiles_per_block is accepted and ignored (see the header)
 extern "C" int ell_fused(const void* vals, int vals_bf16, const void* cols,
                          int cols_i16, const void* x, int x_bf16, int n_cols,
                          float* y, long long T, int R, int W, long long row0,
                          long long n_rows, int tiles_per_block,
                          void* stream) {
-  const unsigned blocks =
-      (unsigned)((T + tiles_per_block - 1) / tiles_per_block);
-  cudaStream_t s = (cudaStream_t)stream;
-  SPMV_DISPATCH(vals_bf16, cols_i16, x_bf16,
-                ell_fused_kernel<V, C, X><<<blocks, kThreads, 0, s>>>(
-                    (const V*)vals, (const C*)cols, (const X*)x, n_cols, y, T,
-                    R, W, row0, n_rows, tiles_per_block));
-  return (int)cudaGetLastError();
+  (void)tiles_per_block;
+  return launch_rows(vals, vals_bf16, cols, cols_i16, x, x_bf16, n_cols,
+                     T * R, W, spmm::RowSink{y, 1, 1, row0, n_rows},
+                     (cudaStream_t)stream);
 }

@@ -11,7 +11,8 @@
 // writes M partials. x is gathered, from L2 where it fits.
 //
 // Design: one block of 256 threads per tile of C = S*L slots (K tiles per
-// block in the fused kernel, walked in turn).
+// block in the fused kernel, walked in turn). The mode is a template
+// argument, chosen on the host.
 //  * seg_scan (K3): the tile's products are scanned in passes of 256
 //    slots: coalesced loads, a warp-shuffle inclusive scan, a scan of the
 //    8 warp totals, and a running carry. The inclusive sums cs[0..C) stay
@@ -19,11 +20,27 @@
 //    then holds exactly: g[m] = cs[end[m]-1], or 0 where end[m] = 0, and
 //    the partial is g[m] - g[m-1].
 //  * onehot_mxu (K4): the TPU routes the reduction through its matrix
-//    unit as a product with a one-hot matrix. For one right-hand side
-//    that is C*M multiply-adds for C useful ones; here each product is
-//    added into a shared float[M] at its local row with a shared-memory
-//    atomic. Slots whose local row is outside [0, M) add nothing, as a
-//    one-hot row of zeros would.
+//    unit as a product with a one-hot matrix: partial[m] = sum of the
+//    products whose local row is m; a local row outside [0, M) matches no
+//    column of the one-hot matrix and adds nothing. For one right-hand
+//    side that is C*M multiply-adds for C useful ones, so here the
+//    products are summed by run instead. The tile is walked in passes of
+//    kPass = 2048 slots; in a pass each thread owns kPer = 8 consecutive
+//    slots (the blocked arrangement). It loads their local rows, vals and
+//    cols first (16-byte vector loads when C % 8 == 0 and the three
+//    arrays are 16-byte aligned, checked on the host; scalar loads
+//    otherwise), then the 8 x gathers, all independent, and sums runs of
+//    equal local row in registers. The run that ends a thread's slots is
+//    carried over the warp by a segmented __shfl_up_sync scan that
+//    restarts where a lane's first local row differs from its
+//    neighbour's last, or where the lane's 8 slots are not one run. Only
+//    the thread that ends a run (where the next local row differs, or at
+//    the warp's last slot) adds it into a shared float[M] with one
+//    atomicAdd, and only when the row is in [0, M). The packer emits
+//    local rows sorted within a tile, so the atomics per tile fall from C
+//    to about (distinct rows + warps per pass); the sums are right for
+//    any local_row (unsorted, repeated, out of range), only fast for
+//    sorted ones. seg_end is not read, as the TPU kernel does not read it.
 //  * fused (K6): the TPU adds tile t's partials at y[r0[t] + m] on a
 //    resident output block, in sequential grid order; a row that
 //    straddles tiles t and t+1 gets its second add on top of the first.
@@ -38,7 +55,11 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSegScan = 0;  // mode 1 is onehot_mxu
+constexpr int kPer = 8;                   // one-hot: slots per thread and pass
+constexpr int kPass = kThreads * kPer;    // ... and slots per pass
+// the modes: host modes 0 (seg_scan) and 1 (onehot_mxu, scalar or vector
+// loads)
+constexpr int kSegScan = 0, kOnehot = 1, kOnehotVec = 2;
 
 // In-place inclusive scan of the tile's products into cs[0..Cn).
 template <typename V, typename C, typename X>
@@ -81,40 +102,149 @@ __device__ __forceinline__ float scan_g(const float* cs, const int* end,
   return (e > 0) ? cs[min(e, Cn) - 1] : 0.f;
 }
 
+// kPer consecutive elements at p (16-byte aligned), upcast: vals to float,
+// cols and local rows to int. Read once, so loaded evict-first.
+__device__ __forceinline__ void load_run(const float* p, float (&o)[kPer]) {
+#pragma unroll
+  for (int k = 0; k < kPer; k += 4) {
+    const float4 q = __ldcs(reinterpret_cast<const float4*>(p + k));
+    o[k] = q.x, o[k + 1] = q.y, o[k + 2] = q.z, o[k + 3] = q.w;
+  }
+}
+__device__ __forceinline__ void load_run(const int32_t* p, int (&o)[kPer]) {
+#pragma unroll
+  for (int k = 0; k < kPer; k += 4) {
+    const int4 q = __ldcs(reinterpret_cast<const int4*>(p + k));
+    o[k] = q.x, o[k + 1] = q.y, o[k + 2] = q.z, o[k + 3] = q.w;
+  }
+}
+// eight 2-byte elements in one 16-byte load; element 2i is the low half of
+// word i. A bf16 is the top half of its float.
+__device__ __forceinline__ void load_run(const __nv_bfloat16* p,
+                                         float (&o)[kPer]) {
+  const uint4 q = __ldcs(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[2 * i] = __uint_as_float(w[i] << 16);
+    o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void load_run(const int16_t* p, int (&o)[kPer]) {
+  const uint4 q = __ldcs(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[2 * i] = (int)(int16_t)(w[i] & 0xffffu);
+    o[2 * i + 1] = (int)w[i] >> 16;  // arithmetic shift keeps the sign
+  }
+}
+
+// One pass of the one-hot reduction: this thread's kPer slots start at
+// slot s0 of the tile at base; each run's sum is added into buf[row] by
+// the thread that ends it. Slots at or past Cn carry local row -1.
+template <bool kVec, typename V, typename C, typename X>
+__device__ __forceinline__ void onehot_pass(
+    const V* __restrict__ vals, const C* __restrict__ cols,
+    const int* __restrict__ local, const X* __restrict__ x, int n_cols,
+    long long base, int s0, int Cn, int M, float* buf) {
+  const int lane = threadIdx.x & 31;
+  int l[kPer], col[kPer];
+  float p[kPer];
+  // with kVec, Cn % kPer == 0: the kPer slots are all in or all out
+  if constexpr (kVec) {
+    if (s0 < Cn) {
+      load_run(local + base + s0, l);
+      load_run(cols + base + s0, col);
+      load_run(vals + base + s0, p);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) l[k] = -1, col[k] = -1, p[k] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const bool in = s0 + k < Cn;
+      l[k] = in ? local[base + s0 + k] : -1;
+      col[k] = in ? to_i32(cols[base + s0 + k]) : -1;
+      p[k] = in ? to_f32(vals[base + s0 + k]) : 0.f;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    p[k] *= ((unsigned)col[k] < (unsigned)n_cols) ? to_f32(x[col[k]]) : 0.f;
+  }
+  // the run that ends this thread's slots, and whether it is all of them
+  float tail = p[0];
+  bool whole = true;
+#pragma unroll
+  for (int k = 1; k < kPer; ++k) {
+    const bool same = l[k] == l[k - 1];
+    tail = same ? tail + p[k] : p[k];
+    whole = whole && same;
+  }
+  const int prev_last = __shfl_up_sync(0xffffffffu, l[kPer - 1], 1);
+  const int next_first = __shfl_down_sync(0xffffffffu, l[0], 1);
+  const bool joins = lane > 0 && l[0] == prev_last;
+  // segmented inclusive scan: run[lane] is the whole run that ends at this
+  // lane's last slot, summed over the lanes it spans
+  float run = tail;
+  bool open = whole && joins;  // the run reaches back into the lane before
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float up = __shfl_up_sync(0xffffffffu, run, o);
+    const bool up_open = __shfl_up_sync(0xffffffffu, (int)open, o);
+    if (lane >= o) {
+      if (open) run += up;
+      open = open && up_open;
+    }
+  }
+  const float before = __shfl_up_sync(0xffffffffu, run, 1);
+  float acc = joins ? before : 0.f;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    acc += p[k];
+    const bool ends = k + 1 < kPer ? l[k + 1] != l[k]
+                                   : lane == 31 || next_first != l[k];
+    if (ends) {
+      if ((unsigned)l[k] < (unsigned)M) atomicAdd(&buf[l[k]], acc);
+      acc = 0.f;
+    }
+  }
+}
+
 // Partials of tiles [t0, t1) per block: out[t, m] (fused = 0) or
 // atomicAdd into y[r0[t] + m] masked at n_rows (fused = 1).
-// aux is seg_end (T, M) for seg_scan, local_row (T, Cn) for onehot_mxu.
-template <typename V, typename C, typename X>
+// aux is seg_end (T, M) for seg_scan, local_row (T, Cn) for one-hot.
+template <typename V, typename C, typename X, int kMode>
 __global__ void __launch_bounds__(kThreads)
 seg_tiles_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
                  const int* __restrict__ aux, const X* __restrict__ x,
-                 int n_cols, long long T, int Cn, int M, int mode, int fused,
+                 int n_cols, long long T, int Cn, int M, int fused,
                  float* __restrict__ out, const int* __restrict__ r0,
                  long long n_rows, int tiles_per_block) {
-  extern __shared__ float smem[];  // max(Cn, M) floats + kWarps floats
+  // seg_scan: max(Cn, M) + kWarps floats; one-hot: M floats
+  extern __shared__ float smem[];
   float* buf = smem;
-  float* warp_sums = smem + max(Cn, M);
   const long long t0 = (long long)blockIdx.x * tiles_per_block;
   const long long t1 = min(t0 + tiles_per_block, T);
   for (long long t = t0; t < t1; ++t) {
     const long long base = t * Cn;
-    if (mode == kSegScan) {
-      scan_tile(vals, cols, x, n_cols, base, Cn, buf, warp_sums);
+    if constexpr (kMode == kSegScan) {
+      scan_tile(vals, cols, x, n_cols, base, Cn, buf, smem + max(Cn, M));
     } else {
       for (int m = threadIdx.x; m < M; m += kThreads) buf[m] = 0.f;
       __syncthreads();
-      const int* local = aux + base;
-      for (int c = threadIdx.x; c < Cn; c += kThreads) {
-        const int l = local[c];
-        if ((unsigned)l < (unsigned)M) {
-          atomicAdd(&buf[l], nz_product(vals, cols, x, n_cols, base + c));
-        }
+      for (int start = 0; start < Cn; start += kPass) {
+        onehot_pass<kMode == kOnehotVec>(vals, cols, aux, x, n_cols, base,
+                                         start + threadIdx.x * kPer, Cn, M,
+                                         buf);
       }
       __syncthreads();
     }
     for (int m = threadIdx.x; m < M; m += kThreads) {
       float v = buf[m];
-      if (mode == kSegScan) {
+      if constexpr (kMode == kSegScan) {
         const int* end = aux + t * M;
         v = scan_g(buf, end, m, Cn) -
             (m > 0 ? scan_g(buf, end, m - 1, Cn) : 0.f);
@@ -130,6 +260,29 @@ seg_tiles_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
   }
 }
 
+template <typename V, typename C, typename X, int kMode>
+int launch(const void* vals, const void* cols, const void* x, int n_cols,
+           const int* aux, long long T, int Cn, int M, int fused, float* out,
+           const int* r0, long long n_rows, int tiles_per_block,
+           cudaStream_t s) {
+  const unsigned blocks =
+      (unsigned)((T + tiles_per_block - 1) / tiles_per_block);
+  const int floats = kMode == kSegScan ? (Cn > M ? Cn : M) + kWarps : M;
+  const size_t smem = (size_t)floats * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        seg_tiles_kernel<V, C, X, kMode>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  seg_tiles_kernel<V, C, X, kMode><<<blocks, kThreads, smem, s>>>(
+      (const V*)vals, (const C*)cols, aux, (const X*)x, n_cols, T, Cn, M,
+      fused, out, r0, n_rows, tiles_per_block);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
 }  // namespace
 
 // mode: 0 seg_scan, 1 onehot_mxu. fused = 0: out is (T, M) partials and
@@ -140,19 +293,23 @@ extern "C" int seg_tiles(const void* vals, int vals_bf16, const void* cols,
                          int fused, float* out, const int* r0,
                          long long n_rows, int tiles_per_block,
                          void* stream) {
-  const unsigned blocks =
-      (unsigned)((T + tiles_per_block - 1) / tiles_per_block);
-  const size_t smem = (size_t)((Cn > M ? Cn : M) + kWarps) * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
-  SPMV_DISPATCH(
-      vals_bf16, cols_i16, x_bf16,
-      if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(
-            seg_tiles_kernel<V, C, X>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-      } seg_tiles_kernel<V, C, X><<<blocks, kThreads, smem, s>>>(
-          (const V*)vals, (const C*)cols, aux, (const X*)x, n_cols, T, Cn, M,
-          mode, fused, out, r0, n_rows, tiles_per_block));
-  return (int)cudaGetLastError();
+  const bool vec = Cn % kPer == 0 && aligned16(vals) && aligned16(cols) &&
+                   aligned16(aux);
+  const int kind = mode == kSegScan ? kSegScan : vec ? kOnehotVec : kOnehot;
+  SPMV_DISPATCH(vals_bf16, cols_i16, x_bf16, switch (kind) {
+    case kSegScan:
+      return launch<V, C, X, kSegScan>(vals, cols, x, n_cols, aux, T, Cn, M,
+                                       fused, out, r0, n_rows,
+                                       tiles_per_block, s);
+    case kOnehot:
+      return launch<V, C, X, kOnehot>(vals, cols, x, n_cols, aux, T, Cn, M,
+                                      fused, out, r0, n_rows,
+                                      tiles_per_block, s);
+    default:
+      return launch<V, C, X, kOnehotVec>(vals, cols, x, n_cols, aux, T, Cn,
+                                         M, fused, out, r0, n_rows,
+                                         tiles_per_block, s);
+  });
+  return 0;  // not reached
 }

@@ -1,6 +1,7 @@
-// Shared helpers of the multi-RHS (SpMM) kernels K7-K11, and of K1/K2's
-// ell_rows_wide_kernel (rows wider than 32 slots), which runs split_rows
-// with B = 1.
+// Shared helpers of the multi-RHS (SpMM) kernels K7-K11, and of the 1-RHS
+// ELL kernels K1/K2/K5: their ell_rows_wide_kernel (rows wider than 32
+// slots) runs split_rows with B = 1, and both their kernels store through
+// RowSink.
 //
 // x is row-major (n_cols, B): one gathered row x[col] is B contiguous
 // values. A warp works on one output row (ELL) or one segment (seg_scan)
@@ -74,7 +75,7 @@ inline dim3 item_grid(long long T, int items_per_tile, int tiles_per_block) {
   return dim3((unsigned)gx, (unsigned)gy, 1);
 }
 
-// ---- Split-row ELL sums (K7-K9, and K1's rows wider than 32 slots) ----
+// ---- Split-row ELL sums (K7-K9, and K1/K2/K5's rows wider than 32) ----
 //
 // An ELL row is W contiguous slots. One row is split over `wpr` warps of a
 // block (a power of two <= kWarps): warp k of the row takes slots

@@ -117,8 +117,9 @@ def ell_spmv_fused(vals, cols, x, *, n_rows: int, row0: int = 0,
     """K5: add tile row ``t*R + r`` into ``out[row0 + t*R + r]`` (rows
     ``>= n_rows`` dropped) and return ``out``, a fresh fp32 zero vector of
     ``n_rows`` when None. Requires the affine slope-1 rowmap.
-    ``tiles_per_step`` is the number of tiles one GPU block walks (clamped
-    to [1, T]); it does not change the result."""
+    ``tiles_per_step`` (the TPU kernel's tiles per grid step) is accepted
+    and passed on; the GPU grid covers the T*R rows without it, so it
+    does not change the result."""
     if not vals.is_cuda:
         return ell_spmv_fused_ref(vals, cols, x, n_rows=n_rows, row0=row0,
                                   out=out)

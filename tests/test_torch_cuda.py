@@ -71,9 +71,17 @@ def test_ell_kernels_match_plain(dev, vd, cd, t, r, w):
     g = [z.to(dev) for z in (vals, cols, x)]
     _close(ops.ell_spmv(*g), ref.ell_spmv_ref(vals, cols, x))
     _close(ops.ell_spmv_direct(*g), ref.ell_spmv_direct_ref(vals, cols, x))
+    # K5 adds into out: a prefilled one shows += and not =; n_rows cuts a
+    # 32-row slab (or the last of fewer rows) short
+    n_rows = 11 + t * r - min(13, t * r // 2)
+    y0 = torch.from_numpy(rng.standard_normal(n_rows).astype(np.float32))
     for k in (1, 3, 8):
         _close(ops.ell_spmv_fused(*g, n_rows=170, row0=7, tiles_per_step=k),
                ref.ell_spmv_fused_ref(vals, cols, x, n_rows=170, row0=7))
+        _close(ops.ell_spmv_fused(*g, n_rows=n_rows, row0=11,
+                                  tiles_per_step=k, out=y0.clone().to(dev)),
+               ref.ell_spmv_fused_ref(vals, cols, x, n_rows=n_rows, row0=11,
+                                      out=y0.clone()))
     torch.cuda.synchronize()
 
 
@@ -119,18 +127,67 @@ def test_ell_kernels_skip_out_of_range_columns(dev, t, r, w, vd, cd, xd):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("mode", ["seg_scan", "onehot_mxu"])
+def _onehot_rows(rng, case, t, c, m):
+    """(t, c) local rows for the one-hot kernels (K4, K6), which must sum
+    any of them as the one-hot matrix does."""
+    if case == "unsorted":
+        return rng.integers(0, m, (t, c))
+    if case == "one_row":              # one heavy row fills each tile
+        return np.repeat(np.arange(t)[:, None] % m, c, axis=1)
+    if case == "runs":                 # sorted runs across thread (8 slots)
+        lens = [7, 9, 31, 33, 250, 260, 1, 8, 16, 257]   # and warp (256)
+        rows = np.repeat(np.arange(c), np.resize(lens, c))[:c]
+        return np.broadcast_to(np.minimum(rows, m - 1), (t, c))
+    if case == "out_of_range":         # -1, M, M + 100 add nothing
+        local = rng.integers(0, m, (t, c))
+        bad = rng.random((t, c)) < 0.15
+        local[bad] = rng.choice([-1, m, m + 100], int(bad.sum()))
+        return local
+    raise ValueError(case)
+
+
+def _off_by_one(t, dev):
+    """``t`` on ``dev``, one element past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    flat[1:] = t.reshape(-1).to(dev)
+    return flat[1:].view(t.shape)
+
+
+# (mode, local_row case, (T, S, L, M)): seg_scan on the packer's sorted
+# rows (it reads seg_end, never local_row); one-hot on those, on unsorted,
+# one-row, run and out-of-range rows, at C = 21 and 12 (not multiples of
+# 8: scalar loads) and with arrays off the 16-byte alignment
+SEG_CASES = [("seg_scan", "sorted", (9, 8, 128, 96)),
+             ("seg_scan", "sorted", (9, 3, 7, 5)),
+             ("onehot_mxu", "sorted", (9, 8, 128, 96)),
+             ("onehot_mxu", "unsorted", (9, 8, 128, 96)),
+             ("onehot_mxu", "one_row", (9, 16, 128, 96)),
+             ("onehot_mxu", "runs", (9, 16, 128, 96)),
+             ("onehot_mxu", "out_of_range", (9, 16, 128, 96)),
+             ("onehot_mxu", "out_of_range", (9, 3, 7, 5)),
+             ("onehot_mxu", "unsorted", (9, 3, 4, 10)),
+             ("onehot_mxu", "unaligned", (9, 16, 128, 96))]
+
+
+@pytest.mark.parametrize("mode,case,shape", SEG_CASES)
 @pytest.mark.parametrize("vd", VALS)
-def test_seg_kernels_match_plain(dev, mode, vd):
+@pytest.mark.parametrize("cd", COLS)
+def test_seg_kernels_match_plain(dev, mode, case, shape, vd, cd):
+    """K3/K4 and K6 (tiles_per_step 1, 3, 8 with T = 9; rows straddling
+    tiles; n_rows cutting the last)."""
     rng = np.random.default_rng(1)
     n_cols = 2000
-    T, S, L, M = 9, 8, 128, 96           # C = 1024: four scan passes
+    T, S, L, M = shape
     local, end = _seg_case(rng, T, S, L, M)
+    if case not in ("sorted", "unaligned"):
+        local = torch.from_numpy(np.ascontiguousarray(_onehot_rows(
+            rng, case, T, S * L, M), dtype=np.int32).reshape(T, S, L))
     vals = torch.from_numpy(rng.standard_normal((T, S, L))).to(vd)
-    cols = torch.from_numpy(rng.integers(0, n_cols, (T, S, L))).to(torch.int16)
+    cols = torch.from_numpy(rng.integers(0, n_cols, (T, S, L))).to(cd)
     x = torch.from_numpy(rng.standard_normal(n_cols).astype(np.float32))
     r0 = torch.from_numpy((np.arange(T) * 50).astype(np.int32))
-    g = lambda t: t.to(dev)
+    g = ((lambda t: _off_by_one(t, dev)) if case == "unaligned"
+         else (lambda t: t.to(dev)))
     _close(ops.seg_spmv(g(vals), g(cols), g(local), g(end), g(x), M,
                         mode=mode),
            ref.seg_spmv_ref(vals, cols, local, end, x, M, mode))

@@ -117,6 +117,42 @@ def test_seg_plain_versions_match_pallas(mode, t, s, l, m, storage):
                                       tiles_per_step=k))
 
 
+@pytest.mark.parametrize("storage", sorted(STORAGE))
+@pytest.mark.parametrize("t,s,l,m", [(3, 4, 16, 16), (2, 3, 7, 5)])
+def test_onehot_plain_versions_match_pallas_on_any_local_row(t, s, l, m,
+                                                             storage):
+    """K4 and K6 in one-hot mode on unsorted local rows with entries
+    outside [0, M) (-1, M, M + 100): a slot adds into the row it names
+    wherever it sits in the tile, and an out-of-range slot adds nothing,
+    as a row of zeros in the Pallas kernel's one-hot matrix does. The CUDA
+    kernel sums runs of equal rows, and must keep this for rows in any
+    order."""
+    rng = np.random.default_rng(t * s + l + m)
+    n_cols = 200
+    vdt, cdt = STORAGE[storage]
+    v, c, _, end = _rand_seg(rng, t, s, l, m, n_cols)
+    local = rng.integers(0, m, (t, s * l))
+    bad = rng.random(local.shape) < 0.2
+    local[bad] = rng.choice([-1, m, m + 100], int(bad.sum()))
+    local[0, :3] = [-1, m, m + 100]
+    local = local.astype(np.int32).reshape(t, s, l)
+    (vj, vt), (cj, ct) = _pair(v, vdt), _pair(c, cdt)
+    (lj, lt), (ej, et) = _pair(local, np.int32), _pair(end, np.int32)
+    xj, xt = _pair(rng.standard_normal(n_cols), np.float32)
+    _close(ops.seg_spmv(vt, ct, lt, et, xt, m, mode="onehot_mxu"),
+           ref_ops.seg_spmv(vj, cj, lj, ej, xj, m, mode="onehot_mxu"))
+    r0 = (np.arange(t) * (m // 2)).astype(np.int32)
+    r0j, r0t = _pair(r0, np.int32)
+    n_rows = int(r0[-1]) + m // 2 + 1
+    for k in (1, 3):
+        _close(ops.seg_spmv_fused(vt, ct, lt, et, r0t, xt, m, n_rows=n_rows,
+                                  mode="onehot_mxu", tiles_per_step=k),
+               ref_ops.seg_spmv_fused(vj, cj, lj, ej, r0j, xj, m,
+                                      n_rows=n_rows,
+                                      n_out=int(r0.max()) + m,
+                                      mode="onehot_mxu", tiles_per_step=k))
+
+
 def test_bf16_x_upcasts_like_pallas():
     """A bf16 x (Target dtype bfloat16) is upcast before the product."""
     rng = np.random.default_rng(5)
