@@ -19,8 +19,14 @@ each printing its seconds:
    mode on unsorted local rows with some outside [0, M) (C = 1536 and
    21), and columns outside [0, n_cols); 2b. the same for the SpMM
    kernels at B in {1, 3, 8, 17, 40}, K7-K9 at those widths, at 5120
-   rows and at one serving tile (T = 1, R = 128, W = 397, B = 8), plus
-   one seg tile of C = 8192 slots at B = 8;
+   rows and at one serving tile (T = 1, R = 128, W = 397, B = 8); K10b
+   and K11 on one-hot local rows unsorted, of one row, in runs across a
+   thread, a warp and a pass, out of range, at C = 21 and 12 and off the
+   16-byte alignment; K10a and K11 on seg_scan ends that descend, repeat,
+   pass C or fall below 0, and a padding tile; C = 512 at tiles_per_step
+   1, 3, 8 and 16; and tiles of C = 8192 slots at M = 700 (B = 8 and 40,
+   the accumulator past 48 KB), M = 8192 and M = 60000 (one tile's
+   accumulator past the block's shared memory);
 3. a searched compile of ``banded_matrix(2**21, 4)`` (18.87 M nnz) on the
    default Target, checked against the float64 oracle, plus a save/load
    round trip;
@@ -56,7 +62,10 @@ each printing its seconds:
    The K7 row adds the host time of one wrapper call (``host_us_per_call``:
    the 26 calls of the ELL plan on the host clock, before any
    synchronise, over 26) and the device time of one single-tile launch
-   (``one_tile_ms``).
+   (``one_tile_ms``). When the searched B = 8 plan of phase 6 is a seg
+   plan, its fused seg step is timed with K11 at its own chunk and
+   tiles_per_step and printed on a line of its own (``K11[searched]
+   {...}``), outside the twelve rows.
 
 Phases 3-4 and phases 6-7 are the two paths: the launch counters are set
 to 0 before each and read after it, and each of its kernels must have
@@ -113,6 +122,7 @@ KERNELS = {
 }
 SPMV_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
 ONEHOT_K6 = "K6[onehot_mxu]"     # reported apart from the twelve rows
+SEARCHED_K11 = "K11[searched]"   # ... and so is the searched plan's K11
 SPMM_KERNELS = ("K7", "K8", "K9", "K10a", "K10b", "K11")
 SERVE_B = 8                      # the serving plan's searched batch size
 STORAGES = [(torch.float32, torch.int32, torch.float32),
@@ -232,17 +242,54 @@ def device_phase():
 
 # ------------------------------- phase 2 ----------------------------------
 
-def onehot_rows(rng, t, c, m):
-    """(t, c) int32 local rows in no order, about a fifth of them outside
-    [0, m) (-1, m, m + 100, which add nothing): the one-hot kernels must
-    sum these as the one-hot matrix does."""
+def onehot_rows(rng, t, c, m, case="out_of_range"):
+    """(t, c) int32 local rows that the one-hot kernels must sum as the
+    one-hot matrix does: ``out_of_range`` in no order, about a fifth of
+    them outside [0, m) (-1, m, m + 100, which add nothing); ``unsorted``;
+    ``one_row`` (one heavy row fills each tile); ``runs`` (sorted runs whose
+    lengths cross a thread's 8 slots, a warp's 256 and a pass's 2048)."""
+    if case == "unsorted":
+        return torch.from_numpy(rng.integers(0, m, (t, c)).astype(np.int32))
+    if case == "one_row":
+        return torch.from_numpy(np.repeat(np.arange(t)[:, None] % m, c,
+                                          axis=1).astype(np.int32))
+    if case == "runs":
+        lens = [7, 9, 31, 33, 250, 260, 1, 8, 16, 257, 2100]
+        rows = np.repeat(np.arange(c), np.resize(lens, c))[:c]
+        return torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
+            np.minimum(rows, m - 1), (t, c)), dtype=np.int32))
     local = rng.integers(0, m, (t, c))
     bad = rng.random((t, c)) < 0.2
     local[bad] = rng.choice([-1, m, m + 100], int(bad.sum()))
     return torch.from_numpy(local.astype(np.int32))
 
 
+def seg_ends(rng, case, t, c, m):
+    """(t, m) int32 seg_end rows the packer never writes: ``descending``
+    somewhere, ``repeated``, ``past_c``, ``negative``, ``mixed`` (any of
+    these), or the packer's with a ``padding`` tile of ends 0."""
+    if case == "descending":
+        end = rng.integers(0, c + 1, (t, m))
+        end[0] = np.sort(end[0])[::-1]
+    elif case == "repeated":
+        end = np.sort(rng.choice([0, c // 3, c // 3, c - 1, c], (t, m)),
+                      axis=1)
+        end[0] = c // 2
+    elif case == "mixed":
+        end = rng.integers(-3, c + 4, (t, m))
+    else:
+        end = np.sort(rng.integers(0, c + 1, (t, m)), axis=1)
+        if case == "past_c":
+            end[:, -3:] = [c + 1, c + 7, 2 * c]
+        elif case == "negative":
+            end[:, :3] = [-5, -1, 0]
+        else:
+            end[-1] = 0
+    return torch.from_numpy(end.astype(np.int32))
+
+
 def seg_case(rng, t, s, l, m):
+    """The packer's sorted local rows (t, s, l) and their seg_end (t, m)."""
     c = s * l
     local = np.sort(rng.integers(0, m, (t, c)), axis=1)
     local = np.minimum(local - local[:, :1], m - 1)
@@ -278,6 +325,13 @@ def out_of_range(rng, v, c, n_cols):
     far = c.masked_fill(bad, n_cols + 7)
     far.view(-1)[0] = -1
     return far, v.masked_fill(bad, 0), c.masked_fill(bad, 0)
+
+
+def off_by_one(t: torch.Tensor, dev) -> torch.Tensor:
+    """``t`` on ``dev``, one element past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    flat[1:] = t.reshape(-1).to(dev)
+    return flat[1:].view(t.shape)
 
 
 def small_kernels_phase():
@@ -420,25 +474,94 @@ def small_spmm_phase():
             flat = g(torch.cat([x.new_zeros(1), x.reshape(-1)]))
             check_kernel(f"K7 {tag} {ONE_TILE} unaligned x", ops.ell_spmm(
                 g(v), g(c), flat[1:].view(x.shape)), ref.ell_spmm_ref(v, c, x))
-    # one tile of C = 8192 slots (LANE_NNZ_BLOCK's largest chunk) at B = 8:
-    # a stored (C, B) scan would not fit a block's shared memory
-    T, S, L, M = 3, 64, 128, 700
-    local, end = seg_case(rng, T, S, L, M)
-    v = torch.from_numpy(rng.standard_normal((T, S, L)).astype(np.float32))
-    c = torch.from_numpy(rng.integers(0, n_cols, (T, S, L)).astype(np.int32))
-    x = torch.from_numpy(rng.standard_normal((n_cols, 8)).astype(np.float32))
-    r0 = torch.from_numpy((np.arange(T) * 600).astype(np.int32))
-    for mode, kid in (("seg_scan", "K10a"), ("onehot_mxu", "K10b")):
-        check_kernel(f"{kid} C=8192 B=8", ops.seg_spmm(
-            g(v), g(c), g(local), g(end), g(x), M, mode=mode),
-            ref.seg_spmm_ref(v, c, local, end, x, M, mode))
-        check_kernel(f"K11[{mode}] C=8192 B=8", ops.seg_spmm_fused(
-            g(v), g(c), g(local), g(end), g(r0), g(x), M, n_rows=1900,
-            mode=mode, tiles_per_step=3),
-            ref.seg_spmm_fused_ref(v, c, local, end, r0, x, M, n_rows=1900,
-                                   mode=mode))
+        seg_spmm_cases(rng, n_cols, vd, cd, xd, b, tag)
+    # one tile of C = 8192 slots (LANE_NNZ_BLOCK's largest chunk) at M =
+    # 700: a stored (C, B) scan would not fit a block's shared memory, and
+    # at B = 40 the (M, B) accumulator passes 48 KB (the opt-in); then one
+    # tile's accumulator beyond the block's shared memory (M = 8192 at B =
+    # 8: fewer columns a window; M = 60000: part of the segments a window)
+    for (S, M, b) in ((64, 700, 8), (64, 700, 40), (64, 8192, 8),
+                      (64, 60000, 1)):
+        T, L = 3, 128
+        local, end = seg_case(rng, T, S, L, M)
+        v = torch.from_numpy(rng.standard_normal((T, S, L)).astype(np.float32))
+        c = torch.from_numpy(rng.integers(0, n_cols, (T, S, L)).astype(np.int32))
+        x = torch.from_numpy(rng.standard_normal((n_cols, b)).astype(np.float32))
+        r0 = torch.from_numpy((np.arange(T) * 600).astype(np.int32))
+        for mode, kid in (("seg_scan", "K10a"), ("onehot_mxu", "K10b")):
+            what = f"C={S * L} M={M} B={b}"
+            check_kernel(f"{kid} {what}", ops.seg_spmm(
+                g(v), g(c), g(local), g(end), g(x), M, mode=mode),
+                ref.seg_spmm_ref(v, c, local, end, x, M, mode))
+            check_kernel(f"K11[{mode}] {what}", ops.seg_spmm_fused(
+                g(v), g(c), g(local), g(end), g(r0), g(x), M,
+                n_rows=1200 + M, mode=mode, tiles_per_step=3),
+                ref.seg_spmm_fused_ref(v, c, local, end, r0, x, M,
+                                       n_rows=1200 + M, mode=mode))
     torch.cuda.synchronize()
     done()
+
+
+def seg_spmm_cases(rng, n_cols, vd, cd, xd, b, tag):
+    """K10a/K10b/K11 on what the packer never writes, at one storage and B:
+    one-hot local rows unsorted, of one row, in runs across a thread, a
+    warp and a pass, out of range, at C = 21 and 12, and arrays and x off
+    the 16-byte alignment; seg_scan ends that descend, repeat, pass C or
+    fall below 0, and a padding tile; C = 512 (the searched plan's chunk)
+    at tiles_per_step 1, 3, 8 and 16 with T = 37."""
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rng.standard_normal((n_cols, b))).to(xd)
+
+    def check(what, mode, v, c, local, end, r0, n_rows, M, g, ks=(1, 3, 8)):
+        kid = "K10a" if mode == "seg_scan" else "K10b"
+        check_kernel(f"{kid} {tag} {what}", ops.seg_spmm(
+            g(v), g(c), g(local), g(end), g(x), M, mode=mode),
+            ref.seg_spmm_ref(v, c, local, end, x, M, mode))
+        for k in ks:
+            check_kernel(f"K11[{mode}] {tag} {what} K={k}",
+                         ops.seg_spmm_fused(g(v), g(c), g(local), g(end),
+                                            g(r0), g(x), M, n_rows=n_rows,
+                                            mode=mode, tiles_per_step=k),
+                         ref.seg_spmm_fused_ref(v, c, local, end, r0, x, M,
+                                                n_rows=n_rows, mode=mode))
+
+    def operands(T, S, L):
+        v = torch.from_numpy(rng.standard_normal((T, S, L))).to(vd)
+        c = torch.from_numpy(rng.integers(0, n_cols, (T, S, L))).to(cd)
+        return v, c
+
+    on_card = lambda t: t.to(dev)
+    off = lambda t: off_by_one(t, dev)
+    for case, (T, S, L, M) in (("unsorted", (9, 16, 128, 96)),
+                               ("one_row", (9, 16, 128, 96)),
+                               ("runs", (9, 16, 128, 96)),
+                               ("out_of_range", (9, 16, 128, 96)),
+                               ("out_of_range", (9, 3, 7, 5)),
+                               ("unsorted", (9, 3, 4, 10)),
+                               ("unaligned", (9, 16, 128, 96))):
+        v, c = operands(T, S, L)
+        local = (seg_case(rng, T, S, L, M)[0] if case == "unaligned" else
+                 onehot_rows(rng, T, S * L, M, case).reshape(T, S, L))
+        end = torch.zeros((T, M), dtype=torch.int32)     # one-hot: unread
+        r0 = torch.from_numpy((np.arange(T) * 50).astype(np.int32))
+        check(f"C={S * L} {case}", "onehot_mxu", v, c, local, end, r0, 420,
+              M, off if case == "unaligned" else on_card)
+    T, S, L, M = 7, 4, 128, 24
+    for case in ("descending", "repeated", "past_c", "negative", "mixed",
+                 "padding"):
+        v, c = operands(T, S, L)
+        local = torch.zeros((T, S, L), dtype=torch.int32)  # seg_scan: unread
+        r0 = torch.from_numpy((np.arange(T) * 20).astype(np.int32))
+        check(f"ends {case}", "seg_scan", v, c, local,
+              seg_ends(rng, case, T, S * L, M), r0, 150, M, on_card)
+    T, S, L, M = 37, 4, 128, 8
+    local, end = seg_case(rng, T, S, L, M)
+    v, c = operands(T, S, L)
+    r0 = torch.from_numpy((np.arange(T) * 6).astype(np.int32))
+    for mode in ("seg_scan", "onehot_mxu"):
+        check("C=512 T=37", mode, v, c, local, end, r0, 6 * T, M, on_card,
+              ks=(1, 3, 8, 16))
 
 
 # ----------------------------- phases 3 and 4 -----------------------------
@@ -814,7 +937,7 @@ def serving_phase(W, designer, store_dir):
              "swapped_in": swap_in.graph.label()}
     print("serving " + json.dumps(stats))
     done()
-    return swap_in, oracle[:, :SERVE_B], xs[:SERVE_B].T.copy()
+    return plan, swap_in, oracle[:, :SERVE_B], xs[:SERVE_B].T.copy()
 
 
 def spmm_fixed_phase(W, swap_in, x8, oracle8, designer):
@@ -1038,6 +1161,61 @@ def spmm_report_phase(cases, launches, csr, xd, n_rows):
     return rows
 
 
+def searched_seg_line(plan, xd, n_rows, launches) -> None:
+    """The K11 time at the operands serving runs: each fused seg step of
+    the searched B = 8 plan (its chunk, its tiles_per_step), on a line of
+    its own, ``K11[searched] {...}``, outside the twelve rows. An ELL
+    plan, or a seg step without the fused combine, runs no K11: one line
+    says so."""
+    from repro_torch.kernels import ops, ref
+    steps = [st for st in plan.spec["steps"] if st["kind"] == "seg"]
+    fused = [st for st in steps
+             if st.get("fused") and f"{st['key']}_r0" in plan.fmt]
+    if not fused:
+        print(f"  {SEARCHED_K11}: the searched plan {plan.graph.label()} has "
+              f"{len(steps)} seg steps and no fused one; no K11 to time")
+        return
+    B = xd.shape[1]
+    k = plan.spec["tiles_per_step"]
+    ops_ = [_operands(plan, st) for st in fused]
+    modes = ["seg_scan" if st["reduce"] == "gmem_atom" else st["reduce"]
+             for st in fused]
+
+    def run(out=None, plain=False):
+        fn = ref.seg_spmm_fused_ref if plain else ops.seg_spmm_fused
+        extra = {} if plain else {"tiles_per_step": k}
+        if out is None:
+            out = torch.zeros((n_rows, B), device=xd.device)
+        for st, o, mode in zip(fused, ops_, modes):
+            fn(o["vals"], o["cols"], o["local"], o["end"], o["r0"], xd,
+               st["seg_rows"], n_rows=n_rows, mode=mode, out=out, **extra)
+        return out
+
+    err = check_kernel(f"{SEARCHED_K11} {plan.graph.label()}", run(),
+                       run(plain=True))
+    out = torch.zeros((n_rows, B), device=xd.device)
+    ms = cuda_ms(lambda: run(out))
+    dev_ms = device_ms(lambda: run(out))
+    plain_ms = cuda_ms(lambda: run(plain=True), reps=5)
+    byt = sum(nbytes(o["vals"], o["cols"], o["end"] if m == "seg_scan"
+                     else o["local"], o["r0"]) for o, m in zip(ops_, modes))
+    byt += nbytes(xd) + 8 * n_rows * B
+    flops = 2 * B * sum(o["vals"].numel() for o in ops_)
+    b_ms = byt / HBM_BYTES_PER_S * 1e3
+    f_ms = flops / FP32_FLOPS_PER_S * 1e3
+    line = {"name": f"{SEARCHED_K11} seg_spmm_fused", "graph":
+            plan.graph.label(), "modes": modes, "tiles_per_step": k,
+            "launches": launches["K11"], "max_abs_err": err, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": max(b_ms, f_ms),
+            "bound_by": "bytes" if b_ms >= f_ms else "operations",
+            "bytes": byt, "B": int(B),
+            "shape": [list(o["vals"].shape) + [st["seg_rows"]]
+                      for o, st in zip(ops_, fused)],
+            "storage": plan.spec["storage_dtype"]}
+    print(f"{SEARCHED_K11} {json.dumps(line)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
@@ -1090,7 +1268,8 @@ def main() -> int:
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as store_dir:
         reset_launch_counts()                # the serving path starts here
-        swap_in, oracle8, x8 = serving_phase(W, designer, store_dir)
+        searched, swap_in, oracle8, x8 = serving_phase(W, designer,
+                                                       store_dir)
         progs, xd = spmm_fixed_phase(W, swap_in, x8, oracle8, designer)
         torch.cuda.synchronize()
         serve_launches = launch_counts()     # ... and ends here
@@ -1101,6 +1280,7 @@ def main() -> int:
     print("designer " + json.dumps({"host_seconds": designer}))
     rows += spmm_report_phase(spmm_cases(progs, xd, W.n_rows), launches,
                               csr_on_device(W), xd, W.n_rows)
+    searched_seg_line(searched, xd, W.n_rows, serve_launches)
     require(len(rows) == len(KERNELS), "the report misses a kernel")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -73,24 +73,31 @@ def build_all() -> dict[str, float]:
         return {}
     nvcc = _nvcc()
     procs = {}
+    t0 = time.perf_counter()
     for name in todo:
         out = _lib_path(name)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        log = out.with_suffix(".log")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
+        with open(log, "w") as fh:
+            procs[name] = (subprocess.Popen(cmd, stdout=fh,
+                                            stderr=subprocess.STDOUT),
+                           tmp, out, log)
+    # each compile's own time: poll, since they finish in any order
     seconds, failed = {}, []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        out.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)
+    while len(seconds) < len(procs):
+        for name, (proc, tmp, out, log) in procs.items():
+            if name in seconds or proc.poll() is None:
+                continue
+            seconds[name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu (exit {proc.returncode}):\n"
+                              f"{log.read_text()}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)
+        time.sleep(0.02)
     if failed:
         raise KernelBuildError("nvcc failed for " + "\n".join(failed))
     return seconds

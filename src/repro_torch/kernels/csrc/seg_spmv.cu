@@ -24,22 +24,18 @@
 //    products whose local row is m; a local row outside [0, M) matches no
 //    column of the one-hot matrix and adds nothing. For one right-hand
 //    side that is C*M multiply-adds for C useful ones, so here the
-//    products are summed by run instead. The tile is walked in passes of
-//    kPass = 2048 slots; in a pass each thread owns kPer = 8 consecutive
-//    slots (the blocked arrangement). It loads their local rows, vals and
-//    cols first (16-byte vector loads when C % 8 == 0 and the three
-//    arrays are 16-byte aligned, checked on the host; scalar loads
-//    otherwise), then the 8 x gathers, all independent, and sums runs of
-//    equal local row in registers. The run that ends a thread's slots is
-//    carried over the warp by a segmented __shfl_up_sync scan that
-//    restarts where a lane's first local row differs from its
-//    neighbour's last, or where the lane's 8 slots are not one run. Only
-//    the thread that ends a run (where the next local row differs, or at
-//    the warp's last slot) adds it into a shared float[M] with one
-//    atomicAdd, and only when the row is in [0, M). The packer emits
-//    local rows sorted within a tile, so the atomics per tile fall from C
-//    to about (distinct rows + warps per pass); the sums are right for
-//    any local_row (unsorted, repeated, out of range), only fast for
+//    products are summed by run instead, with the blocked run reduction
+//    of runs.cuh (one column, one lane a slot group): in passes of 2048
+//    slots each thread loads 8 consecutive slots' local rows, vals and
+//    cols (16-byte vector loads when C % 8 == 0 and the three arrays are
+//    16-byte aligned, checked on the host; scalar loads otherwise), then
+//    the 8 x gathers, all independent; runs of equal local row are summed
+//    in registers and over the warp, and the thread that ends a run adds
+//    it into a shared float[M] with one atomicAdd. A local row outside
+//    [0, M) gets the key kNone and adds nothing. The packer emits local
+//    rows sorted within a tile, so the atomics per tile fall from C to
+//    about (distinct rows + warps per pass); the sums are right for any
+//    local_row (unsorted, repeated, out of range), only fast for
 //    sorted ones. seg_end is not read, as the TPU kernel does not read it.
 //  * fused (K6): the TPU adds tile t's partials at y[r0[t] + m] on a
 //    resident output block, in sequential grid order; a row that
@@ -47,16 +43,20 @@
 //    Blocks on the GPU run in parallel and in any order, so the adds are
 //    atomicAdd into y. Rows >= n_rows are masked: the TPU clamps an
 //    out-of-range slice write, the GPU would corrupt memory.
+// runs.cuh holds the 8-slot loads and the run helpers, which the seg SpMM
+// kernels K10a/K10b/K11 run for B columns.
 // Atomics add in an order that changes from run to run, so sums agree
 // with the plain version to a tolerance, not bit for bit.
-#include "common.cuh"
+#include "runs.cuh"
 
 namespace {
 
+using runs::kPass;
+using runs::kPer;
+using runs::load_run;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPer = 8;                   // one-hot: slots per thread and pass
-constexpr int kPass = kThreads * kPer;    // ... and slots per pass
 // the modes: host modes 0 (seg_scan) and 1 (onehot_mxu, scalar or vector
 // loads)
 constexpr int kSegScan = 0, kOnehot = 1, kOnehotVec = 2;
@@ -102,115 +102,48 @@ __device__ __forceinline__ float scan_g(const float* cs, const int* end,
   return (e > 0) ? cs[min(e, Cn) - 1] : 0.f;
 }
 
-// kPer consecutive elements at p (16-byte aligned), upcast: vals to float,
-// cols and local rows to int. Read once, so loaded evict-first.
-__device__ __forceinline__ void load_run(const float* p, float (&o)[kPer]) {
-#pragma unroll
-  for (int k = 0; k < kPer; k += 4) {
-    const float4 q = __ldcs(reinterpret_cast<const float4*>(p + k));
-    o[k] = q.x, o[k + 1] = q.y, o[k + 2] = q.z, o[k + 3] = q.w;
-  }
-}
-__device__ __forceinline__ void load_run(const int32_t* p, int (&o)[kPer]) {
-#pragma unroll
-  for (int k = 0; k < kPer; k += 4) {
-    const int4 q = __ldcs(reinterpret_cast<const int4*>(p + k));
-    o[k] = q.x, o[k + 1] = q.y, o[k + 2] = q.z, o[k + 3] = q.w;
-  }
-}
-// eight 2-byte elements in one 16-byte load; element 2i is the low half of
-// word i. A bf16 is the top half of its float.
-__device__ __forceinline__ void load_run(const __nv_bfloat16* p,
-                                         float (&o)[kPer]) {
-  const uint4 q = __ldcs(reinterpret_cast<const uint4*>(p));
-  const unsigned w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    o[2 * i] = __uint_as_float(w[i] << 16);
-    o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void load_run(const int16_t* p, int (&o)[kPer]) {
-  const uint4 q = __ldcs(reinterpret_cast<const uint4*>(p));
-  const unsigned w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    o[2 * i] = (int)(int16_t)(w[i] & 0xffffu);
-    o[2 * i + 1] = (int)w[i] >> 16;  // arithmetic shift keeps the sign
-  }
-}
-
 // One pass of the one-hot reduction: this thread's kPer slots start at
 // slot s0 of the tile at base; each run's sum is added into buf[row] by
-// the thread that ends it. Slots at or past Cn carry local row -1.
+// the thread that ends it. A slot at or past Cn, or whose local row is
+// outside [0, M), gets the key kNone and adds nothing.
 template <bool kVec, typename V, typename C, typename X>
 __device__ __forceinline__ void onehot_pass(
     const V* __restrict__ vals, const C* __restrict__ cols,
     const int* __restrict__ local, const X* __restrict__ x, int n_cols,
     long long base, int s0, int Cn, int M, float* buf) {
-  const int lane = threadIdx.x & 31;
-  int l[kPer], col[kPer];
-  float p[kPer];
+  int key[kPer], col[kPer];
+  float v[kPer];
   // with kVec, Cn % kPer == 0: the kPer slots are all in or all out
   if constexpr (kVec) {
     if (s0 < Cn) {
-      load_run(local + base + s0, l);
+      load_run(local + base + s0, key);
       load_run(cols + base + s0, col);
-      load_run(vals + base + s0, p);
+      load_run(vals + base + s0, v);
     } else {
 #pragma unroll
-      for (int k = 0; k < kPer; ++k) l[k] = -1, col[k] = -1, p[k] = 0.f;
+      for (int k = 0; k < kPer; ++k) key[k] = -1, col[k] = -1, v[k] = 0.f;
     }
   } else {
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
       const bool in = s0 + k < Cn;
-      l[k] = in ? local[base + s0 + k] : -1;
+      key[k] = in ? local[base + s0 + k] : -1;
       col[k] = in ? to_i32(cols[base + s0 + k]) : -1;
-      p[k] = in ? to_f32(vals[base + s0 + k]) : 0.f;
+      v[k] = in ? to_f32(vals[base + s0 + k]) : 0.f;
     }
   }
+  // the products first: holding the x gathers in flight across the run
+  // structure's shuffles took 40 registers instead of 32, which cost the
+  // fused kernel's blocks of several tiles more than it saved
+  float p[kPer][1];
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
-    p[k] *= ((unsigned)col[k] < (unsigned)n_cols) ? to_f32(x[col[k]]) : 0.f;
+    p[k][0] = v[k] *
+              ((unsigned)col[k] < (unsigned)n_cols ? to_f32(x[col[k]]) : 0.f);
+    if ((unsigned)key[k] >= (unsigned)M) key[k] = runs::kNone;
   }
-  // the run that ends this thread's slots, and whether it is all of them
-  float tail = p[0];
-  bool whole = true;
-#pragma unroll
-  for (int k = 1; k < kPer; ++k) {
-    const bool same = l[k] == l[k - 1];
-    tail = same ? tail + p[k] : p[k];
-    whole = whole && same;
-  }
-  const int prev_last = __shfl_up_sync(0xffffffffu, l[kPer - 1], 1);
-  const int next_first = __shfl_down_sync(0xffffffffu, l[0], 1);
-  const bool joins = lane > 0 && l[0] == prev_last;
-  // segmented inclusive scan: run[lane] is the whole run that ends at this
-  // lane's last slot, summed over the lanes it spans
-  float run = tail;
-  bool open = whole && joins;  // the run reaches back into the lane before
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float up = __shfl_up_sync(0xffffffffu, run, o);
-    const bool up_open = __shfl_up_sync(0xffffffffu, (int)open, o);
-    if (lane >= o) {
-      if (open) run += up;
-      open = open && up_open;
-    }
-  }
-  const float before = __shfl_up_sync(0xffffffffu, run, 1);
-  float acc = joins ? before : 0.f;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    acc += p[k];
-    const bool ends = k + 1 < kPer ? l[k + 1] != l[k]
-                                   : lane == 31 || next_first != l[k];
-    if (ends) {
-      if ((unsigned)l[k] < (unsigned)M) atomicAdd(&buf[l[k]], acc);
-      acc = 0.f;
-    }
-  }
+  const runs::Runs r = runs::run_structure<1>(key);
+  runs::add_runs<1, 1>(r, key, p, buf, 1, 0);
 }
 
 // Partials of tiles [t0, t1) per block: out[t, m] (fused = 0) or

@@ -4,18 +4,20 @@
 // RowSink.
 //
 // x is row-major (n_cols, B): one gathered row x[col] is B contiguous
-// values. A warp works on one output row (ELL) or one segment (seg_scan)
-// and splits its 32 lanes into groups of `bc` lanes, bc the smallest power
+// values. A warp works on one output row (ELL) or one segment (the seg
+// SpMM kernels' tiles whose ends descend) and splits its 32 lanes into groups of `bc` lanes, bc the smallest power
 // of two >= min(B, 32): lane j of a group owns column c0 + j of the current
 // column chunk, and the 32 / bc groups stride over the row's slots. Lanes of
 // one group read the same vals/cols element (a broadcast) and neighbouring
 // x values; the groups' sums are combined with xor shuffles. B = 1 gives
 // the 1-RHS layout (32 groups of one lane); B > 32 loops over chunks of 32
-// columns. range_dot (K10-K11) loads scalars, so no B or element size needs
+// columns. range_dot loads scalars, so no B or element size needs
 // alignment there. split_rows with CPL = 4 (K7-K9) does not: its load_cols
 // reads four columns with one 16-byte (fp32) or 8-byte (bf16) load, which
 // needs B % 4 == 0 and x aligned to that size; ell_spmm checks both on the
-// host and otherwise runs CPL = 1, one scalar load per column.
+// host and otherwise runs CPL = 1, one scalar load per column. The seg
+// SpMM kernels (seg_spmm.cu) gather x with load_cols too, under the same
+// checks.
 #pragma once
 
 #include "common.cuh"
@@ -26,7 +28,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
 // smallest power of two >= min(B, 32)
-inline int col_chunk(int B) {
+__host__ __device__ inline int col_chunk(int B) {
   int bc = 1;
   while (bc < B && bc < 32) bc <<= 1;
   return bc;

@@ -55,14 +55,33 @@ def ell_spmv_fused_ref(vals, cols, x, *, n_rows: int, row0: int = 0,
     return out
 
 
+def _scan_partials(cs, seg_end) -> torch.Tensor:
+    """``g[m] - g[m-1]`` per tile from the in-tile inclusive cumsum ``cs``
+    ((T, C) or (T, C, B)): ``g[m] = cs[e-1]`` with ``e = end[m]`` clamped
+    to [0, C], and 0 where ``e = 0``. An end past the tile takes the whole
+    tile's sum, as the CUDA kernels do; the Pallas kernels' ``jnp.take``
+    fills NaN there in interpret mode."""
+    end = seg_end.long().clamp(0, cs.shape[1])
+    at = (end - 1).clamp(min=0)
+    hit = end > 0
+    if cs.dim() == 3:
+        at = at.unsqueeze(-1).expand(-1, -1, cs.shape[2])
+        hit = hit.unsqueeze(-1)
+    g = torch.where(hit, torch.gather(cs, 1, at),
+                    torch.zeros((), dtype=torch.float32, device=cs.device))
+    g_prev = torch.cat([torch.zeros_like(g[:, :1]), g[:, :-1]], dim=1)
+    return g - g_prev
+
+
 def seg_spmv_ref(vals, cols, local_row, seg_end, x, seg_rows: int,
                  mode: str = "seg_scan") -> torch.Tensor:
     """K3 / K4. vals/cols/local_row: (T, S, L); seg_end: (T, M) exclusive
     in-tile end positions -> per-tile fp32 row partials (T, M).
 
     mode='seg_scan'  : in-tile inclusive cumsum ``cs`` of the products,
-                       ``g[m] = cs[end[m]-1]`` (0 where ``end[m] = 0``),
-                       partial ``g[m] - g[m-1]`` (K3).
+                       ``g[m] = cs[e-1]``, ``e = end[m]`` clamped to
+                       [0, C] (0 where ``e = 0``), partial ``g[m] -
+                       g[m-1]`` (K3).
     mode='onehot_mxu': ``partial[m] = sum_c prod[c] * [local[c] = m]``;
                        slots outside [0, M) contribute nothing (K4).
     """
@@ -77,13 +96,7 @@ def seg_spmv_ref(vals, cols, local_row, seg_end, x, seg_rows: int,
                                 torch.where(hit, prod, 0.0))
     if mode != "seg_scan":
         raise ValueError(f"unknown mode {mode!r} (seg_scan | onehot_mxu)")
-    cs = torch.cumsum(prod, dim=1)
-    end = seg_end.long()
-    g = torch.where(end > 0,
-                    torch.gather(cs, 1, (end - 1).clamp(min=0)),
-                    torch.zeros((), dtype=torch.float32, device=cs.device))
-    g_prev = torch.cat([torch.zeros_like(g[:, :1]), g[:, :-1]], dim=1)
-    return g - g_prev
+    return _scan_partials(torch.cumsum(prod, dim=1), seg_end)
 
 
 def seg_spmv_fused_ref(vals, cols, local_row, seg_end, r0, x, seg_rows: int,
@@ -143,7 +156,8 @@ def seg_spmm_ref(vals, cols, local_row, seg_end, x, seg_rows: int,
     x: (n_cols, B) -> fp32 (T, M, B). The two modes of ``seg_spmv_ref``,
     run once for all B columns: ``seg_scan`` scans the (C, B) products
     along the nnz axis and takes ``g[m] - g[m-1]`` with
-    ``g[m] = cs[end[m]-1]`` (0 where ``end[m] = 0``); ``onehot_mxu`` sums
+    ``g[m] = cs[e-1]``, ``e = end[m]`` clamped to [0, C] (0 where
+    ``e = 0``); ``onehot_mxu`` sums
     each product into its local row (slots outside [0, M) add nothing)."""
     T = vals.shape[0]
     B = x.shape[1]
@@ -158,13 +172,7 @@ def seg_spmm_ref(vals, cols, local_row, seg_end, x, seg_rows: int,
                                 torch.where(hit.unsqueeze(-1), prod, 0.0))
     if mode != "seg_scan":
         raise ValueError(f"unknown mode {mode!r} (seg_scan | onehot_mxu)")
-    cs = torch.cumsum(prod, dim=1)
-    end = seg_end.long()
-    at = (end - 1).clamp(min=0).unsqueeze(-1).expand(-1, -1, B)
-    g = torch.where((end > 0).unsqueeze(-1), torch.gather(cs, 1, at),
-                    torch.zeros((), dtype=torch.float32, device=cs.device))
-    g_prev = torch.cat([torch.zeros_like(g[:, :1]), g[:, :-1]], dim=1)
-    return g - g_prev
+    return _scan_partials(torch.cumsum(prod, dim=1), seg_end)
 
 
 def seg_spmm_fused_ref(vals, cols, local_row, seg_end, r0, x, seg_rows: int,

@@ -169,9 +169,9 @@ def seg_spmm_fused(vals, cols, local_row, seg_end, r0, x, seg_rows: int, *,
     """K11: add tile t's (seg_rows, B) partials into ``out[r0[t] + m, :]``
     (rows ``>= n_rows`` dropped) and return ``out``, a fresh fp32
     (n_rows, B) zero tensor when None. Requires per-tile contiguous rows.
-    ``tiles_per_step`` is the number of tiles one GPU block (one-hot) or
-    one column of the grid (seg_scan) covers, clamped to [1, T]; it does
-    not change the result."""
+    ``tiles_per_step`` does not change the result, and on the GPU it does
+    not set the grid either: a block takes the ceil(2048 / C) tiles of one
+    2048-slot pass (``csrc/seg_spmm.cu``)."""
     if not vals.is_cuda:
         return seg_spmm_fused_ref(vals, cols, local_row, seg_end, r0, x,
                                   seg_rows, n_rows=n_rows, mode=mode,

@@ -44,11 +44,9 @@ def _seg_case(rng, t, s, l, m):
     c = s * l
     local = np.sort(rng.integers(0, m, (t, c)), axis=1)
     local = np.minimum(local - local[:, :1], m - 1)
-    seg_end = np.full((t, m), c, np.int32)
-    for ti in range(t):
-        for seg in range(m):
-            nxt = np.where(local[ti] > seg)[0]
-            seg_end[ti, seg] = nxt[0] if nxt.size else c
+    seg_end = np.empty((t, m), np.int32)
+    for ti in range(t):   # segment m ends where the first row > m starts
+        seg_end[ti] = np.searchsorted(local[ti], np.arange(m), side="right")
     return (torch.from_numpy(local.astype(np.int32).reshape(t, s, l)),
             torch.from_numpy(seg_end))
 
@@ -128,8 +126,8 @@ def test_ell_kernels_skip_out_of_range_columns(dev, t, r, w, vd, cd, xd):
 
 
 def _onehot_rows(rng, case, t, c, m):
-    """(t, c) local rows for the one-hot kernels (K4, K6), which must sum
-    any of them as the one-hot matrix does."""
+    """(t, c) local rows for the one-hot kernels (K4, K6, K10b, K11), which
+    must sum any of them as the one-hot matrix does."""
     if case == "unsorted":
         return rng.integers(0, m, (t, c))
     if case == "one_row":              # one heavy row fills each tile
@@ -305,11 +303,12 @@ def test_seg_spmm_kernels_match_plain(dev, b, mode, vd, cd, xd):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("b", [8, 17])
+@pytest.mark.parametrize("b", [8, 17, 40])
 @pytest.mark.parametrize("mode", ["seg_scan", "onehot_mxu"])
 def test_seg_spmm_full_chunk(dev, b, mode):
-    """C = 8192 slots per tile (LANE_NNZ_BLOCK's largest chunk): a stored
-    (C, B) scan would not fit a block's shared memory."""
+    """C = 8192 slots per tile (LANE_NNZ_BLOCK's largest chunk) and M =
+    700: a stored (C, B) scan would not fit a block's shared memory, and at
+    B = 40 the (M, B) accumulator passes 48 KB (the opt-in)."""
     rng = np.random.default_rng(b)
     n_cols = 4000
     T, S, L, M = 3, 64, 128, 700
@@ -328,6 +327,144 @@ def test_seg_spmm_full_chunk(dev, b, mode):
            ref.seg_spmm_fused_ref(vals, cols, local, end, r0, x, M,
                                   n_rows=1900, mode=mode))
     torch.cuda.synchronize()
+
+
+def _check_seg_spmm(g, vals, cols, local, end, x, m, mode, r0, n_rows,
+                    ks=(1, 3, 8)):
+    """K10 and K11 (at each tiles_per_step) against their plain versions;
+    ``g`` moves a tensor to the card."""
+    _close(ops.seg_spmm(g(vals), g(cols), g(local), g(end), g(x), m,
+                        mode=mode),
+           ref.seg_spmm_ref(vals, cols, local, end, x, m, mode))
+    for k in ks:
+        _close(ops.seg_spmm_fused(g(vals), g(cols), g(local), g(end), g(r0),
+                                  g(x), m, n_rows=n_rows, mode=mode,
+                                  tiles_per_step=k),
+               ref.seg_spmm_fused_ref(vals, cols, local, end, r0, x, m,
+                                      n_rows=n_rows, mode=mode))
+    torch.cuda.synchronize()
+
+
+# (local_row case, (T, S, L, M)) for K10b / K11 in one-hot mode: the
+# packer's sorted rows, unsorted, one-row, run and out-of-range rows, at
+# C = 21 and 12 (not multiples of 8: scalar loads) and with the arrays and
+# x off the 16-byte alignment (scalar loads and one column per x gather)
+ONEHOT_SPMM_CASES = [("sorted", (9, 16, 128, 96)),
+                     ("unsorted", (9, 16, 128, 96)),
+                     ("one_row", (9, 16, 128, 96)),
+                     ("runs", (9, 16, 128, 96)),
+                     ("out_of_range", (9, 16, 128, 96)),
+                     ("out_of_range", (9, 3, 7, 5)),
+                     ("unsorted", (9, 3, 4, 10)),
+                     ("unaligned", (9, 16, 128, 96))]
+
+
+@pytest.mark.parametrize("case,shape", ONEHOT_SPMM_CASES)
+@pytest.mark.parametrize("b", [1, 3, 8, 12, 17, 40])
+@pytest.mark.parametrize("vd,cd,xd", STORAGE)
+def test_onehot_seg_spmm_kernels_on_any_local_row(dev, case, shape, b, vd,
+                                                   cd, xd):
+    """K10b and K11 in one-hot mode sum runs of equal local rows: right for
+    rows in any order, repeated, or outside [0, M), with runs that cross
+    a thread's 8 slots, a warp and a 2048-slot pass. B = 8 and 40 take
+    two lanes a slot, B = 12 one lane and 4 columns a gather."""
+    rng = np.random.default_rng(b * 7 + shape[1])
+    n_cols = 2000
+    T, S, L, M = shape
+    local, end = _seg_case(rng, T, S, L, M)
+    if case not in ("sorted", "unaligned"):
+        local = torch.from_numpy(np.ascontiguousarray(_onehot_rows(
+            rng, case, T, S * L, M), dtype=np.int32).reshape(T, S, L))
+    vals = torch.from_numpy(rng.standard_normal((T, S, L))).to(vd)
+    cols = torch.from_numpy(rng.integers(0, n_cols, (T, S, L))).to(cd)
+    x = torch.from_numpy(rng.standard_normal((n_cols, b))).to(xd)
+    r0 = torch.from_numpy((np.arange(T) * 50).astype(np.int32))
+    g = ((lambda t: _off_by_one(t, dev)) if case == "unaligned"
+         else (lambda t: t.to(dev)))
+    _check_seg_spmm(g, vals, cols, local, end, x, M, "onehot_mxu", r0, 420)
+
+
+def _ends(rng, case, t, c, m):
+    """(t, m) seg_end rows the packer never writes (descending, repeated,
+    past C, below 0, any of these) or a padding tile (every end 0)."""
+    if case == "descending":
+        end = rng.integers(0, c + 1, (t, m))
+        end[0] = np.sort(end[0])[::-1]
+    elif case == "repeated":
+        end = np.sort(rng.choice([0, c // 3, c // 3, c - 1, c], (t, m)),
+                      axis=1)
+        end[0] = c // 2
+    elif case == "past_c":
+        end = np.sort(rng.integers(0, c + 1, (t, m)), axis=1)
+        end[:, -3:] = [c + 1, c + 7, 2 * c]
+    elif case == "negative":
+        end = np.sort(rng.integers(0, c + 1, (t, m)), axis=1)
+        end[:, :3] = [-5, -1, 0]
+    elif case == "mixed":
+        end = rng.integers(-3, c + 4, (t, m))
+    else:   # padding: the packer's ends, and a last tile of ends 0
+        end = np.sort(rng.integers(0, c + 1, (t, m)), axis=1)
+        end[-1] = 0
+    return torch.from_numpy(end.astype(np.int32))
+
+
+@pytest.mark.parametrize("case", ["descending", "repeated", "past_c",
+                                  "negative", "mixed", "padding"])
+@pytest.mark.parametrize("b", [1, 3, 8, 17, 40])
+@pytest.mark.parametrize("vd,cd,xd", STORAGE)
+def test_seg_scan_spmm_kernels_on_any_ends(dev, case, b, vd, cd, xd):
+    """K10a and K11 in seg_scan mode on ends the packer never writes: a
+    tile whose ends descend anywhere takes the signed range-sum path
+    (exact zeros for repeated ends, ends clamped to [0, C])."""
+    rng = np.random.default_rng(b * 11 + len(case))
+    n_cols = 2000
+    T, S, L, M = 7, 4, 128, 24
+    end = _ends(rng, case, T, S * L, M)
+    local = torch.zeros((T, S, L), dtype=torch.int32)   # seg_scan: unread
+    vals = torch.from_numpy(rng.standard_normal((T, S, L))).to(vd)
+    cols = torch.from_numpy(rng.integers(0, n_cols, (T, S, L))).to(cd)
+    x = torch.from_numpy(rng.standard_normal((n_cols, b))).to(xd)
+    r0 = torch.from_numpy((np.arange(T) * 20).astype(np.int32))
+    _check_seg_spmm(lambda t: t.to(dev), vals, cols, local, end, x, M,
+                    "seg_scan", r0, 150)
+
+
+@pytest.mark.parametrize("b", [1, 8, 17])
+@pytest.mark.parametrize("mode", ["seg_scan", "onehot_mxu"])
+def test_seg_spmm_small_tiles_share_a_pass(dev, b, mode):
+    """C = 512 (the searched serving plan's chunk): a block's 2048-slot
+    pass spans four tiles. tiles_per_step 1, 3, 8 and 16 with T = 37, not
+    a multiple of any, give the same sums."""
+    rng = np.random.default_rng(b)
+    n_cols = 3000
+    T, S, L, M = 37, 4, 128, 8
+    local, end = _seg_case(rng, T, S, L, M)
+    vals = torch.from_numpy(rng.standard_normal((T, S, L)).astype(np.float32))
+    cols = torch.from_numpy(rng.integers(0, n_cols, (T, S, L)).astype(np.int32))
+    x = torch.from_numpy(rng.standard_normal((n_cols, b)).astype(np.float32))
+    r0 = torch.from_numpy((np.arange(T) * 6).astype(np.int32))
+    _check_seg_spmm(lambda t: t.to(dev), vals, cols, local, end, x, M, mode,
+                    r0, 6 * T, ks=(1, 3, 8, 16))
+
+
+@pytest.mark.parametrize("mode,m,b", [("onehot_mxu", 8192, 8),
+                                      ("seg_scan", 8192, 8),
+                                      ("onehot_mxu", 60000, 1),
+                                      ("seg_scan", 60000, 1)])
+def test_seg_spmm_windows_smaller_than_a_tile(dev, mode, m, b):
+    """One tile's M x B accumulator beyond the block's shared memory: at
+    M = 8192, B = 8 a window takes fewer columns; at M = 60000 part of the
+    tile's segments, and the tile is read once per window."""
+    rng = np.random.default_rng(m + b)
+    n_cols = 4000
+    T, S, L = 2, 64, 128
+    local, end = _seg_case(rng, T, S, L, m)
+    vals = torch.from_numpy(rng.standard_normal((T, S, L)).astype(np.float32))
+    cols = torch.from_numpy(rng.integers(0, n_cols, (T, S, L)).astype(np.int32))
+    x = torch.from_numpy(rng.standard_normal((n_cols, b)).astype(np.float32))
+    r0 = torch.from_numpy((np.arange(T) * 100).astype(np.int32))
+    _check_seg_spmm(lambda t: t.to(dev), vals, cols, local, end, x, m, mode,
+                    r0, 100 + m, ks=(1, 2))
 
 
 @pytest.mark.parametrize("reduce", ["SEG_SCAN_RED", "ONEHOT_MXU_RED",

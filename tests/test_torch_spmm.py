@@ -135,6 +135,108 @@ def test_seg_spmm_plain_versions_match_pallas(mode, t, s, l, m, b, storage):
                                       tiles_per_step=k))
 
 
+def _pairs(v, c, local, end, x, m, mode, storage, pallas_end=None):
+    """(port, Pallas) pairs of K10 and K11 on the same tiles: K11 with
+    tiles overlapping by half a tile, n_rows cutting into the last, and
+    tiles_per_step 1 and 3. The Pallas side takes ``pallas_end`` for
+    seg_end where one is given."""
+    vdt, cdt = STORAGE[storage]
+    (vj, vt), (cj, ct) = _pair(v, vdt), _pair(c, cdt)
+    (lj, lt), (_, et) = _pair(local, np.int32), _pair(end, np.int32)
+    ej = jnp.asarray(end if pallas_end is None else pallas_end, jnp.int32)
+    xj, xt = _pair(x, np.float32)
+    out = [(ops.seg_spmm(vt, ct, lt, et, xt, m, mode=mode),
+            ref_ops.seg_spmm(vj, cj, lj, ej, xj, m, mode=mode))]
+    t = v.shape[0]
+    r0 = (np.arange(t) * (m // 2)).astype(np.int32)
+    r0j, r0t = _pair(r0, np.int32)
+    n_rows = int(r0[-1]) + m // 2 + 1
+    for k in (1, 3):
+        out.append((ops.seg_spmm_fused(vt, ct, lt, et, r0t, xt, m,
+                                       n_rows=n_rows, mode=mode,
+                                       tiles_per_step=k),
+                    ref_ops.seg_spmm_fused(vj, cj, lj, ej, r0j, xj, m,
+                                           n_rows=n_rows,
+                                           n_out=int(r0.max()) + m,
+                                           mode=mode, tiles_per_step=k)))
+    return out
+
+
+@pytest.mark.parametrize("storage", sorted(STORAGE))
+@pytest.mark.parametrize("b", BATCHES)
+@pytest.mark.parametrize("t,s,l,m", [(3, 4, 16, 16), (2, 3, 7, 5)])
+def test_onehot_spmm_plain_versions_match_pallas_on_any_local_row(
+        t, s, l, m, b, storage):
+    """K10b and K11 in one-hot mode on unsorted local rows with entries
+    outside [0, M) (-1, M, M + 100): a slot adds into the row it names
+    wherever it sits in the tile, and an out-of-range slot adds nothing,
+    as a row of zeros in the Pallas kernel's one-hot matrix does. The CUDA
+    kernels sum runs of equal rows, and must keep this for rows in any
+    order."""
+    rng = np.random.default_rng(t * s + l + m + b)
+    n_cols = 120
+    v, c, _, end = _rand_seg(rng, t, s, l, m, n_cols)
+    local = rng.integers(0, m, (t, s * l))
+    bad = rng.random(local.shape) < 0.2
+    local[bad] = rng.choice([-1, m, m + 100], int(bad.sum()))
+    local[0, :3] = [-1, m, m + 100]
+    local = local.astype(np.int32).reshape(t, s, l)
+    x = rng.standard_normal((n_cols, b))
+    for got, want in _pairs(v, c, local, end, x, m, "onehot_mxu", storage):
+        _close(got, want)
+
+
+def _ends(rng, case, t, c, m):
+    """(t, m) seg_end rows that the packer never writes: ends that descend
+    somewhere, repeat, pass the tile's C slots or fall below 0."""
+    if case == "descending":            # unsorted, the first tile reversed
+        end = rng.integers(0, c + 1, (t, m))
+        end[0] = np.sort(end[0])[::-1]
+    elif case == "repeated":            # few distinct ends, in order
+        end = np.sort(rng.choice([0, c // 3, c // 3, c - 1, c], (t, m)),
+                      axis=1)
+        end[0] = c // 2
+    elif case == "past_c":              # in order, the last ones past C
+        end = np.sort(rng.integers(0, c + 1, (t, m)), axis=1)
+        end[:, -3:] = [c + 1, c + 7, 2 * c]
+    elif case == "negative":            # in order, the first ones below 0
+        end = np.sort(rng.integers(0, c + 1, (t, m)), axis=1)
+        end[:, :3] = [-5, -1, 0]
+    else:                               # anything in [-3, C + 3]
+        end = rng.integers(-3, c + 4, (t, m))
+    return end.astype(np.int32)
+
+
+@pytest.mark.parametrize("b", BATCHES)
+@pytest.mark.parametrize("case", ["descending", "repeated", "past_c",
+                                  "negative", "mixed"])
+def test_seg_scan_spmm_plain_versions_match_pallas_on_any_ends(case, b):
+    """K10a and K11 in seg_scan mode on ends the packer never writes. The
+    Pallas kernel's g[m] is cs[end[m] - 1] (0 where end[m] <= 0), so a
+    descending pair gives a negated range sum and a repeated end an exact
+    zero. Past the tile's C slots the reference reads out of range (NaN in
+    interpret mode); the port (plain and CUDA) defines g there as the whole
+    tile's sum, which is the Pallas kernel on the ends clamped to C. On the
+    raw ends, the segments that touch no end past C agree."""
+    rng = np.random.default_rng(b + len(case))
+    t, s, l, m, n_cols = 3, 4, 16, 16, 110
+    v, c, local, _ = _rand_seg(rng, t, s, l, m, n_cols)
+    end = _ends(rng, case, t, s * l, m)
+    x = rng.standard_normal((n_cols, b))
+    clamped = np.minimum(end, s * l)
+    for got, want in _pairs(v, c, local, end, x, m, "seg_scan", "fp32",
+                            pallas_end=clamped):
+        _close(got, want)
+    vj, cj, ej, xj = (jnp.asarray(a) for a in (v, c, end, x.astype(np.float32)))
+    raw = np.asarray(ref_ops.seg_spmm(vj, cj, jnp.asarray(local), ej, xj, m,
+                                      mode="seg_scan"))
+    past = end > s * l
+    touch = past | np.concatenate([np.zeros((t, 1), bool), past[:, :-1]], 1)
+    got = ops.seg_spmm(*(torch.from_numpy(a) for a in (
+        v, c, local, end, x.astype(np.float32))), m, mode="seg_scan")
+    _close(got.numpy()[~touch], raw[~touch])
+
+
 def test_seg_spmm_padding_tile_and_bf16_x():
     """A padding tile (every end 0, every val 0) gives zero partials in
     both modes, and a bf16 x is upcast before the product."""
