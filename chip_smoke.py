@@ -17,7 +17,10 @@ each printing its seconds:
    slab and split-row mappings; row counts not multiples of 32; K5 from
    row 11 into a prefilled y, n_rows cutting a slab), K4/K6 in one-hot
    mode on unsorted local rows with some outside [0, M) (C = 1536 and
-   21), and columns outside [0, n_cols); 2b. the same for the SpMM
+   21), K3/K6 in seg_scan mode on ends that descend, repeat, pass C or
+   fall below 0, a padding tile, C in {21, 512, 2048, 8192} on and off the
+   16-byte alignment with K6 at tiles_per_step 1, 3, 8 and 16, and M =
+   60000 segments, and columns outside [0, n_cols); 2b. the same for the SpMM
    kernels at B in {1, 3, 8, 17, 40}, K7-K9 at those widths, at 5120
    rows and at one serving tile (T = 1, R = 128, W = 397, B = 8); K10b
    and K11 on one-hot local rows unsorted, of one row, in runs across a
@@ -45,7 +48,14 @@ each printing its seconds:
    time included); ``device_ms`` (and ``library_device_ms``) times the
    card alone, with the host's enqueueing hidden behind a sleep kernel.
    K6 in one-hot mode (the fused ONEHOT_MXU_RED plan) is timed the same
-   way and printed on a line of its own (``K6[onehot_mxu] {...}``);
+   way and printed on a line of its own (``K6[onehot_mxu] {...}``). The
+   K3 and K6 (seg_scan) rows add two probes on their vals and cols, on
+   the card alone: ``gather_device_ms`` (K1 on them viewed as (T, C/16,
+   16) ELL tiles: the same bytes and x gathers in K1's structure) and
+   ``b1_spmm_device_ms`` (K10a / K11 at B = 1); the lines
+   ``K3[local_cols] {...}`` and ``K6[local_cols] {...}`` time the same
+   kernels, checked the same way, with ascending columns whose gathers
+   stay in a few L1 lines;
 6. the serving path at full width: Qwen3-8B's FFN up-projection
    (d_ff x d_model = 12288 x 4096) magnitude-pruned to density 0.08
    (4,026,531 nnz), a searched ``Target(batch_size=8)`` compile through a
@@ -65,7 +75,7 @@ each printing its seconds:
    (``one_tile_ms``). When the searched B = 8 plan of phase 6 is a seg
    plan, its fused seg step is timed with K11 at its own chunk and
    tiles_per_step and printed on a line of its own (``K11[searched]
-   {...}``), outside the twelve rows.
+   {...}``, with the cuSPARSE SpMM times), outside the twelve rows.
 
 Phases 3-4 and phases 6-7 are the two paths: the launch counters are set
 to 0 before each and read after it, and each of its kernels must have
@@ -77,6 +87,7 @@ repository. It imports neither jax nor ``repro``.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -233,11 +244,38 @@ def device_phase():
     print(f"  kernel build {time.perf_counter() - t0:.2f} s "
           f"(per source: {json.dumps(per_source)})")
     for log in sorted(build.BUILD_DIR.glob("*.log")):
-        lines = [ln for ln in log.read_text().splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"  {log.name}: {len(lines) // 2} kernels; e.g. "
-              f"{lines[-2].strip() if len(lines) >= 2 else '(no ptxas info)'}")
+        print(f"  {log.name}: {ptxas_summary(log.read_text())}")
     done()
+
+
+def kernel_name(mangled: str) -> str:
+    """The ``*_kernel`` identifier in a mangled name: its length is the
+    number written before it."""
+    for found in re.finditer(r"(\d+)([A-Za-z_]+_kernel)", mangled):
+        digits, name = found.groups()
+        if any(int(digits[k:]) == len(name) for k in range(len(digits))):
+            return name
+    return mangled
+
+
+def ptxas_summary(text: str) -> str:
+    """Per kernel template in nvcc's ``-Xptxas -v`` output: its
+    instantiations, their registers a thread (least-most) and the most
+    spill bytes stored."""
+    kernels, name = {}, None
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            name = kernel_name(ln.split("'")[1])
+            kernels.setdefault(name, {"regs": [], "spill": 0})
+        elif name and "spill stores" in ln:
+            spill = int(re.search(r"(\d+) bytes spill stores", ln).group(1))
+            kernels[name]["spill"] = max(kernels[name]["spill"], spill)
+        elif name and (m := re.search(r"Used (\d+) registers", ln)):
+            kernels[name]["regs"].append(int(m.group(1)))
+    return "; ".join(
+        f"{k} x{len(v['regs'])} {min(v['regs'], default=0)}-"
+        f"{max(v['regs'], default=0)} registers, spill {v['spill']} B"
+        for k, v in kernels.items()) or "(no ptxas info)"
 
 
 # ------------------------------- phase 2 ----------------------------------
@@ -409,8 +447,70 @@ def small_kernels_phase():
             check_kernel(f"K1 {tag} {shape} columns out of range",
                          ops.ell_spmv(g(v), g(far), g(x)),
                          ref.ell_spmv_ref(v0, c0, x))
+        seg_scan_cases(rng, n_cols, vd, cd, x, tag)
+    # M = 60000 segments over tiles of C = 8192: shared memory that grew
+    # with M refused this launch
+    T, S, L, M = 2, 64, 128, 60000
+    _, end = seg_case(rng, T, S, L, M)
+    v = torch.from_numpy(rng.standard_normal((T, S, L)).astype(np.float32))
+    c = torch.from_numpy(rng.integers(0, n_cols, (T, S, L)).astype(np.int32))
+    x = torch.from_numpy(rng.standard_normal(n_cols).astype(np.float32))
+    check_seg_scan(f"C={S * L} M={M}", v, c, end, x, M,
+                   torch.tensor([0, 100], dtype=torch.int32), 100 + M, g,
+                   ks=(1, 2))
     torch.cuda.synchronize()
     done()
+
+
+def check_seg_scan(what, v, c, end, x, M, r0, n_rows, g, ks=(1, 3, 8, 16)):
+    """K3 and K6 in seg_scan mode (K6 at each tiles_per_step) against
+    their plain versions; ``g`` moves a tensor to the card."""
+    from repro_torch.kernels import ops, ref
+    local = torch.zeros(v.shape, dtype=torch.int32)     # seg_scan: unread
+    check_kernel(f"K3 {what}", ops.seg_spmv(
+        g(v), g(c), g(local), g(end), g(x), M, mode="seg_scan"),
+        ref.seg_spmv_ref(v, c, local, end, x, M, "seg_scan"))
+    for k in ks:
+        check_kernel(f"K6[seg_scan] {what} K={k}", ops.seg_spmv_fused(
+            g(v), g(c), g(local), g(end), g(r0), g(x), M, n_rows=n_rows,
+            mode="seg_scan", tiles_per_step=k),
+            ref.seg_spmv_fused_ref(v, c, local, end, r0, x, M,
+                                   n_rows=n_rows, mode="seg_scan"))
+
+
+# (T, S, L, M) for K3 / K6 in seg_scan mode: C = 21 (scalar loads; a
+# thread's 8 slots cross tiles), 512 (a 2048-slot pass spans four tiles),
+# 2048 (one tile a pass) and 8192 (four passes a tile, with a carry); T is
+# not a multiple of tiles_per_step 3, 8 or 16
+SCAN_WIDTHS = [(37, 3, 7, 5), (37, 4, 128, 60), (9, 16, 128, 300),
+               (3, 64, 128, 700)]
+
+
+def seg_scan_cases(rng, n_cols, vd, cd, x, tag):
+    """K3/K6 (seg_scan) at one storage on ends that descend, repeat, pass
+    C or fall below 0, and a padding tile; and on the packer's ends at each
+    of SCAN_WIDTHS, with the arrays on and off the 16-byte alignment."""
+    dev = torch.device("cuda")
+    on_card = lambda t: t.to(dev)
+    off = lambda t: off_by_one(t, dev)
+    operands = lambda T, S, L: (
+        torch.from_numpy(rng.standard_normal((T, S, L))).to(vd),
+        torch.from_numpy(rng.integers(0, n_cols, (T, S, L))).to(cd))
+    T, S, L, M = 7, 4, 128, 24
+    r0 = torch.from_numpy((np.arange(T) * 20).astype(np.int32))
+    for case in ("descending", "repeated", "past_c", "negative", "mixed",
+                 "padding"):
+        v, c = operands(T, S, L)
+        check_seg_scan(f"{tag} ends {case}", v, c,
+                       seg_ends(rng, case, T, S * L, M), x, M, r0, 150,
+                       on_card)
+    for T, S, L, M in SCAN_WIDTHS:
+        _, end = seg_case(rng, T, S, L, M)
+        v, c = operands(T, S, L)
+        r0 = torch.from_numpy((np.arange(T) * (M // 2)).astype(np.int32))
+        for g, how in ((on_card, ""), (off, " unaligned")):
+            check_seg_scan(f"{tag} C={S * L} T={T}{how}", v, c, end, x, M,
+                           r0, (M // 2) * T + 7, g)
 
 
 def small_spmm_phase():
@@ -689,9 +789,13 @@ def nbytes(*ts) -> int:
 
 def kernel_cases(banded, seg, xb, xp, n_b, n_p):
     """For K1-K6: (vals, cols, kernel fn, plain fn, bytes fn, flops,
-    matrix) at the operands of a phase-4 plan. The fused kernels add into
-    ``out`` (fresh zeros when None); timing reuses one buffer so that no
-    memset is timed with them."""
+    matrix, probes) at the operands of a phase-4 plan. The fused kernels
+    add into ``out`` (fresh zeros when None); timing reuses one buffer so
+    that no memset is timed with them. ``probes`` (K3 and K6 in seg_scan
+    mode, else None) run other kernels on the same vals and cols:
+    ``gather`` is K1 on them viewed as ELL tiles of 16-slot rows (the same
+    bytes and x gathers in K1's structure), ``b1_spmm`` is K10a / K11 at
+    B = 1 (the run-keyed design)."""
     from repro_torch.kernels import ops, ref
 
     def ell(prog_name, kid):
@@ -715,7 +819,7 @@ def kernel_cases(banded, seg, xb, xp, n_b, n_p):
             pf = ref.ell_spmv_ref if kid == "K1" else ref.ell_spmv_direct_ref
             run = lambda vv, cc, out=None: fn(vv, cc, xb)
             plain = lambda vv, cc: pf(vv, cc, xb)
-        return v, c, run, plain, byt, flops, "banded"
+        return v, c, run, plain, byt, flops, "banded", None
 
     def segk(prog_name, kid, mode):
         step, o = _step(seg[prog_name])
@@ -739,7 +843,20 @@ def kernel_cases(banded, seg, xb, xp, n_b, n_p):
                                                         xp, M, mode=mode)
             plain = lambda vv, cc: ref.seg_spmv_ref(vv, cc, local, end, xp,
                                                     M, mode)
-        return v, c, run, plain, byt, flops, "powerlaw"
+        probes = None
+        if mode == "seg_scan":
+            x1 = xp.view(-1, 1)
+            if kid == "K6":
+                y1 = torch.zeros((n_p, 1), device=xp.device)
+                b1 = lambda vv, cc: ops.seg_spmm_fused(
+                    vv, cc, local, end, r0, x1, M, n_rows=n_p, mode=mode,
+                    tiles_per_step=k, out=y1)
+            else:
+                b1 = lambda vv, cc: ops.seg_spmm(vv, cc, local, end, x1, M,
+                                                 mode=mode)
+            probes = {"gather": lambda vv, cc: ops.ell_spmv(
+                vv.view(T, -1, 16), cc.view(T, -1, 16), xp), "b1_spmm": b1}
+        return v, c, run, plain, byt, flops, "powerlaw", probes
 
     return {"K1": ell("K1 scatter", "K1"),
             "K2": ell("K2 direct", "K2"),
@@ -768,7 +885,7 @@ def report_phase(cases, launches, csr, xs, n_rows):
     print(f"  library (torch.sparse_csr_tensor @ x) ms: {library}, on the "
           f"card alone: {library_dev}")
     rows = []
-    for kid, (v, c, run, plain, byt, flops, mat) in cases.items():
+    for kid, (v, c, run, plain, byt, flops, mat, probes) in cases.items():
         name, source, replaces = KERNELS[kid[:2]]
         err = check_kernel(f"{kid} {name} fp32 {tuple(v.shape)}",
                            run(v, c), plain(v, c))
@@ -793,6 +910,8 @@ def report_phase(cases, launches, csr, xs, n_rows):
                "library_device_ms": library_dev[mat],
                "shape": list(v.shape), "matrix": mat,
                "bytes": byt(v, c)}
+        if probes:
+            row.update(probe_times(probes, v, c))
         if kid == ONEHOT_K6:     # not one of the twelve rows: a line apart
             print(f"{ONEHOT_K6} {json.dumps(row)}")
         else:
@@ -802,9 +921,45 @@ def report_phase(cases, launches, csr, xs, n_rows):
               f"of bound), plain {plain_ms:.4f} ms, library "
               f"{library[mat]:.4f} ms ({library_dev[mat]:.4f}), launches "
               f"{launches[kid[:2]]}")
+        if probes:
+            local_cols_line(kid, row, run, plain, byt, probes, v,
+                            xs[mat].shape[0], n_rows[mat])
     torch.cuda.synchronize()
     done()
     return rows
+
+
+def probe_times(probes, v, c) -> dict:
+    """The card times of a K3 / K6 row's probes on vals ``v``, cols
+    ``c``."""
+    return {f"{name}_device_ms": device_ms(lambda fn=fn: fn(v, c))
+            for name, fn in probes.items()}
+
+
+def local_cols_line(kid, row, run, plain, byt, probes, v, n_cols,
+                    n_rows) -> None:
+    """``K3[local_cols] {...}`` / ``K6[local_cols] {...}``: the row's
+    kernel on the same vals, seg_end and r0 with ascending columns
+    ``cols[t, s] = ((t*C + s) * n_cols) // (T*C)``, so that a warp's x
+    gathers hit a few L1 lines; the same byte bound, plain-version check
+    and timings as the row. Against the row it splits the x gathers' cost
+    from the kernel's structure."""
+    n = v.numel()
+    cl = (torch.arange(n, device=v.device, dtype=torch.int64) * n_cols
+          // n).to(torch.int32).view(v.shape)
+    err = check_kernel(f"{kid}[local_cols]", run(v, cl), plain(v, cl))
+    out = torch.zeros(n_rows, device=v.device)
+    b_ms = byt(v, cl) / HBM_BYTES_PER_S * 1e3
+    f_ms = 2 * n / FP32_FLOPS_PER_S * 1e3
+    line = {"name": f"{kid}[local_cols] {row['name'].split(' ', 1)[1]}",
+            "max_abs_err": err, "ms": cuda_ms(lambda: run(v, cl, out)),
+            "device_ms": device_ms(lambda: run(v, cl, out)),
+            "plain_ms": cuda_ms(lambda: plain(v, cl), reps=5),
+            "bound_ms": max(b_ms, f_ms),
+            "bound_by": "bytes" if b_ms >= f_ms else "operations",
+            "shape": row["shape"], "bytes": byt(v, cl)}
+    line.update(probe_times(probes, v, cl))
+    print(f"{kid}[local_cols] {json.dumps(line)}")
 
 
 def launch_counts() -> dict:
@@ -1161,10 +1316,11 @@ def spmm_report_phase(cases, launches, csr, xd, n_rows):
     return rows
 
 
-def searched_seg_line(plan, xd, n_rows, launches) -> None:
+def searched_seg_line(plan, xd, n_rows, launches, csr) -> None:
     """The K11 time at the operands serving runs: each fused seg step of
     the searched B = 8 plan (its chunk, its tiles_per_step), on a line of
-    its own, ``K11[searched] {...}``, outside the twelve rows. An ELL
+    its own, ``K11[searched] {...}``, outside the twelve rows, beside
+    cuSPARSE SpMM on the serving matrix (``csr @ X``). An ELL
     plan, or a seg step without the fused combine, runs no K11: one line
     says so."""
     from repro_torch.kernels import ops, ref
@@ -1209,6 +1365,8 @@ def searched_seg_line(plan, xd, n_rows, launches) -> None:
             "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": max(b_ms, f_ms),
             "bound_by": "bytes" if b_ms >= f_ms else "operations",
+            "library_ms": cuda_ms(lambda: csr @ xd),
+            "library_device_ms": device_ms(lambda: csr @ xd),
             "bytes": byt, "B": int(B),
             "shape": [list(o["vals"].shape) + [st["seg_rows"]]
                       for o, st in zip(ops_, fused)],
@@ -1278,9 +1436,10 @@ def main() -> int:
             f"a kernel of the serving path never launched: {serve_launches}")
     launches.update({k: serve_launches[k] for k in SPMM_KERNELS})
     print("designer " + json.dumps({"host_seconds": designer}))
+    csr_w = csr_on_device(W)
     rows += spmm_report_phase(spmm_cases(progs, xd, W.n_rows), launches,
-                              csr_on_device(W), xd, W.n_rows)
-    searched_seg_line(searched, xd, W.n_rows, serve_launches)
+                              csr_w, xd, W.n_rows)
+    searched_seg_line(searched, xd, W.n_rows, serve_launches, csr_w)
     require(len(rows) == len(KERNELS), "the report misses a kernel")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -10,15 +10,38 @@
 // (vals, cols, plus local_row for one-hot) for 2 flops, and each tile
 // writes M partials. x is gathered, from L2 where it fits.
 //
-// Design: one block of 256 threads per tile of C = S*L slots (K tiles per
-// block in the fused kernel, walked in turn). The mode is a template
-// argument, chosen on the host.
-//  * seg_scan (K3): the tile's products are scanned in passes of 256
-//    slots: coalesced loads, a warp-shuffle inclusive scan, a scan of the
-//    8 warp totals, and a running carry. The inclusive sums cs[0..C) stay
-//    in shared memory (C <= 8192 floats = 32 KB). The TPU kernel's rule
-//    then holds exactly: g[m] = cs[end[m]-1], or 0 where end[m] = 0, and
-//    the partial is g[m] - g[m-1].
+//  * seg_scan (K3, K6 mode 0): with S(e) the sum of the tile's first e
+//    products, g[m] = S(clamp(end[m], 0, C)) and partial[m] = g[m] -
+//    g[m-1] (g[-1] = 0), for any ends: descending, repeated, negative,
+//    past C.
+//    What sets the pace on the card is the x gathers, not the format's
+//    bytes. On chip_smoke.py's power-law operand (7.85 M slots, columns
+//    uniform over 2^20, a 4 MB x; an H100 80GB HBM3 at 700 W) the kernel
+//    takes about 0.078 ms against a byte bound of 0.024 ms; K1's
+//    structure on the same vals, cols and x takes 0.072 ms, and this
+//    kernel on ascending columns 0.031 ms (76 % of the bound). So about
+//    0.047 ms goes to random 32-byte L2 sectors fetched for 4-byte x
+//    values, which no arrangement of the format removes; the design
+//    trims what is left, the tile structure.
+//    scan_tiles_kernel: a block takes the ceil(2048 / C) tiles of one
+//    2048-slot pass, or one tile of ceil(C / 2048) passes. In a pass
+//    each thread owns 8 consecutive slots (the blocked arrangement of
+//    runs.cuh): it loads their vals and cols (16-byte evict-first loads
+//    when C % 8 == 0 and both arrays are 16-byte aligned, checked on the
+//    host; scalar loads otherwise), issues the 8 x gathers, then scans the
+//    8 products in registers. A segmented __shfl_up_sync scan over the
+//    warp's thread totals and a walk over the 8 warp totals (double
+//    buffered in shared memory, so one __syncthreads a pass) give each
+//    thread the sum before its slots; the scan restarts at each tile's
+//    first slot, and a running carry spans passes. The inclusive sums go
+//    to shared memory (the block's tiles, at most max(C, 4095) floats: it
+//    does not grow with M), so g[m] is read at any end, as the Pallas rule
+//    has it. The block then takes its tiles' (tile, segment) pairs in
+//    turn, reading seg_end from device memory. Overlapping the next
+//    tile's loads with this tile's scan (a persistent grid that loads
+//    ahead into registers, or cp.async.bulk copies into a two-stage
+//    shared ring) was not faster on the card, so neither is done; nor is
+//    the run reduction of K10a at one column, which was slower.
 //  * onehot_mxu (K4): the TPU routes the reduction through its matrix
 //    unit as a product with a one-hot matrix: partial[m] = sum of the
 //    products whose local row is m; a local row outside [0, M) matches no
@@ -41,8 +64,10 @@
 //    resident output block, in sequential grid order; a row that
 //    straddles tiles t and t+1 gets its second add on top of the first.
 //    Blocks on the GPU run in parallel and in any order, so the adds are
-//    atomicAdd into y. Rows >= n_rows are masked: the TPU clamps an
-//    out-of-range slice write, the GPU would corrupt memory.
+//    atomicAdd into y. Rows outside [0, n_rows) are masked: the TPU clamps
+//    an out-of-range slice write, the GPU would corrupt memory. seg_scan
+//    skips exact zeros (unused segments); one-hot walks tiles_per_block
+//    tiles a block, seg_scan sets its grid from C alone.
 // runs.cuh holds the 8-slot loads and the run helpers, which the seg SpMM
 // kernels K10a/K10b/K11 run for B columns.
 // Atomics add in an order that changes from run to run, so sums agree
@@ -61,45 +86,160 @@ constexpr int kWarps = kThreads / 32;
 // loads)
 constexpr int kSegScan = 0, kOnehot = 1, kOnehotVec = 2;
 
-// In-place inclusive scan of the tile's products into cs[0..Cn).
-template <typename V, typename C, typename X>
-__device__ void scan_tile(const V* __restrict__ vals,
-                          const C* __restrict__ cols,
-                          const X* __restrict__ x, int n_cols, long long base,
-                          int Cn, float* cs, float* warp_sums) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float carry = 0.f;
-  for (int start = 0; start < Cn; start += kThreads) {
-    const int c = start + threadIdx.x;
-    float v = (c < Cn) ? nz_product(vals, cols, x, n_cols, base + c) : 0.f;
+__device__ __forceinline__ int clamp_end(int e, int Cn) {
+  return e < 0 ? 0 : (e > Cn ? Cn : e);
+}
+
+// The products of this thread's kPer slots from slot i (of `left` still
+// in the block, whose first slot is i0), 0 past the block or for a column
+// outside [0, n_cols). The 8 x gathers are issued before any product.
+template <bool kVec, typename V, typename C, typename X>
+__device__ __forceinline__ void slot_products(
+    const V* __restrict__ vals, const C* __restrict__ cols,
+    const X* __restrict__ x, int n_cols, long long i0, long long i,
+    int left, float (&p)[kPer]) {
+  int col[kPer];
+  float v[kPer];
+  // with kVec, Cn % kPer == 0: the kPer slots are all in or all out. A
+  // thread past the block (in its last pass only) loads the block's first
+  // slots and drops them, so no branch guards the loads
+  if constexpr (kVec) {
+    const long long j = left > 0 ? i : i0;
+    load_run(cols + j, col);
+    load_run(vals + j, v);
+    if (left <= 0) {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) col[k] = -1, v[k] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const bool in = k < left;
+      col[k] = in ? to_i32(cols[i + k]) : -1;
+      v[k] = in ? to_f32(vals[i + k]) : 0.f;
+    }
+  }
+  float xv[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    xv[k] = (unsigned)col[k] < (unsigned)n_cols ? to_f32(x[col[k]]) : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) p[k] = v[k] * xv[k];
+}
+
+// K3 / K6 in seg_scan mode: tiles [t0, t0 + K) per block; cs holds their
+// in-tile inclusive sums. kFused = false: out[t, m]; kFused = true:
+// atomicAdd into y[r0[t] + m], rows outside [0, n_rows) masked.
+template <bool kVec, bool kFused, typename V, typename C, typename X>
+__global__ void __launch_bounds__(kThreads)
+scan_tiles_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
+                  const int* __restrict__ seg_end, const X* __restrict__ x,
+                  int n_cols, long long T, int Cn, int M, int K,
+                  float* __restrict__ out, const int* __restrict__ r0,
+                  long long n_rows) {
+  extern __shared__ float4 cs4[];  // K * Cn floats
+  float* cs = reinterpret_cast<float*>(cs4);
+  __shared__ float wsum[2][kWarps];  // per pass parity: warp totals ...
+  __shared__ int whead[2][kWarps];   // ... and whether a tile starts in it
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long t0 = (long long)blockIdx.x * K;
+  const int nt = (int)min((long long)K, T - t0);
+  const int n = nt * Cn;
+  const long long base = t0 * Cn;
+  if constexpr (!kFused) {
+    // K3's flush reads its nt * M ends after the scan: ask L2 for them
+    // now (faster on the card for K3; slower for K6, which adds into y)
+    for (int i = tid * 8; i < nt * M; i += kThreads * 8) {
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(seg_end + t0 * M + i));
+    }
+  }
+  float carry = 0.f;  // the open tile's sum before this pass
+  for (int s0 = 0, buf = 0; s0 < n; s0 += kPass, buf ^= 1) {
+    const int s = s0 + tid * kPer;
+    float p[kPer];
+    slot_products<kVec>(vals, cols, x, n_cols, base, base + s, n - s, p);
+    // tiles start at slots h, h + Cn, ... of this thread's kPer; the scan
+    // restarts there, and slots before h continue the open tile
+    const int c0 = s % Cn;
+    const int h = c0 == 0 ? 0 : Cn - c0;
+    float run = 0.f;
+    int next = h;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (k == next) {
+        run = 0.f;
+        next += Cn;
+      }
+      run += p[k];
+      p[k] = run;
+    }
+    // segmented inclusive scan of the thread totals over the warp: a lane
+    // stops adding the lanes below once a tile starts at or below it
+    float v = run;
+    int f = h < kPer;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
       const float up = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += up;
-    }
-    if (lane == 31) warp_sums[warp] = v;
-    __syncthreads();
-    if (warp == 0) {
-      float w = (lane < kWarps) ? warp_sums[lane] : 0.f;
-#pragma unroll
-      for (int o = 1; o < kWarps; o <<= 1) {
-        const float up = __shfl_up_sync(0xffffffffu, w, o);
-        if (lane >= o) w += up;
+      const int up_f = __shfl_up_sync(0xffffffffu, f, o);
+      if (lane >= o) {
+        if (!f) v += up;
+        f |= up_f;
       }
-      if (lane < kWarps) warp_sums[lane] = w;
     }
+    const float below = __shfl_up_sync(0xffffffffu, v, 1);
+    const int below_f = __shfl_up_sync(0xffffffffu, f, 1);
+    if (lane == 31) wsum[buf][warp] = v, whead[buf][warp] = f;
     __syncthreads();
-    const float before = (warp > 0) ? warp_sums[warp - 1] : 0.f;
-    if (c < Cn) cs[c] = carry + (before + v);
-    carry += warp_sums[kWarps - 1];
-    __syncthreads();  // warp_sums is rewritten by the next pass
+    // the open tile's sum before this thread: the lanes below, then the
+    // warps below, then the passes before, up to the tile's start
+    float before = lane > 0 ? below : 0.f;
+    bool closed = lane > 0 && below_f;
+    for (int w = warp - 1; w >= 0 && !closed; --w) {
+      before += wsum[buf][w];
+      closed = whead[buf][w];
+    }
+    if (!closed) before += carry;
+    float pass = 0.f;  // ... and the carry into the next pass
+    closed = false;
+    for (int w = kWarps - 1; w >= 0 && !closed; --w) {
+      pass += wsum[buf][w];
+      closed = whead[buf][w];
+    }
+    carry = closed ? pass : carry + pass;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (k < h) p[k] += before;
+    }
+    if (s + kPer <= n) {
+      cs4[s / 4] = make_float4(p[0], p[1], p[2], p[3]);
+      cs4[s / 4 + 1] = make_float4(p[4], p[5], p[6], p[7]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        if (s + k < n) cs[s + k] = p[k];
+      }
+    }
+    // wsum[buf] is next written two passes on, after the next barrier
   }
-}
-
-__device__ __forceinline__ float scan_g(const float* cs, const int* end,
-                                        int m, int Cn) {
-  const int e = end[m];
-  return (e > 0) ? cs[min(e, Cn) - 1] : 0.f;
+  __syncthreads();
+  // partial[m] = g[m] - g[m-1], g[m] = cs[clamp(end[m]) - 1] or 0
+  const int* end = seg_end + t0 * M;
+  for (int i = tid; i < nt * M; i += kThreads) {
+    const int tr = i / M, m = i - tr * M;
+    const float* tcs = cs + tr * Cn;
+    const int e = clamp_end(end[i], Cn);
+    const int ep = m > 0 ? clamp_end(end[i - 1], Cn) : 0;
+    const float g = e > 0 ? tcs[e - 1] : 0.f;
+    const float gp = ep > 0 ? tcs[ep - 1] : 0.f;
+    const float part = g - gp;
+    if constexpr (kFused) {
+      const long long row = (long long)r0[t0 + tr] + m;
+      if (part != 0.f && row >= 0 && row < n_rows) atomicAdd(out + row, part);
+    } else {
+      out[t0 * M + i] = part;
+    }
+  }
 }
 
 // One pass of the one-hot reduction: this thread's kPer slots start at
@@ -146,42 +286,30 @@ __device__ __forceinline__ void onehot_pass(
   runs::add_runs<1, 1>(r, key, p, buf, 1, 0);
 }
 
-// Partials of tiles [t0, t1) per block: out[t, m] (fused = 0) or
-// atomicAdd into y[r0[t] + m] masked at n_rows (fused = 1).
-// aux is seg_end (T, M) for seg_scan, local_row (T, Cn) for one-hot.
+// K4 / K6 in one-hot mode: partials of tiles [t0, t1) per block, out[t, m]
+// (fused = 0) or atomicAdd into y[r0[t] + m] masked at n_rows (fused = 1).
 template <typename V, typename C, typename X, int kMode>
 __global__ void __launch_bounds__(kThreads)
-seg_tiles_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
-                 const int* __restrict__ aux, const X* __restrict__ x,
-                 int n_cols, long long T, int Cn, int M, int fused,
-                 float* __restrict__ out, const int* __restrict__ r0,
-                 long long n_rows, int tiles_per_block) {
-  // seg_scan: max(Cn, M) + kWarps floats; one-hot: M floats
-  extern __shared__ float smem[];
-  float* buf = smem;
+onehot_tiles_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
+                    const int* __restrict__ local, const X* __restrict__ x,
+                    int n_cols, long long T, int Cn, int M, int fused,
+                    float* __restrict__ out, const int* __restrict__ r0,
+                    long long n_rows, int tiles_per_block) {
+  extern __shared__ float buf[];  // M floats
   const long long t0 = (long long)blockIdx.x * tiles_per_block;
   const long long t1 = min(t0 + tiles_per_block, T);
   for (long long t = t0; t < t1; ++t) {
     const long long base = t * Cn;
-    if constexpr (kMode == kSegScan) {
-      scan_tile(vals, cols, x, n_cols, base, Cn, buf, smem + max(Cn, M));
-    } else {
-      for (int m = threadIdx.x; m < M; m += kThreads) buf[m] = 0.f;
-      __syncthreads();
-      for (int start = 0; start < Cn; start += kPass) {
-        onehot_pass<kMode == kOnehotVec>(vals, cols, aux, x, n_cols, base,
-                                         start + threadIdx.x * kPer, Cn, M,
-                                         buf);
-      }
-      __syncthreads();
+    for (int m = threadIdx.x; m < M; m += kThreads) buf[m] = 0.f;
+    __syncthreads();
+    for (int start = 0; start < Cn; start += kPass) {
+      onehot_pass<kMode == kOnehotVec>(vals, cols, local, x, n_cols, base,
+                                       start + threadIdx.x * kPer, Cn, M,
+                                       buf);
     }
+    __syncthreads();
     for (int m = threadIdx.x; m < M; m += kThreads) {
-      float v = buf[m];
-      if constexpr (kMode == kSegScan) {
-        const int* end = aux + t * M;
-        v = scan_g(buf, end, m, Cn) -
-            (m > 0 ? scan_g(buf, end, m - 1, Cn) : 0.f);
-      }
+      const float v = buf[m];
       if (fused) {
         const long long row = (long long)r0[t] + m;
         if (row >= 0 && row < n_rows) atomicAdd(out + row, v);
@@ -193,24 +321,17 @@ seg_tiles_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
   }
 }
 
-template <typename V, typename C, typename X, int kMode>
-int launch(const void* vals, const void* cols, const void* x, int n_cols,
-           const int* aux, long long T, int Cn, int M, int fused, float* out,
-           const int* r0, long long n_rows, int tiles_per_block,
-           cudaStream_t s) {
-  const unsigned blocks =
-      (unsigned)((T + tiles_per_block - 1) / tiles_per_block);
-  const int floats = kMode == kSegScan ? (Cn > M ? Cn : M) + kWarps : M;
-  const size_t smem = (size_t)floats * sizeof(float);
+// Launches `kernel` with `smem` bytes of dynamic shared memory (opting in
+// above 48 KB).
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, unsigned blocks, size_t smem, cudaStream_t s,
+           Args... args) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        seg_tiles_kernel<V, C, X, kMode>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  seg_tiles_kernel<V, C, X, kMode><<<blocks, kThreads, smem, s>>>(
-      (const V*)vals, (const C*)cols, aux, (const X*)x, n_cols, T, Cn, M,
-      fused, out, r0, n_rows, tiles_per_block);
+  kernel<<<blocks, kThreads, smem, s>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -219,30 +340,49 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 }  // namespace
 
 // mode: 0 seg_scan, 1 onehot_mxu. fused = 0: out is (T, M) partials and
-// r0 / n_rows are unused; fused = 1: out is y (n_rows,).
+// r0 / n_rows are unused; fused = 1: out is y (n_rows,). tiles_per_block
+// sets the one-hot grid; seg_scan ignores it (a block takes the
+// ceil(2048 / Cn) tiles of one pass), which changes no sum.
 extern "C" int seg_tiles(const void* vals, int vals_bf16, const void* cols,
                          int cols_i16, const void* x, int x_bf16, int n_cols,
                          const int* aux, long long T, int Cn, int M, int mode,
                          int fused, float* out, const int* r0,
                          long long n_rows, int tiles_per_block,
                          void* stream) {
+  if (T <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const bool vec = Cn % kPer == 0 && aligned16(vals) && aligned16(cols) &&
-                   aligned16(aux);
-  const int kind = mode == kSegScan ? kSegScan : vec ? kOnehotVec : kOnehot;
-  SPMV_DISPATCH(vals_bf16, cols_i16, x_bf16, switch (kind) {
-    case kSegScan:
-      return launch<V, C, X, kSegScan>(vals, cols, x, n_cols, aux, T, Cn, M,
-                                       fused, out, r0, n_rows,
-                                       tiles_per_block, s);
-    case kOnehot:
-      return launch<V, C, X, kOnehot>(vals, cols, x, n_cols, aux, T, Cn, M,
-                                      fused, out, r0, n_rows,
-                                      tiles_per_block, s);
-    default:
-      return launch<V, C, X, kOnehotVec>(vals, cols, x, n_cols, aux, T, Cn,
-                                         M, fused, out, r0, n_rows,
-                                         tiles_per_block, s);
+  const bool vec = Cn % kPer == 0 && aligned16(vals) && aligned16(cols);
+  if (mode == kSegScan) {
+    const int per_pass = Cn > 0 ? (kPass + Cn - 1) / Cn : 1;
+    const int K = (int)(per_pass < T ? per_pass : T);
+    const unsigned blocks = (unsigned)((T + K - 1) / K);
+    const size_t smem = (size_t)K * Cn * sizeof(float);
+#define SCAN_LAUNCH(VEC, FUSED)                                            \
+  return launch(scan_tiles_kernel<VEC, FUSED, V, C, X>, blocks, smem, s,   \
+                (const V*)vals, (const C*)cols, aux, (const X*)x, n_cols, \
+                T, Cn, M, K, out, r0, n_rows)
+    SPMV_DISPATCH(vals_bf16, cols_i16, x_bf16, {
+      if (vec) {
+        if (fused) SCAN_LAUNCH(true, true);
+        SCAN_LAUNCH(true, false);
+      }
+      if (fused) SCAN_LAUNCH(false, true);
+      SCAN_LAUNCH(false, false);
+    });
+#undef SCAN_LAUNCH
+  }
+  const int K = tiles_per_block;
+  const unsigned blocks = (unsigned)((T + K - 1) / K);
+  const size_t smem = (size_t)M * sizeof(float);
+  SPMV_DISPATCH(vals_bf16, cols_i16, x_bf16, {
+    if (vec && aligned16(aux)) {
+      return launch(onehot_tiles_kernel<V, C, X, kOnehotVec>, blocks, smem,
+                    s, (const V*)vals, (const C*)cols, aux, (const X*)x,
+                    n_cols, T, Cn, M, fused, out, r0, n_rows, K);
+    }
+    return launch(onehot_tiles_kernel<V, C, X, kOnehot>, blocks, smem, s,
+                  (const V*)vals, (const C*)cols, aux, (const X*)x, n_cols,
+                  T, Cn, M, fused, out, r0, n_rows, K);
   });
   return 0;  // not reached
 }

@@ -113,8 +113,10 @@ def seg_spmv_fused(vals, cols, local_row, seg_end, r0, x, seg_rows: int, *,
     """K6: add tile t's partials into ``out[r0[t] + m]`` (rows ``>= n_rows``
     dropped) and return ``out``, a fresh fp32 zero vector of ``n_rows``
     when None. Requires per-tile contiguous rows (``rowmap[t, m] = r0[t] +
-    m``). ``tiles_per_step`` is the number of tiles one GPU block walks
-    (clamped to [1, T]); it does not change the result."""
+    m``). ``tiles_per_step`` does not change the result. In one-hot mode
+    it is the number of tiles one GPU block walks (clamped to [1, T]); in
+    seg_scan mode it does not set the grid either: a block takes the
+    ceil(2048 / C) tiles of one 2048-slot pass (``csrc/seg_spmv.cu``)."""
     if not vals.is_cuda:
         return seg_spmv_fused_ref(vals, cols, local_row, seg_end, r0, x,
                                   seg_rows, n_rows=n_rows, mode=mode,

@@ -429,6 +429,85 @@ def test_seg_scan_spmm_kernels_on_any_ends(dev, case, b, vd, cd, xd):
                     "seg_scan", r0, 150)
 
 
+def _check_seg_scan(g, vals, cols, end, x, m, r0, n_rows, ks=(1, 3, 8, 16)):
+    """K3 and K6 in seg_scan mode (K6 at each tiles_per_step) against
+    their plain versions; ``g`` moves a tensor to the card."""
+    local = torch.zeros(vals.shape, dtype=torch.int32)   # seg_scan: unread
+    _close(ops.seg_spmv(g(vals), g(cols), g(local), g(end), g(x), m,
+                        mode="seg_scan"),
+           ref.seg_spmv_ref(vals, cols, local, end, x, m, "seg_scan"))
+    for k in ks:
+        _close(ops.seg_spmv_fused(g(vals), g(cols), g(local), g(end), g(r0),
+                                  g(x), m, n_rows=n_rows, mode="seg_scan",
+                                  tiles_per_step=k),
+               ref.seg_spmv_fused_ref(vals, cols, local, end, r0, x, m,
+                                      n_rows=n_rows, mode="seg_scan"))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ["descending", "repeated", "past_c",
+                                  "negative", "mixed", "padding"])
+@pytest.mark.parametrize("vd,cd,xd", STORAGE)
+def test_seg_scan_kernels_on_any_ends(dev, case, vd, cd, xd):
+    """K3 and K6 in seg_scan mode on ends the packer never writes: g[m] is
+    read from the stored inclusive sums at any end, so a descending pair
+    gives a negated range sum, a repeated end an exact zero, and ends are
+    clamped to [0, C]."""
+    rng = np.random.default_rng(len(case))
+    n_cols = 2000
+    T, S, L, M = 7, 4, 128, 24
+    end = _ends(rng, case, T, S * L, M)
+    vals = torch.from_numpy(rng.standard_normal((T, S, L))).to(vd)
+    cols = torch.from_numpy(rng.integers(0, n_cols, (T, S, L))).to(cd)
+    x = torch.from_numpy(rng.standard_normal(n_cols)).to(xd)
+    r0 = torch.from_numpy((np.arange(T) * 20).astype(np.int32))
+    _check_seg_scan(lambda t: t.to(dev), vals, cols, end, x, M, r0, 150)
+
+
+# (T, S, L, M) for K3 / K6 in seg_scan mode: C = 21 (scalar loads; a
+# thread's 8 slots cross tiles), 512 (a 2048-slot pass spans four tiles),
+# 2048 (one tile a pass) and 8192 (four passes a tile, with a carry); T is
+# not a multiple of tiles_per_step 3, 8 or 16
+SCAN_WIDTHS = [(37, 3, 7, 5), (37, 4, 128, 60), (9, 16, 128, 300),
+               (3, 64, 128, 700)]
+
+
+@pytest.mark.parametrize("t,s,l,m", SCAN_WIDTHS)
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("vd,cd,xd", STORAGE)
+def test_seg_scan_kernels_at_each_width(dev, t, s, l, m, aligned, vd, cd,
+                                        xd):
+    """K3 and K6 in seg_scan mode on the packer's ends at each tile width
+    the kernel maps differently, with the arrays on or off the 16-byte
+    alignment (16-byte or scalar loads); K6 gives the same sums at
+    tiles_per_step 1, 3, 8 and 16."""
+    rng = np.random.default_rng(t * s * l + m)
+    n_cols = 3000
+    _, end = _seg_case(rng, t, s, l, m)
+    vals = torch.from_numpy(rng.standard_normal((t, s, l))).to(vd)
+    cols = torch.from_numpy(rng.integers(0, n_cols, (t, s, l))).to(cd)
+    x = torch.from_numpy(rng.standard_normal(n_cols)).to(xd)
+    r0 = torch.from_numpy((np.arange(t) * (m // 2)).astype(np.int32))
+    g = ((lambda z: z.to(dev)) if aligned
+         else (lambda z: _off_by_one(z, dev)))
+    _check_seg_scan(g, vals, cols, end, x, m, r0, (m // 2) * t + 7)
+
+
+def test_seg_scan_kernels_many_segments(dev):
+    """M = 60000 segments over tiles of C = 8192 slots: the block's shared
+    memory holds the tile's sums and does not grow with M."""
+    rng = np.random.default_rng(60000)
+    n_cols = 4000
+    T, S, L, M = 2, 64, 128, 60000
+    _, end = _seg_case(rng, T, S, L, M)
+    vals = torch.from_numpy(rng.standard_normal((T, S, L)).astype(np.float32))
+    cols = torch.from_numpy(rng.integers(0, n_cols, (T, S, L)).astype(np.int32))
+    x = torch.from_numpy(rng.standard_normal(n_cols).astype(np.float32))
+    r0 = torch.from_numpy((np.arange(T) * 100).astype(np.int32))
+    _check_seg_scan(lambda z: z.to(dev), vals, cols, end, x, M, r0, 100 + M,
+                    ks=(1, 2))
+
+
 @pytest.mark.parametrize("b", [1, 8, 17])
 @pytest.mark.parametrize("mode", ["seg_scan", "onehot_mxu"])
 def test_seg_spmm_small_tiles_share_a_pass(dev, b, mode):

@@ -1,7 +1,8 @@
 """Plain versions of K1-K6 (``repro_torch.kernels``, CPU tensors) against
 the reference's Pallas kernels in interpret mode, on the shape sweeps of
 tests/test_kernels.py and tests/test_fused.py, fp32/int32 and bf16/int16
-storage, ``tiles_per_step`` in {1, 3}.
+storage, ``tiles_per_step`` in {1, 3}; K3/K4/K6 also on the seg_end rows
+and local rows the packer never writes.
 
 Tolerance ``1e-5 * max|ref| + 1e-6``: both sides take the same fp32
 products and sums, only in another order. All M slots of K3/K4 are
@@ -168,3 +169,63 @@ def test_seg_unknown_mode_raises():
     with pytest.raises(ValueError, match="unknown mode"):
         ops.seg_spmv(t, i, i, torch.zeros((1, 8), dtype=torch.int32),
                      torch.zeros(4), 8, mode="bogus")
+
+
+def _odd_ends(rng, case, t, c, m):
+    """(t, m) seg_end rows that the packer never writes: ends that descend
+    somewhere, repeat, pass the tile's C slots or fall below 0."""
+    if case == "descending":            # unsorted, the first tile reversed
+        end = rng.integers(0, c + 1, (t, m))
+        end[0] = np.sort(end[0])[::-1]
+    elif case == "repeated":            # few distinct ends, in order
+        end = np.sort(rng.choice([0, c // 3, c // 3, c - 1, c], (t, m)),
+                      axis=1)
+        end[0] = c // 2
+    elif case == "past_c":              # in order, the last ones past C
+        end = np.sort(rng.integers(0, c + 1, (t, m)), axis=1)
+        end[:, -3:] = [c + 1, c + 7, 2 * c]
+    elif case == "negative":            # in order, the first ones below 0
+        end = np.sort(rng.integers(0, c + 1, (t, m)), axis=1)
+        end[:, :3] = [-5, -1, 0]
+    else:                               # anything in [-3, C + 3]
+        end = rng.integers(-3, c + 4, (t, m))
+    return end.astype(np.int32)
+
+
+@pytest.mark.parametrize("storage", sorted(STORAGE))
+@pytest.mark.parametrize("case", ["descending", "repeated", "past_c",
+                                  "negative", "mixed"])
+def test_seg_scan_plain_versions_match_pallas_on_any_ends(case, storage):
+    """K3 and K6 in seg_scan mode on ends the packer never writes. The
+    Pallas kernel's g[m] is cs[end[m] - 1] (0 where end[m] <= 0), so a
+    descending pair gives a negated range sum and a repeated end an exact
+    zero. Past the tile's C slots the reference reads out of range (NaN in
+    interpret mode); the port (plain and CUDA) defines g there as the whole
+    tile's sum, which is the Pallas kernel on the ends clamped to C. On the
+    raw ends, the K3 segments that touch no end past C agree."""
+    rng = np.random.default_rng(len(case) + len(storage))
+    t, s, l, m, n_cols = 3, 4, 16, 16, 110
+    vdt, cdt = STORAGE[storage]
+    v, c, local, _ = _rand_seg(rng, t, s, l, m, n_cols)
+    end = _odd_ends(rng, case, t, s * l, m)
+    (vj, vt), (cj, ct) = _pair(v, vdt), _pair(c, cdt)
+    (lj, lt), (_, et) = _pair(local, np.int32), _pair(end, np.int32)
+    ej = jnp.asarray(np.minimum(end, s * l))
+    xj, xt = _pair(rng.standard_normal(n_cols), np.float32)
+    got = ops.seg_spmv(vt, ct, lt, et, xt, m, mode="seg_scan")
+    _close(got, ref_ops.seg_spmv(vj, cj, lj, ej, xj, m, mode="seg_scan"))
+    raw = np.asarray(ref_ops.seg_spmv(vj, cj, lj, jnp.asarray(end), xj, m,
+                                      mode="seg_scan"))
+    past = end > s * l
+    touch = past | np.concatenate([np.zeros((t, 1), bool), past[:, :-1]], 1)
+    _close(got.numpy()[~touch], raw[~touch])
+    r0 = (np.arange(t) * (m // 2)).astype(np.int32)
+    r0j, r0t = _pair(r0, np.int32)
+    n_rows = int(r0[-1]) + m // 2 + 1
+    for k in (1, 3):
+        _close(ops.seg_spmv_fused(vt, ct, lt, et, r0t, xt, m, n_rows=n_rows,
+                                  mode="seg_scan", tiles_per_step=k),
+               ref_ops.seg_spmv_fused(vj, cj, lj, ej, r0j, xj, m,
+                                      n_rows=n_rows,
+                                      n_out=int(r0.max()) + m,
+                                      mode="seg_scan", tiles_per_step=k))
