@@ -75,11 +75,34 @@ each printing its seconds:
    (``one_tile_ms``). When the searched B = 8 plan of phase 6 is a seg
    plan, its fused seg step is timed with K11 at its own chunk and
    tiles_per_step and printed on a line of its own (``K11[searched]
-   {...}``, with the cuSPARSE SpMM times), outside the twelve rows.
+   {...}``, with the cuSPARSE SpMM times), outside the twelve rows;
+9. the paper's baselines (``repro_torch.sparse``: CSR, COO, ELL, SELL,
+   HYB, Merge, ACSR, CSR-Adaptive, eager torch ops) on the banded,
+   powerlaw and serving matrices with a 1-D x: each built on the card,
+   held to the float64 oracle and timed (``ms``, ``device_ms``), one
+   ``baselines {...}`` line per matrix; a format whose stored bytes,
+   counted from the row lengths before anything is built, pass 16 GB is
+   left out (ELL on the powerlaw matrix). Then the Perfect Format
+   Selector over the built formats, beside the port's plan for the
+   matrix (phase 3's searched plan, the fastest of phase 4's seg plans,
+   phase 6's searched plan) timed the same way: one ``pfs {...}`` line per
+   matrix;
+10. dynamic sparsity (``repro_torch.dyn``) on the serving matrix: (a) a
+   ``capacity_graph()`` plan (K1) updated in place by a delta that
+   revalues 10 % of the entries and moves 5 % to another column of the
+   same row, against a fresh compile of the mutated matrix: output and
+   every format tensor bit-identical, the oracle within 1e-5 (a
+   ``dyn_update {...}`` line); (b) three steps of ``run_pruning_loop`` at
+   lr 0.01 with a ``DynamicSparsityManager`` on a ``PlanExecutor`` over a
+   ``capacity_graph(pad_to=512)`` plan, every served answer held to the
+   oracle, the first step's delta also handed to a manager on (a)'s plan,
+   where it does not fit and a background re-search on the card takes
+   over (``pruning step`` and ``pruning {...}`` lines); (c) one update of phase 4's fused seg_scan plan (K6)
+   on the powerlaw matrix (a ``dyn_seg_update {...}`` line).
 
 Phases 3-4 and phases 6-7 are the two paths: the launch counters are set
 to 0 before each and read after it, and each of its kernels must have
-launched. The last two lines are the kernel report (all twelve kernels)
+launched. Phase 10 is read the same way: K1 and K6 must launch in it. The last two lines are the kernel report (all twelve kernels)
 and ``{"ok": true, "device": {...}}``. The script exits non-zero,
 printing no result, without a GPU or outside a checkout of the
 repository. It imports neither jax nor ``repro``.
@@ -201,18 +224,19 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, reps: int = 20, warmup: int = 3,
+              max_cycles: int = 1 << 34) -> float:
     """Median time of ``fn`` on the card alone, in ms: a sleep kernel keeps
     the card busy while the host enqueues ``fn``, so the events bracket
     only the card's work. A sample counts only if the host finished
     enqueueing before the card reached the first event; otherwise the
-    sleep is doubled."""
+    sleep is doubled, up to ``max_cycles``."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     cycles, times = 1 << 22, []
     while len(times) < reps:
-        require(cycles < 1 << 34, "device_ms: the host never got ahead")
+        require(cycles < max_cycles, "device_ms: the host never got ahead")
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(cycles)
@@ -1374,6 +1398,401 @@ def searched_seg_line(plan, xd, n_rows, launches, csr) -> None:
     print(f"{SEARCHED_K11} {json.dumps(line)}")
 
 
+# -------------------------------- phase 9 ---------------------------------
+
+BASELINE_LIMIT = 16e9            # bytes a baseline format may take on the card
+
+
+def baseline_bytes(name: str, m) -> int:
+    """The stored bytes of baseline ``name`` for ``m``, from its row lengths
+    alone (the builders' layouts; nothing is built). Phase 9 leaves out a
+    format above ``BASELINE_LIMIT`` and holds every built one to this."""
+    lengths = m.row_lengths().astype(np.int64)
+    n, nnz = m.n_rows, m.nnz
+    if name in ("CSR", "COO"):
+        return 12 * nnz
+    if name == "ELL":
+        return 8 * n * (int(lengths.max()) if nnz else 1)
+    if name == "Merge":
+        return 12 * (-(-max(nnz, 1) // 1024) * 1024)
+    if name == "HYB":
+        w = max(1, int(np.percentile(lengths, 75)))
+        return 8 * n * w + 12 * int(np.maximum(lengths - w, 0).sum())
+    if name == "SELL":              # C = 8 rows a slice, sigma = 16 slices
+        srt = lengths[np.lexsort((-lengths, np.arange(n) // 128))]
+        n_sl = -(-n // 8)
+        pad = np.zeros(n_sl * 8, np.int64)
+        pad[:n] = srt
+        widths = np.maximum(pad.reshape(n_sl, 8).max(1), 1)
+        return int(64 * widths.sum()) + 32 * n_sl
+    if name == "ACSR":
+        logs = np.ceil(np.log2(np.maximum(lengths, 1))).astype(np.int64)
+        return sum(int((logs == lv).sum())
+                   * (8 * max(1, int(lengths[logs == lv].max())) + 4)
+                   for lv in np.unique(logs))
+    if name == "CSR-Adaptive":      # greedy blocks of >= 256 nnz
+        csum = np.concatenate([[0], np.cumsum(lengths)])
+        bounds = [0]
+        while bounds[-1] < n:
+            j = int(np.searchsorted(csum, csum[bounds[-1]] + 256))
+            if j > n:
+                break
+            bounds.append(j)
+        if bounds[-1] != n:
+            bounds.append(n)
+        blk = csum[bounds[1:]] - csum[bounds[:-1]]
+        return 12 * (len(bounds) - 1) * int(blk.max())
+    raise KeyError(name)
+
+
+def pfs_seconds(fn, repeats: int = 3) -> float:
+    """Best of ``repeats`` host-clock times of ``fn()`` with the card
+    synchronised before and after: the Perfect Format Selector's timer."""
+    fn()
+    best = float("inf")
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def card_ms(fn, reps: int = 20):
+    """``device_ms`` of a baseline, or None where the host cannot get
+    ahead of the card: a call of more launches than the card's launch
+    queue holds (SELL's and ACSR's loops over width buckets on the
+    powerlaw matrix) blocks the host behind the sleep kernel, however
+    long it sleeps."""
+    try:
+        return device_ms(fn, reps=reps, max_cycles=1 << 28)
+    except SmokeFailure:
+        return None
+
+
+def reps_for(fn) -> int:
+    """Timing repeats for a call: 20, fewer when one call takes more than
+    10 ms (the slowest baselines take hundreds), at least 3."""
+    one = cuda_ms(fn, reps=1, warmup=1)
+    return int(min(20, max(3, 200.0 / max(one, 1e-3))))
+
+
+def baselines_phase(cases) -> None:
+    """Every baseline format on each matrix, checked and timed, then the
+    Perfect Format Selector over the built ones beside the port's plan.
+    ``cases``: name -> (matrix, x on the card, float64 oracle, {label:
+    plan}); the fastest plan by ``cuda_ms`` is the port's entry."""
+    from repro_torch.sparse import (BASELINES, PerfectFormatSelector,
+                                    build_baseline)
+    done = phase("9 baselines and the Perfect Format Selector")
+    for mat, (m, xd, oracle, plans) in cases.items():
+        line, built, left_out = {}, [], {}
+        for name in BASELINES:
+            est = baseline_bytes(name, m)
+            if est > BASELINE_LIMIT:
+                left_out[name] = est
+                print(f"  {mat} {name}: left out, {est / 1e9:.1f} GB on "
+                      "the card")
+                continue
+            t0 = time.perf_counter()
+            f = build_baseline(name, m)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            require(f.stored_bytes == est,
+                    f"{mat} {name}: {f.stored_bytes} stored bytes, "
+                    f"{est} counted from the row lengths")
+            check_oracle(f"{mat} {name}", f(xd), oracle, "float32")
+            fn = lambda f=f: f(xd)
+            reps = reps_for(fn)
+            line[name] = {"ms": cuda_ms(fn, reps=reps),
+                          "device_ms": card_ms(fn, reps=reps),
+                          "stored_bytes": f.stored_bytes,
+                          "padded_nnz": f.padded_nnz, "arrays": len(f.fmt),
+                          "build_s": build_s}
+            built.append(name)
+            del f, fn
+            torch.cuda.empty_cache()
+        print(f"baselines {json.dumps({'matrix': mat, 'nnz': m.nnz, 'formats': line, 'left_out_bytes': left_out})}")
+        require(built, f"{mat}: no baseline was built")
+        t0 = time.perf_counter()
+        res = PerfectFormatSelector(candidates=built).select(
+            m, xd.cpu().numpy())
+        pfs_s = time.perf_counter() - t0
+        win = res.best_format
+        ours = {label: cuda_ms(lambda p=p: p(xd)) for label, p in
+                plans.items()}
+        label = min(ours, key=ours.get)
+        plan = plans[label]
+        check_oracle(f"{mat} plan {label}", plan(xd), oracle,
+                     plan.spec["storage_dtype"])
+        out = {"matrix": mat, "winner": res.best_name,
+               "winner_s": res.best_seconds, "all_s": res.all_seconds,
+               "winner_ms": cuda_ms(lambda: win(xd), reps=reps_for(
+                   lambda: win(xd))),
+               "winner_device_ms": card_ms(lambda: win(xd)),
+               "pfs_wall_s": pfs_s, "plan": label,
+               "plan_s": pfs_seconds(lambda: plan(xd)),
+               "plan_ms": ours[label],
+               "plan_device_ms": device_ms(lambda: plan(xd)),
+               "plans_ms": ours}
+        out["speedup_s"] = out["winner_s"] / out["plan_s"]
+        print(f"pfs {json.dumps(out)}")
+        del res, win
+        torch.cuda.empty_cache()
+    done()
+
+
+# -------------------------------- phase 10 --------------------------------
+
+def keep_lengths_mutation(m, seed: int, n_rev: int, n_drop: int):
+    """``m`` with ``n_rev`` entries revalued, ``n_drop`` dropped and one new
+    entry added into the row of each dropped one, in a column the row did
+    not hold: every row keeps its length, so a fresh compile designs the
+    same layout as the patched plan (the reference test's ``_mutate``,
+    with an add for every drop)."""
+    from repro_torch.core.matrices import SparseMatrix
+    rng = np.random.default_rng(seed)
+    vals = m.vals.copy()
+    rev = rng.choice(m.nnz, n_rev, replace=False)
+    vals[rev] = rng.standard_normal(n_rev).astype(np.float32) + 0.1
+    drop = rng.choice(m.nnz, n_drop, replace=False)
+    keep = np.ones(m.nnz, bool)
+    keep[drop] = False
+    held = np.sort(m.rows.astype(np.int64) * m.n_cols + m.cols)
+    add_r = m.rows[drop].astype(np.int64)
+    add_c = np.full(n_drop, -1, np.int64)
+    todo = np.arange(n_drop)
+    while todo.size:                 # redraw columns the row already holds
+        add_c[todo] = rng.integers(0, m.n_cols, todo.size)
+        key = add_r * m.n_cols + add_c
+        pos = np.minimum(np.searchsorted(held, key[todo]), held.size - 1)
+        clash = held[pos] == key[todo]
+        first = np.zeros(n_drop, bool)
+        first[np.unique(key, return_index=True)[1]] = True
+        todo = np.union1d(todo[clash], np.nonzero(~first)[0])
+    return SparseMatrix(
+        m.n_rows, m.n_cols,
+        np.concatenate([m.rows[keep], add_r.astype(np.int32)]),
+        np.concatenate([m.cols[keep], add_c.astype(np.int32)]),
+        np.concatenate([vals[keep], rng.standard_normal(n_drop).astype(
+            np.float32) + 0.1])).canonical()
+
+
+def check_exact(label: str, y: torch.Tensor, m, x: np.ndarray) -> float:
+    """``y`` against ``m``'s float64 oracle within 1e-5 * max|oracle|."""
+    o = m.spmv_dense_oracle(x)
+    err = float(np.abs(y.cpu().numpy().astype(np.float64) - o).max())
+    tol = 1e-5 * float(np.abs(o).max())
+    print(f"  {label}: vs oracle max_abs_err {err:.3e} (tol {tol:.3e})")
+    require(err <= tol, f"{label}: output disagrees with the oracle")
+    return err
+
+
+def dyn_update(W, designer):
+    """(a) One in-place update of the capacity plan against a fresh
+    compile of the mutated matrix: bit-identical output and tensors."""
+    import repro_torch
+    from repro_torch.dyn import PatternDelta, PlanPatcher, check_capacity
+    from repro_torch.train.dynamic import capacity_graph
+    plan = timed("compile serving capacity_graph()", designer,
+                 repro_torch.compile, W, repro_torch.Target(),
+                 graph=capacity_graph())
+    m1 = keep_lengths_mutation(W, seed=5, n_rev=W.nnz // 10,
+                               n_drop=W.nnz // 20)
+    delta = PatternDelta.from_matrices(W, m1)
+    t0 = time.perf_counter()
+    check = check_capacity(plan, delta)
+    check_s = time.perf_counter() - t0
+    require(check, f"the in-capacity delta does not fit: {check.reasons[:3]}")
+    # plan.update(delta) is PlanPatcher(plan).apply(delta): timed apart
+    t0 = time.perf_counter()
+    patcher = PlanPatcher(plan)
+    init_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    upd = patcher.apply(delta)
+    torch.cuda.synchronize()
+    apply_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fresh = repro_torch.compile(m1, repro_torch.Target(),
+                                graph=capacity_graph())
+    torch.cuda.synchronize()
+    fresh_s = time.perf_counter() - t0
+    x = np.random.default_rng(6).standard_normal(W.n_cols).astype(np.float32)
+    require(torch.equal(upd(x), fresh(x)),
+            "the updated plan's output is not bit-identical to a fresh "
+            "compile's")
+    require(sorted(upd.fmt) == sorted(fresh.fmt)
+            and all(torch.equal(upd.fmt[k], t) for k, t in fresh.fmt.items()),
+            "a patched tensor differs from the fresh compile's")
+    require(upd.plan_version == plan.plan_version + 1, "plan_version")
+    err = check_exact("updated plan", upd(x), m1, x)
+    check_exact("source plan, old matrix", plan(x), W, x)
+    out = {"delta": {"added": delta.n_added, "removed": delta.n_removed,
+                     "revalued": delta.n_revalued},
+           "steps": len(plan.spec["steps"]), "check_s": check_s,
+           "patcher_init_ms": init_ms, "apply_ms": apply_ms,
+           "fresh_compile_s": fresh_s, "bit_identical": True,
+           "max_abs_err": err, "plan_version": upd.plan_version}
+    print(f"dyn_update {json.dumps(out)}")
+    return plan
+
+
+def served_manager(W, plan, executor, probe, **kw):
+    """A ``DynamicSparsityManager`` that times each ``apply``, records the
+    delta's size, then serves a batch through the attached
+    ``PlanExecutor``, held to the oracle of the matrix the manager says
+    its live plan encodes. The first delta also goes to ``probe``, a
+    second manager on another plan, whose action is recorded."""
+    from repro_torch.dyn import DynamicSparsityManager
+
+    class Served(DynamicSparsityManager):
+        def apply(self, delta):
+            if not self.log:
+                t0 = time.perf_counter()
+                self.probe_action = probe.apply(delta)["action"]
+                self.probe_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            out = super().apply(delta)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            xs = np.random.default_rng(len(self.log)).standard_normal(
+                (4, self.matrix.n_cols)).astype(np.float32)
+            got = self.executor.execute(xs).T
+            want = self.matrix.spmm_dense_oracle(xs.T)
+            err = float(np.abs(got - want).max())
+            tol = 1e-5 * float(np.abs(want).max())
+            require(err <= tol, f"pruning step {len(self.log) + 1}: a "
+                    f"served answer is off by {err:.3e} (tol {tol:.3e})")
+            self.log.append({"action": out["action"], "apply_ms": ms,
+                             "added": delta.n_added,
+                             "removed": delta.n_removed,
+                             "revalued": delta.n_revalued,
+                             "served_max_abs_err": err})
+            print(f"  pruning step {len(self.log)}: "
+                  f"{json.dumps(self.log[-1])}", flush=True)
+            return out
+
+    mgr = Served(W, plan, executor=executor, **kw)
+    mgr.log = []
+    return mgr
+
+
+def manager_stats(mgr) -> dict:
+    st = mgr.stats()
+    return {k: st[k] for k in ("updates_applied", "deferred",
+                               "out_of_capacity", "researches_started",
+                               "researches_landed", "researches_failed",
+                               "plan_version", "serving_stale")}
+
+
+def pruning_loop(W, plan_a, designer, steps: int = 3) -> None:
+    """(b) ``run_pruning_loop`` at lr 0.01 on the dense weight behind W,
+    with a manager attached to a ``PlanExecutor`` serving the plan. The
+    plan pads lanes to 512 slots, so that every row keeps room for a
+    step's churn. The first step's delta also goes to a manager on (a)'s
+    plan (``capacity_graph()``, lanes padded to 8), where it does not
+    fit: that manager re-searches on the card in the background while the
+    loop runs, and its landed plan is held to the oracle."""
+    import repro_torch
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.dyn import DynamicSparsityManager
+    from repro_torch.serve import PlanExecutor
+    from repro_torch.train.dynamic import capacity_graph, run_pruning_loop
+    w = np.random.default_rng(0).standard_normal((W.n_rows, W.n_cols),
+                                                 dtype=np.float32)
+    require(np.array_equal(w[W.rows, W.cols], W.vals),
+            "W is not the pruned weight of serving_matrix")
+    plan = timed("compile serving capacity_graph(pad_to=512)", designer,
+                 repro_torch.compile, W, repro_torch.Target(),
+                 graph=capacity_graph(pad_to=512))
+    budget = dict(research_budget=SearchConfig(max_seconds=2,
+                                               max_structures=2),
+                  research_deadline_s=8.0)
+    probe = DynamicSparsityManager(W, plan_a, **budget)
+    ex = PlanExecutor(plan, W)
+    mgr = served_manager(W, plan, ex, probe, **budget)
+    t0 = time.perf_counter()
+    rep = run_pruning_loop(w, 0.08, steps, manager=mgr, lr=0.01, seed=0)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    require(mgr.quiesce(timeout=60.0), "a re-search is still running")
+    require(probe.quiesce(timeout=120.0),
+            "the capacity_graph() re-search is still running")
+    quiesce_s = time.perf_counter() - t0
+    st, pst = mgr.stats(), probe.stats()
+    x = np.random.default_rng(9).standard_normal(W.n_cols).astype(np.float32)
+    probe_err = check_exact("capacity_graph() manager after its re-search",
+                            probe.plan(x), probe.matrix, x)
+    out = {"steps": rep.steps, "history": rep.history,
+           "oracle_max_rel_err": rep.oracle_max_rel_err,
+           "executor_updates": ex.update_count, "wall_s": wall,
+           "quiesce_s": quiesce_s, "manager": manager_stats(mgr),
+           "step_log": mgr.log,
+           "capacity_graph_manager": dict(
+               manager_stats(probe), first_action=mgr.probe_action,
+               apply_ms=mgr.probe_ms, max_abs_err=probe_err,
+               plan=(probe.plan.graph.label() if probe.plan.graph
+                     else None))}
+    print(f"pruning {json.dumps(out)}")
+    require(rep.updates_applied >= 1, "no pruning step was applied in place")
+    require(rep.oracle_max_rel_err <= 1e-5, "a checked answer is off")
+    for name, s_ in (("", st), ("capacity_graph() ", pst)):
+        require(s_["researches_failed"] == 0,
+                f"a {name}re-search failed: {s_['last_error']}")
+    require(not pst["serving_stale"]
+            and (mgr.probe_action != "research"
+                 or pst["researches_landed"] >= 1),
+            "the capacity_graph() manager never adopted its re-search")
+
+
+def seg_update(P, seg_prog) -> None:
+    """(c) One in-capacity update of the powerlaw seg_scan fused plan."""
+    import repro_torch
+    from repro_torch.api import _plan_from_program
+    from repro_torch.dyn import PatternDelta, PlanPatcher
+    plan = _plan_from_program(seg_prog, chain(
+        ("COMPRESS", {}), ("LANE_NNZ_BLOCK", {"chunk": 2048}),
+        ("SEG_SCAN_RED", {})), repro_torch.Target())
+    require(all(s.get("fused") and s["reduce"] == "seg_scan"
+                for s in plan.spec["steps"]), "not a fused seg_scan plan")
+    m1 = keep_lengths_mutation(P, seed=7, n_rev=20000, n_drop=10000)
+    delta = PatternDelta.from_matrices(P, m1)
+    t0 = time.perf_counter()
+    patcher = PlanPatcher(plan)
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    upd = patcher.apply(delta)
+    torch.cuda.synchronize()
+    apply_ms = (time.perf_counter() - t0) * 1e3
+    x = np.random.default_rng(8).standard_normal(P.n_cols).astype(np.float32)
+    y = upd(x)
+    check_oracle("seg update", y, m1.spmv_dense_oracle(x), "float32")
+    check_oracle("source seg plan, old matrix", plan(x),
+                 P.spmv_dense_oracle(x), "float32")
+    out = {"delta": {"added": delta.n_added, "removed": delta.n_removed,
+                     "revalued": delta.n_revalued},
+           "shape": list(plan.fmt[plan.spec["steps"][0]["key"] + "_vals"]
+                         .shape),
+           "patcher_init_s": init_s, "apply_ms": apply_ms,
+           "plan_version": upd.plan_version}
+    print(f"dyn_seg_update {json.dumps(out)}")
+
+
+def dyn_phase(W, P, seg_prog, designer) -> None:
+    done = phase("10 dynamic sparsity")
+    reset_launch_counts()                    # phase 10 starts here
+    plan_a = dyn_update(W, designer)
+    pruning_loop(W, plan_a, designer)
+    seg_update(P, seg_prog)
+    torch.cuda.synchronize()
+    launches = launch_counts()               # ... and ends here
+    print(f"  phase-10 launches: {launches}")
+    require(launches["K1"] > 0 and launches["K6"] > 0,
+            f"K1 or K6 never launched in phase 10: {launches}")
+    done()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
@@ -1405,7 +1824,7 @@ def main() -> int:
     done()
 
     reset_launch_counts()                    # the compile path starts here
-    searched_phase(B, xb, oracle_b, designer)
+    searched_b = searched_phase(B, xb, oracle_b, designer)
     banded, seg = fixed_phase(B, xb, oracle_b, P, xp, oracle_p, designer)
     torch.cuda.synchronize()
     launches = launch_counts()               # ... and ends here
@@ -1417,7 +1836,7 @@ def main() -> int:
     csr = {"banded": csr_on_device(B), "powerlaw": csr_on_device(P)}
     rows = report_phase(cases, launches, csr, {"banded": xb, "powerlaw": xp},
                         {"banded": B.n_rows, "powerlaw": P.n_rows})
-    del banded, seg, cases, csr
+    del banded, cases, csr
 
     done = phase("serving matrix")
     W = serving_matrix(designer)
@@ -1441,6 +1860,16 @@ def main() -> int:
                               csr_w, xd, W.n_rows)
     searched_seg_line(searched, xd, W.n_rows, serve_launches, csr_w)
     require(len(rows) == len(KERNELS), "the report misses a kernel")
+    del progs, csr_w
+    torch.cuda.empty_cache()
+
+    x1 = xd[:, 0].contiguous()
+    baselines_phase({
+        "banded": (B, xb, oracle_b, {"searched": searched_b}),
+        "powerlaw": (P, xp, oracle_p, {k: v for k, v in seg.items()
+                                        if "bf16" not in k}),
+        "serving": (W, x1, oracle8[:, 0], {"searched": searched})})
+    dyn_phase(W, P, seg["SEG_SCAN_RED fused"], designer)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

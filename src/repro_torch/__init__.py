@@ -52,6 +52,13 @@ _EXPORTS = {
     "GridStrategy": "repro_torch.design.strategies",
     "CostModelGuidedStrategy": "repro_torch.design.strategies",
     "register_strategy": "repro_torch.design.strategies",
+    # dynamic sparsity (repro_torch.dyn): patch-in-place plans + drift
+    # re-search
+    "dyn": None,                        # submodule, imported lazily
+    "PatternDelta": "repro_torch.dyn",
+    "DriftPolicy": "repro_torch.dyn",
+    "DynamicSparsityManager": "repro_torch.dyn",
+    "CapacityError": "repro_torch.dyn",
 }
 
 __all__ = sorted(_EXPORTS)

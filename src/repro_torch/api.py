@@ -160,7 +160,7 @@ class Target:
         if self.mesh is not None:
             raise NotImplementedError(
                 "sharded targets (mesh) are not ported yet; see ROADMAP "
-                "queue 1, item 12")
+                "queue 1, item 6")
 
     def spec_dict(self) -> dict:
         """JSON-able identity (the reference's field set)."""
@@ -288,11 +288,21 @@ class SpmvPlan:
 
     # -- dynamic sparsity --------------------------------------------------
     def update(self, delta) -> "SpmvPlan":
-        """Patch-in-place dynamic-sparsity step: not ported yet."""
-        raise NotImplementedError(
-            "SpmvPlan.update (dynamic sparsity, repro.dyn) is not ported "
-            "yet (ROADMAP queue 1, item 10); re-run repro_torch.compile on "
-            "the mutated matrix")
+        """Patch-in-place dynamic-sparsity step (``repro_torch.dyn``).
+
+        Applies a :class:`repro_torch.dyn.PatternDelta` to the packed
+        format tensors — new tensors of the same shapes, dtypes and
+        device, the same kernel spec, no Operator Graph replay, no kernel
+        rebuild — and returns the patched plan with ``plan_version + 1``.
+        This plan's tensors are left as they were. Raises
+        ``repro_torch.dyn.CapacityError`` when the delta does not fit the
+        format in place (escalate to
+        ``repro_torch.dyn.DynamicSparsityManager`` or a fresh
+        :func:`compile`). For streams of deltas, hold a
+        ``repro_torch.dyn.PlanPatcher`` instead: it keeps the capacity
+        index across calls, making each update O(delta)."""
+        from repro_torch.dyn.update import update_plan
+        return update_plan(self, delta)
 
     # -- reporting ---------------------------------------------------------
     def describe(self) -> str:
@@ -312,6 +322,8 @@ class SpmvPlan:
             lines.append(f"  search failures: {buckets}")
         for s in spec["steps"]:
             lines.append(f"  step {s['key']}: {s['report']}")
+        from repro_torch.dyn.capacity import capacity_lines
+        lines.extend(capacity_lines(self))
         return "\n".join(lines)
 
     # -- serialization -----------------------------------------------------

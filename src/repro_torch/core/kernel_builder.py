@@ -48,7 +48,7 @@ from .metadata import Block, EllTileLayout, MetadataSet, SegTileLayout
 
 __all__ = ["SpmvProgram", "build_program", "plan_format", "build_kernel",
            "register_layout_planner", "resolve_device", "run_spec_step",
-           "SPEC_VERSION", "BACKENDS"]
+           "materialize_cols", "SPEC_VERSION", "BACKENDS"]
 
 SPEC_VERSION = 2
 
@@ -118,6 +118,20 @@ def _col_model_expr(kind: str, params, n: int, shape, device):
         a, b, c, p = params
         v = a * (i % p) + c * torch.div(i, p, rounding_mode="floor") + b
     return v.to(torch.int32).reshape(tuple(shape))
+
+
+def materialize_cols(colspec: dict, fmt: dict) -> np.ndarray:
+    """Host-side column-index array for a spec step (array or fitted model).
+
+    A numpy copy on the host, whatever device the format lives on; stored
+    int16 cols stay int16 and a model-elided array comes back int32. The
+    in-place plan patcher (``repro_torch.dyn.update``) reads cols through
+    it.
+    """
+    if colspec["mode"] == "array":
+        return fmt[colspec["key"]].detach().cpu().numpy().copy()
+    return _col_model_expr(colspec["model"], colspec["params"], colspec["n"],
+                           colspec["shape"], "cpu").numpy()
 
 
 def _plan_ell_block(bi: int, block: Block, fmt: dict,

@@ -3,7 +3,7 @@
 Only the feature vectors are ported so far: ``PlanStore.put`` writes them
 into its ``.stats.json`` sidecars, as the reference does. The datasets,
 sweeps, the corpus model and the ``"learned"`` / ``"portfolio"``
-strategies are ROADMAP queue 1, item 11.
+strategies are ROADMAP queue 1, item 4.
 """
 
 _EXPORTS = {

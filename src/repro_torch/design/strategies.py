@@ -130,7 +130,7 @@ _LAZY_STRATEGY_MODULES = {"portfolio": None}
 def _corpus_not_ported(name: str):
     return NotImplementedError(
         f"strategy {name!r} needs repro_torch.corpus, which is not ported "
-        "yet (ROADMAP queue 1, item 11)")
+        "yet (ROADMAP queue 1, item 4)")
 
 
 def make_strategy(spec=None) -> SearchStrategy:

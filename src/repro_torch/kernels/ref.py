@@ -28,8 +28,18 @@ def _gather(x, cols):
 def ell_spmv_ref(vals, cols, x) -> torch.Tensor:
     """K1. vals, cols: (T, R, W); x: (n_cols,) -> fp32 partials (T, R),
     ``out[t, r] = sum_w vals[t, r, w] * x[cols[t, r, w]]``.
-    Padded entries must carry val=0."""
-    return (vals.float() * _gather(x, cols)).sum(dim=-1)
+    Padded entries must carry val=0.
+
+    The sum runs over w in order (a scan, which on the CPU accumulates in
+    float64), so zero padding after a row's entries never changes it: a
+    row packed at another width sums to the same bits. ``.sum`` groups
+    the terms by W, and then a plan patched in place
+    (``repro_torch.dyn``) and a fresh compile that put a row in another
+    width bucket would differ in the last bit."""
+    prod = vals.float() * _gather(x, cols)
+    if prod.shape[-1] == 0:
+        return prod.sum(dim=-1)
+    return torch.cumsum(prod, dim=-1)[..., -1]
 
 
 def ell_spmv_direct_ref(vals, cols, x) -> torch.Tensor:

@@ -4,8 +4,8 @@
 ragged batches to buckets and hot-swaps plans, ``SpmvEngine`` schedules
 requests. The token-serving half of the reference (``ModelExecutor``,
 ``ServingEngine``, ``Request``, ``ServeConfig``) waits for the LLM stack
-(ROADMAP queue 1, item 13), and ``sparsify_linear_sharded`` for dist
-(item 12).
+(ROADMAP queue 1, item 7), and ``sparsify_linear_sharded`` for dist
+(item 6).
 """
 from .engine import MatvecRequest, SpmvEngine  # noqa: F401
 from .executor import PlanExecutor, SwapRejected, decode_buckets  # noqa: F401

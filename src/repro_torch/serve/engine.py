@@ -13,7 +13,7 @@ search hot-swaps with zero downtime (in-flight batches finish on the old
 plan).
 
 The token-serving engine (``ServingEngine``, ``Request``,
-``ServeConfig``) waits for the LLM stack (ROADMAP queue 1, item 13).
+``ServeConfig``) waits for the LLM stack (ROADMAP queue 1, item 7).
 """
 from __future__ import annotations
 

@@ -10,7 +10,7 @@ each padded chunk is copied to the plan's device, runs there through the
 multi-RHS kernels, and the result is copied back.
 
 ``ModelExecutor`` (token serving) waits for the LLM stack (ROADMAP
-queue 1, item 13).
+queue 1, item 7).
 """
 from __future__ import annotations
 

@@ -68,10 +68,11 @@ class SparseLinear:
                    getattr(plan, "search_gflops", None))
 
     def update(self, delta) -> "SparseLinear":
-        """Dynamic-sparsity step: patch the plan in place and apply the
-        delta to the attached matrix, returning a new layer. The plan's
-        ``update`` is not ported yet (ROADMAP queue 1, item 10), so this
-        raises ``NotImplementedError`` for an ``SpmvPlan``."""
+        """Dynamic-sparsity step: patch the plan in place
+        (``SpmvPlan.update``) and apply the delta to the attached matrix,
+        returning a new layer; this layer and its plan are left as they
+        were. Raises ``repro_torch.dyn.CapacityError`` when the delta
+        does not fit the plan's format."""
         new_program = self.program.update(delta)
         new_matrix = (delta.apply_to(self.matrix)
                       if self.matrix is not None else None)

@@ -206,13 +206,16 @@ def test_default_target_is_cuda_and_never_runs_on_cpu():
 
 
 def test_later_slices_raise():
-    """Sharded targets, dynamic-sparsity updates and the corpus strategies
-    are later slices (the multi-RHS path is ported: tests/test_torch_spmm.py)."""
+    """Sharded targets and the corpus strategies are later slices (the
+    multi-RHS path is ported: tests/test_torch_spmm.py; dynamic-sparsity
+    updates too: tests/test_torch_dyn.py, here only an empty delta)."""
+    from repro_torch.dyn import PatternDelta
     m = _port(banded_matrix(64, 2, seed=0))
     plan = repro_torch.compile(m, repro_torch.Target(backend="torch"),
                                graph=_port_graph(FAMILIES["ell"]))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        plan.update(None)
+    upd = plan.update(PatternDelta.from_matrices(m, m))
+    assert upd.plan_version == plan.plan_version + 1
+    assert all(torch.equal(upd.fmt[k], t) for k, t in plan.fmt.items())
     with pytest.raises(NotImplementedError):
         repro_torch.Target(backend="torch", mesh=object())
     for name in ("learned", "portfolio"):

@@ -593,3 +593,83 @@ def test_spmv_engine_on_the_card(dev):
         assert r.status == "ok"
         o = m.spmv_dense_oracle(r.x)
         assert np.abs(r.y - o).max() <= 1e-3 * np.abs(o).max() + 1e-5
+
+
+def _keep_lengths_mutation(m, seed):
+    """Revalue 10 %, drop 5 % and re-add one new entry into every row that
+    lost one: every row keeps its length, so a fresh compile designs the
+    same layout and the same kernel launches as the patched plan."""
+    rng = np.random.default_rng(seed)
+    vals = m.vals.copy()
+    rev = rng.choice(m.nnz, m.nnz // 10, replace=False)
+    vals[rev] = rng.standard_normal(rev.size).astype(np.float32) + 0.1
+    drop = rng.choice(m.nnz, m.nnz // 20, replace=False)
+    keep = np.ones(m.nnz, bool)
+    keep[drop] = False
+    dense = m.to_dense() != 0
+    add_r, add_c = [], []
+    for r in m.rows[drop]:
+        free = np.nonzero(~dense[r])[0]
+        c = int(rng.choice(free))
+        dense[r, c] = True
+        add_r.append(r)
+        add_c.append(c)
+    add_v = rng.standard_normal(len(add_r)).astype(np.float32) + 0.1
+    return tm.SparseMatrix(
+        m.n_rows, m.n_cols,
+        np.concatenate([m.rows[keep], np.array(add_r, np.int32)]),
+        np.concatenate([m.cols[keep], np.array(add_c, np.int32)]),
+        np.concatenate([vals[keep], add_v])).canonical()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_update_on_the_card_matches_a_fresh_compile(dev, dtype):
+    """SpmvPlan.update on the cuda backend (the reference's 96 x 96 dyn
+    matrix, the capacity ELL design, which runs K1): bit-identical to a
+    fresh cuda compile of the mutated matrix, tensor for tensor and in its
+    output; the source plan still answers for the old matrix."""
+    from repro_torch.dyn import PatternDelta, check_capacity
+    from repro_torch.train.dynamic import capacity_graph
+    m = tm.powerlaw_matrix(96, 96, 12.0, 1.2, seed=3)
+    target = repro_torch.Target(dtype=dtype)
+    plan = repro_torch.compile(m, target, graph=capacity_graph())
+    m1 = _keep_lengths_mutation(m, seed=2)
+    np.testing.assert_array_equal(m1.row_lengths(), m.row_lengths())
+    delta = PatternDelta.from_matrices(m, m1)
+    assert check_capacity(plan, delta)
+    upd = plan.update(delta)
+    fresh = repro_torch.compile(m1, target, graph=capacity_graph())
+    assert upd.plan_version == plan.plan_version + 1
+    assert sorted(upd.fmt) == sorted(fresh.fmt)
+    for k, t in fresh.fmt.items():
+        assert upd.fmt[k].is_cuda and torch.equal(upd.fmt[k], t), k
+    x = np.random.default_rng(0).standard_normal(m.n_cols).astype(np.float32)
+    assert torch.equal(upd(x), fresh(x))
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for mat, p in ((m1, upd), (m, plan)):
+        o = mat.spmv_dense_oracle(x)
+        assert np.abs(p(x).cpu().numpy() - o).max() <= tol * np.abs(o).max()
+
+
+@pytest.mark.parametrize("name", ["CSR", "COO", "ELL", "SELL", "HYB",
+                                  "Merge", "ACSR", "CSR-Adaptive"])
+def test_baselines_on_the_card_match_the_cpu(dev, name):
+    """Every baseline format built on the card holds the same tensors as
+    on the CPU, and its eager-torch SpMV agrees with the CPU run within
+    the reference's baseline tolerance (index_add_ order differs)."""
+    from repro_torch.sparse import build_baseline
+    for mname in ("powerlaw_mid", "hyb_like"):
+        m = tm.make_suite("small")[mname]
+        gpu = build_baseline(name, m, device=dev)
+        cpu = build_baseline(name, m, device="cpu")
+        assert (gpu.stored_bytes, gpu.padded_nnz) == (cpu.stored_bytes,
+                                                      cpu.padded_nnz)
+        for k, t in cpu.fmt.items():
+            assert gpu.fmt[k].is_cuda and torch.equal(gpu.fmt[k].cpu(), t)
+        x = np.random.default_rng(1).standard_normal(
+            m.n_cols).astype(np.float32)
+        y = gpu(x)
+        assert y.is_cuda and y.dtype == torch.float32
+        want = cpu(x)
+        tol = 2e-4 * float(want.abs().max()) + 1e-5
+        assert float((y.cpu() - want).abs().max()) <= tol

@@ -122,8 +122,13 @@ def test_sparse_linear_batched_and_density(matrix, plan):
     opaque = SparseLinear(None, None, object())
     with pytest.warns(RuntimeWarning, match="density is unknown"):
         assert opaque.density is None
-    with pytest.raises(NotImplementedError, match="item 10"):
-        layer.update(None)
+    # dynamic sparsity (tests/test_torch_dyn.py): an empty delta gives a
+    # new layer at the next plan version with the same answers
+    from repro_torch.dyn import PatternDelta
+    new = SparseLinear.from_plan(plan, matrix).update(
+        PatternDelta.from_matrices(matrix, matrix))
+    assert new.program.plan_version == plan.plan_version + 1
+    _ok(new(x[0]), matrix.spmv_dense_oracle(x[0]))
 
 
 def test_sparsify_linear_shim_on_cpu():
