@@ -18,8 +18,9 @@ each printing its seconds:
    row 11 into a prefilled y, n_rows cutting a slab), K4/K6 in one-hot
    mode on unsorted local rows with some outside [0, M) (C = 1536 and
    21), K3/K6 in seg_scan mode on ends that descend, repeat, pass C or
-   fall below 0, a padding tile, C in {21, 512, 2048, 8192} on and off the
-   16-byte alignment with K6 at tiles_per_step 1, 3, 8 and 16, and M =
+   fall below 0, a padding tile, C in {21, 512, 2048, 8192, 12288} on and
+   off the 16-byte alignment with K6 at tiles_per_step 1, 3, 8 and 16 (at
+   C = 12288 exactly 48 KB of dynamic shared memory), and M =
    60000 segments, and columns outside [0, n_cols); 2b. the same for the SpMM
    kernels at B in {1, 3, 8, 17, 40}, K7-K9 at those widths, at 5120
    rows and at one serving tile (T = 1, R = 128, W = 397, B = 8); K10b
@@ -29,7 +30,8 @@ each printing its seconds:
    pass C or fall below 0, and a padding tile; C = 512 at tiles_per_step
    1, 3, 8 and 16; and tiles of C = 8192 slots at M = 700 (B = 8 and 40,
    the accumulator past 48 KB), M = 8192 and M = 60000 (one tile's
-   accumulator past the block's shared memory);
+   accumulator past the block's shared memory), and C = 512 at M = 384,
+   B = 8 (a window of exactly 48 KB of dynamic shared memory);
 3. a searched compile of ``banded_matrix(2**21, 4)`` (18.87 M nnz) on the
    default Target, checked against the float64 oracle, plus a save/load
    round trip;
@@ -98,17 +100,39 @@ each printing its seconds:
    oracle, the first step's delta also handed to a manager on (a)'s plan,
    where it does not fit and a background re-search on the card takes
    over (``pruning step`` and ``pruning {...}`` lines); (c) one update of phase 4's fused seg_scan plan (K6)
-   on the powerlaw matrix (a ``dyn_seg_update {...}`` line).
+   on the powerlaw matrix (a ``dyn_seg_update {...}`` line);
+11. fleet compilation (``repro_torch.corpus``, every compile on the cuda
+   backend): (a) ``run_sweep(isolate="process")`` over
+   ``synthetic_corpus("medium")`` (10 entries) and two real-size entries
+   (banded n = 2^20, powerlaw n = 2^20; 9.4 M and 7.85 M nnz) under
+   the reference test's coarse budget, one ``corpus_sweep {...}`` line per
+   entry, the real-size ones with the Designer's seconds on
+   ``capacity_graph()`` before and after the one-pass ELL layout; no child
+   may rebuild a kernel library; (b) the same sweep with ``resume=True``,
+   which must compile nothing; (c) ``train_from_store`` -> ``CorpusModel``
+   (a ``corpus_model {...}`` line); (d) ``holdout_corpus("medium")`` and a
+   held-out power-law matrix (n = 2^19) compiled with anneal, learned and
+   portfolio (deadline 2 s), each held to the oracle and timed (one
+   ``corpus_holdout {...}`` line each); (e) ``python -m repro_torch.cli``
+   in subprocesses: a search, a B = 8 search, ``--no-search``, ``--sweep
+   smoke`` and ``--train-from-store`` (a ``cli {...}`` line of return
+   codes); (f) ``SpmvPlan.cost_analysis`` of phase 3's and phase 6's
+   searched plans, its bound beside their card time (``cost_analysis
+   {...}`` lines).
 
 Phases 3-4 and phases 6-7 are the two paths: the launch counters are set
 to 0 before each and read after it, and each of its kernels must have
-launched. Phase 10 is read the same way: K1 and K6 must launch in it. The last two lines are the kernel report (all twelve kernels)
+launched. Phase 10 is read the same way: K1 and K6 must launch in it;
+phase 11 prints its own process's counts (its searches pick the
+kernels). The last two lines are the kernel report (all twelve kernels)
 and ``{"ok": true, "device": {...}}``. The script exits non-zero,
 printing no result, without a GPU or outside a checkout of the
 repository. It imports neither jax nor ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import re
 import statistics
@@ -504,10 +528,12 @@ def check_seg_scan(what, v, c, end, x, M, r0, n_rows, g, ks=(1, 3, 8, 16)):
 
 # (T, S, L, M) for K3 / K6 in seg_scan mode: C = 21 (scalar loads; a
 # thread's 8 slots cross tiles), 512 (a 2048-slot pass spans four tiles),
-# 2048 (one tile a pass) and 8192 (four passes a tile, with a carry); T is
-# not a multiple of tiles_per_step 3, 8 or 16
+# 2048 (one tile a pass), 8192 (four passes a tile, with a carry) and
+# 12288 (exactly 48 KB of dynamic shared memory beside the kernel's own
+# __shared__ arrays: the opt-in); T is not a multiple of tiles_per_step 3,
+# 8 or 16
 SCAN_WIDTHS = [(37, 3, 7, 5), (37, 4, 128, 60), (9, 16, 128, 300),
-               (3, 64, 128, 700)]
+               (3, 64, 128, 700), (2, 96, 128, 300)]
 
 
 def seg_scan_cases(rng, n_cols, vd, cd, x, tag):
@@ -603,10 +629,12 @@ def small_spmm_phase():
     # 700: a stored (C, B) scan would not fit a block's shared memory, and
     # at B = 40 the (M, B) accumulator passes 48 KB (the opt-in); then one
     # tile's accumulator beyond the block's shared memory (M = 8192 at B =
-    # 8: fewer columns a window; M = 60000: part of the segments a window)
-    for (S, M, b) in ((64, 700, 8), (64, 700, 40), (64, 8192, 8),
-                      (64, 60000, 1)):
-        T, L = 3, 128
+    # 8: fewer columns a window; M = 60000: part of the segments a window);
+    # and C = 512, M = 384, B = 8: a window of four tiles takes exactly 48
+    # KB, which with the kernel's own __shared__ array needs the opt-in too
+    for (T, S, M, b) in ((3, 64, 700, 8), (3, 64, 700, 40), (3, 64, 8192, 8),
+                         (3, 64, 60000, 1), (6, 4, 384, 8)):
+        L = 128
         local, end = seg_case(rng, T, S, L, M)
         v = torch.from_numpy(rng.standard_normal((T, S, L)).astype(np.float32))
         c = torch.from_numpy(rng.integers(0, n_cols, (T, S, L)).astype(np.int32))
@@ -1793,6 +1821,343 @@ def dyn_phase(W, P, seg_prog, designer) -> None:
     done()
 
 
+# -------------------------------- phase 11 --------------------------------
+
+# the sweep's coarse budget (the reference's tests/test_corpus.py shape),
+# also the budget of the holdout's anneal and learned compiles
+SWEEP_SECONDS = 4.0
+PORTFOLIO_DEADLINE_S = 2.0
+
+
+def corpus_entry(family: str, seed: int, **params):
+    """A CorpusEntry named the way ``synthetic_corpus`` names its own."""
+    from repro_torch.corpus.datasets import CorpusEntry
+    tag = "_".join(f"{k}{v}" for k, v in sorted(params.items()))
+    return CorpusEntry(name=f"{family}_{tag}_s{seed}", family=family,
+                       params=tuple(sorted(params.items())), seed=seed)
+
+
+def real_size_entries() -> list:
+    """Sweep entries at a size users call real: above the 50 MB L2
+    (banded, 9.4 M nnz) and phase 4's power-law operand (7.85 M nnz).
+    The HYB-friendly entry (n = 2^19, 10,922 rows of 512, 8.7 M nnz) is
+    left out for time: its search timed one candidate, a tiled ELL whose
+    tiles pad to their 512-slot rows, in 102 s of the H100 machine's host
+    time (PERF.md §6)."""
+    return [corpus_entry("banded", 0, n=2 ** 20, bandwidth=4),
+            corpus_entry("powerlaw", 0, n=2 ** 20, avg_row=8.0, alpha=1.5)]
+
+
+@contextlib.contextmanager
+def families_built_once(families):
+    """Memoise the corpus generators of ``families`` while the phase runs,
+    so the sweep's parent and the Designer timing share one build of each
+    matrix (the isolated children build their own)."""
+    from repro_torch.corpus.datasets import CORPUS_FAMILIES
+    saved = {f: CORPUS_FAMILIES[f] for f in families}
+    for f, fn in saved.items():
+        CORPUS_FAMILIES[f] = functools.lru_cache(maxsize=None)(fn)
+    try:
+        yield
+    finally:
+        CORPUS_FAMILIES.update(saved)
+
+
+def per_width_ell_layout(b):
+    """The Designer's ELL layout as it was built before the one-pass
+    routing (one rescan of all nonzeros per distinct tile width), kept here
+    to time the Designer before and after on the same matrix."""
+    import math
+    from repro_torch.core.operators import EllBucket, EllTileLayout, _ceil_to
+    n = b.n_block_rows
+    R = b.tile_rows or _ceil_to(max(n, 1), 8)
+    n_tiles = max(1, math.ceil(n / R))
+    lengths = b.row_lengths()
+    lengths_pad = np.zeros(n_tiles * R, np.int64)
+    lengths_pad[:n] = lengths
+    w_per_tile = lengths_pad.reshape(n_tiles, R).max(axis=1)
+    w_per_tile = np.maximum(_ceil_to(1, b.pad_to),
+                            ((w_per_tile + b.pad_to - 1) // b.pad_to)
+                            * b.pad_to)
+    w_per_tile = np.maximum(w_per_tile, 1)
+    row_ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+    pos_in_row = np.arange(b.nnz, dtype=np.int64) - row_ptr[b.rows]
+    tile_of_row = np.arange(n, dtype=np.int64) // R
+    row_in_tile = np.arange(n, dtype=np.int64) % R
+    buckets = []
+    for w in np.unique(w_per_tile):
+        tiles = np.where(w_per_tile == w)[0]
+        t_rank = np.full(n_tiles, -1, np.int64)
+        t_rank[tiles] = np.arange(tiles.size)
+        vals = np.zeros((tiles.size, R, int(w)), np.float32)
+        cols = np.zeros((tiles.size, R, int(w)), np.int32)
+        rowmap = np.full((tiles.size, R), -1, np.int32)
+        nz_tile = t_rank[tile_of_row[b.rows]]
+        sel = nz_tile >= 0
+        at = (nz_tile[sel], row_in_tile[b.rows[sel]], pos_in_row[sel])
+        vals[at] = b.vals[sel]
+        cols[at] = b.cols[sel]
+        rows_here = np.where(t_rank[tile_of_row] >= 0)[0]
+        rowmap[t_rank[tile_of_row[rows_here]], row_in_tile[rows_here]] = \
+            b.row_ids[rows_here]
+        buckets.append(EllBucket(int(w), vals, cols, rowmap))
+    return EllTileLayout(tile_rows=R, buckets=tuple(buckets))
+
+
+def designer_before_after(m) -> dict:
+    """The Designer on ``capacity_graph()`` (8-row tiles sorted by length,
+    widths padded to 8: many ELL width buckets) with the one-pass ELL
+    layout and with the per-width rescans; the layouts must agree. The
+    operators before LANE_ROW_BLOCK run once (``prefix_s``), and
+    ``designer_s_*`` adds each layout build to them."""
+    from repro_torch.core import operators
+    from repro_torch.core.metadata import from_matrix
+    from repro_torch.train.dynamic import capacity_graph
+    g = capacity_graph()
+    chain = g.branch_chains[0]
+    cut = [op.name for op in chain].index("LANE_ROW_BLOCK")
+    t0 = time.perf_counter()
+    meta = from_matrix(m)
+    for op in g.converting + chain[:cut]:
+        meta = operators.apply_op(meta, op)
+    prefix = time.perf_counter() - t0
+    new = operators._build_ell_layout
+    out, layouts = {"prefix_s": round(prefix, 3)}, {}
+    try:
+        for name, fn in (("after", new), ("before", per_width_ell_layout)):
+            operators._build_ell_layout = fn
+            t0 = time.perf_counter()
+            done = meta
+            for op in chain[cut:]:
+                done = operators.apply_op(done, op)
+            layouts[name] = done.blocks[0].layout
+            out[f"designer_s_{name}"] = round(
+                prefix + time.perf_counter() - t0, 3)
+    finally:
+        operators._build_ell_layout = new
+    a, b = layouts["after"].buckets, layouts["before"].buckets
+    require(len(a) == len(b) and all(
+        u.width == v.width and np.array_equal(u.vals, v.vals)
+        and np.array_equal(u.cols, v.cols)
+        and np.array_equal(u.rowmap, v.rowmap) for u, v in zip(a, b)),
+        "the one-pass ELL layout differs from the per-width one")
+    out["ell_buckets"] = len(a)
+    return out
+
+
+def kernel_libraries() -> dict:
+    from repro_torch.kernels import build
+    return {p.name: p.stat().st_mtime_ns
+            for p in sorted(build.BUILD_DIR.glob("*.so"))}
+
+
+def corpus_sweep(sets, store, cfg, resume: bool) -> list:
+    from repro_torch.corpus import run_sweep
+    import repro_torch
+    recs = []
+    for entries in sets.values():
+        recs += run_sweep(entries, store, budget=cfg,
+                          target=repro_torch.Target(), isolate="process",
+                          resume=resume)
+    return recs
+
+
+def sweep_phase(store_dir: Path, cfg) -> None:
+    """(a) sweep in isolated children, (b) resume, (c) train."""
+    import repro_torch
+    from repro_torch.corpus import (default_model_path, load_records,
+                                    synthetic_corpus, train_from_store)
+    from repro_torch.corpus.sweep import RECORDS_FILENAME
+    sets = {"medium": synthetic_corpus("medium"),
+            "real": real_size_entries()}
+    real = {e.name for e in sets["real"]}
+    store = repro_torch.PlanStore(store_dir)
+    libs = kernel_libraries()
+    with families_built_once({e.family for e in sets["real"]}):
+        t0 = time.perf_counter()
+        recs = corpus_sweep(sets, store, cfg, resume=False)
+        sweep_s = time.perf_counter() - t0
+        require(kernel_libraries() == libs,
+                "a sweep child rebuilt the kernel libraries")
+        n = len(sets["medium"]) + len(sets["real"])
+        require(len(recs) == n, f"{len(recs)} of {n} entries swept")
+        for rec, entry in zip(recs, sets["medium"] + sets["real"]):
+            line = {"name": rec.name, "rows": rec.n_rows, "nnz": rec.nnz,
+                    "label": rec.label, "gflops": rec.gflops,
+                    "wall_s": round(rec.wall_seconds, 3),
+                    "n_evaluations": rec.n_evaluations,
+                    "failure_counts": rec.failure_counts,
+                    "error": rec.error}
+            if rec.name in real:
+                line.update(designer_before_after(entry.build()))
+            print("corpus_sweep " + json.dumps(line), flush=True)
+            require(rec.error is None, f"{rec.name}: {rec.error}")
+            bad = {"crash", "wrong_result", "fallback"} & set(
+                rec.failure_counts)
+            require(not bad, f"{rec.name}: search failures {bad}")
+    print(f"  sweep of {n} entries in isolated children: {sweep_s:.1f} s; "
+          "no child rebuilt a kernel library")
+    journal = store_dir / RECORDS_FILENAME
+    n_lines = journal.read_text().count("\n")
+    t0 = time.perf_counter()
+    again = corpus_sweep(sets, store, cfg, resume=True)
+    print(f"  resume: {len(again)} compiles, {len(load_records(journal))} "
+          f"journal records, {time.perf_counter() - t0:.2f} s")
+    require(not again and journal.read_text().count("\n") == n_lines,
+            "the resumed sweep compiled or journaled again")
+    t0 = time.perf_counter()
+    model = train_from_store(store_dir)
+    path = model.save(default_model_path(store_dir))
+    print("corpus_model " + json.dumps({
+        "labels": list(model.labels),
+        "exemplars": len(model.exemplar_labels), "sweep_rows": model.n_train,
+        "log_mae": model.mad, "fingerprint": model.fingerprint(),
+        "train_s": round(time.perf_counter() - t0, 3), "path": path.name}))
+    require(len(model.exemplar_labels) == len(load_records(
+        store_dir / RECORDS_FILENAME)), "an exemplar is missing")
+
+
+def holdout_phase(store_dir: Path, cfg) -> None:
+    """(d) held-out matrices compiled cold with anneal, and with the
+    learned and portfolio strategies from a copy of the swept store's
+    sidecars and model (so no holdout plan is reused by the next)."""
+    import shutil
+    import repro_torch
+    from repro_torch.corpus import holdout_corpus
+    entries = holdout_corpus("medium") + [
+        corpus_entry("powerlaw", 7, n=2 ** 19, avg_row=8.0, alpha=1.2)]
+    target = repro_torch.Target()
+    for entry in entries:
+        m = entry.build()
+        x_np = np.random.default_rng(3).standard_normal(
+            m.n_cols).astype(np.float32)
+        oracle = m.spmv_dense_oracle(x_np)
+        x = torch.from_numpy(x_np).cuda()
+        for strategy in ("anneal", "learned", "portfolio"):
+            kw = {}
+            if strategy != "anneal":
+                fresh = store_dir.parent / f"{strategy}-{entry.name}"
+                fresh.mkdir()
+                for f in (list(store_dir.glob("*.stats.json"))
+                          + [store_dir / "corpus_model.npz"]):
+                    shutil.copy(f, fresh / f.name)
+                kw["store"] = repro_torch.PlanStore(fresh)
+            if strategy == "portfolio":
+                kw["deadline_s"] = PORTFOLIO_DEADLINE_S
+            t0 = time.perf_counter()
+            plan = repro_torch.compile(m, target, budget=cfg,
+                                       strategy=strategy, **kw)
+            wall = time.perf_counter() - t0
+            res = plan.search_result
+            require(res is not None and res.strategy_name == strategy,
+                    f"{entry.name} {strategy}: not a fresh search")
+            check_oracle(f"{entry.name} {strategy}", plan(x), oracle,
+                         plan.spec["storage_dtype"])
+            fn = functools.partial(plan, x)
+            reps = reps_for(fn)
+            ms, dms = cuda_ms(fn, reps=reps), card_ms(fn, reps=reps)
+            if strategy == "anneal":
+                anneal_ms, anneal_dms = ms, dms
+            print("corpus_holdout " + json.dumps({
+                "name": entry.name, "rows": m.n_rows, "nnz": m.nnz,
+                "strategy": strategy, "compile_s": round(wall, 3),
+                "n_evaluations": res.n_evaluations,
+                "fallback": res.fallback, "graph": plan.graph.label(),
+                "steps": len(plan.spec["steps"]), "ms": ms,
+                "device_ms": dms, "ms_over_anneal": ms / anneal_ms,
+                "device_ms_over_anneal": (dms / anneal_dms if dms and
+                                          anneal_dms else None)}),
+                  flush=True)
+            del plan
+        torch.cuda.empty_cache()
+
+
+CLI_RUNS = {
+    "search": ["--demo", "--seconds", "5", "--out", "{d}/demo.plan.npz"],
+    "search_b8": ["--demo", "--batch", "8", "--seconds", "5",
+                  "--out", "{d}/demo8.plan.npz"],
+    "no_search": ["--demo", "--no-search", "--out", "{d}/heur.plan.npz"],
+    "sweep": ["--sweep", "smoke", "--seconds", "1", "--store", "{d}/store"],
+    "train": ["--train-from-store", "--store", "{d}/store"],
+}
+
+
+def cli_phase(work: Path) -> None:
+    """(e) ``python -m repro_torch.cli`` in subprocesses on the card."""
+    import os
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    rcs, secs = {}, {}
+    for name, args in CLI_RUNS.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.cli",
+             *(a.format(d=work) for a in args)],
+            capture_output=True, text=True, timeout=300, env=env)
+        secs[name] = round(time.perf_counter() - t0, 2)
+        rcs[name] = proc.returncode
+        lines = proc.stdout.strip().splitlines()
+        keep = [ln for ln in lines if ln.startswith(
+            ("searched", "compiled", "verified", "benchmark", "sweep[",
+             "trained"))]
+        print(f"  cli {name}: rc {proc.returncode}; " + " | ".join(keep))
+        if proc.returncode != 0:
+            print(proc.stdout[-3000:] + proc.stderr[-3000:])
+        if "--out" in args:
+            require(any(ln.startswith("verified:") for ln in lines),
+                    f"cli {name}: no verified line")
+    print("cli " + json.dumps({"returncodes": rcs, "seconds": secs}))
+    require(all(rc == 0 for rc in rcs.values()), f"cli return codes {rcs}")
+
+
+def cost_lines(plans) -> None:
+    """(f) ``SpmvPlan.cost_analysis`` and the bound it gives, beside the
+    plan's time on the card."""
+    for name, (plan, x) in plans.items():
+        b = 1 if x.ndim == 1 else x.shape[1]
+        ca = plan.cost_analysis(b)
+        bound = max(ca["bytes accessed"] / HBM_BYTES_PER_S,
+                    ca["flops"] / FP32_FLOPS_PER_S) * 1e3
+        dms = device_ms(lambda: plan(x))
+        print("cost_analysis " + json.dumps({
+            "plan": name, "batch": b, "bytes_accessed": ca["bytes accessed"],
+            "flops": ca["flops"], "bound_ms": bound, "device_ms": dms,
+            "percent_of_bound": 100.0 * bound / dms,
+            "ell_slack": ca["capacity"]["ell_slack"],
+            "seg_headroom": ca["capacity"]["seg_headroom"]}))
+        require(ca["flops"] >= 2 * plan.nnz * b, f"{name}: flops too low")
+
+
+def corpus_phase(cost_plans) -> None:
+    import repro_torch
+    done = phase("11 corpus: sweep, train, fleet compile, CLI")
+    cfg = repro_torch.SearchConfig(max_seconds=SWEEP_SECONDS,
+                                   max_structures=2, coarse_samples=1,
+                                   fine_eval_budget=0, use_cost_model=False,
+                                   seed=0)
+    reset_launch_counts()                    # phase 11 starts here
+    scratch = ROOT / "results"               # listed in .gitignore
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        store_dir = Path(d) / "store"
+        t0 = time.perf_counter()
+        sweep_phase(store_dir, cfg)
+        t1 = time.perf_counter()
+        holdout_phase(store_dir, cfg)
+        t2 = time.perf_counter()
+        (Path(d) / "cli").mkdir()
+        cli_phase(Path(d) / "cli")
+        t3 = time.perf_counter()
+    cost_lines(cost_plans)
+    torch.cuda.synchronize()
+    launches = launch_counts()               # ... and ends here
+    print(f"  phase-11 launches (this process): {launches}; sweep "
+          f"{t1 - t0:.1f} s, holdout {t2 - t1:.1f} s, cli {t3 - t2:.1f} s")
+    require(sum(launches.values()) > 0, "phase 11 launched no kernel")
+    done()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
@@ -1870,6 +2235,8 @@ def main() -> int:
                                         if "bf16" not in k}),
         "serving": (W, x1, oracle8[:, 0], {"searched": searched})})
     dyn_phase(W, P, seg["SEG_SCAN_RED fused"], designer)
+    corpus_phase({"banded searched": (searched_b, xb),
+                  f"serving searched B={SERVE_B}": (searched, xd)})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

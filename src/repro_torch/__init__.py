@@ -51,6 +51,7 @@ _EXPORTS = {
     "AnnealStrategy": "repro_torch.design.strategies",
     "GridStrategy": "repro_torch.design.strategies",
     "CostModelGuidedStrategy": "repro_torch.design.strategies",
+    "LearnedStrategy": "repro_torch.design.strategies",
     "register_strategy": "repro_torch.design.strategies",
     # dynamic sparsity (repro_torch.dyn): patch-in-place plans + drift
     # re-search
@@ -59,6 +60,10 @@ _EXPORTS = {
     "DriftPolicy": "repro_torch.dyn",
     "DynamicSparsityManager": "repro_torch.dyn",
     "CapacityError": "repro_torch.dyn",
+    # fleet corpus harness + learned/portfolio compilation
+    "corpus": None,                     # submodule, imported lazily
+    "CorpusModel": "repro_torch.corpus.model",
+    "PortfolioStrategy": "repro_torch.corpus.portfolio",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -41,7 +41,7 @@ import torch
 
 from repro_torch.core.graph import OperatorGraph, run_graph
 from repro_torch.core.kernel_builder import (build_kernel, build_program,
-                                             resolve_device)
+                                             resolve_device, step_reads)
 from repro_torch.core.matrices import SparseMatrix
 from repro_torch.core.search import (ProgramCache, SearchConfig, SearchResult,
                                      _graph_from_jsonable, _graph_to_jsonable,
@@ -172,6 +172,14 @@ class Target:
     def key(self) -> str:
         blob = json.dumps(self.spec_dict(), sort_keys=True)
         return hashlib.sha1(blob.encode()).hexdigest()[:8]
+
+
+def _target_from_dict(d: dict) -> Target:
+    """A Target from its ``spec_dict()``, written by either package: the
+    reference's backends map ``pallas -> cuda`` and ``jax -> torch``."""
+    kw = {k: v for k, v in d.items() if k != "mesh"}
+    kw["backend"] = _REFERENCE_BACKENDS.get(kw["backend"], kw["backend"])
+    return Target(**kw)
 
 
 def _x_dtype(target: Target) -> torch.dtype:
@@ -326,6 +334,34 @@ class SpmvPlan:
         lines.extend(capacity_lines(self))
         return "\n".join(lines)
 
+    def cost_analysis(self, batch_size: Optional[int] = None) -> dict:
+        """Bytes and flops of one call with B = ``batch_size`` right-hand
+        sides (default ``target.batch_size``), counted from the kernel
+        spec. This is not XLA's analysis of a compiled program, as in the
+        reference, so the numbers are not expected to equal its.
+
+        * ``"flops"``: 2 x stored slots x B, padding included (what the
+          kernels compute);
+        * ``"bytes accessed"``: every format tensor that the spec's steps
+          read on this plan's backend, each once, plus x (n_cols x B of
+          the activation dtype) and y (n_rows x B float32);
+        * ``"capacity"``: :func:`repro_torch.dyn.capacity.capacity_report`.
+        """
+        from repro_torch.dyn.capacity import capacity_report
+        b = max(int(batch_size if batch_size is not None
+                    else self.target.batch_size), 1)
+        keys, slots = set(), 0
+        for step in self.spec["steps"]:
+            keys.update(step_reads(step, self.target.backend))
+            slots += self.fmt[f"{step['key']}_vals"].numel()
+        fmt_bytes = sum(self.fmt[k].numel() * self.fmt[k].element_size()
+                        for k in keys)
+        x_item = _x_dtype(self.target).itemsize
+        return {"flops": 2 * slots * b,
+                "bytes accessed": (fmt_bytes + self.n_cols * b * x_item
+                                   + self.n_rows * b * 4),
+                "capacity": capacity_report(self)}
+
     # -- serialization -----------------------------------------------------
     def save(self, path) -> None:
         arrays = _npz_arrays("fmt", self.fmt)
@@ -371,10 +407,9 @@ def load_plan(path, backend: Optional[str] = None) -> SpmvPlan:
             raise NotImplementedError(
                 f"plan {path} is {header['kind']!r}; only dense plans are "
                 "ported yet")
-        kw = {k: v for k, v in header["target"].items() if k != "mesh"}
-        kw["backend"] = backend or _REFERENCE_BACKENDS.get(kw["backend"],
-                                                           kw["backend"])
-        target = Target(**kw)
+        target = _target_from_dict(header["target"])
+        if backend is not None:
+            target = dataclasses.replace(target, backend=backend)
         fc = header.get("failure_counts")
         return SpmvPlan(
             fmt=_npz_restore("fmt", z, resolve_device(target.backend)),
@@ -443,7 +478,11 @@ def compile(matrix: SparseMatrix, target: Optional[Target] = None,
       or None for the default budget.
     * ``graph`` — skip the search and design with this Operator Graph.
     * ``strategy`` — the search policy: a ``SearchStrategy`` instance or
-      class, or a registered name ("anneal" | "grid" | "cost_model").
+      class, or a registered name ("anneal" | "grid" | "cost_model" |
+      "learned" | "portfolio"). Store-aware strategies get
+      ``bind_store(store)`` before the search: that is how "learned" and
+      "portfolio" find the corpus model saved next to the store and
+      "portfolio" its reuse suggestions.
     * ``warm_start`` — ``OperatorGraph`` objects timed before the walk.
     * ``deadline_s`` — hard wall-clock budget for the whole search.
     * ``cache`` — a ``ProgramCache`` memoising raw search results.
@@ -459,6 +498,14 @@ def compile(matrix: SparseMatrix, target: Optional[Target] = None,
     """
     target = target or Target()
     resolve_device(target.backend)
+    if strategy is not None:
+        # normalize once so store keys see the *bound* strategy: a
+        # store-aware strategy ("portfolio", "learned") keys on its model
+        # fingerprint, and get/put must agree on it
+        from repro_torch.design.strategies import make_strategy
+        strategy = make_strategy(strategy)
+        if store is not None and hasattr(strategy, "bind_store"):
+            strategy.bind_store(store)
     if store is not None:
         hit = store.get(matrix, target, budget, graph, strategy)
         if hit is not None:

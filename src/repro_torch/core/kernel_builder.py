@@ -48,7 +48,7 @@ from .metadata import Block, EllTileLayout, MetadataSet, SegTileLayout
 
 __all__ = ["SpmvProgram", "build_program", "plan_format", "build_kernel",
            "register_layout_planner", "resolve_device", "run_spec_step",
-           "materialize_cols", "SPEC_VERSION", "BACKENDS"]
+           "step_reads", "materialize_cols", "SPEC_VERSION", "BACKENDS"]
 
 SPEC_VERSION = 2
 
@@ -452,6 +452,28 @@ def run_spec_step(step: dict, fmt: dict, x, y, n_rows: int,
         return _run_ell_step(step, fmt, x, y, n_rows, backend,
                              tiles_per_step)
     return _run_seg_step(step, fmt, x, y, n_rows, backend, tiles_per_step)
+
+
+def step_reads(step: dict, backend: str) -> list[str]:
+    """Format keys one spec step reads on ``backend``, as
+    :func:`run_spec_step` dispatches it (``SpmvPlan.cost_analysis``
+    counts their bytes)."""
+    key = step["key"]
+    keys = [f"{key}_vals"]
+    if step["cols"]["mode"] == "array":
+        keys.append(step["cols"]["key"])
+    if step["kind"] == "ell":
+        if step["combine"]["mode"] == "rowmap":
+            keys.append(step["combine"]["key"])
+        return keys
+    kind = step["reduce"]
+    if kind == "gmem_atom" and backend != "cuda":
+        return keys + [f"{key}_rows"]      # one index_add_ over the rows
+    keys.append(f"{key}_local" if kind == "onehot_mxu" else f"{key}_end")
+    # the fused cuda kernels add at r0; everything else scatters by rowmap
+    fused = backend == "cuda" and step.get("fused")
+    keys.append(f"{key}_r0" if fused else f"{key}_rowmap")
+    return keys
 
 
 def build_kernel(spec: dict, backend: str = "cuda") -> Callable:

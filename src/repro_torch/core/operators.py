@@ -447,20 +447,38 @@ def _build_ell_layout(b: Block) -> EllTileLayout:
     tile_of_row = np.arange(n, dtype=np.int64) // R
     row_in_tile = np.arange(n, dtype=np.int64) % R
 
+    # one pass routes every tile, row and nonzero to its width bucket: a
+    # stable sort by bucket, then one contiguous slice per bucket (the
+    # scatter positions are unique, so the arrays are those of a per-width
+    # rescan)
+    widths, bucket_of_tile = np.unique(w_per_tile, return_inverse=True)
+    tile_order = np.argsort(bucket_of_tile, kind="stable")
+    tile_start = np.searchsorted(bucket_of_tile[tile_order],
+                                 np.arange(widths.size + 1))
+    t_rank = np.empty(n_tiles, np.int64)
+    t_rank[tile_order] = (np.arange(n_tiles)
+                          - tile_start[bucket_of_tile[tile_order]])
+    row_bucket = bucket_of_tile[tile_of_row]
+    row_order = np.argsort(row_bucket, kind="stable")
+    row_start = np.searchsorted(row_bucket[row_order],
+                                np.arange(widths.size + 1))
+    nz_bucket = row_bucket[b.rows]
+    nz_order = np.argsort(nz_bucket, kind="stable")
+    nz_start = np.searchsorted(nz_bucket[nz_order],
+                               np.arange(widths.size + 1))
+
     buckets = []
-    for w in np.unique(w_per_tile):
-        tiles = np.where(w_per_tile == w)[0]
-        t_rank = np.full(n_tiles, -1, np.int64)
-        t_rank[tiles] = np.arange(tiles.size)
-        Tb = tiles.size
+    for k, w in enumerate(widths):
+        Tb = int(tile_start[k + 1] - tile_start[k])
         vals = np.zeros((Tb, R, int(w)), np.float32)
         cols = np.zeros((Tb, R, int(w)), np.int32)
         rowmap = np.full((Tb, R), -1, np.int32)
-        nz_tile = t_rank[tile_of_row[b.rows]]
-        sel = nz_tile >= 0
-        vals[nz_tile[sel], row_in_tile[b.rows[sel]], pos_in_row[sel]] = b.vals[sel]
-        cols[nz_tile[sel], row_in_tile[b.rows[sel]], pos_in_row[sel]] = b.cols[sel]
-        rows_here = np.where(t_rank[tile_of_row] >= 0)[0]
+        sel = nz_order[nz_start[k]:nz_start[k + 1]]
+        r = b.rows[sel]
+        at = (t_rank[tile_of_row[r]], row_in_tile[r], pos_in_row[sel])
+        vals[at] = b.vals[sel]
+        cols[at] = b.cols[sel]
+        rows_here = row_order[row_start[k]:row_start[k + 1]]
         rowmap[t_rank[tile_of_row[rows_here]], row_in_tile[rows_here]] = \
             b.row_ids[rows_here]
         buckets.append(EllBucket(int(w), vals, cols, rowmap))

@@ -31,6 +31,7 @@ import importlib
 import json
 import math
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -122,15 +123,8 @@ def strategy_names() -> tuple[str, ...]:
 
 # Strategies living outside repro_torch.design, resolved by name on demand so
 # this module never imports them at load time (repro_torch.corpus imports
-# repro_torch.design, not the other way around). "portfolio" lives in
-# repro_torch.corpus, which the port does not have yet: asking for it raises.
-_LAZY_STRATEGY_MODULES = {"portfolio": None}
-
-
-def _corpus_not_ported(name: str):
-    return NotImplementedError(
-        f"strategy {name!r} needs repro_torch.corpus, which is not ported "
-        "yet (ROADMAP queue 1, item 4)")
+# repro_torch.design, not the other way around).
+_LAZY_STRATEGY_MODULES = {"portfolio": "repro_torch.corpus.portfolio"}
 
 
 def make_strategy(spec=None) -> SearchStrategy:
@@ -144,8 +138,6 @@ def make_strategy(spec=None) -> SearchStrategy:
         return spec()
     if isinstance(spec, str):
         if spec not in STRATEGY_REGISTRY and spec in _LAZY_STRATEGY_MODULES:
-            if _LAZY_STRATEGY_MODULES[spec] is None:
-                raise _corpus_not_ported(spec)
             importlib.import_module(_LAZY_STRATEGY_MODULES[spec])
         try:
             return STRATEGY_REGISTRY[spec]()
@@ -493,9 +485,128 @@ class CostModelGuidedStrategy(SearchStrategy):
 
 @register_strategy("learned")
 class LearnedStrategy(SearchStrategy):
-    """Corpus-model-first search. It needs a trained corpus model from
-    ``repro_torch.corpus``, which the port does not have yet, so creating
-    one raises ``NotImplementedError``."""
+    """Corpus-model-first search (fleet amortization, ML format selection
+    a la Stylianou & Weiland 2303.05098 / Auto-SpMV 2302.05662).
 
-    def __init__(self, *args, **kwargs):
-        raise _corpus_not_ported("learned")
+    Phase 1 (*predict*): score the matrix's sparsity features with a
+    trained :class:`repro_torch.corpus.model.CorpusModel` and propose,
+    without timing anything first, (a) the stored winning graphs of the most
+    similar corpus matrices — exact parameter bindings included — and
+    (b) a couple of coarse bindings for each of the model's ``top_k``
+    ranked structures. Phase 2 (*refine*, optional): hand the remaining
+    budget to a fresh :class:`AnnealStrategy`, pre-fed with everything
+    observed so far. ``refine=False`` is the millisecond-class fast
+    path: only predictions are timed.
+
+    Without a model (``bind_store`` found no trained artifact) the
+    strategy degrades to plain Anneal — never worse than the default.
+    The model content hash is part of :meth:`params`, so searches driven
+    by different models never share cache/store entries.
+    """
+
+    def __init__(self, model=None, top_k: int = 5, refine: bool = True):
+        self.model = model
+        self.top_k = top_k
+        self.refine = refine
+
+    def params(self) -> dict:
+        return {"top_k": self.top_k, "refine": self.refine,
+                "model": (None if self.model is None
+                          else self.model.fingerprint())}
+
+    def bind_store(self, store) -> None:
+        """Load the trained model saved next to the ``store`` (see
+        ``repro_torch.corpus.model.train_from_store``), if any. Called by
+        ``repro_torch.compile(..., strategy=..., store=...)``."""
+        if self.model is not None:
+            return
+        from repro_torch.corpus.model import CorpusModel, default_model_path
+        path = default_model_path(store.cache_dir)
+        if not path.is_file():
+            return
+        try:
+            self.model = CorpusModel.load(path)
+        except Exception as e:
+            warnings.warn(f"corpus model {path} unusable ({e!r}); "
+                          "searching without predictions", RuntimeWarning)
+
+    # attributes the search loop reads combine the predict phase with
+    # the inner walk
+    @property
+    def n_structures(self) -> int:
+        inner = getattr(self, "_inner", None)
+        return self._own_structures + (inner.n_structures if inner else 0)
+
+    @property
+    def cost_model_mad(self):
+        inner = getattr(self, "_inner", None)
+        return inner.cost_model_mad if inner else None
+
+    def reset(self, space, rng, config, deadline=None):
+        self.rng = rng
+        self.cfg = config
+        self._deadline = deadline
+        self._phase = "predict"
+        self._inner = None
+        self._buffer: list[CandidateResult] = []
+        self._own_structures = 0
+
+    def observe(self, result: CandidateResult) -> None:
+        if self._inner is not None:
+            self._inner.observe(result)
+        else:
+            # retained so a later inner Anneal starts with the predict
+            # phase's measurements already in its bookkeeping
+            self._buffer.append(result)
+
+    def propose(self, space, history) -> list:
+        if self._phase == "predict":
+            self._phase = "refine" if self.refine else "done"
+            props = self._predict(space)
+            if props:
+                return props
+        if self._phase == "refine":
+            if self._inner is None:
+                self._inner = AnnealStrategy()
+                self._inner.reset(space, self.rng, self.cfg, self._deadline)
+                for r in self._buffer:
+                    self._inner.observe(r)
+            batch = self._inner.propose(space, history)
+            if not batch:
+                self._phase = "done"
+            return batch
+        return []
+
+    def _predict(self, space) -> list:
+        if self.model is None:
+            return []
+        from repro_torch.core.search import _graph_from_jsonable
+        from repro_torch.corpus.features import matrix_features
+
+        phi = matrix_features(space.m)
+        props, seen = [], set()
+        # (a) exemplar winners of the nearest corpus matrices: exact
+        # parameter transfer, validity-checked against *this* matrix
+        for label, gdict in self.model.suggest_graphs(phi, self.top_k):
+            try:
+                g = _graph_from_jsonable(gdict)
+            except Exception:
+                continue
+            if g in seen or space.features(g) is None:
+                continue
+            seen.add(g)
+            props.append(Proposal(g, label))
+        # (b) the model's top-ranked structures, two coarse bindings each
+        by_label = {s.label(): s for s in space.structures()}
+        for _score, label in self.model.rank_labels(phi):
+            if self._own_structures >= self.top_k:
+                break
+            s = by_label.get(label)
+            if s is None:
+                continue   # model vocabulary wider than this space
+            self._own_structures += 1
+            for g in space.bind(s, "coarse")[:2]:
+                if g not in seen:
+                    seen.add(g)
+                    props.append(Proposal(g, label))
+        return props

@@ -58,6 +58,22 @@ __device__ __forceinline__ float nz_product(const V* __restrict__ vals,
     }                                                      \
   } while (0)
 
+// Lets `kernel` launch with `smem` bytes of dynamic shared memory. Without
+// the opt-in a launch gets 48 KB of shared memory for static and dynamic
+// together, so the opt-in is needed once the two pass 48 KB, which happens
+// with less than 48 KB of dynamic memory (a launch of exactly 48 KB next
+// to a kernel's own __shared__ arrays fails with "invalid argument").
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kernel, size_t smem) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (smem + attr.sharedSizeBytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
 extern "C" const char* spmv_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

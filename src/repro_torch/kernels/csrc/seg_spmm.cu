@@ -326,12 +326,9 @@ int launch(const void* vals, const void* cols, const int* aux,
            int K, int nk, int cb, int fused, float* out, const int* r0,
            long long n_rows, cudaStream_t s) {
   const size_t smem = (size_t)nk * cb * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        seg_runs_kernel<kMode, kVec, CW, G, V, C, X>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err =
+      allow_dynamic_smem(seg_runs_kernel<kMode, kVec, CW, G, V, C, X>, smem);
+  if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((T + K - 1) / K);
   seg_runs_kernel<kMode, kVec, CW, G, V, C, X>
       <<<blocks, kThreads, smem, s>>>(

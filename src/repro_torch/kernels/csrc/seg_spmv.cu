@@ -322,15 +322,12 @@ onehot_tiles_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
 }
 
 // Launches `kernel` with `smem` bytes of dynamic shared memory (opting in
-// above 48 KB).
+// where it and the kernel's static shared memory pass 48 KB).
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, unsigned blocks, size_t smem, cudaStream_t s,
            Args... args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = allow_dynamic_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   kernel<<<blocks, kThreads, smem, s>>>(args...);
   return (int)cudaGetLastError();
 }

@@ -206,9 +206,10 @@ def test_default_target_is_cuda_and_never_runs_on_cpu():
 
 
 def test_later_slices_raise():
-    """Sharded targets and the corpus strategies are later slices (the
-    multi-RHS path is ported: tests/test_torch_spmm.py; dynamic-sparsity
-    updates too: tests/test_torch_dyn.py, here only an empty delta)."""
+    """Sharded targets are a later slice (the multi-RHS path is ported:
+    tests/test_torch_spmm.py; dynamic-sparsity updates too:
+    tests/test_torch_dyn.py, here only an empty delta; the learned and
+    portfolio strategies: tests/test_torch_corpus.py)."""
     from repro_torch.dyn import PatternDelta
     m = _port(banded_matrix(64, 2, seed=0))
     plan = repro_torch.compile(m, repro_torch.Target(backend="torch"),
@@ -218,10 +219,51 @@ def test_later_slices_raise():
     assert all(torch.equal(upd.fmt[k], t) for k, t in plan.fmt.items())
     with pytest.raises(NotImplementedError):
         repro_torch.Target(backend="torch", mesh=object())
-    for name in ("learned", "portfolio"):
-        with pytest.raises(NotImplementedError):
-            repro_torch.compile(m, repro_torch.Target(backend="torch"),
-                                budget=5, strategy=name)
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("family,dtype", [
+    ("ell", "float32"), ("ell", "bfloat16"), ("ell_grid_sorted", "float32"),
+    ("seg_scan", "float32"), ("onehot", "float32")])
+def test_cost_analysis_counts_format_x_and_y(family, dtype, batch):
+    """Bytes: every format tensor once (the torch backend scatters a fused
+    seg step through rowmap, so it never reads r0), x of the activation
+    dtype and fp32 y; flops: 2 per stored slot and right-hand side."""
+    from repro_torch.dyn.capacity import capacity_report
+    m = _port(powerlaw_matrix(150, 140, 5.0, 1.2, seed=7))
+    plan = repro_torch.compile(
+        m, repro_torch.Target(backend="torch", dtype=dtype),
+        graph=_port_graph(FAMILIES[family]))
+    x_item = 2 if dtype == "bfloat16" else 4
+    fmt_bytes = sum(t.numel() * t.element_size()
+                    for k, t in plan.fmt.items() if not k.endswith("_r0"))
+    slots = sum(t.numel() for k, t in plan.fmt.items()
+                if k.endswith("_vals"))
+    got = plan.cost_analysis(batch)
+    assert got["bytes accessed"] == (fmt_bytes + m.n_cols * batch * x_item
+                                     + m.n_rows * batch * 4)
+    assert got["flops"] == 2 * slots * batch
+    assert slots >= m.nnz
+    assert got["capacity"] == capacity_report(plan)
+
+
+def test_cost_analysis_defaults_to_the_target_batch():
+    m = _port(banded_matrix(64, 2, seed=0))
+    plan = repro_torch.compile(
+        m, repro_torch.Target(backend="torch", batch_size=4),
+        graph=_port_graph(FAMILIES["ell"]))
+    assert plan.cost_analysis() == plan.cost_analysis(4)
+    assert plan.cost_analysis()["flops"] == 4 * plan.cost_analysis(1)["flops"]
+
+
+def test_target_from_dict_maps_reference_backends():
+    from repro_torch.api import _target_from_dict
+    for ref_backend, ours in (("pallas", "cuda"), ("jax", "torch")):
+        d = repro.Target(backend=ref_backend, batch_size=8).spec_dict()
+        t = _target_from_dict(d)
+        assert t.backend == ours and t.batch_size == 8 and t.mesh is None
+    t = repro_torch.Target(backend="torch", dtype="bfloat16")
+    assert _target_from_dict(t.spec_dict()) == t
 
 
 def test_search_maps_cuda_errors_onto_the_taxonomy():

@@ -469,7 +469,7 @@ def test_seg_scan_kernels_on_any_ends(dev, case, vd, cd, xd):
 # 2048 (one tile a pass) and 8192 (four passes a tile, with a carry); T is
 # not a multiple of tiles_per_step 3, 8 or 16
 SCAN_WIDTHS = [(37, 3, 7, 5), (37, 4, 128, 60), (9, 16, 128, 300),
-               (3, 64, 128, 700)]
+               (3, 64, 128, 700), (2, 96, 128, 300)]
 
 
 @pytest.mark.parametrize("t,s,l,m", SCAN_WIDTHS)
@@ -544,6 +544,24 @@ def test_seg_spmm_windows_smaller_than_a_tile(dev, mode, m, b):
     r0 = torch.from_numpy((np.arange(T) * 100).astype(np.int32))
     _check_seg_spmm(lambda t: t.to(dev), vals, cols, local, end, x, m, mode,
                     r0, 100 + m, ks=(1, 2))
+
+
+@pytest.mark.parametrize("mode", ["seg_scan", "onehot_mxu"])
+def test_seg_spmm_window_of_exactly_48_kb(dev, mode):
+    """C = 512, M = 384, B = 8, T = 6: a window of four tiles takes exactly
+    48 KB of dynamic shared memory, which with the kernel's own __shared__
+    array needs the opt-in (a candidate of the B = 8 search on the CLI's
+    demo matrix launched it without one and failed)."""
+    rng = np.random.default_rng(48)
+    n_cols = 2000
+    T, S, L, M = 6, 4, 128, 384
+    local, end = _seg_case(rng, T, S, L, M)
+    vals = torch.from_numpy(rng.standard_normal((T, S, L)).astype(np.float32))
+    cols = torch.from_numpy(rng.integers(0, n_cols, (T, S, L)).astype(np.int32))
+    x = torch.from_numpy(rng.standard_normal((n_cols, 8)).astype(np.float32))
+    r0 = torch.from_numpy((np.arange(T) * 300).astype(np.int32))
+    _check_seg_spmm(lambda t: t.to(dev), vals, cols, local, end, x, M, mode,
+                    r0, 300 * T + M, ks=(1, 3))
 
 
 @pytest.mark.parametrize("reduce", ["SEG_SCAN_RED", "ONEHOT_MXU_RED",
@@ -673,3 +691,35 @@ def test_baselines_on_the_card_match_the_cpu(dev, name):
         want = cpu(x)
         tol = 2e-4 * float(want.abs().max()) + 1e-5
         assert float((y.cpu() - want).abs().max()) <= tol
+
+
+def test_learned_and_portfolio_compile_on_the_card(dev, tmp_path):
+    """Fleet compilation on the cuda backend: a swept store, a trained
+    corpus model, then "learned" and "portfolio" compiles of a held-out
+    matrix against the oracle, with cost_analysis counting their bytes."""
+    from repro_torch.corpus import (default_model_path, holdout_corpus,
+                                    run_sweep, synthetic_corpus,
+                                    train_from_store)
+    budget = repro_torch.SearchConfig(max_seconds=15, max_structures=2,
+                                      coarse_samples=1, fine_eval_budget=0,
+                                      timing_repeats=1, use_cost_model=False,
+                                      seed=0)
+    target = repro_torch.Target()
+    store = repro_torch.PlanStore(tmp_path)
+    recs = run_sweep(synthetic_corpus("smoke")[:4], store, budget=budget,
+                     target=target)
+    assert len(recs) == 4 and not any(r.error for r in recs)
+    train_from_store(tmp_path).save(default_model_path(tmp_path))
+    m = holdout_corpus("smoke")[2].build()
+    x = np.random.default_rng(0).standard_normal(m.n_cols).astype(np.float32)
+    oracle = m.spmv_dense_oracle(x)
+    for strategy in ("learned", "portfolio"):
+        plan = repro_torch.compile(m, target, budget=budget,
+                                   strategy=strategy, store=store)
+        assert plan.search_result.strategy_name == strategy
+        assert plan.device.type == "cuda"
+        y = plan(torch.from_numpy(x).to(dev)).cpu().numpy()
+        assert np.abs(y - oracle).max() <= 1e-3 * np.abs(oracle).max() + 1e-5
+        cost = plan.cost_analysis()
+        assert cost["flops"] >= 2 * m.nnz
+        assert cost["bytes accessed"] > (m.n_rows + m.n_cols) * 4

@@ -145,6 +145,26 @@ def test_run_graph_bit_identical(suite, gname, mname):
     _assert_same(meta_ref, meta)
 
 
+def test_multi_width_ell_layout_bit_identical():
+    """The port routes each nonzero to its width bucket in one pass; the
+    reference rescans all nonzeros once per width. On a power-law matrix
+    under ``capacity_graph()`` (8-row tiles sorted by length, widths padded
+    to 8) the buckets are many, and every array must still match."""
+    from repro.core.matrices import powerlaw_matrix
+    from repro_torch.train.dynamic import capacity_graph
+    g = capacity_graph()
+    g_ref = _chain(
+        ("COMPRESS", {}), ("TILE_ROW_BLOCK", {"rows": 8}),
+        ("SORT_TILE", {"window": 8}), ("LANE_PAD", {"pad_to": 8}),
+        ("LANE_ROW_BLOCK", {}), ("LANE_TOTAL_RED", {"combine": "scatter"}))
+    assert g_ref.label() == g.label()
+    m = powerlaw_matrix(4096, 4096, 8.0, 1.5, seed=0)
+    meta_ref = ref_run_graph(m, g_ref)
+    meta = run_graph(_port_matrix(m), g)
+    assert len(meta.blocks[0].layout.buckets) >= 13
+    _assert_same(meta_ref, meta)
+
+
 @pytest.mark.parametrize("storage", ["float32", "bfloat16"])
 @pytest.mark.parametrize("fuse", [True, False])
 @pytest.mark.parametrize("tiles", [1, 3])

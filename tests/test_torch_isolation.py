@@ -72,3 +72,32 @@ print("ok")
                               "JAX_PLATFORMS": "cpu"})
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_cli_in_fresh_process_never_loads_jax(tmp_path):
+    """``python -m repro_torch.cli --demo --backend torch --no-search``
+    compiles, saves, reloads, verifies and benches without loading jax or
+    the reference."""
+    code = """
+import runpy, sys
+sys.argv = ["repro_torch.cli", "--demo", "--backend", "torch",
+            "--no-search", "--repeats", "2", "--out", sys.argv[1]]
+try:
+    runpy.run_module("repro_torch.cli", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+leaked = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not leaked, leaked
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code,
+                          str(tmp_path / "demo.plan.npz")],
+                         capture_output=True, text=True, timeout=300,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin",
+                              "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "verified: round trip bit-exact" in out.stdout
+    assert out.stdout.strip().endswith("ok")
+    assert (tmp_path / "demo.plan.npz").is_file()
