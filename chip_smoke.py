@@ -1,14 +1,17 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-report   # phases 1 and 3-8 only
 
-Drives the port's two paths at realistic sizes and holds every CUDA kernel
-they run (K1-K11) against its plain PyTorch version. The compile path is
+Drives the port's paths at realistic sizes and holds every CUDA kernel
+they run (K1-K11 and the sharded plans' ordered combine) against its plain
+PyTorch version. The compile path is
 ``repro_torch.compile(matrix, Target) -> SpmvPlan`` with a 1-D x (kernels
 K1-K6); the serving path is ``prune_magnitude`` -> ``compile(...,
 Target(batch_size=8), store=)`` -> ``PlanExecutor`` -> ``SpmvEngine``
-with a ``PlanStore`` hot-swap (the multi-RHS kernels K7-K11). Phases,
-each printing its seconds:
+with a ``PlanStore`` hot-swap (the multi-RHS kernels K7-K11); the sharded
+path is ``compile(matrix, Target(mesh=make_data_mesh(4, device="cuda:0")))``
+-> ``ShardedSpmvPlan`` (phase 12). Phases, each printing its seconds:
 
 1. device: the card's name and power limit, the kernels' nvcc build;
 2. SpMV kernels on small odd shapes (T not a multiple of tiles_per_step,
@@ -31,7 +34,12 @@ each printing its seconds:
    1, 3, 8 and 16; and tiles of C = 8192 slots at M = 700 (B = 8 and 40,
    the accumulator past 48 KB), M = 8192 and M = 60000 (one tile's
    accumulator past the block's shared memory), and C = 512 at M = 384,
-   B = 8 (a window of exactly 48 KB of dynamic shared memory);
+   B = 8 (a window of exactly 48 KB of dynamic shared memory); 2c. eight
+   random rows of 20 nonzeros padded with zero slots to W in {20, 24, 32,
+   40, 64, 200, 400}, and three of 300 padded to W in {300, 304, 400,
+   512}, each launched among 1, 128 and 65,536 rows: K1 and K5 give a row
+   one and the same bits, and so do K7 and K9 at B = 8 (a ``row_sums
+   {...}`` line);
 3. a searched compile of ``banded_matrix(2**21, 4)`` (18.87 M nnz) on the
    default Target, checked against the float64 oracle, plus a save/load
    round trip;
@@ -94,7 +102,10 @@ each printing its seconds:
    revalues 10 % of the entries and moves 5 % to another column of the
    same row, against a fresh compile of the mutated matrix: output and
    every format tensor bit-identical, the oracle within 1e-5 (a
-   ``dyn_update {...}`` line); (b) three steps of ``run_pruning_loop`` at
+   ``dyn_update {...}`` line), and again with a delta that drops the last
+   entry of a third of the rows, which the fresh compile puts in narrower
+   width buckets: output bit-identical (a ``dyn_update[move_buckets]
+   {...}`` line); (b) three steps of ``run_pruning_loop`` at
    lr 0.01 with a ``DynamicSparsityManager`` on a ``PlanExecutor`` over a
    ``capacity_graph(pad_to=512)`` plan, every served answer held to the
    oracle, the first step's delta also handed to a manager on (a)'s plan,
@@ -118,14 +129,34 @@ each printing its seconds:
    smoke`` and ``--train-from-store`` (a ``cli {...}`` line of return
    codes); (f) ``SpmvPlan.cost_analysis`` of phase 3's and phase 6's
    searched plans, its bound beside their card time (``cost_analysis
-   {...}`` lines).
+   {...}`` lines);
+12. sharded SpMV (``repro_torch.dist``) on 4 shards of the one card: (a)
+   the serving matrix compiled with ``Target(mesh=..., partition=mode)``
+   and no budget (``default_shard_graph``) in row and col mode, held to the
+   float64 oracle (1e-4 x max|oracle|, the reference's dist tolerance) at
+   B = 1 and 8, two calls and the saved-and-loaded plan bit-identical; one
+   ``dist {...}`` line per mode with the shards' nnz, families, stacked
+   bytes and slots, launches per call, ``ms`` / ``device_ms`` at B = 1
+   and 8, beside phase 6's dense searched plan and cuSPARSE; (b)
+   ``dist_search`` of phase 4's power-law operand (row mode, nnz balance,
+   8 s, 2 structures, 1 coarse sample a shard), and again with shard 0's
+   search crashing (it must fall back), each held to the oracle at B = 1
+   and 8 (``dist_search {...}`` lines); (c) ``sparsify_linear_sharded``
+   on the serving weight answering an (8, 4096) batch. The ordered
+   combine (``rowmap_combine``) is timed at shard 0's ELL step of the
+   first serving plan with an ELL family and joins the kernel report as
+   a thirteenth row.
 
 Phases 3-4 and phases 6-7 are the two paths: the launch counters are set
 to 0 before each and read after it, and each of its kernels must have
 launched. Phase 10 is read the same way: K1 and K6 must launch in it;
 phase 11 prints its own process's counts (its searches pick the
-kernels). The last two lines are the kernel report (all twelve kernels)
-and ``{"ok": true, "device": {...}}``. The script exits non-zero,
+kernels); in phase 12 every kernel its plans' families dispatch to, and
+the combine, must launch. The last two lines are the kernel report (the
+twelve kernels and the combine) and ``{"ok": true, "device": {...}}``.
+``--kernel-report`` runs phases 1 and 3-8 alone and prints the twelve
+rows: copied into a checkout of another commit, it times that commit's
+kernels on the same card (the A/B recipe of the verify notes). The script exits non-zero,
 printing no result, without a GPU or outside a checkout of the
 repository. It imports neither jax nor ``repro``.
 """
@@ -651,6 +682,74 @@ def small_spmm_phase():
                 ref.seg_spmm_fused_ref(v, c, local, end, r0, x, M,
                                        n_rows=1200 + M, mode=mode))
     torch.cuda.synchronize()
+    done()
+
+
+# (n, widths (None: W = n), seeds): n = 20 takes the slab kernel up to
+# W = 32 and split rows above; n = 300 is split over 1 to 8 warps
+ROW_SUM_CASES = ((20, (None, 24, 32, 40, 64, 200, 400), 8),
+                 (300, (None, 304, 400, 512), 3))
+ROW_SUM_ROWS = (1, 128, 65536)
+
+
+def row_sum_bits(n: int, widths, seed: int) -> dict:
+    """One random row of n nonzeros, padded with zero slots to each W and
+    launched among 1, 128 and 65,536 rows of random others: each of K1,
+    K5, K7 and K9 (B = 8)'s set of results for it."""
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    n_cols = 5000
+    rng = np.random.default_rng(seed)
+    row_v = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    row_c = torch.from_numpy(rng.integers(0, n_cols, n).astype(np.int32))
+    x = torch.from_numpy(rng.standard_normal(n_cols).astype(np.float32))
+    x8 = torch.from_numpy(rng.standard_normal((n_cols, 8)).astype(np.float32))
+    x, x8 = x.to(dev), x8.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    got = {"K1": set(), "K5": set(), "K7": set(), "K9": set()}
+    for W in widths:
+        W = W or n
+        for rows in ROW_SUM_ROWS:
+            vals = torch.randn((rows, 1, W), generator=gen, device=dev)
+            cols = torch.randint(0, n_cols, (rows, 1, W), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            at = rows // 3
+            vals[at, 0] = 0.0
+            cols[at, 0] = 0
+            vals[at, 0, :n] = row_v.to(dev)
+            cols[at, 0, :n] = row_c.to(dev)
+            got["K1"].add(ops.ell_spmv(vals, cols, x)[at, 0].item())
+            got["K5"].add(ops.ell_spmv_fused(vals, cols, x,
+                                             n_rows=rows)[at].item())
+            got["K7"].add(tuple(ops.ell_spmm(vals, cols, x8)[at, 0].tolist()))
+            got["K9"].add(tuple(ops.ell_spmm_fused(vals, cols, x8,
+                                                   n_rows=rows)[at].tolist()))
+    check_kernel(f"K1 row of {n} (seed {seed}) against its plain version",
+                 torch.tensor([next(iter(got["K1"]))]),
+                 ref.ell_spmv_ref(row_v[None, None], row_c[None, None],
+                                  x.cpu()).reshape(1))
+    return got
+
+
+def row_sum_phase():
+    """2c. A row's sum depends on its slot values in order only: the
+    rows of ``ROW_SUM_CASES`` get one and the same bits from K1 and K5,
+    and from K7 and K9 at B = 8, whatever W and the launch."""
+    done = phase("2c row sums independent of width and launch")
+    distinct = {}
+    for n, widths, seeds in ROW_SUM_CASES:
+        for seed in range(seeds):
+            got = row_sum_bits(n, widths, seed)
+            same = got["K1"] == got["K5"] and got["K7"] == got["K9"]
+            distinct[f"n={n} seed={seed}"] = dict(
+                {k: len(v) for k, v in got.items()}, pairs_equal=same)
+    print("row_sums " + json.dumps({
+        "widths": {n: [w or n for w in ws] for n, ws, _ in ROW_SUM_CASES},
+        "rows": ROW_SUM_ROWS, "distinct_bits": distinct}))
+    require(all(d[k] == 1 for d in distinct.values()
+                for k in ("K1", "K5", "K7", "K9"))
+            and all(d["pairs_equal"] for d in distinct.values()),
+            f"a row's sum depends on W or the launch: {distinct}")
     done()
 
 
@@ -1663,7 +1762,62 @@ def dyn_update(W, designer):
            "fresh_compile_s": fresh_s, "bit_identical": True,
            "max_abs_err": err, "plan_version": upd.plan_version}
     print(f"dyn_update {json.dumps(out)}")
+    out = bucket_moving_update(W, plan, x)
+    print(f"dyn_update[move_buckets] {json.dumps(out)}")
     return plan
+
+
+def bucket_moving_mutation(m, seed: int):
+    """``m`` with 10 % of its entries revalued and the last entry of a
+    third of its rows dropped, none added back: those rows shrink, so a
+    fresh compile puts many of them in narrower width buckets, where the
+    patched plan keeps them in theirs (the delta of
+    tests/test_torch_dyn.py's bucket-changing property test, made certain
+    to move rows; tests/test_torch_cuda.py uses it too)."""
+    from repro_torch.core.matrices import SparseMatrix
+    rng = np.random.default_rng(seed)
+    vals = m.vals.copy()
+    rev = rng.choice(m.nnz, m.nnz // 10, replace=False)
+    vals[rev] = rng.standard_normal(rev.size).astype(np.float32) + 0.25
+    last = np.nonzero(np.diff(np.append(m.rows, m.n_rows)) != 0)[0]
+    drop = rng.choice(last, last.size // 3, replace=False)
+    keep = np.ones(m.nnz, bool)
+    keep[drop] = False
+    return SparseMatrix(m.n_rows, m.n_cols, m.rows[keep], m.cols[keep],
+                        vals[keep]).canonical()
+
+
+def bucket_moving_update(W, plan, x) -> dict:
+    """(a) again with a delta that moves rows between width buckets: the
+    patched plan's output is bit-identical to a fresh compile's, whose
+    layout differs."""
+    import repro_torch
+    from repro_torch.dyn import PatternDelta, check_capacity
+    from repro_torch.train.dynamic import capacity_graph
+    m2 = bucket_moving_mutation(W, seed=7)
+    delta = PatternDelta.from_matrices(W, m2)
+    require(check_capacity(plan, delta), "the bucket-moving delta must fit")
+    upd = plan.update(delta)
+    fresh = repro_torch.compile(m2, repro_torch.Target(),
+                                graph=capacity_graph())
+    buckets = lambda p: [(st["report"]["width"], st["report"]["tiles"])
+                         for st in p.spec["steps"]]
+    require(buckets(upd) != buckets(fresh),
+            "the delta moved no row to another width bucket")
+    same = bool(torch.equal(upd(x), fresh(x)))
+    err = check_exact("updated plan, rows moved between buckets", upd(x),
+                      m2, x)
+    require(same, "an update that moves rows between width buckets is not "
+            "bit-identical to a fresh compile")
+    tiles_at = lambda p: dict(buckets(p))       # width -> tiles
+    a, b = tiles_at(upd), tiles_at(fresh)
+    moved = sum(abs(a.get(w, 0) - b.get(w, 0)) for w in a.keys() | b) // 2
+    return {"delta": {"added": delta.n_added, "removed": delta.n_removed,
+                      "revalued": delta.n_revalued},
+            "buckets_patched": len(buckets(upd)),
+            "buckets_fresh": len(buckets(fresh)),
+            "tiles_in_another_width": int(moved),
+            "bit_identical": same, "max_abs_err": err}
 
 
 def served_manager(W, plan, executor, probe, **kw):
@@ -2158,10 +2312,375 @@ def corpus_phase(cost_plans) -> None:
     done()
 
 
-def main() -> int:
+# -------------------------------- phase 12 --------------------------------
+
+DIST_SHARDS = 4
+DIST_TOL = 1e-4          # the reference's dist tests: 1e-4 * max|oracle|
+# a coarse per-shard search budget (the reference's dist tests' shape)
+DIST_SEARCH = dict(max_seconds=8, max_structures=2, coarse_samples=1,
+                   fine_eval_budget=0, use_cost_model=False, seed=0)
+COMBINE = ("rowmap_combine", "src/repro_torch/kernels/csrc/rowmap_combine.cu",
+           "src/repro/core/kernel_builder.py:395")
+
+
+def dist_launches() -> dict:
+    """The twelve kernels' launch counts and the ordered combine's."""
+    from repro_torch.kernels import ops
+    return dict(launch_counts(), combine=ops.rowmap_combine.launches)
+
+
+def launches_of(fn) -> dict:
+    """Launches of one call of ``fn``, by kernel."""
+    before = dist_launches()
+    fn()
+    torch.cuda.synchronize()
+    return {k: v - before[k] for k, v in dist_launches().items()
+            if v != before[k]}
+
+
+def check_dist(label: str, y: torch.Tensor, oracle: np.ndarray) -> float:
+    y = y.cpu().numpy()
+    require(y.shape == oracle.shape and np.isfinite(y).all(),
+            f"{label}: bad output shape or non-finite values")
+    err = float(np.abs(y - oracle).max())
+    tol = DIST_TOL * float(np.abs(oracle).max())
+    print(f"  {label}: vs oracle max_abs_err {err:.3e} (tol {tol:.3e})")
+    require(err <= tol, f"{label}: output disagrees with the oracle")
+    return err
+
+
+def family_kernel(step: dict, batched: bool) -> str:
+    """The kernel a sharded plan's family step launches (gmem_atom runs
+    through the seg_scan kernels; no sharded step is fused)."""
+    require(not step.get("fused"), f"a fused sharded step: {step['key']}")
+    if step["kind"] == "ell":
+        return "K7" if batched else "K1"
+    if step["reduce"] == "onehot_mxu":
+        return "K10b" if batched else "K4"
+    return "K10a" if batched else "K3"
+
+
+def check_launches(label: str, call, steps: list, n_shards: int,
+                   batched: bool) -> dict:
+    """One call's launches, which must be one family kernel and one
+    combine a step and shard, and nothing else."""
+    want = {}
+    for st in steps:
+        k = family_kernel(st, batched)
+        want[k] = want.get(k, 0) + n_shards
+        want["combine"] = want.get("combine", 0) + n_shards
+    got = launches_of(call)
+    require(got == want, f"{label}: a call launched {got}, not {want}")
+    return got
+
+
+def check_shard_kernels(label: str, prog, x1, x8) -> None:
+    """Shard 0's operands of every step of a sharded plan or program,
+    through the wrapper the step dispatches to and the ordered combine,
+    held against their plain versions on the same tensors at B = 1 and
+    8 (the sharded shapes: (T', 8, 8) ELL chunks, seg tiles with unsorted
+    rows or all padding)."""
+    from repro_torch.kernels import ops, ref
+    op0 = prog.operands[0]
+    fmt, n_shards = op0.fmt, len(prog.operands)
+    for x in (x1, x8):
+        if prog.mode == "col":
+            width = -(-prog.n_cols // n_shards)
+            x = x[:width]                    # shard 0's slice of x
+        x = x.contiguous()
+        b = x.shape[1] if x.ndim == 2 else 1
+        for st in prog.steps:
+            key = st["key"]
+            require(st["cols"]["mode"] == "array", f"{key}: cols by model")
+            vals, cols = fmt[f"{key}_vals"], fmt[st["cols"]["key"]]
+            if st["kind"] == "ell":
+                got = (ops.ell_spmm if b > 1 else ops.ell_spmv)(vals, cols, x)
+                want = (ref.ell_spmm_ref if b > 1 else ref.ell_spmv_ref)(
+                    vals, cols, x)
+                rm_key = st["combine"]["key"]
+            else:
+                pk = "seg_scan" if st["reduce"] == "gmem_atom" else \
+                    st["reduce"]
+                args = (vals, cols, fmt.get(f"{key}_local"),
+                        fmt.get(f"{key}_end"), x, st["seg_rows"])
+                got = (ops.seg_spmm if b > 1 else ops.seg_spmv)(*args,
+                                                                mode=pk)
+                want = (ref.seg_spmm_ref if b > 1 else ref.seg_spmv_ref)(
+                    *args, mode=pk)
+                rm_key = f"{key}_rowmap"
+            tag = f"{label} shard 0 {family_kernel(st, b > 1)} " \
+                f"{tuple(vals.shape)} {vals.dtype} B={b}"
+            check_kernel(tag, got, want)
+            flat = got.reshape((-1,) + tuple(x.shape[1:])).contiguous()
+            y0 = torch.zeros((op0.order[rm_key][1].numel() - 1,)
+                             + tuple(x.shape[1:]), device=flat.device)
+            check_kernel(f"{tag} combine",
+                         ops.rowmap_combine(y0.clone(), flat,
+                                            *op0.order[rm_key]),
+                         ref.rowmap_combine_ref(y0.clone(), flat,
+                                                *op0.order[rm_key]))
+
+
+def timed_pair(fn, x1, x8) -> dict:
+    return {"ms_b1": cuda_ms(lambda: fn(x1)),
+            "device_ms_b1": device_ms(lambda: fn(x1)),
+            "ms_b8": cuda_ms(lambda: fn(x8)),
+            "device_ms_b8": device_ms(lambda: fn(x8))}
+
+
+def serving_sharded(W, mode, mesh, xs, oracles, dense, csr, designer):
+    """(a) The serving matrix on ``DIST_SHARDS`` shards of the card in
+    ``mode``: held to the oracle at B = 1 and 8, bit-identical across two
+    calls and a save/load, and one ``dist {...}`` line with the dense
+    plan's and cuSPARSE's times beside its own."""
+    import repro_torch
+    label = f"compile serving sharded {mode} (default_shard_graph)"
+    plan = timed(label, designer, repro_torch.compile, W,
+                 repro_torch.Target(mesh=mesh, partition=mode))
+    ys = [plan(x) for x in xs]
+    errs = [check_dist(f"sharded {mode} B={x.shape[1] if x.ndim == 2 else 1}",
+                       y, o) for x, y, o in zip(xs, ys, oracles)]
+    scratch = ROOT / "results"               # listed in .gitignore
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        path = Path(d) / "sharded.plan.npz"
+        plan.save(path)
+        loaded = repro_torch.load_plan(path, mesh=mesh)
+        same = all(torch.equal(f(x), y) for f in (plan, loaded)
+                   for x, y in zip(xs, ys))
+    require(same, f"sharded {mode}: repeat calls or the loaded plan are "
+            "not bit-identical")
+    on = W.rows if mode == "row" else W.cols
+    slots = sum(plan.stacks[f"{st['key']}_vals"].numel()
+                for st in plan.steps)
+    n_shards = plan.n_shards
+    line = {"mode": mode, "n_shards": n_shards,
+            "families": [st["report"] for st in plan.steps],
+            "shard_nnz": [int(((on >= a) & (on < b)).sum())
+                          for a, b in plan.bounds],
+            "per_device_format_bytes": plan.per_device_format_bytes,
+            "replicated_format_bytes": plan.replicated_format_bytes,
+            "combine_order_bytes": sum(op.order_bytes
+                                       for op in plan.operands),
+            "stacked_slots_over_nnz": slots / W.nnz,
+            "launches_b1": check_launches(f"sharded {mode} B=1",
+                                          lambda: plan(xs[0]), plan.steps,
+                                          n_shards, False),
+            "launches_b8": check_launches(f"sharded {mode} B=8",
+                                          lambda: plan(xs[1]), plan.steps,
+                                          n_shards, True),
+            "compile_s": designer[label], "max_abs_err": errs,
+            "bit_identical": same}
+    line.update(timed_pair(plan, *xs))
+    line.update({f"dense_{k}": v for k, v in timed_pair(dense, *xs).items()})
+    line.update({f"cusparse_{k}": v for k, v in
+                 timed_pair(lambda x: csr @ x, *xs).items()})
+    print(f"dist {json.dumps(line)}")
+    return plan
+
+
+def segment_sum(y, flat, perm, off):
+    """The combine in plain PyTorch calls: gather the partials in ``perm``
+    order, ``torch.segment_reduce`` them by row, add into y."""
+    y += torch.segment_reduce(flat.index_select(0, perm), "sum",
+                              offsets=off, axis=0)
+    return y
+
+
+def combine_row(plans, x1, launches: int) -> dict:
+    """The kernels-line row of the ordered combine: at shard 0's ELL step
+    of the first serving plan that has one (col mode, where the shards'
+    rows are regular), B = 1, against its plain version, with
+    ``index_add_`` (in whatever order the atomics take) as the yardstick,
+    and beside it ``segment_sum``, the same order in PyTorch calls."""
+    from repro_torch.kernels import ops, ref
+    plan = next((p for p in plans
+                 if p.steps and p.steps[0]["kind"] == "ell"), None)
+    require(plan is not None, "no sharded serving plan has an ELL family")
+    op0, st = plan.operands[0], plan.steps[0]
+    key = st["combine"]["key"]
+    perm, off = op0.order[key]
+    width = -(-plan.n_cols // plan.n_shards) if plan.mode == "col" else None
+    x0 = x1[:width].contiguous()
+    flat = ops.ell_spmv(op0.fmt[f"{st['key']}_vals"],
+                        op0.fmt[f"{st['key']}_cols"], x0).reshape(-1)
+    n = off.numel() - 1
+    got = ops.rowmap_combine(torch.zeros(n, device=flat.device), flat, perm,
+                             off)
+    want = ref.rowmap_combine_ref(torch.zeros(n, device=flat.device), flat,
+                                  perm, off)
+    err = check_kernel(f"combine {COMBINE[0]} n_rows={n} "
+                       f"partials={perm.numel()}", got, want)
+    seg = [segment_sum(torch.zeros(n, device=flat.device), flat, perm, off)
+           for _ in range(3)]
+    check_kernel("combine segment_sum", seg[0], want)
+    seg_stable = all(torch.equal(t, seg[0]) for t in seg)
+    rm = op0.fmt[key].reshape(-1).long()
+    idx = torch.where(rm >= 0, rm, n)
+    y, y_lib = torch.zeros_like(got), torch.zeros(n + 1, device=flat.device)
+    ms = cuda_ms(lambda: ops.rowmap_combine(y, flat, perm, off))
+    dev_ms = device_ms(lambda: ops.rowmap_combine(y, flat, perm, off))
+    plain_ms = cuda_ms(lambda: ref.rowmap_combine_ref(y, flat, perm, off),
+                       reps=5)
+    lib_ms = cuda_ms(lambda: y_lib.index_add_(0, idx, flat))
+    lib_dev = device_ms(lambda: y_lib.index_add_(0, idx, flat))
+    seg_ms = cuda_ms(lambda: segment_sum(y, flat, perm, off))
+    seg_dev = device_ms(lambda: segment_sum(y, flat, perm, off))
+    byt = nbytes(flat, perm, off) + 2 * got.numel() * 4
+    b_ms = byt / HBM_BYTES_PER_S * 1e3
+    f_ms = perm.numel() / FP32_FLOPS_PER_S * 1e3
+    row = {"name": COMBINE[0], "route": "cuda", "source": COMBINE[1],
+           "replaces": COMBINE[2], "launches": launches,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(b_ms, f_ms),
+           "bound_by": "bytes" if b_ms >= f_ms else "operations",
+           "library_ms": lib_ms, "device_ms": dev_ms,
+           "library_device_ms": lib_dev, "segment_sum_ms": seg_ms,
+           "segment_sum_device_ms": seg_dev,
+           "segment_sum_bit_stable": seg_stable, "shape": [n, perm.numel()],
+           "matrix": f"serving ({plan.mode}-mode shard 0)", "bytes": byt}
+    print(f"  combine: {ms:.4f} ms ({dev_ms:.4f} on the card), bound "
+          f"{max(b_ms, f_ms):.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
+          f"{lib_ms:.4f} ms ({lib_dev:.4f}), segment_sum {seg_ms:.4f} ms "
+          f"({seg_dev:.4f}, bits repeat: {seg_stable}), launches "
+          f"{launches}")
+    return row
+
+
+def searched_shards(P, xp, oracle_p, mesh, designer) -> list:
+    """(b) ``dist_search`` of the power-law operand on ``DIST_SHARDS``
+    shards of the card (row mode, nnz balance, a coarse budget a shard),
+    held to the oracle at B = 1 and 8; then again with shard 0's search
+    crashing, which must fall back and stay right."""
+    import warnings
+    import repro_torch
+    from repro_torch.dist.search import (ShardedSearchConfig, dist_search,
+                                         shard_fault_hook)
+    cfg = ShardedSearchConfig(mode="row", balance="nnz",
+                              search=repro_torch.SearchConfig(**DIST_SEARCH))
+    rng = np.random.default_rng(3)
+    x8 = rng.standard_normal((P.n_cols, 8)).astype(np.float32)
+    o8 = P.spmm_dense_oracle(x8)
+    x8 = torch.from_numpy(x8).cuda()
+
+    def crash(shard):
+        if shard.index == 0:
+            raise RuntimeError("injected shard crash")
+
+    programs = []
+    for tag, hook in (("searched", None), ("shard 0 crashes", crash)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            with shard_fault_hook(hook) if hook else contextlib.nullcontext():
+                res = timed(f"dist_search powerlaw ({tag})", designer,
+                            dist_search, P, mesh, cfg)
+        prog = res.program
+        errs = [check_dist(f"dist_search ({tag}) B=1", prog(xp), oracle_p),
+                check_dist(f"dist_search ({tag}) B=8", prog(x8), o8)]
+        calls = [check_launches(f"dist_search ({tag}) B={b}",
+                                lambda x=x: prog(x), prog.steps,
+                                len(prog.operands), b > 1)
+                 for b, x in ((1, xp), (8, x8))]
+        if hook:
+            require(res.failed_shards() == [0]
+                    and res.failure_counts.get("fallback") == 1,
+                    f"shard 0 did not fall back: {res.failure_counts}")
+        shards = [{"shard": r.shard.index, "nnz": r.shard.matrix.nnz,
+                   "family": r.family, "searched": r.searched,
+                   "graph": r.graph_label, "failed": r.failed,
+                   "failure": r.failure,
+                   "best_ms": (None if r.result is None
+                               else r.result.best_seconds * 1e3),
+                   "failures": ({} if r.result is None
+                                else r.result.failure_counts)}
+                  for r in res.reports]
+        print("dist_search " + json.dumps({
+            "run": tag, "n_shards": len(res.reports),
+            "heterogeneous": res.is_heterogeneous(),
+            "families": [st["report"] for st in prog.steps],
+            "failure_counts": res.failure_counts,
+            "stacked_slots_over_nnz": sum(
+                prog.stacks[f"{st['key']}_vals"].numel()
+                for st in prog.steps) / P.nnz,
+            "seconds": designer[f"dist_search powerlaw ({tag})"],
+            "max_abs_err": errs, "launches_b1": calls[0],
+            "launches_b8": calls[1], "shards": shards,
+            "ms_b1": cuda_ms(lambda: prog(xp)),
+            "device_ms_b1": device_ms(lambda: prog(xp))}))
+        programs.append(prog)
+    return programs, x8
+
+
+def sharded_layer(W, mesh, designer) -> None:
+    """(c) ``sparsify_linear_sharded`` on the serving weight (phase 6's
+    random weight from seed 0) answers an (8, 4096) batch."""
+    import warnings
+    from repro_torch.serve import sparsify_linear_sharded
+    w = np.random.default_rng(0).standard_normal((12288, 4096),
+                                                 dtype=np.float32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        layer = timed("sparsify_linear_sharded(12288 x 4096, 0.08)",
+                      designer, sparsify_linear_sharded, w, mesh, 0.08)
+    require(layer.matrix.nnz == W.nnz, "the sharded layer pruned otherwise")
+    X = np.random.default_rng(4).standard_normal((8, 4096)).astype(
+        np.float32)
+    X = torch.from_numpy(X).cuda()
+    Y = layer(X)
+    require(Y.is_cuda and tuple(Y.shape) == (8, 12288), "bad layer output")
+    check_launches("sparsify_linear_sharded B=8", lambda: layer(X),
+                   layer.program.steps, layer.program.n_shards, True)
+    check_dist("sparsify_linear_sharded (8, 4096) batch", Y.T,
+               W.spmm_dense_oracle(X.cpu().numpy().T))
+
+
+def dist_phase(W, P, xp, oracle_p, x8, oracle8, dense, designer) -> dict:
+    """Phase 12: sharded SpMV on one card (``repro_torch.dist``); returns
+    the ordered combine's kernels-line row."""
+    from repro_torch.dist import make_data_mesh
+    from repro_torch.kernels import ops
+    done = phase("12 sharded SpMV (4 shards on one card)")
+    mesh = make_data_mesh(DIST_SHARDS, device="cuda:0")
+    xs = [torch.from_numpy(np.ascontiguousarray(x8[:, 0])).cuda(),
+          torch.from_numpy(x8).cuda()]
+    oracles = [oracle8[:, 0], oracle8]
+    csr = csr_on_device(W)
+    reset_launch_counts()                    # phase 12 starts here
+    ops.rowmap_combine.launches = 0
+    plans = [serving_sharded(W, mode, mesh, xs, oracles, dense, csr,
+                             designer) for mode in ("row", "col")]
+    progs, xp8 = searched_shards(P, xp, oracle_p, mesh, designer)
+    sharded_layer(W, mesh, designer)
+    torch.cuda.synchronize()
+    launches = dist_launches()               # ... and ends here
+    want = {family_kernel(st, b) for p in plans + progs for st in p.steps
+            for b in (False, True)} | {"combine"}
+    print(f"  phase-12 launches: {launches}; expected {sorted(want)}")
+    require(all(launches[k] > 0 for k in want),
+            f"a kernel of the sharded path never launched: {launches}")
+    for p in plans:
+        check_shard_kernels(f"serving {p.mode}", p, *xs)
+    for p, tag in zip(progs, ("searched", "shard 0 crashed")):
+        check_shard_kernels(f"powerlaw {tag}", p, xp, xp8)
+    row = combine_row(plans, xs[0], launches["combine"])
+    del csr
+    torch.cuda.empty_cache()
+    done()
+    return row
+
+
+def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
               file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: run it from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    kernel_report = argv == ["--kernel-report"]
+    if argv and not kernel_report:
+        print(f"usage: {sys.argv[0]} [--kernel-report]", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.matrices import banded_matrix, powerlaw_matrix
@@ -2169,8 +2688,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     device_phase()
-    small_kernels_phase()
-    small_spmm_phase()
+    if not kernel_report:
+        small_kernels_phase()
+        small_spmm_phase()
+        row_sum_phase()
 
     designer = {}
     done = phase("matrices")
@@ -2227,6 +2748,13 @@ def main() -> int:
     require(len(rows) == len(KERNELS), "the report misses a kernel")
     del progs, csr_w
     torch.cuda.empty_cache()
+    if kernel_report:
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": rows}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     x1 = xd[:, 0].contiguous()
     baselines_phase({
@@ -2237,6 +2765,8 @@ def main() -> int:
     dyn_phase(W, P, seg["SEG_SCAN_RED fused"], designer)
     corpus_phase({"banded searched": (searched_b, xb),
                   f"serving searched B={SERVE_B}": (searched, xd)})
+    rows.append(dist_phase(W, P, xp, oracle_p, x8, oracle8, searched,
+                           designer))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -2246,4 +2776,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -13,7 +13,9 @@ reference). It imports ``torch`` and never ``jax``. Public surface::
 
 ``Target(backend="cuda")`` (the default) runs the CUDA kernels and raises
 when no GPU is present; ``Target(backend="torch")`` runs their plain
-PyTorch versions on the CPU.
+PyTorch versions on the CPU. ``Target(mesh=repro_torch.dist.
+make_data_mesh(n, device="cuda:0"))`` compiles a ``ShardedSpmvPlan`` of n
+shards.
 
 Attribute access is lazy (PEP 562): ``import repro_torch`` imports
 neither torch nor numpy until a name is used.
@@ -24,6 +26,7 @@ _EXPORTS = {
     "compile": "repro_torch.api",
     "Target": "repro_torch.api",
     "SpmvPlan": "repro_torch.api",
+    "ShardedSpmvPlan": "repro_torch.api",
     "PlanIntegrityError": "repro_torch.api",
     "PlanStore": "repro_torch.api",
     "PlanWatch": "repro_torch.api",
@@ -38,8 +41,9 @@ _EXPORTS = {
     "ProgramCache": "repro_torch.core.search",
     "run_search": "repro_torch.core.search",
     # submodules, imported lazily: the pluggable design space, the matvec
-    # serving plane and the fault-tolerance manager
+    # serving plane, the fault-tolerance manager and sharded SpMV
     "design": None,
+    "dist": None,
     "serve": None,
     "ft": None,
     "register_operator": "repro_torch.design.registry",

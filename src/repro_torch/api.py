@@ -1,23 +1,27 @@
 """The compile API on PyTorch: ``repro_torch.compile(matrix, target)``.
 
-Port of the dense (single-device) path of ``repro.api``:
+Port of ``repro.api``:
 
 * :class:`Target` — where the plan runs: backend ``"cuda"`` (default, the
   hand-written Hopper kernels; raises without a GPU) or ``"torch"`` (the
-  plain PyTorch versions on the CPU), decode batch size, dtype. The field
-  names are the reference's, so plan headers stay comparable; ``mesh``
-  must be None here (sharded plans are a later slice).
+  plain PyTorch versions on the CPU), an optional device mesh
+  (:class:`repro_torch.dist.DataMesh`, sharded execution) with its
+  partition mode and balance, decode batch size, dtype. The field names
+  are the reference's, so plan headers and store keys stay comparable.
 * :func:`compile` — matrix + Target (+ search budget) in, :class:`SpmvPlan`
-  out. ``budget`` is a ``SearchConfig`` (or seconds); ``graph=`` skips the
-  search and designs with a fixed Operator Graph; ``store=`` loads a prior
-  plan from a :class:`PlanStore` instead of recompiling.
-* :class:`SpmvPlan` — the program artifact: format tensors on the device
-  plus the winning Operator Graph, kernel spec and Target. It calls on a
-  1-D x (SpMV) or an (n_cols, B) x (SpMM). Its npz layout is the
-  reference's (header, sha256 checksum, bf16 stored as uint16 under
-  ``bf16!`` keys, ``format_version``), so :func:`load_plan` reads a plan
-  saved by either package, mapping the reference's backends
-  ``pallas -> cuda`` and ``jax -> torch``.
+  (or :class:`ShardedSpmvPlan` for a mesh) out. ``budget`` is a
+  ``SearchConfig`` (or seconds); ``graph=`` skips the search and designs
+  with a fixed Operator Graph; ``store=`` loads a prior plan from a
+  :class:`PlanStore` instead of recompiling.
+* :class:`SpmvPlan` / :class:`ShardedSpmvPlan` — the program artifact:
+  format tensors on the device (per-family stacks, one slice a shard, for
+  a sharded plan) plus the kernel spec, the winning Operator Graph and the
+  Target. Both call on a 1-D x (SpMV) or an (n_cols, B) x (SpMM). The npz
+  layout is the reference's (header, sha256 checksum, bf16 stored as
+  uint16 under ``bf16!`` keys, ``format_version``), so :func:`load_plan`
+  reads a plan saved by either package, mapping the reference's backends
+  ``pallas -> cuda`` and ``jax -> torch``; a sharded plan gets its mesh
+  back from the caller.
 * :class:`PlanStore` — a directory of saved plans keyed by (matrix
   fingerprint, budget, Target, strategy), with integrity sweeps
   (``verify`` / ``repair``), statistics-keyed warm starts (``suggest``)
@@ -47,7 +51,7 @@ from repro_torch.core.search import (ProgramCache, SearchConfig, SearchResult,
                                      _graph_from_jsonable, _graph_to_jsonable,
                                      run_search)
 
-__all__ = ["Target", "SpmvPlan", "PlanStore", "PlanWatch",
+__all__ = ["Target", "SpmvPlan", "ShardedSpmvPlan", "PlanStore", "PlanWatch",
            "PlanIntegrityError", "compile", "load_plan"]
 
 # Version 2 adds bf16 storage (arrays saved as uint16 views under
@@ -130,9 +134,12 @@ class Target:
     PyTorch versions on the CPU. ``dtype`` is the activation AND preferred
     storage dtype: ``"bfloat16"`` feeds x as bf16 and lets the search
     choose bf16-stored vals (+ int16 cols where n_cols fits) per matrix;
-    outputs stay fp32. ``interpret``, ``axis_name``, ``partition`` and
-    ``balance`` are kept for header parity with the reference; sharded
-    targets (``mesh``) are a later slice. ``batch_size`` is the number of
+    outputs stay fp32. A non-None ``mesh`` (:func:`repro_torch.dist.
+    make_data_mesh`) compiles a sharded plan over ``axis_name`` with the
+    given ``partition`` mode ("row" | "col") and boundary ``balance``
+    ("nnz" | "rows"); its devices must suit the backend (CUDA devices for
+    ``cuda``, the CPU for ``torch``). ``interpret`` is kept for header
+    parity with the reference. ``batch_size`` is the number of
     right-hand sides the plan is tuned for: B > 1 makes the search check
     and time candidates on (n_cols, B) inputs through the SpMM kernels,
     and it is the top bucket of the serving plane's batches
@@ -158,15 +165,17 @@ class Target:
             raise ValueError(f"unsupported dtype {self.dtype!r} "
                              "(float32 | bfloat16)")
         if self.mesh is not None:
-            raise NotImplementedError(
-                "sharded targets (mesh) are not ported yet; see ROADMAP "
-                "queue 1, item 6")
+            from repro_torch.dist.spmv import check_placement
+            check_placement(self.mesh, self.backend)
 
     def spec_dict(self) -> dict:
-        """JSON-able identity (the reference's field set)."""
+        """JSON-able identity (the reference's field set; the mesh reduced
+        to its axis shape)."""
         d = {f.name: getattr(self, f.name)
              for f in dataclasses.fields(self) if f.name != "mesh"}
-        d["mesh"] = None
+        d["mesh"] = (None if self.mesh is None
+                     else sorted((str(k), int(v))
+                                 for k, v in dict(self.mesh.shape).items()))
         return d
 
     def key(self) -> str:
@@ -174,12 +183,16 @@ class Target:
         return hashlib.sha1(blob.encode()).hexdigest()[:8]
 
 
-def _target_from_dict(d: dict) -> Target:
+def _target_from_dict(d: dict, mesh=None,
+                      backend: Optional[str] = None) -> Target:
     """A Target from its ``spec_dict()``, written by either package: the
-    reference's backends map ``pallas -> cuda`` and ``jax -> torch``."""
+    reference's backends map ``pallas -> cuda`` and ``jax -> torch``;
+    ``backend`` overrides the saved one. A mesh is never saved: the caller
+    attaches one."""
     kw = {k: v for k, v in d.items() if k != "mesh"}
-    kw["backend"] = _REFERENCE_BACKENDS.get(kw["backend"], kw["backend"])
-    return Target(**kw)
+    kw["backend"] = backend or _REFERENCE_BACKENDS.get(kw["backend"],
+                                                       kw["backend"])
+    return Target(mesh=mesh, **kw)
 
 
 def _x_dtype(target: Target) -> torch.dtype:
@@ -377,17 +390,198 @@ class SpmvPlan:
         _atomic_savez(path, header, arrays)
 
     @staticmethod
-    def load(path, backend: Optional[str] = None) -> "SpmvPlan":
-        return load_plan(path, backend=backend)
+    def load(path, backend: Optional[str] = None, mesh=None):
+        """Load any saved plan; sharded plans need ``mesh`` re-attached."""
+        return load_plan(path, backend=backend, mesh=mesh)
 
 
-def load_plan(path, backend: Optional[str] = None) -> SpmvPlan:
-    """Load a dense plan saved by this package or by the reference.
+# ------------------------------ sharded plans -------------------------------
+
+@functools.lru_cache(maxsize=64)
+def _sharded_fn(steps_json: str, mode: str, n_out: int, mesh, axis_name: str,
+                backend: str):
+    from repro_torch.dist.spmv import make_stacked_fn
+    return make_stacked_fn(json.loads(steps_json), mode, n_out, mesh,
+                           axis_name, backend=backend)
+
+
+@dataclasses.dataclass(eq=False)
+class ShardedSpmvPlan:
+    """A compiled sharded plan: per-family stacked format tensors (leading
+    dim = shard) plus the static shard geometry.
+
+    Shard i runs on ``target.mesh.devices[i]`` with slice i of every
+    stack; the stacks lie on the device all shards share (or on the host,
+    each shard holding a copy of its slice, when the shards sit on several
+    devices). A plan loaded without a mesh is detached: it refuses to run
+    until one is attached (``load_plan(path, mesh=...)``).
+    """
+
+    supports_batch = True
+
+    stacks: dict                    # name -> (n_shards, ...) tensors
+    steps_json: str                 # synthetic per-family kernel spec
+    mode: str                       # 'row' | 'col'
+    n_rows: int
+    n_cols: int
+    nnz: int
+    band_rows: int                  # row mode: padded per-shard band size
+    bounds: tuple                   # ((start, stop), ...) per shard
+    target: Target
+    replicated_bytes: int = 0       # every shard's format on every device
+    # aggregated per-shard failure taxonomy (sorted (bucket, count) pairs);
+    # a "fallback" entry counts shards substituted with the baseline
+    failure_counts: Optional[tuple] = None
+    search_result: Optional[object] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    # the stacks placed on the mesh (per shard: slice + combine order)
+    operands: Optional[list] = dataclasses.field(
+        default=None, compare=False, repr=False)
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.bounds)
+
+    @property
+    def per_device_format_bytes(self) -> int:
+        n = max(self.n_shards, 1)
+        return sum(v.numel() * v.element_size() // n
+                   for v in self.stacks.values())
+
+    @property
+    def replicated_format_bytes(self) -> int:
+        return self.replicated_bytes
+
+    @functools.cached_property
+    def steps(self) -> list:
+        return json.loads(self.steps_json)
+
+    @classmethod
+    def from_program(cls, sprog, target: Target,
+                     search_result=None) -> "ShardedSpmvPlan":
+        """Adopt a ``dist.spmv.ShardedSpmvProgram``'s stacked operands."""
+        failure_counts = None
+        if search_result is not None and getattr(search_result,
+                                                 "failure_counts", None):
+            failure_counts = tuple(
+                sorted(search_result.failure_counts.items()))
+        return cls(stacks=dict(sprog.stacks),
+                   steps_json=json.dumps(sprog.steps),
+                   mode=sprog.mode, n_rows=sprog.n_rows,
+                   n_cols=sprog.n_cols, nnz=sprog.nnz,
+                   band_rows=sprog.band_rows,
+                   bounds=tuple((s.start, s.stop) for s in sprog.shards),
+                   target=target,
+                   replicated_bytes=sprog.replicated_format_bytes,
+                   failure_counts=failure_counts,
+                   search_result=search_result,
+                   operands=(sprog.operands if sprog.mesh == target.mesh
+                             else None))
+
+    def _n_out(self) -> int:
+        return self.band_rows if self.mode == "row" else self.n_rows
+
+    def _mesh(self):
+        if self.target.mesh is None:
+            raise ValueError("sharded plan has no mesh attached; load with "
+                             "load_plan(path, mesh=...) or rebuild the "
+                             "Target with a mesh")
+        return self.target.mesh
+
+    def __call__(self, x) -> torch.Tensor:
+        """x: (n_cols,) -> fp32 (n_rows,), or (n_cols, B) -> (n_rows, B),
+        on ``mesh.devices[0]``."""
+        from repro_torch.dist.spmv import place_operands, stacked_call
+        mesh = self._mesh()
+        if self.operands is None:
+            self.operands = place_operands(self.stacks, self.steps, mesh,
+                                           self._n_out())
+        fn = _sharded_fn(self.steps_json, self.mode, self._n_out(), mesh,
+                         self.target.axis_name, self.target.backend)
+        return stacked_call(fn, self.operands, x, self.mode, self.n_cols,
+                            [stop - start for start, stop in self.bounds],
+                            mesh.devices[0], dtype=_x_dtype(self.target))
+
+    def update(self, delta):
+        """Sharded plans do not support patch-in-place updates: a delta
+        can move nnz across shard bounds, which changes the static shard
+        geometry. Re-compile for the mutated matrix instead."""
+        raise NotImplementedError(
+            "ShardedSpmvPlan.update is not supported (a PatternDelta can "
+            "cross shard bounds); re-run repro_torch.compile on the mutated "
+            "matrix")
+
+    def describe(self) -> str:
+        lines = [f"ShardedSpmvPlan {self.n_rows}x{self.n_cols} "
+                 f"nnz={self.nnz} mode={self.mode} "
+                 f"shards={self.n_shards}",
+                 f"  target: backend={self.target.backend} "
+                 f"interpret={self.target.interpret} "
+                 f"axis={self.target.axis_name}",
+                 f"  format bytes/device: {self.per_device_format_bytes} "
+                 f"(closure baseline {self.replicated_bytes})"]
+        if self.failure_counts:
+            buckets = ", ".join(f"{k}={v}" for k, v in self.failure_counts)
+            lines.append(f"  shard-search failures: {buckets}")
+        for s in self.steps:
+            lines.append(f"  family {s['key']}: {s['report']}")
+        return "\n".join(lines)
+
+    def cost_analysis(self, batch_size: Optional[int] = None) -> dict:
+        """Bytes and flops of one call with B = ``batch_size`` right-hand
+        sides (default ``target.batch_size``), counted from the steps as
+        :meth:`SpmvPlan.cost_analysis` counts them, over all shards:
+
+        * ``"flops"``: 2 x stacked slots x B, padding included;
+        * ``"bytes accessed"``: every stack the steps read on this plan's
+          backend, each once, plus x as the shards read it (all of it in
+          row mode, a slice of the padded x in col mode) and the partial
+          y they write (a band in row mode, all rows in col mode).
+        """
+        b = max(int(batch_size if batch_size is not None
+                    else self.target.batch_size), 1)
+        keys, slots = set(), 0
+        for step in self.steps:
+            keys.update(step_reads(step, self.target.backend))
+            slots += self.stacks[f"{step['key']}_vals"].numel()
+        fmt_bytes = sum(self.stacks[k].numel() * self.stacks[k].element_size()
+                        for k in keys)
+        n = max(self.n_shards, 1)
+        x_rows = (n * self.n_cols if self.mode == "row"
+                  else -(-self.n_cols // n) * n)
+        x_item = _x_dtype(self.target).itemsize
+        return {"flops": 2 * slots * b,
+                "bytes accessed": (fmt_bytes + x_rows * b * x_item
+                                   + n * self._n_out() * b * 4)}
+
+    def save(self, path) -> None:
+        arrays = _npz_arrays("stack", self.stacks)
+        header = {"format_version": _format_version(arrays),
+                  "kind": "sharded",
+                  "steps": self.steps, "mode": self.mode,
+                  "n_rows": self.n_rows, "n_cols": self.n_cols,
+                  "nnz": self.nnz, "band_rows": self.band_rows,
+                  "bounds": [list(b) for b in self.bounds],
+                  "replicated_bytes": self.replicated_bytes,
+                  "failure_counts": (None if self.failure_counts is None
+                                     else [[p[0], int(p[1])]
+                                           for p in self.failure_counts]),
+                  "target": self.target.spec_dict()}
+        _atomic_savez(path, header, arrays)
+
+    load = staticmethod(SpmvPlan.load)
+
+
+def load_plan(path, backend: Optional[str] = None, mesh=None):
+    """Load a plan saved by this package or by the reference.
 
     The reference's backends map ``pallas -> cuda`` and ``jax -> torch``;
     ``backend`` overrides the saved one (``"torch"`` runs a GPU plan's
     format on the CPU). The format tensors come back bit-identical, bf16
-    included, on the backend's device."""
+    included. A dense plan's land on the backend's device. A sharded plan
+    needs a live ``mesh`` (meshes name devices and are not saved): with one
+    whose shard count matches, the stacks land on it; without one the plan
+    is detached (its stacks stay on the CPU) and refuses to run."""
     with np.load(path, allow_pickle=False) as z:
         header = json.loads(str(z["__plan__"]))
         if header.get("format_version", 0) > PLAN_FORMAT_VERSION:
@@ -403,14 +597,14 @@ def load_plan(path, backend: Optional[str] = None) -> SpmvPlan:
                     f"plan {path} failed its content checksum "
                     f"(stored {want[:12]}…, computed {got[:12]}…): the "
                     "file is corrupt or was modified after save")
-        if header["kind"] != "dense":
-            raise NotImplementedError(
-                f"plan {path} is {header['kind']!r}; only dense plans are "
-                "ported yet")
-        target = _target_from_dict(header["target"])
-        if backend is not None:
-            target = dataclasses.replace(target, backend=backend)
         fc = header.get("failure_counts")
+        fc = None if fc is None else tuple((k, int(v)) for k, v in fc)
+        if header["kind"] == "sharded":
+            return _load_sharded(path, header, z, backend, mesh, fc)
+        if header["kind"] != "dense":
+            raise ValueError(f"plan {path} has unknown kind "
+                             f"{header['kind']!r}")
+        target = _target_from_dict(header["target"], backend=backend)
         return SpmvPlan(
             fmt=_npz_restore("fmt", z, resolve_device(target.backend)),
             spec_json=json.dumps(header["spec"]),
@@ -418,9 +612,33 @@ def load_plan(path, backend: Optional[str] = None) -> SpmvPlan:
                         else json.dumps(header["graph"])),
             target=target,
             search_gflops=header.get("search_gflops"),
-            failure_counts=(None if fc is None
-                            else tuple((k, int(v)) for k, v in fc)),
+            failure_counts=fc,
             plan_version=int(header.get("plan_version", 0)))
+
+
+def _load_sharded(path, header: dict, z, backend: Optional[str], mesh,
+                  failure_counts) -> ShardedSpmvPlan:
+    target = _target_from_dict(header["target"], mesh=mesh, backend=backend)
+    stacks = _npz_restore("stack", z, "cpu")
+    if mesh is not None:
+        from repro_torch.dist.spmv import place_stacks
+        n_saved = len(header["bounds"])
+        n_mesh = dict(mesh.shape).get(target.axis_name)
+        if n_mesh != n_saved:
+            raise ValueError(
+                f"plan {path} was compiled for {n_saved} shards but the "
+                f"attached mesh has {n_mesh} devices on axis "
+                f"{target.axis_name!r}; re-compile for this mesh or "
+                "attach a matching one")
+        stacks = place_stacks(stacks, mesh)
+    return ShardedSpmvPlan(
+        stacks=stacks, steps_json=json.dumps(header["steps"]),
+        mode=header["mode"], n_rows=header["n_rows"],
+        n_cols=header["n_cols"], nnz=header["nnz"],
+        band_rows=header["band_rows"],
+        bounds=tuple(tuple(b) for b in header["bounds"]),
+        target=target, replicated_bytes=header["replicated_bytes"],
+        failure_counts=failure_counts)
 
 
 # -------------------------------- compile -----------------------------------
@@ -469,21 +687,29 @@ def compile(matrix: SparseMatrix, target: Optional[Target] = None,
             budget=None, *, graph: Optional[OperatorGraph] = None,
             strategy=None, warm_start=None, deadline_s: Optional[float] = None,
             cache: Optional[ProgramCache] = None,
-            store: Optional["PlanStore"] = None) -> SpmvPlan:
+            store: Optional["PlanStore"] = None):
     """Matrix in, machine-designed program artifact out (paper §III).
 
     * ``target`` — where the plan runs (default ``Target()``: the CUDA
-      kernels on the current GPU; raises when there is none).
+      kernels on the current GPU; raises when there is none). With
+      ``target.mesh`` the result is a :class:`ShardedSpmvPlan`.
     * ``budget`` — search budget: a ``SearchConfig``, a number of seconds,
-      or None for the default budget.
-    * ``graph`` — skip the search and design with this Operator Graph.
+      or None for the default budget. With ``target.mesh`` set and
+      ``budget=None``, shards take the search-free heuristic design
+      (``dist.spmv.default_shard_graph``); a
+      ``dist.search.ShardedSearchConfig`` gives full per-shard control
+      (the Target still decides placement and backend); seconds or a
+      ``SearchConfig`` is every shard's search budget.
+    * ``graph`` — skip the search and design with this Operator Graph
+      (sharded targets apply it per shard).
     * ``strategy`` — the search policy: a ``SearchStrategy`` instance or
       class, or a registered name ("anneal" | "grid" | "cost_model" |
       "learned" | "portfolio"). Store-aware strategies get
       ``bind_store(store)`` before the search: that is how "learned" and
       "portfolio" find the corpus model saved next to the store and
       "portfolio" its reuse suggestions.
-    * ``warm_start`` — ``OperatorGraph`` objects timed before the walk.
+    * ``warm_start`` — ``OperatorGraph`` objects timed before the walk
+      (dense targets only).
     * ``deadline_s`` — hard wall-clock budget for the whole search.
     * ``cache`` — a ``ProgramCache`` memoising raw search results.
     * ``store`` — a :class:`PlanStore`; a prior plan for the same
@@ -510,14 +736,18 @@ def compile(matrix: SparseMatrix, target: Optional[Target] = None,
         hit = store.get(matrix, target, budget, graph, strategy)
         if hit is not None:
             return hit
-        if warm_start is None and graph is None:
+        if warm_start is None and graph is None and target.mesh is None:
             # statistics-keyed warm start from the nearest stored plan
+            # (dense targets only: per-shard warm start is future work)
             suggested = store.suggest(matrix)
             warm_start = (suggested,) if suggested is not None else None
     if target.backend == "cuda":
         from repro_torch.kernels import build
         build.build_all()
-    if graph is not None:
+    if target.mesh is not None:
+        plan = _compile_sharded(matrix, target, budget, graph, strategy,
+                                cache)
+    elif graph is not None:
         meta = run_graph(matrix, graph)
         # Target.dtype overrides the storage dtype for fixed-graph
         # compiles (searched compiles pick it via SET_RESOURCES)
@@ -539,6 +769,43 @@ def compile(matrix: SparseMatrix, target: Optional[Target] = None,
     if store is not None:
         store.put(matrix, target, budget, graph, plan, strategy)
     return plan
+
+
+def _compile_sharded(matrix, target: Target, budget, graph, strategy,
+                     cache) -> ShardedSpmvPlan:
+    """The mesh branch of :func:`compile`."""
+    from repro_torch.dist.search import ShardedSearchConfig, dist_search
+    from repro_torch.dist.spmv import default_shard_graph, shard_map_spmv
+    search_result = None
+    if graph is not None or budget is None:
+        sprog = shard_map_spmv(matrix, target.mesh,
+                               axis_name=target.axis_name,
+                               mode=target.partition, balance=target.balance,
+                               graph_for=(default_shard_graph if graph is None
+                                          else lambda m: graph),
+                               backend=target.backend,
+                               storage_dtype=target.dtype)
+    else:
+        if isinstance(budget, ShardedSearchConfig):
+            # full per-shard control (min_nnz_for_search, seeds, ...); the
+            # Target still decides placement and backend
+            dcfg = dataclasses.replace(
+                budget, axis_name=target.axis_name, mode=target.partition,
+                balance=target.balance, backend=target.backend,
+                interpret=target.interpret)
+            if strategy is not None:
+                dcfg = dataclasses.replace(dcfg, strategy=strategy)
+        else:
+            dcfg = ShardedSearchConfig(
+                axis_name=target.axis_name, mode=target.partition,
+                balance=target.balance,
+                search=_as_search_config(budget, target),
+                backend=target.backend, interpret=target.interpret,
+                strategy=strategy)
+        search_result = dist_search(matrix, target.mesh, dcfg, cache=cache)
+        sprog = search_result.program
+    return ShardedSpmvPlan.from_program(sprog, target,
+                                        search_result=search_result)
 
 
 # -------------------------------- PlanStore ---------------------------------
@@ -575,9 +842,10 @@ class PlanWatch:
     the next poll.
     """
 
-    def __init__(self, store: "PlanStore", key: str):
+    def __init__(self, store: "PlanStore", key: str, mesh=None):
         self.store = store
         self.key = key
+        self.mesh = mesh
         self._seen = self._stamp()
 
     @property
@@ -596,7 +864,7 @@ class PlanWatch:
         if stamp is None or stamp == self._seen:
             return None
         try:
-            plan = load_plan(self.path)
+            plan = load_plan(self.path, mesh=self.mesh)
         except Exception:
             return None   # mid-write or corrupt: retry on the next poll
         self._seen = stamp
@@ -636,7 +904,7 @@ class PlanStore:
                 _graph_to_jsonable(graph)).encode()).hexdigest()[:8]
         elif budget is None:
             bkey = "default"
-        elif dataclasses.is_dataclass(budget):   # SearchConfig
+        elif dataclasses.is_dataclass(budget):   # SearchConfig / sharded cfg
             blob = json.dumps(dataclasses.asdict(budget), sort_keys=True,
                               default=str)
             bkey = hashlib.sha1(blob.encode()).hexdigest()[:8]
@@ -658,7 +926,7 @@ class PlanStore:
             self.misses += 1
             return None
         try:
-            plan = load_plan(path)
+            plan = load_plan(path, mesh=target.mesh)
         except Exception as e:  # truncated/corrupt npz or checksum mismatch
             warnings.warn(f"plan store entry {path} unusable ({e!r}); "
                           "recompiling", RuntimeWarning)
@@ -683,8 +951,9 @@ class PlanStore:
                                json.dumps(sidecar))
 
     def verify(self) -> dict:
-        """Integrity sweep: load every ``*.plan.npz`` on the CPU and
-        return ``{"ok": [keys], "corrupt": [(key, reason)]}``. Nothing is
+        """Integrity sweep: load every ``*.plan.npz`` on the CPU (sharded
+        plans detached, with no mesh) and return
+        ``{"ok": [keys], "corrupt": [(key, reason)]}``. Nothing is
         modified; :meth:`repair` quarantines the corrupt entries."""
         ok, corrupt = [], []
         if self.cache_dir.is_dir():
@@ -719,7 +988,7 @@ class PlanStore:
         at creation, so only later puts trigger a reload; the serving
         executor polls it between batches."""
         return PlanWatch(self, self.key(matrix, target, budget, graph,
-                                        strategy))
+                                        strategy), mesh=target.mesh)
 
     def _refresh_sidecars(self) -> None:
         """Revalidate the in-memory sidecar index, O(changed files)."""

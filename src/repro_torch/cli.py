@@ -27,9 +27,6 @@ import argparse
 import sys
 import time
 
-from repro_torch.core.graph import OperatorGraph
-from repro_torch.design.registry import OpSpec
-
 
 def _build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -83,23 +80,6 @@ def _build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--repeats", type=int, default=5,
                     help="timing repeats for the benchmark")
     return ap
-
-
-# The search-free design of ``repro.dist.spmv`` (the paper's regularity
-# split, §VI-B), copied: the port has no dist package yet.
-ELL_GRAPH = OperatorGraph.chain(
-    OpSpec.make("COMPRESS"), OpSpec.make("TILE_ROW_BLOCK", rows=16),
-    OpSpec.make("LANE_ROW_BLOCK"), OpSpec.make("LANE_TOTAL_RED"))
-SEG_GRAPH = OperatorGraph.chain(
-    OpSpec.make("COMPRESS"),
-    OpSpec.make("LANE_NNZ_BLOCK", chunk=128, lanes=8),
-    OpSpec.make("SEG_SCAN_RED"))
-
-
-def default_shard_graph(m) -> OperatorGraph:
-    """Regular matrices take a tiled-ELL design, irregular ones a SEG
-    design."""
-    return SEG_GRAPH if m.is_irregular() else ELL_GRAPH
 
 
 def _same_plan(a, b) -> bool:
@@ -190,6 +170,7 @@ def main(argv=None) -> int:
     target = repro_torch.Target(backend=args.backend, batch_size=args.batch)
     t0 = time.time()
     if args.no_search:
+        from repro_torch.dist.spmv import default_shard_graph
         plan = repro_torch.compile(m, target, graph=default_shard_graph(m),
                                    store=store)
         print(f"compiled (heuristic design) in {time.time() - t0:.1f}s")

@@ -360,10 +360,22 @@ def _step_cols(step: dict, fmt: dict, device):
                            cspec["shape"], device)
 
 
-def _add_rows(y, rm, flat):
+def _order_of(order, rm_key):
+    return None if order is None else order[rm_key]
+
+
+def _add_rows(y, rm, flat, order=None):
     """y[rm[i]] += flat[i] for every rm[i] >= 0 (the scatter combine);
-    ``flat`` is (N,) or (N, B). Masking instead of boolean indexing keeps
-    the call free of host syncs on the GPU."""
+    ``flat`` is (N,) or (N, B). Given the rowmap's ``order`` (``perm``,
+    ``offsets`` of ``kernels.combine.combine_order``) the partials go
+    through ``kernels.combine.rowmap_combine`` in that order; otherwise
+    through ``index_add_``, whose order on the GPU is the atomics'.
+    Masking instead of boolean indexing keeps the call free of host
+    syncs."""
+    if order is not None:
+        from repro_torch.kernels import ops as kops
+        kops.rowmap_combine(y, flat.contiguous(), *order)
+        return
     rm = rm.reshape(-1)
     keep = rm >= 0
     idx = torch.where(keep, rm, 0).long()
@@ -373,7 +385,7 @@ def _add_rows(y, rm, flat):
 
 
 def _run_ell_step(step: dict, fmt: dict, x, y, n_rows: int,
-                  backend: str, tiles_per_step: int = 1):
+                  backend: str, tiles_per_step: int = 1, order=None):
     rhs = tuple(x.shape[1:])
     key = step["key"]
     vals = fmt[f"{key}_vals"]
@@ -398,7 +410,8 @@ def _run_ell_step(step: dict, fmt: dict, x, y, n_rows: int,
         partial = op(vals, cols, x)
     flat = partial.reshape((-1,) + rhs)
     if comb["mode"] == "rowmap":
-        _add_rows(y, fmt[comb["key"]], flat)
+        rm_key = comb["key"]
+        _add_rows(y, fmt[rm_key], flat, _order_of(order, rm_key))
         return y
     b0, nv = comb["b0"], comb["nv"]
     y[b0:b0 + nv] += flat[:nv]
@@ -406,7 +419,7 @@ def _run_ell_step(step: dict, fmt: dict, x, y, n_rows: int,
 
 
 def _run_seg_step(step: dict, fmt: dict, x, y, n_rows: int,
-                  backend: str, tiles_per_step: int = 1):
+                  backend: str, tiles_per_step: int = 1, order=None):
     rhs = tuple(x.shape[1:])
     key = step["key"]
     kind = step["reduce"]
@@ -440,18 +453,21 @@ def _run_seg_step(step: dict, fmt: dict, x, y, n_rows: int,
         from repro_torch.kernels import ref as kref
         op = kref.seg_spmm_ref if rhs else kref.seg_spmv_ref
         partial = op(vals, cols, local, seg_end, x, seg_rows, mode=kind)
-    _add_rows(y, fmt[f"{key}_rowmap"], partial.reshape((-1,) + rhs))
+    rm_key = f"{key}_rowmap"
+    _add_rows(y, fmt[rm_key], partial.reshape((-1,) + rhs),
+              _order_of(order, rm_key))
     return y
 
 
 def run_spec_step(step: dict, fmt: dict, x, y, n_rows: int,
-                  backend: str, tiles_per_step: int = 1):
+                  backend: str, tiles_per_step: int = 1, order=None):
     """Accumulate one spec step's contribution into y in place and return
-    y; ``x`` is (n_cols,) or (n_cols, B) and y (n_rows,) or (n_rows, B)."""
-    if step["kind"] == "ell":
-        return _run_ell_step(step, fmt, x, y, n_rows, backend,
-                             tiles_per_step)
-    return _run_seg_step(step, fmt, x, y, n_rows, backend, tiles_per_step)
+    y; ``x`` is (n_cols,) or (n_cols, B) and y (n_rows,) or (n_rows, B).
+    ``order`` maps a rowmap's fmt key to its fixed combine order
+    (``kernels.combine.combine_order``); a rowmap combine without one
+    scatters with ``index_add_``."""
+    run = _run_ell_step if step["kind"] == "ell" else _run_seg_step
+    return run(step, fmt, x, y, n_rows, backend, tiles_per_step, order)
 
 
 def step_reads(step: dict, backend: str) -> list[str]:
@@ -477,18 +493,20 @@ def step_reads(step: dict, backend: str) -> list[str]:
 
 
 def build_kernel(spec: dict, backend: str = "cuda") -> Callable:
-    """Stage 2: interpret a kernel spec into the runnable ``fn(fmt, x)``.
+    """Stage 2: interpret a kernel spec into the runnable
+    ``fn(fmt, x, order=None)``.
 
     ``fn`` takes an x on the format's device, ``(n_cols,)`` or
     ``(n_cols, B)``, and returns a fresh fp32 ``(n_rows,)`` or
-    ``(n_rows, B)`` tensor; the steps accumulate into it in place."""
+    ``(n_rows, B)`` tensor; the steps accumulate into it in place.
+    ``order`` fixes the rowmap combines' order (:func:`run_spec_step`)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (cuda | torch)")
     n_rows = spec["n_rows"]
     steps = spec["steps"]
     tiles_per_step = int(spec.get("tiles_per_step", 1))
 
-    def run(fmt, x):
+    def run(fmt, x, order=None):
         if x.ndim not in (1, 2):
             raise ValueError(f"x must be (n_cols,) or (n_cols, B), got "
                              f"shape {tuple(x.shape)}")
@@ -496,7 +514,7 @@ def build_kernel(spec: dict, backend: str = "cuda") -> Callable:
                         device=x.device)
         for step in steps:
             y = run_spec_step(step, fmt, x, y, n_rows, backend,
-                              tiles_per_step)
+                              tiles_per_step, order)
         return y
 
     return run

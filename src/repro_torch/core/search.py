@@ -358,6 +358,20 @@ class SearchResult:
         return names not in known
 
 
+# One lock per device: concurrent searches (the per-shard searches of
+# ``repro_torch.dist`` run on a thread pool, and on a one-GPU machine all
+# on one card) run and time their candidates there one at a time, so no
+# candidate's time includes another search's kernels. Their host-side
+# Designer and packing work still overlaps.
+_DEVICE_LOCKS: dict[str, threading.Lock] = {}
+_DEVICE_LOCKS_GUARD = threading.Lock()
+
+
+def _device_lock(device) -> threading.Lock:
+    with _DEVICE_LOCKS_GUARD:
+        return _DEVICE_LOCKS.setdefault(str(device), threading.Lock())
+
+
 # ------------------------------ the searcher ------------------------------
 
 class AlphaSparseSearch:
@@ -462,7 +476,8 @@ class AlphaSparseSearch:
                 check_candidate_deadline()
                 prog = build_program(meta, backend=self.cfg.backend)
                 check_candidate_deadline()
-                y = self._output(prog)
+                with _device_lock(self._x_dev.device):
+                    y = self._output(prog)
                 if _FAULT_HOOK is not None:
                     hooked = _FAULT_HOOK(graph, y)
                     if hooked is not None:
@@ -484,9 +499,10 @@ class AlphaSparseSearch:
                                           "wrong_result")
                 # timing: min over repeats of a synchronised call
                 best = math.inf
-                for _ in range(self.cfg.timing_repeats):
-                    check_candidate_deadline()
-                    best = min(best, self._time_call(prog))
+                with _device_lock(self._x_dev.device):
+                    for _ in range(self.cfg.timing_repeats):
+                        check_candidate_deadline()
+                        best = min(best, self._time_call(prog))
         except (GraphError, ValueError) as e:
             # routine inapplicability (validation/Designer rejection)
             return self._fail(graph, structure_label, "invalid", e)
@@ -524,13 +540,15 @@ class AlphaSparseSearch:
                 try:
                     meta = run_graph(self.m, graph)
                     prog = build_program(meta, backend=self.cfg.backend)
-                    y = self._output(prog)
+                    with _device_lock(self._x_dev.device):
+                        y = self._output(prog)
                     if self.cfg.check_correctness:
                         scale = np.abs(self._oracle).max() + 1e-30
                         if not np.all(np.abs(y - self._oracle)
                                       <= 1e-3 * scale + 1e-5):
                             continue
-                    return graph, prog, self._time_call(prog)
+                    with _device_lock(self._x_dev.device):
+                        return graph, prog, self._time_call(prog)
                 except (GraphError, ValueError, RuntimeError) as e:
                     if _is_cuda_fault(e):
                         raise

@@ -5,11 +5,12 @@ Each kernel family has: the CUDA C++ sources (``csrc/ell_spmv.cu`` and
 ``seg_spmm.cu`` for the multi-RHS SpMM kernels K7-K11, each built by
 ``build.py`` with nvcc and loaded with ctypes), Python wrappers
 (``ell_spmv.py``, ``seg_spmv.py``, re-exported by ``ops.py``) and plain
-PyTorch versions (``ref.py``). Submodules import lazily; nothing is built
+PyTorch versions (``ref.py``); ``csrc/rowmap_combine.cu`` (``combine.py``)
+is the ordered combine of the sharded plans. Submodules import lazily; nothing is built
 until a kernel first runs on a GPU tensor.
 """
 
-__all__ = ["build", "ell_spmv", "ops", "ref", "seg_spmv"]
+__all__ = ["build", "combine", "ell_spmv", "ops", "ref", "seg_spmv"]
 
 
 def __getattr__(name):

@@ -26,12 +26,14 @@
 //   so a slot at B = 8 takes a group of 2 lanes instead of 8; otherwise a
 //   lane owns one column (groups of bc lanes, bc the smallest power of two
 //   >= min(B, 32)). Any B works; wider B is taken in column chunks;
-// - one row is split over wpr warps of a block (1, 2, 4 or 8), which add
-//   their partial sums in shared memory; the host picks wpr from T*R and
-//   W so that a launch has about kFillWarps = 4096 warps while each warp
-//   keeps at least half a pass of the row. A single-tile bucket (128 rows,
-//   W ~ 400) at B = 8 runs 8 warps per row; the padded 96-tile launch
-//   (12288 rows) one.
+// - one row is split over wpr warps of a block (1, 2, 4 or 8), which take
+//   its chunks of one pass (groups * 4 slots) in turn and whose per-lane
+//   chunk sums are added in shared memory in chunk order, so a row's sum
+//   is the same whatever wpr, W or the launch's row count (spmm.cuh); the
+//   host picks wpr from T*R and W so that a launch has about kFillWarps =
+//   4096 warps while each warp gets a chunk. A single-tile bucket (128
+//   rows, W ~ 400) at B = 8 runs 8 warps per row; the padded 96-tile
+//   launch (12288 rows) one.
 //
 // K9: the TPU kernel zeroes a resident output block at grid step 0 and
 // writes rows in sequential grid order. Blocks on the GPU run in parallel

@@ -26,6 +26,14 @@
 // - W > 32 (ell_rows_wide_kernel): spmm.cuh's split_rows with one column:
 //   the 32 lanes stride over the row, kWideUnroll slots each per pass, and
 //   a row is split over up to 8 warps when the launch has few rows.
+// A row's sum depends on its slot values in order only: not on W, on the
+// kernel that runs it or on the number of rows in the launch. split_rows
+// fixes its order (spmm.cuh), and the slab kernel adds a row's products
+// in the tree split_rows' lanes end with: each product rounded once, then
+// the pairwise tree over 32 slots (reduce_groups), to which the zero
+// slots past W add exact zeros. So a row that moves to another width
+// bucket (an in-place update against a fresh compile, repro_torch.dyn)
+// keeps its bits.
 // Both hand each row sum to a spmm::RowSink: K1/K2 store out[row] = sum
 // (the (T, R) partials), K5 adds y[row0 + row] += sum.
 //
@@ -84,13 +92,55 @@ ell_rows_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
       const int s = s0 + 32 * u;
       const float xv =
           ((unsigned)col[u] < (unsigned)n_cols) ? to_f32(x[col[u]]) : 0.f;
-      if (s < n) buf[slab_at(s)] = v[u] * xv;
+      if (s < n) buf[slab_at(s)] = __fmaf_rn(v[u], xv, 0.f);
     }
   }
   __syncwarp();
   if (lane < rows) {
+    // reduce_groups' pairwise tree over the row's 32 slots, the slots past
+    // W zeros: subtrees of 4 slots, merged as each closes the subtrees
+    // before it (st[l]: the last finished subtree of 4 * 2^l slots; group
+    // q closes as many as q has trailing ones)
+    const int G = (W + 3) >> 2;  // groups of 4 slots
+    float st[4];
+#pragma unroll
+    for (int q = 0; q < kSlabRows / 4; ++q) {
+      if (q >= G) break;  // W is the same for the whole launch
+      float p[4];
+      const int s0 = lane * W + 4 * q;
+      if (4 * q + 4 <= W) {  // a whole group: no masks
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[e] = buf[slab_at(s0 + e)];
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = 4 * q + e < W ? buf[slab_at(s0 + e)] : 0.f;
+        }
+      }
+      float v = (p[0] + p[1]) + (p[2] + p[3]);
+      int t = 0;
+#pragma unroll
+      for (int l = 0; l < 3; ++l) t += (q & ((2 << l) - 1)) == (2 << l) - 1;
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        if (l < t) {
+          v = st[l] + v;
+        } else if (l == t) {
+          st[l] = v;
+        }
+      }
+    }
+    // the open subtrees, smallest first: the all-zero groups past G would
+    // add exact zeros to each of them
     float acc = 0.f;
-    for (int w = 0; w < W; ++w) acc += buf[slab_at(lane * W + w)];
+    bool have = false;
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      if ((G >> l) & 1) {
+        acc = have ? st[l] + acc : st[l];
+        have = true;
+      }
+    }
     sink(first + lane, 0, acc);
   }
 }

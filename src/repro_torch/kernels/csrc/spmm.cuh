@@ -79,19 +79,36 @@ inline dim3 item_grid(long long T, int items_per_tile, int tiles_per_block) {
 
 // ---- Split-row ELL sums (K7-K9, and K1/K2/K5's rows wider than 32) ----
 //
-// An ELL row is W contiguous slots. One row is split over `wpr` warps of a
-// block (a power of two <= kWarps): warp k of the row takes slots
-// [k*W/wpr, (k+1)*W/wpr), walks them with range_dot_cols, and the row's
-// wpr partial sums are added in shared memory, in warp order. A block thus
-// covers kWarps / wpr rows at a time. warps_per_row picks wpr on the host
-// so that a launch of few rows (a serving bucket of one tile is 128 rows)
-// still has some thousands of warps in flight.
+// An ELL row is W contiguous slots. Its sum is fixed by its slot values in
+// order alone, whatever W (trailing zero slots), the number of rows in
+// the launch or the number of warps on the row:
+// - the row is cut into chunks of Q = groups * U slots from its start
+//   (one pass of a warp's lane groups), whatever W is;
+// - in chunk c, lane group g takes slots c*Q + g, c*Q + g + groups, ...
+//   and sums them in slot order, each product rounded once (__fmaf_rn),
+//   from 0;
+// - group g adds its chunk sums in chunk order;
+// - reduce_groups adds the groups' totals in a fixed pairwise tree.
+// A zero slot adds an exact 0 at each of these steps, so a row padded to
+// another width sums to the same bits. ell_rows_kernel (W <= 32, one slot
+// a lane) computes the same tree (see ell_spmv.cu), and so K1, K2 and K5
+// agree with each other to the bit, as K7, K8 and K9 do at one B.
+//
+// A row may be split over `wpr` warps of a block (a power of two <=
+// kWarps): in each pass warp k of the row sums chunk p*wpr + k, the wpr
+// warps store their per-lane chunk sums in shared memory, and the row's
+// first warp adds them in chunk order. A block thus covers kWarps / wpr
+// rows at a time. warps_per_row picks wpr on the host so that a launch of
+// few rows (a serving bucket of one tile is 128 rows) still has some
+// thousands of warps in flight; it changes which warp sums a chunk, not
+// the order of the sums.
 //
 // A lane owns CPL consecutive columns of x: CPL = 1 is the layout above
 // (bc lanes per group); with CPL = 4 (B a multiple of 4 and x aligned for
 // it) one 16-byte (fp32) or 8-byte (bf16) load brings a lane its four x
 // values, so a slot at B = 8 takes 2 lanes instead of 8: four times fewer
-// instructions for the same bytes.
+// instructions for the same bytes. The lane layout (groups) sets the
+// order, so one B and one x alignment give one order.
 
 constexpr int kFillWarps = 4096;  // warps a launch should keep in flight
 
@@ -124,45 +141,43 @@ __device__ __forceinline__ void load_cols(const __nv_bfloat16* __restrict__ p,
   }
 }
 
-// This lane's share of sum_{i in [lo, hi)} vals[i] * x[cols[i], b + k] for
-// k < CPL, over slots i = lo + g, lo + g + groups, ..., U of them per pass
-// and independent of each other: the U cols/vals loads issue first, then
-// the U x loads, then the FMAs, so a lane has U loads in flight instead of
-// one chain of dependent loads. cols and vals, read once, are loaded
-// evict-first (__ldcs) so that they do not push the gathered x out of
-// L1. A column outside [0, n_cols) and a column b >= B contribute 0 (with
-// CPL = 4, B is a multiple of 4).
+// This lane's share of one chunk, sum_{i in [lo, hi)} vals[i] * x[cols[i],
+// b + k] for k < CPL over slots i = lo + g + u * groups, u < U (a chunk is
+// one pass: hi - lo <= groups * U), added in u order from 0, each product
+// rounded once. The U cols/vals loads issue first, then the U x loads,
+// then the FMAs, so a lane has U loads in flight instead of one chain of
+// dependent loads. cols and vals, read once, are loaded evict-first
+// (__ldcs) so that they do not push the gathered x out of L1. A column
+// outside [0, n_cols) and a column b >= B contribute 0 (with CPL = 4, B
+// is a multiple of 4).
 template <int U, int CPL, typename V, typename C, typename X>
-__device__ __forceinline__ void range_dot_cols(
+__device__ __forceinline__ void chunk_dot(
     const V* __restrict__ vals, const C* __restrict__ cols,
     const X* __restrict__ x, int n_cols, int B, long long lo, long long hi,
     int b, int g, int groups, float (&acc)[CPL]) {
 #pragma unroll
   for (int k = 0; k < CPL; ++k) acc[k] = 0.f;
   if (b >= B) return;
-  for (long long i0 = lo + g; i0 < hi; i0 += (long long)groups * U) {
-    int col[U];
-    float v[U];
+  int col[U];
+  float v[U];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const long long i = i0 + (long long)u * groups;
-      col[u] = i < hi ? to_i32(__ldcs(cols + i)) : -1;
-      v[u] = i < hi ? to_f32(__ldcs(vals + i)) : 0.f;
-    }
+  for (int u = 0; u < U; ++u) {
+    const long long i = lo + g + (long long)u * groups;
+    col[u] = i < hi ? to_i32(__ldcs(cols + i)) : -1;
+    v[u] = i < hi ? to_f32(__ldcs(vals + i)) : 0.f;
+  }
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const bool in = (unsigned)col[u] < (unsigned)n_cols;
-      float xv[CPL];
-      load_cols<CPL>(x + (long long)(in ? col[u] : 0) * B + b, in, xv);
+  for (int u = 0; u < U; ++u) {
+    const bool in = (unsigned)col[u] < (unsigned)n_cols;
+    float xv[CPL];
+    load_cols<CPL>(x + (long long)(in ? col[u] : 0) * B + b, in, xv);
 #pragma unroll
-      for (int k = 0; k < CPL; ++k) acc[k] += v[u] * xv[k];
-    }
+    for (int k = 0; k < CPL; ++k) acc[k] = __fmaf_rn(v[u], xv[k], acc[k]);
   }
 }
 
 // Warps per row: doubled from 1 while the launch has fewer than kFillWarps
-// warps and each warp still gets at least half a pass (groups * U / 2
-// slots) of the row.
+// warps and each warp still gets a chunk (groups * U slots) of the row.
 inline int warps_per_row(long long rows, long long W, int groups, int U) {
   int wpr = 1;
   while (wpr < kWarps && rows * wpr < kFillWarps &&
@@ -193,8 +208,9 @@ struct RowSink {
 // Rows [r_begin, r_end) of this grid column, kWarps / wpr rows per block
 // and pass, the passes strided over the grid's y axis; bc lanes per group,
 // each owning CPL columns, so a column chunk is bc * CPL columns. Every
-// thread of the block runs the same passes and column chunks, so the
-// __syncthreads are reached by all of them.
+// row of a launch has W slots, so every thread of the block runs the same
+// passes, column chunks and slot chunks, and the __syncthreads are
+// reached by all of them.
 template <int U, int CPL, typename V, typename C, typename X>
 __device__ __forceinline__ void split_rows(
     const V* __restrict__ vals, const C* __restrict__ cols,
@@ -204,37 +220,45 @@ __device__ __forceinline__ void split_rows(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane / bc, j = lane % bc, groups = 32 / bc;
   const int rows_per_pass = kWarps / wpr, sub = warp % wpr;
+  const long long Q = (long long)groups * U;  // slots of a chunk
+  const long long n_chunks = (W + Q - 1) / Q;
   for (long long r = r_begin + (long long)blockIdx.y * rows_per_pass;
        r < r_end; r += (long long)gridDim.y * rows_per_pass) {
     const long long row = r + warp / wpr;
     const bool live = row < r_end;
-    const long long lo = row * W + W * sub / wpr;
-    const long long hi = row * W + W * (sub + 1) / wpr;
+    const long long base = row * W, end = live ? base + W : base;
     for (int c0 = 0; c0 < B; c0 += bc * CPL) {
       const int b = c0 + j * CPL;
-      float acc[CPL];
-      range_dot_cols<U, CPL>(vals, cols, x, n_cols, B, lo, live ? hi : lo,
-                             b, g, groups, acc);
+      float tot[CPL];
 #pragma unroll
-      for (int k = 0; k < CPL; ++k) acc[k] = reduce_groups(acc[k], bc);
-      const bool mine = g == 0 && live && b < B;
-      if (wpr > 1) {  // grid-uniform
-        if (g == 0) {
+      for (int k = 0; k < CPL; ++k) tot[k] = 0.f;
+      // chunk c = sub, sub + wpr, ...: slots [lo, lo + Q) of the row
+      long long lo = base + sub * Q;
+      for (long long c = sub; c - sub < n_chunks; c += wpr, lo += wpr * Q) {
+        float acc[CPL];
+        chunk_dot<U, CPL>(vals, cols, x, n_cols, B, lo, min(lo + Q, end), b,
+                          g, groups, acc);
+        if (wpr == 1) {  // grid-uniform
 #pragma unroll
-          for (int k = 0; k < CPL; ++k) part[warp][j * CPL + k] = acc[k];
+          for (int k = 0; k < CPL; ++k) tot[k] += acc[k];
+          continue;
         }
-        __syncthreads();
-        if (sub == 0 && mine) {
-          for (int w = 1; w < wpr; ++w) {
 #pragma unroll
-            for (int k = 0; k < CPL; ++k) acc[k] += part[warp + w][j * CPL + k];
+        for (int k = 0; k < CPL; ++k) part[warp][lane * CPL + k] = acc[k];
+        __syncthreads();
+        if (sub == 0) {  // the row's chunks c .. c + wpr - 1, in order
+          for (int w = 0; w < wpr; ++w) {
+#pragma unroll
+            for (int k = 0; k < CPL; ++k) tot[k] += part[warp + w][lane * CPL + k];
           }
         }
         __syncthreads();
       }
-      if (mine && sub == 0) {
 #pragma unroll
-        for (int k = 0; k < CPL; ++k) sink(row, b + k, acc[k]);
+      for (int k = 0; k < CPL; ++k) tot[k] = reduce_groups(tot[k], bc);
+      if (g == 0 && live && b < B && sub == 0) {
+#pragma unroll
+        for (int k = 0; k < CPL; ++k) sink(row, b + k, tot[k]);
       }
     }
   }

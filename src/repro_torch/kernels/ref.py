@@ -2,12 +2,13 @@
 (SpMM) kernels K7-K11.
 
 Port of ``repro.kernels.ref``, plus plain versions of the four fused
-kernels. Each is the definition its CUDA kernel is held to: the wrappers
-in ``ell_spmv.py`` / ``seg_spmv.py`` call these for CPU tensors, the
-``torch`` backend of the kernel builder runs them, and ``chip_smoke.py``
-compares every kernel with its plain version on the card. Like the
-kernels they upcast mixed-precision storage (bfloat16 vals, int16 cols)
-and accumulate in float32.
+kernels and of the ordered rowmap combine of the sharded plans. Each is
+the definition its CUDA kernel is held to: the wrappers in
+``ell_spmv.py`` / ``seg_spmv.py`` / ``combine.py`` call these for CPU
+tensors, the ``torch`` backend of the kernel builder runs them, and
+``chip_smoke.py`` compares every kernel with its plain version on the
+card. Like the kernels they upcast mixed-precision storage (bfloat16
+vals, int16 cols) and accumulate in float32.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 __all__ = ["ell_spmv_ref", "ell_spmv_direct_ref", "ell_spmv_fused_ref",
            "seg_spmv_ref", "seg_spmv_fused_ref", "ell_spmm_ref",
            "ell_spmm_direct_ref", "ell_spmm_fused_ref", "seg_spmm_ref",
-           "seg_spmm_fused_ref", "SEG_MODES"]
+           "seg_spmm_fused_ref", "rowmap_combine_ref", "SEG_MODES"]
 
 SEG_MODES = ("seg_scan", "onehot_mxu")
 
@@ -201,3 +202,15 @@ def seg_spmm_fused_ref(vals, cols, local_row, seg_end, r0, x, seg_rows: int,
     out.index_add_(0, torch.where(keep, rows, 0).reshape(-1),
                    torch.where(keep.unsqueeze(-1), part, 0.0).reshape(-1, B))
     return out
+
+
+def rowmap_combine_ref(y, flat, perm, offsets) -> torch.Tensor:
+    """The ordered rowmap combine: ``y[r] += flat[perm[j]]`` for the j in
+    ``[offsets[r], offsets[r+1])``, in that order, row by row. ``y`` is
+    (n_rows,) or (n_rows, B) fp32 and ``flat`` (N,) or (N, B); ``perm``
+    holds the flat indices sorted by their row (``combine_order``).
+    Returns ``y``, added to in place."""
+    counts = offsets[1:] - offsets[:-1]
+    rows = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=y.device), counts.long())
+    return y.index_add_(0, rows, flat[perm.long()])

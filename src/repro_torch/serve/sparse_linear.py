@@ -8,7 +8,8 @@ it through the one compile API::
     plan = repro_torch.compile(prune_magnitude(w, 0.1), target, budget=...)
     layer = SparseLinear.from_plan(plan)
 
-``sparsify_linear`` remains as a deprecated one-call shim over that path.
+``sparsify_linear`` and ``sparsify_linear_sharded`` remain as deprecated
+one-call shims over that path (the second over a sharded compile).
 
 For batched decode, the layer hands the whole activation batch to the
 plan's multi-RHS (SpMM) path: the (B, n_cols) batch is transposed to the
@@ -32,7 +33,8 @@ from repro_torch.core.matrices import SparseMatrix
 from repro_torch.core.search import ProgramCache, SearchConfig
 from repro_torch.design.registry import OpSpec
 
-__all__ = ["SparseLinear", "sparsify_linear", "prune_magnitude"]
+__all__ = ["SparseLinear", "sparsify_linear", "sparsify_linear_sharded",
+           "prune_magnitude"]
 
 
 def prune_magnitude(w: np.ndarray, density: float) -> SparseMatrix:
@@ -57,7 +59,7 @@ class SparseLinear:
 
     matrix: Optional[SparseMatrix]
     graph: Optional[OperatorGraph]
-    program: object            # SpmvPlan | SpmvProgram
+    program: object            # SpmvPlan | ShardedSpmvPlan | SpmvProgram
     search_gflops: Optional[float] = None
 
     @classmethod
@@ -141,3 +143,29 @@ def sparsify_linear(w: np.ndarray, density: float = 0.1,
         return SparseLinear(m, plan.graph, plan, plan.search_gflops)
     plan = _compile(m, target, graph=_DEFAULT_GRAPH)
     return SparseLinear(m, _DEFAULT_GRAPH, plan)
+
+
+def sparsify_linear_sharded(w: np.ndarray, mesh, density: float = 0.1,
+                            do_search: bool = False,
+                            dist_config=None) -> SparseLinear:
+    """Deprecated shim: prune + sharded ``repro_torch.compile``.
+
+    The pruned weight is partitioned over the mesh's ``data`` axis and
+    each shard gets its own design (heuristic by default; ``do_search=True``
+    runs one AlphaSparse search per shard). The returned layer's program is
+    a ``ShardedSpmvPlan``, whose per-family stacked formats hold one slice
+    a shard."""
+    warn_once("sparsify_linear_sharded",
+              "sparsify_linear_sharded is deprecated; use repro_torch."
+              "compile(prune_magnitude(w, density), Target(mesh=mesh)) and "
+              "SparseLinear.from_plan(plan)")
+    from repro_torch.api import Target, compile as _compile
+    from repro_torch.dist.search import ShardedSearchConfig
+
+    m = prune_magnitude(np.asarray(w), density)
+    cfg = dist_config or ShardedSearchConfig()
+    target = Target(backend=cfg.backend, interpret=cfg.interpret, mesh=mesh,
+                    axis_name=cfg.axis_name, partition=cfg.mode,
+                    balance=cfg.balance)
+    plan = _compile(m, target, budget=cfg if do_search else None)
+    return SparseLinear(m, None, plan)

@@ -206,18 +206,27 @@ def test_default_target_is_cuda_and_never_runs_on_cpu():
 
 
 def test_later_slices_raise():
-    """Sharded targets are a later slice (the multi-RHS path is ported:
-    tests/test_torch_spmm.py; dynamic-sparsity updates too:
+    """What the port refuses, as the reference does (the multi-RHS path is
+    ported: tests/test_torch_spmm.py; dynamic-sparsity updates too:
     tests/test_torch_dyn.py, here only an empty delta; the learned and
-    portfolio strategies: tests/test_torch_corpus.py)."""
+    portfolio strategies: tests/test_torch_corpus.py; sharded targets:
+    tests/test_torch_dist.py). A sharded plan refuses an in-place update
+    (a delta can cross shard bounds), and a mesh must be a
+    ``repro_torch.dist.DataMesh``."""
+    from repro_torch.dist import make_data_mesh
     from repro_torch.dyn import PatternDelta
     m = _port(banded_matrix(64, 2, seed=0))
     plan = repro_torch.compile(m, repro_torch.Target(backend="torch"),
                                graph=_port_graph(FAMILIES["ell"]))
-    upd = plan.update(PatternDelta.from_matrices(m, m))
+    delta = PatternDelta.from_matrices(m, m)
+    upd = plan.update(delta)
     assert upd.plan_version == plan.plan_version + 1
     assert all(torch.equal(upd.fmt[k], t) for k, t in plan.fmt.items())
+    sharded = repro_torch.compile(m, repro_torch.Target(
+        backend="torch", mesh=make_data_mesh(2, device="cpu")))
     with pytest.raises(NotImplementedError):
+        sharded.update(delta)
+    with pytest.raises(TypeError, match="DataMesh"):
         repro_torch.Target(backend="torch", mesh=object())
 
 

@@ -10,6 +10,10 @@ also runs where jax is not installed.
 Tolerance ``1e-4 * max|plain| + 1e-6``: the kernels sum in another order,
 and K4/K6 add with atomics whose order changes from run to run.
 """
+import functools
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -613,6 +617,149 @@ def test_spmv_engine_on_the_card(dev):
         assert np.abs(r.y - o).max() <= 1e-3 * np.abs(o).max() + 1e-5
 
 
+@functools.cache
+def _smoke():
+    """``chip_smoke.py`` (the repository's smoke run on the card), whose
+    row-sum probe and bucket-moving mutation these tests share."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_row_sums_do_not_depend_on_width_or_launch(dev):
+    """A row padded with zero slots to each W and launched among 1, 128
+    and 65,536 rows of random others: K1 and K5 give it the same bits
+    everywhere, as do K7 and K9 at B = 8 (several random rows: a short
+    row's sums in two orders agree by chance about one time in three);
+    ``row_sum_bits`` holds K1's sum to its plain version."""
+    smoke = _smoke()
+    for n, widths, seeds in smoke.ROW_SUM_CASES:
+        for seed in range(seeds):
+            got = smoke.row_sum_bits(n, widths, seed)
+            distinct = {k: len(v) for k, v in got.items()}
+            assert all(v == 1 for v in distinct.values()), (n, seed, distinct)
+            assert got["K1"] == got["K5"] and got["K7"] == got["K9"]
+
+
+def test_rowmap_combine_matches_plain_and_repeats_bit_for_bit(dev):
+    from repro_torch.kernels.combine import combine_order
+    rng = np.random.default_rng(3)
+    for n_rows, n, b in ((50, 4000, 1), (7, 300, 8), (1000, 50000, 3)):
+        rm = torch.from_numpy(rng.integers(-1, n_rows, n).astype(np.int32))
+        flat = torch.from_numpy(rng.standard_normal(
+            (n,) if b == 1 else (n, b)).astype(np.float32))
+        y0 = torch.from_numpy(rng.standard_normal(
+            (n_rows,) if b == 1 else (n_rows, b)).astype(np.float32))
+        perm, off = combine_order(rm, n_rows)
+        want = ref.rowmap_combine_ref(y0.clone(), flat, perm, off)
+        g = [t.to(dev) for t in (y0, flat, perm, off)]
+        before = ops.rowmap_combine.launches
+        outs = [ops.rowmap_combine(g[0].clone(), *g[1:]) for _ in range(3)]
+        assert ops.rowmap_combine.launches == before + 3
+        _close(outs[0], want)
+        assert all(torch.equal(o, outs[0]) for o in outs)
+        assert torch.equal(combine_order(rm.to(dev), n_rows)[0].cpu(),
+                           perm)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["row", "col"])
+def test_sharded_plan_on_the_card(dev, mode, dtype, tmp_path):
+    """A 4-shard plan on cuda:0 (row/col; 1-D and B = 8; fp32 and bf16
+    stacks) against its CPU twin on the torch backend and the oracle; two
+    calls and the saved-and-loaded plan give the same bits; the ordered
+    combine launched."""
+    from repro_torch.dist import make_data_mesh
+    m = tm.powerlaw_matrix(3000, 2800, 6.0, 1.2, seed=3)
+    mesh = make_data_mesh(4, device="cuda:0")
+    plan = repro_torch.compile(m, repro_torch.Target(
+        mesh=mesh, partition=mode, dtype=dtype))
+    twin = repro_torch.compile(m, repro_torch.Target(
+        backend="torch", mesh=make_data_mesh(4, device="cpu"),
+        partition=mode, dtype=dtype))
+    assert plan.steps_json == twin.steps_json
+    path = tmp_path / "sharded.plan.npz"
+    plan.save(path)
+    loaded = repro_torch.load_plan(path, mesh=mesh)
+    for b in (1, 8):
+        x = np.random.default_rng(b).standard_normal(
+            (m.n_cols,) if b == 1 else (m.n_cols, b)).astype(np.float32)
+        before = ops.rowmap_combine.launches
+        y = plan(x)
+        assert y.is_cuda and ops.rowmap_combine.launches > before
+        _close(y, twin(x))
+        o = m.spmv_dense_oracle(x) if b == 1 else m.spmm_dense_oracle(x)
+        tol = 1e-4 if dtype == "float32" else 2e-2
+        assert np.abs(y.cpu().numpy() - o).max() <= tol * np.abs(o).max()
+        assert torch.equal(plan(x), y) and torch.equal(loaded(x), y)
+
+
+def test_sharded_families_on_padding_tiles_on_the_card(dev):
+    """Each shard designed with another family (ELL, seg_scan, one-hot,
+    gmem_atom): every family's stack holds all-padding tiles for three of
+    the four shards, and K1/K3/K4/K7/K10a/K10b run them; the answer holds
+    to the oracle at B = 1 and 8."""
+    import itertools
+    from repro_torch.dist import make_data_mesh
+    from repro_torch.dist.spmv import shard_map_spmv
+    seg = lambda red: OperatorGraph.chain(
+        OpSpec.make("COMPRESS"),
+        OpSpec.make("LANE_NNZ_BLOCK", chunk=128, lanes=8), OpSpec.make(red))
+    graphs = itertools.cycle([
+        OperatorGraph.chain(OpSpec.make("COMPRESS"),
+                            OpSpec.make("TILE_ROW_BLOCK", rows=16),
+                            OpSpec.make("LANE_ROW_BLOCK"),
+                            OpSpec.make("LANE_TOTAL_RED")),
+        seg("SEG_SCAN_RED"), seg("ONEHOT_MXU_RED"), seg("GMEM_ATOM_RED")])
+    m = tm.powerlaw_matrix(3000, 2800, 6.0, 1.2, seed=4)
+    for mode in ("row", "col"):
+        prog = shard_map_spmv(m, make_data_mesh(4, device="cuda:0"),
+                              mode=mode, graph_for=lambda sub: next(graphs))
+        assert len(prog.steps) == 4
+        for b in (1, 8):
+            x = np.random.default_rng(b).standard_normal(
+                (m.n_cols,) if b == 1 else (m.n_cols, b)).astype(np.float32)
+            o = m.spmv_dense_oracle(x) if b == 1 else m.spmm_dense_oracle(x)
+            y = prog(x).cpu().numpy()
+            assert np.abs(y - o).max() <= 1e-4 * np.abs(o).max()
+
+
+def test_sharded_searched_plan_on_the_card(dev):
+    """dist_search on 4 shards of one card, pooled, with a shard that
+    crashes: the shard falls back and the answer holds to the oracle."""
+    import warnings
+    from repro_torch.dist import make_data_mesh
+    from repro_torch.dist.search import (ShardedSearchConfig, dist_search,
+                                         shard_fault_hook)
+    m = tm.powerlaw_matrix(4000, 4000, 8.0, 1.2, seed=5)
+    cfg = ShardedSearchConfig(
+        search=repro_torch.SearchConfig(max_seconds=8, max_structures=2,
+                                        coarse_samples=1,
+                                        fine_eval_budget=0,
+                                        use_cost_model=False, seed=0),
+        min_nnz_for_search=1)
+
+    def crash(shard):
+        if shard.index == 0:
+            raise RuntimeError("injected shard crash")
+
+    x = np.random.default_rng(0).standard_normal(m.n_cols).astype(np.float32)
+    o = m.spmv_dense_oracle(x)
+    mesh = make_data_mesh(4, device="cuda:0")
+    res = dist_search(m, mesh, cfg)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        with shard_fault_hook(crash):
+            hurt = dist_search(m, mesh, cfg)
+    assert hurt.failed_shards() == [0]
+    assert hurt.failure_counts.get("fallback") == 1
+    for r in (res, hurt):
+        y = r.program(x).cpu().numpy()
+        assert np.abs(y - o).max() <= 1e-3 * np.abs(o).max() + 1e-5
+
+
 def _keep_lengths_mutation(m, seed):
     """Revalue 10 %, drop 5 % and re-add one new entry into every row that
     lost one: every row keeps its length, so a fresh compile designs the
@@ -640,27 +787,39 @@ def _keep_lengths_mutation(m, seed):
         np.concatenate([vals[keep], add_v])).canonical()
 
 
+@pytest.mark.parametrize("delta_kind", ["keep_lengths", "move_buckets"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_update_on_the_card_matches_a_fresh_compile(dev, dtype):
+def test_update_on_the_card_matches_a_fresh_compile(dev, dtype, delta_kind):
     """SpmvPlan.update on the cuda backend (the reference's 96 x 96 dyn
     matrix, the capacity ELL design, which runs K1): bit-identical to a
-    fresh cuda compile of the mutated matrix, tensor for tensor and in its
-    output; the source plan still answers for the old matrix."""
+    fresh cuda compile of the mutated matrix in its output, and, where
+    every row keeps its length, tensor for tensor; the source plan still
+    answers for the old matrix. A delta that shrinks rows leaves them in
+    their buckets in the patched plan and moves them to narrower ones in
+    the fresh compile: K1's row sums do not depend on the width."""
     from repro_torch.dyn import PatternDelta, check_capacity
     from repro_torch.train.dynamic import capacity_graph
     m = tm.powerlaw_matrix(96, 96, 12.0, 1.2, seed=3)
     target = repro_torch.Target(dtype=dtype)
     plan = repro_torch.compile(m, target, graph=capacity_graph())
-    m1 = _keep_lengths_mutation(m, seed=2)
-    np.testing.assert_array_equal(m1.row_lengths(), m.row_lengths())
+    if delta_kind == "keep_lengths":
+        m1 = _keep_lengths_mutation(m, seed=2)
+        np.testing.assert_array_equal(m1.row_lengths(), m.row_lengths())
+    else:
+        m1 = _smoke().bucket_moving_mutation(m, seed=2)
     delta = PatternDelta.from_matrices(m, m1)
     assert check_capacity(plan, delta)
     upd = plan.update(delta)
     fresh = repro_torch.compile(m1, target, graph=capacity_graph())
     assert upd.plan_version == plan.plan_version + 1
-    assert sorted(upd.fmt) == sorted(fresh.fmt)
-    for k, t in fresh.fmt.items():
-        assert upd.fmt[k].is_cuda and torch.equal(upd.fmt[k], t), k
+    if delta_kind == "keep_lengths":
+        assert sorted(upd.fmt) == sorted(fresh.fmt)
+        for k, t in fresh.fmt.items():
+            assert upd.fmt[k].is_cuda and torch.equal(upd.fmt[k], t), k
+    else:   # the layouts differ: the rows did move between buckets
+        buckets = lambda p: [(st["report"]["width"], st["report"]["tiles"])
+                             for st in p.spec["steps"]]
+        assert buckets(upd) == buckets(plan) != buckets(fresh)
     x = np.random.default_rng(0).standard_normal(m.n_cols).astype(np.float32)
     assert torch.equal(upd(x), fresh(x))
     tol = 1e-5 if dtype == "float32" else 2e-2
