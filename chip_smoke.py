@@ -11,7 +11,9 @@ K1-K6); the serving path is ``prune_magnitude`` -> ``compile(...,
 Target(batch_size=8), store=)`` -> ``PlanExecutor`` -> ``SpmvEngine``
 with a ``PlanStore`` hot-swap (the multi-RHS kernels K7-K11); the sharded
 path is ``compile(matrix, Target(mesh=make_data_mesh(4, device="cuda:0")))``
--> ``ShardedSpmvPlan`` (phase 12). Phases, each printing its seconds:
+-> ``ShardedSpmvPlan`` (phase 12); the LLM serving path is
+``ServingEngine`` -> ``ModelExecutor`` -> ``CausalLM`` (phase 13). Phases,
+each printing its seconds:
 
 1. device: the card's name and power limit, the kernels' nvcc build;
 2. SpMV kernels on small odd shapes (T not a multiple of tiles_per_step,
@@ -145,14 +147,39 @@ path is ``compile(matrix, Target(mesh=make_data_mesh(4, device="cuda:0")))``
    on the serving weight answering an (8, 4096) batch. The ordered
    combine (``rowmap_combine``) is timed at shard 0's ELL step of the
    first serving plan with an ELL family and joins the kernel report as
-   a thirteenth row.
+   a thirteenth row;
+13. LLM serving (``repro_torch.models``, ``ModelExecutor``,
+   ``ServingEngine``; seeded random weights, full widths, no kernel of
+   its own): (a) qwen3-8b at depth 2, fp32: ``decode_step`` over 16
+   tokens and ``prefill`` against ``forward`` by tests/test_models.py's
+   2e-3 rule, block 0 and the head against float64 on the CPU, a request
+   joining mid-flight against the same request alone (same tokens,
+   bit-identical slot caches; an ``llm_check {...}`` line); (b) qwen3-8b
+   at its full 36 layers, bf16 weights: a ``ServingEngine`` of 8 slots
+   (max_seq 512, 32 new tokens) serves 16 seeded requests (prompts of
+   8-64 tokens) arriving one every two steps, the second eight joining
+   mid-flight; then one decode step of 8 live rows timed as a caller
+   sees it (``step_ms``), on the card alone (``step_device_ms``: the step
+   in a CUDA graph, under ``device_ms``) and under ``torch.profiler``
+   (kernels a step), beside the bound of its weight and cache bytes (an
+   ``llm_serve {...}`` line); (c) deepseek-moe-16b at depth 2, fp32:
+   one-hot against sorted dispatch on (4, 512) tokens at capacity factor
+   8 (rtol 2e-4, atol 2e-5) and 1.25 (equal drops), decode against
+   forward at a drop-free capacity, then layer 0's routing of 2048
+   tokens as a ``routing_matrix`` (2048 x 64, 12,288 nnz) compiled on
+   ``capacity_graph()`` and patched in place by a 25 % churn, held to the
+   oracle, its ELL kernel (K1 or K5) to the plain version, its launches
+   counted (an ``llm_moe {...}`` line); (d) mamba2-1.3b at depth 2, fp32:
+   ``prefill`` of 256 tokens and 256 ``decode_step`` s against
+   ``forward`` over 512 (an ``llm_ssm {...}`` line).
 
 Phases 3-4 and phases 6-7 are the two paths: the launch counters are set
 to 0 before each and read after it, and each of its kernels must have
 launched. Phase 10 is read the same way: K1 and K6 must launch in it;
 phase 11 prints its own process's counts (its searches pick the
 kernels); in phase 12 every kernel its plans' families dispatch to, and
-the combine, must launch. The last two lines are the kernel report (the
+the combine, must launch; in phase 13's churn run K1 or K5 must
+launch, and no other kernel. The last two lines are the kernel report (the
 twelve kernels and the combine) and ``{"ok": true, "device": {...}}``.
 ``--kernel-report`` runs phases 1 and 3-8 alone and prints the twelve
 rows: copied into a checkout of another commit, it times that commit's
@@ -163,6 +190,7 @@ repository. It imports neither jax nor ``repro``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import re
@@ -2669,6 +2697,510 @@ def dist_phase(W, P, xp, oracle_p, x8, oracle8, dense, designer) -> dict:
     return row
 
 
+# -------------------------------- phase 13 --------------------------------
+
+QWEN, DEEPSEEK, MAMBA = "qwen3-8b", "deepseek-moe-16b", "mamba2-1.3b"
+LLM_TOL = 2e-3           # tests/test_models.py: decode vs forward, rtol = atol
+F64_TOL = 1e-3           # the card against float64 on the CPU, x max|y|
+MOE_RTOL, MOE_ATOL = 2e-4, 2e-5   # tests/test_models.py: sorted vs onehot
+
+
+def llm_cfg(name: str, n_layers=None, **moe):
+    """An assigned architecture at full width, its depth cut to
+    ``n_layers`` (None: the published depth), its MoE fields replaced."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe))
+    return cfg
+
+
+def within_2e3(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """``got`` against ``want`` by the reference test's rule, |got - want|
+    <= 2e-3 + 2e-3 * |want| everywhere; returns the max abs error."""
+    g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+    require(g.shape == w.shape and np.isfinite(g).all(),
+            f"{label}: bad shape or non-finite values")
+    err = np.abs(g - w)
+    excess = float((err - (LLM_TOL + LLM_TOL * np.abs(w))).max())
+    print(f"  {label}: max_abs_err {err.max():.3e} (rule 2e-3 + 2e-3|ref|, "
+          f"worst excess {excess:.3e})")
+    require(excess <= 0, f"{label}: outside the 2e-3 rule")
+    return float(err.max())
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.models.model import _leaves
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def decode_against_forward(label, model, tokens, start: int = 0,
+                           caches=None) -> float:
+    """Stepwise ``decode_step`` from position ``start`` (fresh caches, or
+    ``caches`` from a prefill) against ``forward`` over ``tokens``."""
+    b, s = tokens.shape
+    full, _ = model(tokens)
+    if caches is None:
+        caches = model.cache_spec(b, s)
+    errs = []
+    for t in range(start, s):
+        step, caches = model.decode_step(tokens[:, t: t + 1],
+                                         torch.tensor(t), caches)
+        g, w = step[:, 0].cpu().numpy(), full[:, t].float().cpu().numpy()
+        require(np.isfinite(g).all(), f"{label}: non-finite logits at {t}")
+        excess = (np.abs(g - w) - (LLM_TOL + LLM_TOL * np.abs(w))).max()
+        require(excess <= 0, f"{label}: position {t} outside the 2e-3 rule "
+                f"(excess {excess:.3e})")
+        errs.append(float(np.abs(g - w).max()))
+    print(f"  {label}: {len(errs)} decoded positions within 2e-3 of forward "
+          f"(max_abs_err {max(errs):.3e})")
+    return max(errs)
+
+
+def serve_solo_and_joined(cfg, params, dev) -> dict:
+    """A request served alone against the same request joining mid-flight,
+    two steps behind its neighbour: the same tokens, bit-identical slot
+    caches."""
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    sc = ServeConfig(max_batch=2, max_seq=64, max_new_tokens=6)
+    prompts = ([11, 22, 33], [7, 8, 9, 10, 11])
+
+    def solo(prompt):
+        eng = ServingEngine(cfg, sc, params=params, device=dev)
+        r = Request(0, np.asarray(prompt))
+        eng.run([r])
+        return tuple(r.out_tokens), eng, r._slot
+
+    runs = [solo(p) for p in prompts]
+    eng = ServingEngine(cfg, sc, params=params, device=dev)
+    reqs = [Request(i, np.asarray(p)) for i, p in enumerate(prompts)]
+    require(eng.submit(reqs[0]), "no free slot")
+    eng.step()
+    eng.step()
+    require(eng.submit(reqs[1]), "no free slot")   # joins mid-flight
+    while eng.active or eng.queue:
+        eng.step()
+    same_bits = True
+    for (tokens, solo_eng, slot), req in zip(runs, reqs):
+        require(tuple(req.out_tokens) == tokens,
+                f"joined request {req.rid}: tokens {req.out_tokens} differ "
+                f"from the solo run's {tokens}")
+        for c_solo, c_join in zip(solo_eng.executor.caches,
+                                  eng.executor.caches):
+            same_bits &= all(torch.equal(c_solo[k][:, slot],
+                                         c_join[k][:, req._slot])
+                             for k in c_solo)
+    require(same_bits, "a joined slot's caches differ from the solo run's")
+    print(f"  mid-flight join: tokens {[r.out_tokens for r in reqs]} equal "
+          "the solo runs', slot caches bit-identical")
+    return {"tokens": [r.out_tokens for r in reqs], "bit_identical": True}
+
+
+def block_and_head_f64(model, tokens) -> float:
+    """The first pattern block, the final norm and the head on the card
+    (fp32) against the same port functions on the CPU in float64."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    cfg = model.cfg
+    specs = M.pattern_specs(cfg)
+
+    def run(params, block, h):
+        pos = torch.arange(h.shape[1], device=h.device)[None]
+        h, _ = M._block_body(cfg, specs, block, h, pos)
+        return M._logits(cfg, params, L.apply_norm(params["final_norm"], h))
+
+    block0 = M.block_views(model.params)[0]
+    with torch.inference_mode():
+        h = model.params["embed"][tokens]
+        y = run(model.params, block0, h)
+        # the head's weights (the embedding only where it is tied)
+        part = {k: model.params[k] for k in ("final_norm", "lm_head")
+                if k in model.params}
+        if cfg.tie_embeddings:
+            part["embed"] = model.params["embed"]
+        to64 = functools.partial(M.tree_map, lambda t: t.detach().cpu()
+                                 .double())
+        y64 = run(to64(part), to64(block0), h.cpu().double())
+    err = float((y.double().cpu() - y64).abs().max())
+    tol = F64_TOL * float(y64.abs().max()) + 1e-5
+    print(f"  block 0 + head on the card vs float64 on the CPU: max_abs_err "
+          f"{err:.3e} (tol {tol:.3e})")
+    require(err <= tol, "block 0 + head disagree with float64")
+    return err
+
+
+def llm_correctness(dev) -> dict:
+    """(a) qwen3-8b at full width, depth 2, fp32 on the card."""
+    from repro_torch.models import CausalLM
+    cfg = llm_cfg(QWEN, 2)
+    model = CausalLM(cfg, seed=0, device=dev)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "param_bytes": tree_bytes(model.params)}
+    rng = np.random.default_rng(13)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16))).to(dev)
+    with torch.inference_mode():
+        out["decode_vs_forward"] = decode_against_forward(
+            "qwen3 decode_step vs forward", model, tokens)
+        full, _ = model(tokens)
+        last, pre = model.prefill(tokens)
+        out["prefill_vs_forward"] = within_2e3(
+            "qwen3 prefill vs forward (last position)", last[:, 0],
+            full[:, -1])
+        caches = model.cache_spec(2, 16)
+        for t in range(16):
+            _, caches = model.decode_step(tokens[:, t: t + 1],
+                                          torch.tensor(t), caches)
+        out["prefill_caches_vs_decode"] = max(
+            within_2e3(f"qwen3 prefill {k} cache vs decoded", p[k], c[k])
+            for p, c in zip(pre, caches) for k in p)
+    out["f64_max_abs_err"] = block_and_head_f64(model, tokens[:1, :8])
+    out["join"] = serve_solo_and_joined(cfg, model.params, dev)
+    print(f"llm_check {json.dumps(out)}")
+    return out
+
+
+def step_profile(fn) -> dict:
+    """Kernels and launch calls of one ``fn()`` under ``torch.profiler``,
+    and the card's busy time in them; None where the profiler saw no
+    device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    device = [e for e in events if getattr(e, "device_type", None) == cuda]
+    kernels = [e for e in device if not e.name.startswith(("Memcpy",
+                                                           "Memset"))]
+    calls = [e for e in events if "LaunchKernel" in e.name]
+    if not device:
+        return {"kernels_per_step": None, "launch_calls_per_step": len(calls),
+                "profiled_busy_ms": None}
+    busy_us = sum(e.time_range.elapsed_us() for e in device)
+    return {"kernels_per_step": len(kernels),
+            "launch_calls_per_step": len(calls),
+            "memcpy_memset_per_step": len(device) - len(kernels),
+            "profiled_busy_ms": busy_us / 1e3}
+
+
+def graph_device_ms(fn, reps: int = 10) -> float:
+    """``fn``'s time on the card alone: captured once in a CUDA graph and
+    replayed under ``device_ms``. Eager, a decode step's thousands of
+    launches fill the launch queue while the sleep kernel runs, so the
+    host can never get ahead of the card; a replay is one launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return device_ms(graph.replay, reps=reps, warmup=2)
+
+
+def llm_serve_full(dev) -> dict:
+    """(b) qwen3-8b at full width and depth, bf16 weights on the card:
+    16 seeded requests (prompts of 8-64 tokens) arrive one every two
+    engine steps at a ``ServingEngine`` of 8 slots; the second eight join
+    mid-flight as slots free. Then one decode step of 8 live rows is
+    timed (``ms``, ``device_ms``) and profiled."""
+    from repro_torch.models import padded_vocab
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    from repro_torch.serve.engine import _percentile
+    cfg = llm_cfg(QWEN)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sc = ServeConfig(max_batch=8, max_seq=512, max_new_tokens=32,
+                     compute_dtype="bfloat16")
+    eng = ServingEngine(cfg, sc, device=dev)
+    ex = eng.executor
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # one step that commits nothing: cuBLAS and the allocator warm up
+    ex.decode(np.zeros((8, 1), np.int32), np.zeros(8, np.int32),
+              np.zeros(8, bool))
+    rng = np.random.default_rng(20)
+    lens = rng.integers(8, 65, 16)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, int(n)))
+            for i, n in enumerate(lens)]
+    pending = list(reqs)
+    steps, t0 = 0, time.perf_counter()
+    while pending or eng.queue or eng.active:
+        if pending and steps % 2 == 0:
+            eng.enqueue(pending.pop(0))
+        eng.step()
+        steps += 1
+        require(steps <= sc.max_steps, "serving did not terminate")
+    wall = time.perf_counter() - t0
+    failed = sum(r.failed for r in reqs)
+    require(failed == 0 and all(r.done and len(r.out_tokens) == 32
+                                for r in reqs),
+            f"{failed} failed requests, or a request not done")
+    first_done = min(r.t_done for r in reqs[:8])
+    last_done = max(r.t_done for r in reqs[:8])
+    joined = sum(first_done <= r.t_first <= last_done for r in reqs[8:])
+    lats = sorted(r.latency_s for r in reqs)
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    # the step: 8 live rows at depth 300
+    tok, pos, rows = ex.inputs(rng.integers(0, cfg.vocab, (8, 1)),
+                               np.full(8, 300), np.ones(8, bool))
+    logits = ex.step(tok, pos, rows)
+    require(bool(torch.isfinite(logits).all()), "non-finite logits")
+    ms = cuda_ms(lambda: ex.step(tok, pos, rows), reps=10, warmup=2)
+    dev_ms = graph_device_ms(lambda: ex.step(tok, pos, rows))
+    prof = step_profile(lambda: ex.step(tok, pos, rows))
+    wb = tree_bytes(ex.params)
+    cb = tree_bytes(ex.caches)
+    bound_bytes = wb + cb + 8 * padded_vocab(cfg) * 4
+    line = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": "bfloat16",
+            "max_batch": 8, "max_seq": 512, "max_new_tokens": 32,
+            "requests": len(reqs), "prompt_tokens": int(lens.sum()),
+            "tokens": tokens, "failed": failed, "joined_mid_flight": joined,
+            "wall_s": wall, "tok_per_s": tokens / wall,
+            "decode_steps": steps,
+            "executor_decodes": steps + int(lens.sum()),
+            "latency_p50_s": _percentile(lats, 50),
+            "latency_p99_s": _percentile(lats, 99), "init_s": init_s,
+            "step_ms": ms, "step_device_ms": dev_ms,
+            "weight_bytes": wb, "weight_bound_ms": wb / HBM_BYTES_PER_S * 1e3,
+            "cache_bytes": cb,
+            "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    line.update(prof)
+    print(f"llm_serve {json.dumps(line)}")
+    require(joined > 0, "no request of the second eight joined mid-flight")
+    return line
+
+
+def capacity_drops(cfg, idx, impl: str) -> int:
+    """(token, k) pairs past their expert's capacity, by each dispatch's
+    own ranking: the one-hot cumsum over (s, k), or the stable sort."""
+    from repro_torch.models import moe as MOE
+    e, (b, s, k) = cfg.moe, idx.shape
+    cap = MOE._capacity(cfg, s)
+    if impl == "onehot":
+        oh = MOE._one_hot(idx, e.n_experts, torch.float32)
+        pos = torch.cumsum(oh.reshape(b, s * k, e.n_experts), 1) - 1.0
+        return int(((oh.reshape(b, s * k, -1) > 0) & (pos >= cap)).sum())
+    flat = idx.reshape(b, s * k)
+    srt = torch.gather(flat, 1, torch.argsort(flat, dim=1, stable=True))
+    counts = MOE._one_hot(srt, e.n_experts, torch.int64).cumsum(1)
+    rank = torch.gather(counts, 2, srt[..., None])[..., 0] - 1
+    return int((rank >= cap).sum())
+
+
+def churn_routes(idx0, g0, n_experts: int, seed: int = 0):
+    """tests/test_dyn.py's churn: a quarter of the tokens re-route one
+    expert slot to an expert they do not use; every gate moves."""
+    rng = np.random.default_rng(seed)
+    idx1, g1 = idx0.copy(), g0 + 0.01
+    k = idx0.shape[1]
+    for t in rng.choice(len(idx0), len(idx0) // 4, replace=False):
+        free = np.setdiff1d(np.arange(n_experts), idx1[t])
+        idx1[t, rng.integers(k)] = rng.choice(free)
+    return idx1, g1
+
+
+def layer0_routes(model, toks):
+    """Layer 0's router on its real input, ln2(embed + attention):
+    (gates, idx), each (B, S, K)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.model import block_views
+    cfg, p0 = model.cfg, block_views(model.params)[0][0]
+    with torch.inference_mode():
+        h = model.params["embed"][toks]
+        pos = torch.arange(toks.shape[1], device=toks.device)[None]
+        h = h + L.attention_train(cfg, p0["attn"],
+                                  L.apply_norm(p0["ln1"], h), pos)
+        gates, idx, _ = MOE._router(cfg, p0["ffn"],
+                                    L.apply_norm(p0["ln2"], h))
+    return gates, idx
+
+
+def moe_churn(cfg, model, dev) -> dict:
+    """Layer 0's router on 2048 tokens of the model's own activations,
+    its routing matrix compiled on ``capacity_graph()``, a 25 % churn
+    patched in place: held to the oracle, the plan's ELL kernel to its
+    plain version, its launches counted."""
+    import repro_torch
+    from repro_torch.dyn import PatternDelta, check_capacity
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import moe as MOE
+    from repro_torch.train.dynamic import capacity_graph
+    rng = np.random.default_rng(21)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 2048))).to(dev)
+    gates, idx = layer0_routes(model, toks)
+    idx0, g0 = idx[0].cpu().numpy(), gates[0].cpu().numpy()
+    m0 = MOE.routing_matrix(idx0, g0, cfg.moe.n_experts)
+    idx1, g1 = churn_routes(idx0, g0, cfg.moe.n_experts)
+    m1 = MOE.routing_matrix(idx1, g1, cfg.moe.n_experts)
+    delta = PatternDelta.from_matrices(m0, m1)
+    require(delta.n_added == delta.n_removed > 0, "the churn moved nothing")
+    x = rng.standard_normal(cfg.moe.n_experts).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    reset_launch_counts()                    # the churn run starts here
+    t0 = time.perf_counter()
+    plan = repro_torch.compile(m0, repro_torch.Target(),
+                               graph=capacity_graph())
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    require(bool(check_capacity(plan, delta)), "the churn does not fit")
+    t0 = time.perf_counter()
+    upd = plan.update(delta)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) * 1e3
+    err = check_exact("routing plan after the churn", upd(xd), m1, x)
+    check_exact("routing plan before the churn", plan(xd), m0, x)
+    torch.cuda.synchronize()
+    launches = launch_counts()               # ... and ends here
+    ell = {k: launches[k] for k in ("K1", "K5") if launches[k]}
+    require(ell and sum(launches.values()) == sum(ell.values()),
+            f"the routing plan launched {launches}, not K1/K5 alone")
+    kerr = 0.0
+    for step in upd.spec["steps"]:
+        o = _operands(upd, step)
+        v, c = o["vals"], o["cols"]
+        if step.get("fused"):
+            b0 = step["combine"]["b0"]
+            got = ops.ell_spmv_fused(v, c, xd, n_rows=m1.n_rows, row0=b0,
+                                     tiles_per_step=upd.spec[
+                                         "tiles_per_step"])
+            want = ref.ell_spmv_fused_ref(v, c, xd, n_rows=m1.n_rows,
+                                          row0=b0)
+            kid = "K5"
+        else:
+            got, want, kid = ops.ell_spmv(v, c, xd), ref.ell_spmv_ref(
+                v, c, xd), "K1"
+        kerr = max(kerr, check_kernel(f"routing plan {step['key']} {kid} "
+                                      f"{tuple(v.shape)}", got, want))
+    return {"routing_nnz": m0.nnz, "routing_shape": [m0.n_rows, m0.n_cols],
+            "churn": {"added": delta.n_added, "removed": delta.n_removed,
+                      "revalued": delta.n_revalued},
+            "steps": len(upd.spec["steps"]),
+            "fused_steps": sum(bool(s.get("fused"))
+                               for s in upd.spec["steps"]),
+            "compile_s": compile_s, "update_ms": update_ms,
+            "oracle_max_abs_err": err, "kernel_max_abs_err": kerr,
+            "launches": ell, "call_ms": cuda_ms(lambda: upd(xd)),
+            "call_device_ms": device_ms(lambda: upd(xd))}
+
+
+def llm_moe(dev) -> dict:
+    """(c) deepseek-moe-16b at full width, depth 2, fp32."""
+    from repro_torch.models import CausalLM
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.model import block_views
+    cfg = llm_cfg(DEEPSEEK, 2, impl="onehot", capacity_factor=8.0)
+    model = CausalLM(cfg, seed=1, device=dev)
+    p0 = block_views(model.params)[0][0]
+    rng = np.random.default_rng(22)
+    line = {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+            "shared": cfg.moe.n_shared, "d_expert": cfg.moe.d_expert,
+            "param_bytes": tree_bytes(model.params)}
+    with torch.inference_mode():
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 512))).to(dev)
+        x = L.apply_norm(p0["ln2"], model.params["embed"][toks])
+        for cf in (8.0, 1.25):
+            cfgs = {impl: llm_cfg(DEEPSEEK, 2, impl=impl, capacity_factor=cf)
+                    for impl in ("onehot", "sorted")}
+            ys, t = {}, {}
+            for impl, c in cfgs.items():
+                ys[impl] = MOE.apply_moe(c, p0["ffn"], x)
+                t[impl] = cuda_ms(lambda c=c: MOE.apply_moe(c, p0["ffn"], x),
+                                  reps=5, warmup=1)
+            _, idx, _ = MOE._router(cfgs["onehot"], p0["ffn"], x)
+            drops = {impl: capacity_drops(c, idx, impl)
+                     for impl, c in cfgs.items()}
+            (y1, a1), (y2, a2) = ys["onehot"], ys["sorted"]
+            d = (y1 - y2).abs()
+            excess = float((d - (MOE_ATOL + MOE_RTOL * y2.abs())).max())
+            print(f"  apply_moe (4, 512) cf {cf}: onehot vs sorted "
+                  f"max_abs_err {float(d.max()):.3e} (worst excess "
+                  f"{excess:.3e}), aux "
+                  f"{float(a1):.6f} / {float(a2):.6f}, drops {drops}, ms "
+                  f"{t}")
+            require(drops["onehot"] == drops["sorted"],
+                    f"cf {cf}: the dispatches drop {drops}")
+            if cf == 8.0:
+                require(excess <= 0, "onehot and sorted disagree at cf 8")
+            line[f"cf{cf}"] = {"max_abs_err": float(d.max()),
+                               "drops": drops["onehot"],
+                               "capacity": MOE._capacity(cfgs["onehot"], 512),
+                               "onehot_ms": t["onehot"],
+                               "sorted_ms": t["sorted"]}
+        # the train path drops past capacity and decode (one token a
+        # row) never does, so decode matches forward only at a drop-free
+        # capacity: tests/test_models.py's cf 8 is one for its reduced
+        # config; at 64 experts top-6 and 16 tokens cf 8 gives capacity
+        # 12 and layer 0 may drop. cf = E / K gives capacity = S.
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16))).to(dev)
+        _, idx = layer0_routes(model, tokens)
+        line["layer0_drops_cf8"] = capacity_drops(cfg, idx, "onehot")
+        cf_free = cfg.moe.n_experts / cfg.moe.top_k
+        free = CausalLM(llm_cfg(DEEPSEEK, 2, capacity_factor=cf_free),
+                        model.params, device=dev)
+        require(MOE._capacity(free.cfg, 16) == 16, "not drop-free")
+        line["decode_vs_forward"] = decode_against_forward(
+            f"deepseek decode_step vs forward (drop-free cf {cf_free:.3f}; "
+            f"layer 0 drops {line['layer0_drops_cf8']} at cf 8)", free,
+            tokens)
+    line.update(moe_churn(cfg, model, dev))
+    print(f"llm_moe {json.dumps(line)}")
+    return line
+
+
+def llm_ssm(dev) -> dict:
+    """(d) mamba2-1.3b at full width, depth 2, fp32: forward over 512
+    tokens against prefill of 256 and 256 decode steps."""
+    from repro_torch.models import CausalLM
+    cfg = llm_cfg(MAMBA, 2)
+    model = CausalLM(cfg, seed=2, device=dev)
+    rng = np.random.default_rng(23)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 512))).to(dev)
+    line = {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "d_state": cfg.ssm.d_state, "chunk": cfg.ssm.chunk,
+            "param_bytes": tree_bytes(model.params)}
+    with torch.inference_mode():
+        full, _ = model(tokens)
+        t0 = time.perf_counter()
+        last, caches = model.prefill(tokens[:, :256])
+        torch.cuda.synchronize()
+        line["prefill_s"] = time.perf_counter() - t0
+        line["prefill_vs_forward"] = within_2e3(
+            "mamba2 prefill(256) vs forward", last[:, 0], full[:, 255])
+        t0 = time.perf_counter()
+        line["decode_vs_forward"] = decode_against_forward(
+            "mamba2 256 decode_steps after prefill vs forward", model,
+            tokens, start=256, caches=caches)
+        line["decode_s"] = time.perf_counter() - t0
+    print(f"llm_ssm {json.dumps(line)}")
+    return line
+
+
+def llm_phase(dev) -> None:
+    """Phase 13: the LLM serving path (``repro_torch.models``,
+    ``ModelExecutor``, ``ServingEngine``) at full width."""
+    done = phase("13 LLM serving")
+    for part in (llm_correctness, llm_serve_full, llm_moe, llm_ssm):
+        t0 = time.perf_counter()
+        part(dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"  {part.__name__}: {time.perf_counter() - t0:.1f} s")
+    done()
+
+
 def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
@@ -2767,6 +3299,7 @@ def main(argv: list) -> int:
                   f"serving searched B={SERVE_B}": (searched, xd)})
     rows.append(dist_phase(W, P, xp, oracle_p, x8, oracle8, searched,
                            designer))
+    llm_phase(torch.device("cuda", torch.cuda.current_device()))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

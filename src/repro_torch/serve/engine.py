@@ -1,19 +1,24 @@
-"""The matvec serving plane's scheduler (port of the ``SpmvEngine`` half of
+"""Serving plane: scheduling engines over dispatch executors (port of
 ``repro.serve.engine``).
 
-Engines own scheduling (request queues, ragged batch formation,
-backpressure, deadlines, retries, health); executors
-(``serve.executor``) own dispatch. :class:`SpmvEngine` is a request loop
-around ``SparseLinear.from_plan``: ragged batches of SpMV requests are
-padded to the plan's bucket geometry and dispatched through a
-:class:`~repro_torch.serve.executor.PlanExecutor`, which runs them on the
-plan's device through the multi-RHS kernels. Between steps the executor
-polls its ``PlanStore`` watch, so a better plan landing from an offline
-search hot-swaps with zero downtime (in-flight batches finish on the old
-plan).
+Engines own scheduling (request queues, slot bookkeeping, ragged batch
+formation, backpressure, deadlines, retries, health); executors
+(``serve.executor``) own dispatch. Two engines share the split:
 
-The token-serving engine (``ServingEngine``, ``Request``,
-``ServeConfig``) waits for the LLM stack (ROADMAP queue 1, item 7).
+* :class:`ServingEngine`: token serving for a (reduced or full) model: a
+  request queue feeding free cache slots, **per-slot decode positions**
+  (slots at different depths decode correctly, so requests join
+  mid-flight without corrupting their neighbours), and live-masked cache
+  commits, so a joining request's prefill never touches another slot's
+  state.
+* :class:`SpmvEngine`: a request loop around ``SparseLinear.from_plan``:
+  ragged batches of SpMV requests are padded to the plan's bucket
+  geometry and dispatched through a
+  :class:`~repro_torch.serve.executor.PlanExecutor`, which runs them on
+  the plan's device through the multi-RHS kernels. Between steps the
+  executor polls its ``PlanStore`` watch, so a better plan landing from
+  an offline search hot-swaps with zero downtime (in-flight batches
+  finish on the old plan).
 """
 from __future__ import annotations
 
@@ -24,10 +29,12 @@ from collections import deque
 from typing import Optional
 
 import numpy as np
+import torch
 
-from .executor import PlanExecutor
+from .executor import ModelExecutor, PlanExecutor
 
-__all__ = ["MatvecRequest", "SpmvEngine"]
+__all__ = ["ServeConfig", "Request", "ServingEngine", "MatvecRequest",
+           "SpmvEngine"]
 
 
 def _percentile(sorted_vals: list, pct: float) -> Optional[float]:
@@ -37,6 +44,182 @@ def _percentile(sorted_vals: list, pct: float) -> Optional[float]:
               max(0, int(round(pct / 100.0 * (len(sorted_vals) - 1)))))
     return sorted_vals[idx]
 
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_batch: int = 4
+    max_seq: int = 256
+    max_new_tokens: int = 32
+    temperature: float = 0.0          # 0 = greedy
+    seed: int = 0
+    compute_dtype: str = "float32"    # 'float32' | 'bfloat16'
+    # run() termination guards: ``max_steps`` caps decode steps,
+    # ``max_wall_s`` caps wall clock; either tripping raises instead of
+    # spinning forever
+    max_steps: int = 10_000
+    max_wall_s: Optional[float] = None
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray
+    out_tokens: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    failed: bool = False               # prefill/decode raised; see error
+    error: Optional[str] = None
+    t_submit: Optional[float] = None   # set at enqueue/submit
+    t_first: Optional[float] = None    # first decoded token
+    t_done: Optional[float] = None
+
+    @property
+    def latency_s(self) -> Optional[float]:
+        if self.t_submit is None or self.t_done is None:
+            return None
+        return self.t_done - self.t_submit
+
+
+class ServingEngine:
+    """Continuous-batching token server: scheduling over a ModelExecutor.
+
+    Slot bookkeeping (positions, free list, queue) is host-side state
+    owned here; all device work lives in the executor, on ``device``
+    (default the GPU; raises without one). Every decode, steady-state
+    and prefill alike, runs with the full per-slot position vector and a
+    ``live`` mask, so a request that joins mid-flight decodes at *its*
+    cache depth and its prefill cannot clobber slots that are further
+    along.
+    """
+
+    def __init__(self, cfg, sc: ServeConfig, params: Optional[dict] = None,
+                 executor: Optional[ModelExecutor] = None, device=None):
+        self.cfg = cfg
+        self.sc = sc
+        dtype = (torch.float32 if sc.compute_dtype == "float32"
+                 else torch.bfloat16)
+        self.dtype = dtype
+        self.executor = executor if executor is not None else ModelExecutor(
+            cfg, sc.max_batch, sc.max_seq, dtype=dtype, params=params,
+            seed=sc.seed, device=device)
+        self.params = self.executor.params
+        self.positions = np.zeros(sc.max_batch, np.int32)
+        self.free = list(range(sc.max_batch))
+        self.active: dict[int, Request] = {}
+        self.queue: deque[Request] = deque()
+
+    # ------------------------------------------------------------------
+    def _prefill_slot(self, slot: int, prompt: np.ndarray):
+        """Sequential prefill into one slot via the decode path. Only this
+        slot is live: neighbours' caches (attention K/V and SSM state)
+        commit nothing while the joiner catches up."""
+        live = np.zeros(self.sc.max_batch, bool)
+        live[slot] = True
+        logits = None
+        for t in prompt:
+            tok = np.zeros((self.sc.max_batch, 1), np.int32)
+            tok[slot, 0] = t
+            logits = self.executor.decode(tok, self.positions, live)
+            self.positions[slot] += 1
+        return logits
+
+    def enqueue(self, req: Request) -> None:
+        """Queue a request; it joins mid-flight at the next step boundary."""
+        if req.t_submit is None:
+            req.t_submit = time.perf_counter()
+        self.queue.append(req)
+
+    def submit(self, req: Request) -> bool:
+        """Prefill ``req`` into a free slot now. False when no slot is
+        free; raises ``ValueError`` on an empty prompt. A prefill failure
+        rolls the slot back to the free list before propagating."""
+        prompt = np.asarray(req.prompt)
+        if prompt.size == 0:
+            raise ValueError(
+                f"request {req.rid}: empty prompt — prompts must contain "
+                "at least one token")
+        if not self.free:
+            return False
+        if req.t_submit is None:
+            req.t_submit = time.perf_counter()
+        slot = self.free.pop()
+        self.positions[slot] = 0
+        req._slot = slot
+        self.active[slot] = req
+        try:
+            self._prefill_slot(slot, prompt)
+        except Exception as e:
+            # roll the slot back AND mark the request terminally failed:
+            # callers holding the request object see what happened even
+            # if they swallow the re-raise; its latency fields close out
+            del self.active[slot]
+            self.positions[slot] = 0
+            self.free.append(slot)
+            req.failed = True
+            req.error = repr(e)
+            req.t_done = time.perf_counter()
+            raise
+        return True
+
+    def step(self) -> None:
+        """Admit queued joiners, then one decode over all active slots,
+        each at its own position."""
+        while self.queue and self.free:
+            self.submit(self.queue.popleft())
+        if not self.active:
+            return
+        tok = np.zeros((self.sc.max_batch, 1), np.int32)
+        live = np.zeros(self.sc.max_batch, bool)
+        for slot, req in self.active.items():
+            prev = (req.out_tokens[-1] if req.out_tokens
+                    else int(np.asarray(req.prompt)[-1]))
+            tok[slot, 0] = prev
+            live[slot] = True
+        logits = self.executor.decode(tok, self.positions, live)
+        now = time.perf_counter()
+        done_slots = []
+        for slot, req in self.active.items():
+            nxt = int(np.argmax(logits[slot, 0, : self.cfg.vocab]))
+            req.out_tokens.append(nxt)
+            if req.t_first is None:
+                req.t_first = now
+            self.positions[slot] += 1
+            if (len(req.out_tokens) >= self.sc.max_new_tokens
+                    or self.positions[slot] >= self.sc.max_seq - 1):
+                req.done = True
+                req.t_done = now
+                done_slots.append(slot)
+        for slot in done_slots:
+            del self.active[slot]
+            self.free.append(slot)
+
+    def run(self, requests: list[Request]) -> dict:
+        t0 = time.perf_counter()
+        for r in requests:
+            self.enqueue(r)
+        steps = 0
+        while self.queue or self.active:
+            self.step()
+            steps += 1
+            if steps > self.sc.max_steps:
+                raise RuntimeError(f"serving did not terminate within "
+                                   f"{self.sc.max_steps} steps")
+            if self.sc.max_wall_s is not None and \
+                    time.perf_counter() - t0 > self.sc.max_wall_s:
+                raise RuntimeError(f"serving did not terminate within "
+                                   f"{self.sc.max_wall_s}s")
+        wall = time.perf_counter() - t0
+        total_tokens = sum(len(r.out_tokens) for r in requests)
+        lats = sorted(r.latency_s for r in requests
+                      if r.latency_s is not None)
+        return {"requests": len(requests), "tokens": total_tokens,
+                "wall_s": wall, "tok_per_s": total_tokens / max(wall, 1e-9),
+                "decode_steps": steps,
+                "latency_p50_s": _percentile(lats, 50),
+                "latency_p99_s": _percentile(lats, 99),
+                "latency_per_request_s": lats}
+
+
+# ----------------------------- matvec plane ---------------------------------
 
 @dataclasses.dataclass
 class MatvecRequest:

@@ -1,16 +1,17 @@
-"""Plan dispatch for the matvec serving plane (port of the ``PlanExecutor``
-half of ``repro.serve.executor``).
+"""Executors: device-side dispatch for the serving plane (port of
+``repro.serve.executor``).
 
-The engine (``serve.engine``) owns scheduling; the executor owns dispatch:
-a compiled ``SpmvPlan`` behind ``SparseLinear.from_plan``, pad-to-bucket
-batching derived from the plan's searched batch size, and zero-downtime
-hot-swap (atomic plan replacement, optionally driven by a ``PlanStore``
-watch). ``execute`` keeps the reference's numpy-in, numpy-out contract:
-each padded chunk is copied to the plan's device, runs there through the
-multi-RHS kernels, and the result is copied back.
+The engines (``serve.engine``) own scheduling; executors own dispatch:
 
-``ModelExecutor`` (token serving) waits for the LLM stack (ROADMAP
-queue 1, item 7).
+* :class:`ModelExecutor`: a ``CausalLM`` on a device, batched slot caches
+  and the per-slot decode step for token serving.
+* :class:`PlanExecutor`: a compiled ``SpmvPlan`` behind
+  ``SparseLinear.from_plan``, pad-to-bucket batching derived from the
+  plan's searched batch size, and zero-downtime hot-swap (atomic plan
+  replacement, optionally driven by a ``PlanStore`` watch). ``execute``
+  keeps the reference's numpy-in, numpy-out contract: each padded chunk
+  is copied to the plan's device, runs there through the multi-RHS
+  kernels, and the result is copied back.
 """
 from __future__ import annotations
 
@@ -23,7 +24,77 @@ import torch
 
 from .sparse_linear import SparseLinear
 
-__all__ = ["PlanExecutor", "SwapRejected", "decode_buckets"]
+__all__ = ["ModelExecutor", "PlanExecutor", "SwapRejected",
+           "decode_buckets"]
+
+
+class ModelExecutor:
+    """Per-slot decode dispatch over batched slot caches.
+
+    ``decode(tokens, positions, live)`` runs one decode step where every
+    batch row advances at *its own* cache position (``positions`` is a
+    (B,) vector) and only ``live`` rows commit cache writes: attention K/V
+    and SSM conv/ssm state alike, which is what makes mid-flight prefill
+    of one slot safe while its neighbours are mid-decode. The reference
+    selects over the whole cache (``where``) after the step; the port
+    writes the live rows in place, at their slot, and leaves the others
+    untouched, so the caches hold the reference's values after every step.
+
+    The model lives on ``device`` (default the GPU; raises without one).
+    ``params`` is a tree of tensors (``models.weights.params_from_numpy``
+    of the reference's) or None for ``init_params(cfg, seed, device)``;
+    the leaves the reference casts to ``dtype`` at each use are cast once
+    here, the float32 ones stay float32.
+    """
+
+    def __init__(self, cfg, max_batch: int, max_seq: int,
+                 dtype=torch.float32, params: Optional[dict] = None,
+                 seed: int = 0, device=None):
+        from repro_torch.models import CausalLM
+        self.cfg = cfg
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.dtype = dtype
+        self.model = CausalLM(cfg, params, seed=seed, device=device,
+                              dtype=dtype)
+        self.device = self.model.device
+        self.params = self.model.params
+        self.caches = self.model.cache_spec(max_batch, max_seq)
+
+    def inputs(self, tokens, positions, live):
+        """Host (B, 1) tokens, (B,) positions and (B,) live mask as device
+        tensors in one copy: (token, pos, rows); rows is None when every
+        row is live."""
+        live = np.asarray(live, bool)
+        b = live.size
+        rows = np.flatnonzero(live)
+        packed = np.concatenate([np.asarray(tokens).reshape(b),
+                                 np.asarray(positions).reshape(b),
+                                 rows]).astype(np.int64)
+        dev = torch.from_numpy(packed).to(self.device)
+        return (dev[:b].reshape(b, 1), dev[b:2 * b],
+                None if rows.size == b else dev[2 * b:])
+
+    def step(self, token: torch.Tensor, pos: torch.Tensor,
+             rows: Optional[torch.Tensor]) -> torch.Tensor:
+        """One decode step on device tensors; returns the device logits
+        (B, 1, vocab_padded) float32 without waiting for the card."""
+        with torch.inference_mode():
+            logits, _ = self.model.decode_step(token, pos, self.caches, rows)
+        return logits
+
+    def decode(self, tokens: np.ndarray, positions: np.ndarray,
+               live: np.ndarray) -> np.ndarray:
+        """One per-slot decode step; returns host logits (B, 1, vocab)."""
+        with torch.inference_mode():
+            logits = self.step(*self.inputs(tokens, positions, live))
+            return logits.cpu().numpy()
+
+    def reset(self) -> None:
+        """Drop all cache state (every slot becomes reusable)."""
+        for c in self.caches:
+            for t in c.values():
+                t.zero_()
 
 
 class SwapRejected(RuntimeError):

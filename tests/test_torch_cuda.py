@@ -882,3 +882,79 @@ def test_learned_and_portfolio_compile_on_the_card(dev, tmp_path):
         cost = plan.cost_analysis()
         assert cost["flops"] >= 2 * m.nnz
         assert cost["bytes accessed"] > (m.n_rows + m.n_cols) * 4
+
+
+# ------------------------------ token serving ------------------------------
+
+def _llm_cfg(arch):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced()
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, impl="sorted"))
+    return cfg
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "deepseek-moe-16b"])
+def test_model_executor_on_the_card_matches_the_cpu(dev, arch):
+    """The same weights (the port's init on the CPU) through a
+    ``ModelExecutor`` on the card and one on the CPU, fp32: per-slot
+    steps with partial live masks, the live rows' logits and every cache
+    leaf within 2e-4 * max|cpu| + 1e-5."""
+    from repro_torch.models import init_params
+    from repro_torch.serve import ModelExecutor
+    cfg = _llm_cfg(arch)
+    params = init_params(cfg, 0, "cpu")
+    cpu = ModelExecutor(cfg, 3, 32, params=params, device="cpu")
+    gpu = ModelExecutor(cfg, 3, 32, params=params, device=dev)
+    assert gpu.params["embed"].is_cuda and gpu.caches[0]["k"].is_cuda
+    rng = np.random.default_rng(0)
+
+    def close(got, want):
+        tol = 2e-4 * float(np.abs(want).max()) + 1e-5
+        assert float(np.abs(got - want).max()) <= tol
+
+    for t in range(10):
+        tok = rng.integers(0, cfg.vocab, (3, 1))
+        pos = np.array([t, t + 3, 2 * t])
+        live = np.array([True, t % 3 != 1, True])
+        want = cpu.decode(tok, pos, live)
+        got = gpu.decode(tok, pos, live)
+        close(got[live], want[live])
+    for c_cpu, c_gpu in zip(cpu.caches, gpu.caches):
+        for k in c_cpu:
+            close(c_gpu[k].cpu().numpy(), c_cpu[k].numpy())
+
+
+def test_mid_flight_join_on_the_card(dev):
+    """On the card, a request joining mid-flight gives the tokens and the
+    slot caches, bit for bit, of the same request served alone."""
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    cfg = _llm_cfg("granite-3-2b")
+    sc = ServeConfig(max_batch=2, max_seq=64, max_new_tokens=6)
+
+    def solo(prompt):
+        eng = ServingEngine(cfg, sc, device=dev)
+        r = Request(0, np.asarray(prompt))
+        eng.run([r])
+        return tuple(r.out_tokens), eng, r._slot
+
+    runs = [solo([1, 2, 3]), solo([7, 8, 9, 10, 11])]
+    eng = ServingEngine(cfg, sc, device=dev)
+    ra, rb = Request(0, np.array([1, 2, 3])), Request(1, np.array(
+        [7, 8, 9, 10, 11]))
+    assert eng.submit(ra)
+    eng.step()
+    eng.step()
+    assert eng.submit(rb)
+    while eng.active or eng.queue:
+        eng.step()
+    for (tokens, solo_eng, solo_slot), req in zip(runs, (ra, rb)):
+        assert tuple(req.out_tokens) == tokens
+        for c_solo, c_join in zip(solo_eng.executor.caches,
+                                  eng.executor.caches):
+            for k in c_solo:
+                assert c_join[k].is_cuda
+                assert torch.equal(c_solo[k][:, solo_slot],
+                                   c_join[k][:, req._slot]), k

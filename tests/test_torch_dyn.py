@@ -1,7 +1,7 @@
 """repro_torch.dyn against the reference's repro.dyn, on the CPU.
 
-Case for case after tests/test_dyn.py (the MoE routing-churn case waits
-for the port's models/moe): PatternDelta extraction, capacity reporting,
+Case for case after tests/test_dyn.py: PatternDelta extraction, capacity
+reporting, MoE routing churn through the port's ``models.moe``,
 patch-in-place updates (oracle-exact, bit-exact against a fresh port
 compile, same dispatch), out-of-capacity rollback, executor admission,
 the DynamicSparsityManager control loop and its watchdog, and the
@@ -668,6 +668,68 @@ def test_executor_surfaces_dead_research(base_plan, monkeypatch):
     with _warnings.catch_warnings():
         _warnings.simplefilter("error")
         ex.maybe_reload()
+
+
+# ------------------------- MoE routing churn ---------------------------------
+
+def _routes(n_tokens, n_experts, k, seed):
+    r = np.random.default_rng(seed)
+    idx = np.stack([r.permutation(n_experts)[:k] for _ in range(n_tokens)])
+    gates = r.random((n_tokens, k)).astype(np.float32) + 0.1
+    return idx, gates
+
+
+def _churn(idx0, g0, n_experts, k, seed=0):
+    """~25 % of tokens re-route one expert slot; all gates move."""
+    rng = np.random.default_rng(seed)
+    n_tokens = idx0.shape[0]
+    idx1, g1 = idx0.copy(), g0 + 0.01
+    for t in rng.choice(n_tokens, n_tokens // 4, replace=False):
+        free = [e for e in range(n_experts) if e not in idx1[t]]
+        idx1[t, rng.integers(k)] = rng.choice(free)
+    return idx1, g1
+
+
+def test_moe_routing_churn_patches_in_place():
+    from repro_torch.models.moe import routing_matrix
+    n_tokens, n_experts, k = 64, 16, 2
+    idx0, g0 = _routes(n_tokens, n_experts, k, seed=1)
+    m0 = routing_matrix(idx0, g0, n_experts)
+    assert m0.nnz == n_tokens * k
+    plan = repro_torch.compile(m0, TORCH, graph=capacity_graph())
+    idx1, g1 = _churn(idx0, g0, n_experts, k)
+    m1 = routing_matrix(idx1, g1, n_experts)
+    delta = PatternDelta.from_matrices(m0, m1)
+    assert delta.n_added > 0 and delta.n_removed > 0
+    assert delta.n_added == delta.n_removed    # every token keeps k entries
+    upd = plan.update(delta)                   # re-route fits the k-lane
+    _assert_oracle(m1, upd)
+    x = _x(m1, seed=2)
+    np.testing.assert_allclose(
+        _y(upd, x).astype(np.float64), m1.spmv_dense_oracle(x),
+        atol=1e-5 * (np.abs(m1.spmv_dense_oracle(x)).max() + 1e-30), rtol=0)
+
+
+def test_moe_routing_churn_matches_reference():
+    """The same routes give a bit-identical ``routing_matrix`` in both
+    packages, and the same churn the same ``PatternDelta``."""
+    from repro.models.moe import routing_matrix as ref_routing_matrix
+    from repro_torch.models.moe import routing_matrix
+    n_tokens, n_experts, k = 64, 16, 2
+    idx0, g0 = _routes(n_tokens, n_experts, k, seed=1)
+    idx1, g1 = _churn(idx0, g0, n_experts, k)
+    mats = []
+    for i, g in ((idx0, g0), (idx1, g1)):
+        port, ref = routing_matrix(i, g, n_experts), \
+            ref_routing_matrix(i, g, n_experts)
+        assert (port.n_rows, port.n_cols) == (ref.n_rows, ref.n_cols)
+        for name in ("rows", "cols", "vals"):
+            a, b = getattr(port, name), np.asarray(getattr(ref, name))
+            assert a.dtype == b.dtype, name
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        mats.append((port, ref))
+    _assert_same_delta(PatternDelta.from_matrices(mats[0][0], mats[1][0]),
+                       RefDelta.from_matrices(mats[0][1], mats[1][1]))
 
 
 # ------------------------- train/ pruning loop -----------------------------
