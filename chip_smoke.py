@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-report   # phases 1 and 3-8 only
+    python3 chip_smoke.py --bits-probe      # repeated calls' bits only
 
 Drives the port's paths at realistic sizes and holds every CUDA kernel
 they run (K1-K11 and the sharded plans' ordered combine) against its plain
@@ -50,6 +51,11 @@ each printing its seconds:
    bf16), and the seg family on ``powerlaw_matrix(2**20, 2**20, 8.0,
    1.5)`` (7,845,296 nnz; seg_scan, onehot and gmem_atom, fused K6 and
    unfused K3/K4), each checked against the oracle;
+4b. bit stability: every phase-4 seg plan (K3, K4, K6 in both modes,
+   the gmem_atom steps, the unfused plans' ordered combine; at B = 8
+   K10a, K10b, K11) called 20 times and its saved-and-loaded copy once,
+   at B = 1 and 8: every output bit-identical to the first (a
+   ``bitstable {...}`` line);
 5. SpMV kernel report: each kernel at the operands of a phase-4 plan
    against its plain version (fp32 and bf16 storage), its median time over
    CUDA events, the plain version's and the cuSPARSE yardstick's
@@ -171,7 +177,25 @@ each printing its seconds:
    oracle, its ELL kernel (K1 or K5) to the plain version, its launches
    counted (an ``llm_moe {...}`` line); (d) mamba2-1.3b at depth 2, fp32:
    ``prefill`` of 256 tokens and 256 ``decode_step`` s against
-   ``forward`` over 512 (an ``llm_ssm {...}`` line).
+   ``forward`` over 512 (an ``llm_ssm {...}`` line);
+14. training (``repro_torch.train``, ``launch.TrainDriver``; seeded
+   random weights, the synthetic pipeline; no kernel of its own): (a)
+   granite-3-2b at full width, depth 2, batch 2 x 128: one fp32 step
+   against the same step in float64 on the card (loss, grad_norm,
+   gradients, the parameters after AdamW) and remat on against off (a
+   ``train_check {...}`` line, each error beside its tolerance); (b)
+   granite-3-2b at its full 40 layers (2.53 B parameters), bf16 compute,
+   remat, batch 4 x 512: one warm-up and 6 timed ``make_train_step``
+   steps (CUDA events), the split into forward+backward and the
+   optimizer, tokens/s, model FLOPs over step time and over the bf16
+   peak, first and last loss, peak memory, and one grad_accum=2 step's
+   loss beside the grad_accum=1 loss of its batch (a ``train_step
+   {...}`` line); (c) ``TrainDriver`` at full width, depth 2, with
+   checkpoints every 3 steps, compression and a failure injected at
+   step 7: one restart from a checkpoint, >= 8 steps run, a finite loss,
+   then a timed save and restore of its state (a ``train_driver {...}``
+   line); (d) ``python -m repro_torch.launch.train --arch granite-3-2b
+   --reduced --steps 50`` in a subprocess (a ``train_cli {...}`` line).
 
 Phases 3-4 and phases 6-7 are the two paths: the launch counters are set
 to 0 before each and read after it, and each of its kernels must have
@@ -183,7 +207,9 @@ launch, and no other kernel. The last two lines are the kernel report (the
 twelve kernels and the combine) and ``{"ok": true, "device": {...}}``.
 ``--kernel-report`` runs phases 1 and 3-8 alone and prints the twelve
 rows: copied into a checkout of another commit, it times that commit's
-kernels on the same card (the A/B recipe of the verify notes). The script exits non-zero,
+kernels on the same card (the A/B recipe of the verify notes);
+``--bits-probe`` counts, in the same way, the calls of the seg kernels
+and plans whose bits differ from the first call's. The script exits non-zero,
 printing no result, without a GPU or outside a checkout of the
 repository. It imports neither jax nor ``repro``.
 """
@@ -208,7 +234,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 SEARCH_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
-KERNEL_TOL = 1e-4                # kernel vs plain: summation order, atomics
+KERNEL_TOL = 1e-4                # kernel vs plain: summation order
 
 KERNELS = {
     "K1": ("ell_spmv", "src/repro_torch/kernels/csrc/ell_spmv.cu",
@@ -514,7 +540,8 @@ def small_kernels_phase():
             for k in (1, 3, 8):
                 check_kernel(f"K6[{mode}] {tag} K={k}", ops.seg_spmv_fused(
                     g(v), g(c), g(local), g(end), g(r0), g(x), M,
-                    n_rows=1000, mode=mode, tiles_per_step=k),
+                    n_rows=1000, mode=mode, tiles_per_step=k, **fused_kw(
+                        g(v), g(local), g(end), g(r0), M, 1000, mode)),
                     ref.seg_spmv_fused_ref(v, c, local, end, r0, x, M,
                                            n_rows=1000, mode=mode))
         for T, S, L, M in ((7, 12, 128, 200), (5, 3, 7, 5)):
@@ -530,7 +557,9 @@ def small_kernels_phase():
             for k in (1, 3, 8):
                 check_kernel(f"{ONEHOT_K6} {what} K={k}", ops.seg_spmv_fused(
                     g(v), g(c), g(local), g(end), g(r0), g(x), M,
-                    n_rows=1000, mode="onehot_mxu", tiles_per_step=k),
+                    n_rows=1000, mode="onehot_mxu", tiles_per_step=k,
+                    **fused_kw(g(v), g(local), g(end), g(r0), M, 1000,
+                               "onehot_mxu")),
                     ref.seg_spmv_fused_ref(v, c, local, end, r0, x, M,
                                            n_rows=1000, mode="onehot_mxu"))
         for shape in ELL_WIDTHS:
@@ -580,7 +609,8 @@ def check_seg_scan(what, v, c, end, x, M, r0, n_rows, g, ks=(1, 3, 8, 16)):
     for k in ks:
         check_kernel(f"K6[seg_scan] {what} K={k}", ops.seg_spmv_fused(
             g(v), g(c), g(local), g(end), g(r0), g(x), M, n_rows=n_rows,
-            mode="seg_scan", tiles_per_step=k),
+            mode="seg_scan", tiles_per_step=k, **fused_kw(
+                g(v), g(local), g(end), g(r0), M, n_rows, "seg_scan")),
             ref.seg_spmv_fused_ref(v, c, local, end, r0, x, M,
                                    n_rows=n_rows, mode="seg_scan"))
 
@@ -658,7 +688,8 @@ def small_spmm_phase():
             for k in (1, 3, 8):
                 check_kernel(f"K11[{mode}] {tag} K={k}", ops.seg_spmm_fused(
                     g(v), g(c), g(local), g(end), g(r0), g(x), M,
-                    n_rows=1000, mode=mode, tiles_per_step=k),
+                    n_rows=1000, mode=mode, tiles_per_step=k, **fused_kw(
+                        g(v), g(local), g(end), g(r0), M, 1000, mode)),
                     ref.seg_spmm_fused_ref(v, c, local, end, r0, x, M,
                                            n_rows=1000, mode=mode))
         shapes = ELL_WIDTHS + [ONE_TILE, (40, 128, 20)] if b == 8 else \
@@ -706,7 +737,8 @@ def small_spmm_phase():
                 ref.seg_spmm_ref(v, c, local, end, x, M, mode))
             check_kernel(f"K11[{mode}] {what}", ops.seg_spmm_fused(
                 g(v), g(c), g(local), g(end), g(r0), g(x), M,
-                n_rows=1200 + M, mode=mode, tiles_per_step=3),
+                n_rows=1200 + M, mode=mode, tiles_per_step=3, **fused_kw(
+                    g(v), g(local), g(end), g(r0), M, 1200 + M, mode)),
                 ref.seg_spmm_fused_ref(v, c, local, end, r0, x, M,
                                        n_rows=1200 + M, mode=mode))
     torch.cuda.synchronize()
@@ -801,7 +833,10 @@ def seg_spmm_cases(rng, n_cols, vd, cd, xd, b, tag):
             check_kernel(f"K11[{mode}] {tag} {what} K={k}",
                          ops.seg_spmm_fused(g(v), g(c), g(local), g(end),
                                             g(r0), g(x), M, n_rows=n_rows,
-                                            mode=mode, tiles_per_step=k),
+                                            mode=mode, tiles_per_step=k,
+                                            **fused_kw(g(v), g(local),
+                                                       g(end), g(r0), M,
+                                                       n_rows, mode)),
                          ref.seg_spmm_fused_ref(v, c, local, end, r0, x, M,
                                                 n_rows=n_rows, mode=mode))
 
@@ -943,6 +978,47 @@ def fixed_phase(B, xb, oracle_b, P, xp, oracle_p, designer):
     return banded, progs
 
 
+BITSTABLE_CALLS = 20
+
+
+def bitstable_phase(seg, xp):
+    """4b. Every phase-4 seg plan (K3, K4, K6 in both modes, the gmem_atom
+    steps and the unfused rowmap combines at B = 1; K10a, K10b and K11 at
+    B = 8) called BITSTABLE_CALLS times and its saved-and-loaded copy once:
+    every output must be bit-identical to the first."""
+    import repro_torch
+    from repro_torch.api import SpmvPlan, _plan_from_program
+    done = phase("4b bit-stable seg plans")
+    x8 = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (xp.shape[0], 8)).astype(np.float32)).cuda()
+    report = {}
+    scratch = ROOT / "results"               # listed in .gitignore
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        for name, prog in seg.items():
+            plan = (prog if isinstance(prog, SpmvPlan) else
+                    _plan_from_program(prog, None, repro_torch.Target()))
+            path = Path(d) / "seg.plan.npz"
+            plan.save(path)
+            loaded = repro_torch.load_plan(path)
+            for b, x in ((1, xp), (8, x8)):
+                y0 = plan(x)
+                differ = sum(not torch.equal(plan(x), y0)
+                             for _ in range(BITSTABLE_CALLS - 1))
+                require(differ == 0, f"{name} B={b}: {differ} of "
+                        f"{BITSTABLE_CALLS - 1} calls differ from the first")
+                require(torch.equal(loaded(x), y0),
+                        f"{name} B={b}: the loaded plan's output differs")
+                if not isinstance(prog, SpmvPlan):
+                    require(torch.equal(prog(x), y0),
+                            f"{name} B={b}: the program's output differs")
+            report[name] = [st.get("fused", False) for st in
+                            plan.spec["steps"]]
+    print("bitstable " + json.dumps({"calls": BITSTABLE_CALLS, "B": [1, 8],
+                                     "plans_fused_steps": report}))
+    done()
+
+
 # -------------------------------- phase 5 ---------------------------------
 
 def _operands(prog, step) -> dict:
@@ -964,6 +1040,17 @@ def _step(prog):
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def fused_kw(v, local, end, r0, M: int, n_rows: int, mode: str) -> dict:
+    """``rows=`` for a fused seg wrapper (K6 / K11), which it requires on
+    the card: the ``FusedRows`` of its operands, built once, as a plan
+    builds them, so that a timed call is the kernel and its ordered side
+    combine alone."""
+    from repro_torch.kernels import combine
+    aux = end if mode == "seg_scan" else local
+    return {"rows": combine.fused_rows(r0, aux, M, n_rows, mode,
+                                       v.shape[1] * v.shape[2])}
 
 
 def kernel_cases(banded, seg, xb, xp, n_b, n_p):
@@ -1010,10 +1097,11 @@ def kernel_cases(banded, seg, xb, xp, n_b, n_p):
         flops = 2 * v.numel()
         if kid == "K6":
             k = seg[prog_name].spec["tiles_per_step"]
+            kw = fused_kw(v, local, end, r0, M, n_p, mode)
             byt = lambda vv, cc: nbytes(vv, cc, aux, r0, xp) + 8 * n_p
             run = lambda vv, cc, out=None: ops.seg_spmv_fused(
                 vv, cc, local, end, r0, xp, M, n_rows=n_p, mode=mode,
-                tiles_per_step=k, out=out)
+                tiles_per_step=k, out=out, **kw)
             plain = lambda vv, cc: ref.seg_spmv_fused_ref(
                 vv, cc, local, end, r0, xp, M, n_rows=n_p, mode=mode)
         else:
@@ -1029,7 +1117,7 @@ def kernel_cases(banded, seg, xb, xp, n_b, n_p):
                 y1 = torch.zeros((n_p, 1), device=xp.device)
                 b1 = lambda vv, cc: ops.seg_spmm_fused(
                     vv, cc, local, end, r0, x1, M, n_rows=n_p, mode=mode,
-                    tiles_per_step=k, out=y1)
+                    tiles_per_step=k, out=y1, **kw)
             else:
                 b1 = lambda vv, cc: ops.seg_spmm(vv, cc, local, end, x1, M,
                                                  mode=mode)
@@ -1394,9 +1482,10 @@ def spmm_cases(progs, xd, n_rows):
         T = v0.shape[0]
         k = prog.spec["tiles_per_step"]
         if kid == "K11":
+            kw = fused_kw(v0, local, end, r0, M, n_rows, mode)
             run = lambda vs, cs, out=None: ops.seg_spmm_fused(
                 vs[0], cs[0], local, end, r0, xd, M, n_rows=n_rows,
-                mode=mode, tiles_per_step=k, out=out)
+                mode=mode, tiles_per_step=k, out=out, **kw)
             plain = lambda vs, cs: ref.seg_spmm_fused_ref(
                 vs[0], cs[0], local, end, r0, xd, M, n_rows=n_rows,
                 mode=mode)
@@ -1515,13 +1604,16 @@ def searched_seg_line(plan, xd, n_rows, launches, csr) -> None:
     ops_ = [_operands(plan, st) for st in fused]
     modes = ["seg_scan" if st["reduce"] == "gmem_atom" else st["reduce"]
              for st in fused]
+    kws = [fused_kw(o["vals"], o["local"], o["end"], o["r0"],
+                    st["seg_rows"], n_rows, mode)
+           for st, o, mode in zip(fused, ops_, modes)]
 
     def run(out=None, plain=False):
         fn = ref.seg_spmm_fused_ref if plain else ops.seg_spmm_fused
-        extra = {} if plain else {"tiles_per_step": k}
         if out is None:
             out = torch.zeros((n_rows, B), device=xd.device)
-        for st, o, mode in zip(fused, ops_, modes):
+        for st, o, mode, kw in zip(fused, ops_, modes, kws):
+            extra = {} if plain else {"tiles_per_step": k, **kw}
             fn(o["vals"], o["cols"], o["local"], o["end"], o["r0"], xd,
                st["seg_rows"], n_rows=n_rows, mode=mode, out=out, **extra)
         return out
@@ -1551,6 +1643,48 @@ def searched_seg_line(plan, xd, n_rows, launches, csr) -> None:
                       for o, st in zip(ops_, fused)],
             "storage": plan.spec["storage_dtype"]}
     print(f"{SEARCHED_K11} {json.dumps(line)}")
+
+
+def dense_plans_line(plans, seg, xp, n_p: int, launches: int) -> None:
+    """Where dense plans run their rowmap combines: the call time of each
+    plan in ``plans`` (name -> (plan, x at B = 1, x at B = 8)) as a caller
+    sees it and on the card; and the combine alone at the unfused seg_scan
+    plan's shape (its rowmap, its K3 partials on the power-law ``xp``)
+    against its plain version, with ``index_add_`` on the same partials
+    beside it, and ``launches``, the combine's launches on the compile and
+    serving paths: a ``dense_plans {...}`` line."""
+    from repro_torch.kernels import ops, ref
+    out = {}
+    for name, (plan, x1, x8) in plans.items():
+        for b, x in ((1, x1), (8, x8)):
+            out[f"{name} B={b}"] = {"ms": cuda_ms(lambda: plan(x)),
+                                    "device_ms": device_ms(lambda: plan(x))}
+    prog = seg["SEG_SCAN_RED unfused"]
+    step, o = _step(prog)
+    rm = prog.fmt[f"{step['key']}_rowmap"]
+    flat = ops.seg_spmv(o["vals"], o["cols"], o["local"], o["end"],
+                        xp, step["seg_rows"], mode="seg_scan").reshape(-1)
+    perm, off = ops.combine_order(rm, n_p)
+    y = torch.zeros(n_p, device=flat.device)
+    err = check_kernel("combine (dense)", ops.rowmap_combine(
+        y.clone(), flat, perm, off), ref.rowmap_combine_ref(
+        y.clone(), flat, perm, off))
+    idx = torch.where(rm.reshape(-1) >= 0, rm.reshape(-1).long(), n_p)
+    y_lib = torch.zeros(n_p + 1, device=flat.device)
+    byt = nbytes(flat, perm, off) + 2 * n_p * 4
+    out["combine"] = {
+        "shape": [n_p, int(perm.numel())], "max_abs_err": err,
+        "launches": launches,
+        "ms": cuda_ms(lambda: ops.rowmap_combine(y, flat, perm, off)),
+        "device_ms": device_ms(lambda: ops.rowmap_combine(y, flat, perm,
+                                                          off)),
+        "plain_ms": cuda_ms(lambda: ref.rowmap_combine_ref(y, flat, perm,
+                                                           off), reps=5),
+        "bound_ms": byt / HBM_BYTES_PER_S * 1e3, "bytes": byt,
+        "index_add_ms": cuda_ms(lambda: y_lib.index_add_(0, idx, flat)),
+        "index_add_device_ms": device_ms(
+            lambda: y_lib.index_add_(0, idx, flat))}
+    print("dense_plans " + json.dumps(out))
 
 
 # -------------------------------- phase 9 ---------------------------------
@@ -3201,6 +3335,377 @@ def llm_phase(dev) -> None:
     done()
 
 
+# ------------------------------- --bits-probe ------------------------------
+
+BITS_CALLS = 50
+
+
+def bits_probe() -> None:
+    """How often repeated calls give other bits, in the checkout this
+    script sits in (the A/B recipe copies it into the parent's): phase
+    4's power-law seg operands (chunk 2048) through K3/K4 and K10a/K10b
+    (per-tile partials: the run reduction alone, no combine), the fused
+    plans (K6 / K11) and the unfused plans (the kernels and their
+    combine), BITS_CALLS calls each; prints the calls that differ from
+    the first (a ``bits_probe {...}`` line)."""
+    from repro_torch.core.graph import run_graph
+    from repro_torch.core.kernel_builder import _step_cols, build_program
+    from repro_torch.core.matrices import powerlaw_matrix
+    from repro_torch.kernels import ops
+    P = powerlaw_matrix(2 ** 20, 2 ** 20, 8.0, 1.5, seed=0)
+    rng = np.random.default_rng(1)
+    x1 = torch.from_numpy(rng.standard_normal(P.n_cols).astype(
+        np.float32)).cuda()
+    x8 = torch.from_numpy(rng.standard_normal((P.n_cols, 8)).astype(
+        np.float32)).cuda()
+    out = {}
+
+    def count(name, fn):
+        y0 = fn()
+        out[name] = sum(not torch.equal(fn(), y0)
+                        for _ in range(BITS_CALLS - 1))
+
+    for red, mode in (("ONEHOT_MXU_RED", "onehot_mxu"),
+                      ("SEG_SCAN_RED", "seg_scan")):
+        meta = run_graph(P, chain(("COMPRESS", {}), ("LANE_NNZ_BLOCK",
+                                                      {"chunk": 2048}),
+                                  (red, {})))
+        fused = build_program(meta, "cuda", tiles_per_step=4)
+        unfused = build_program(meta, "cuda", fuse_combine=False)
+        st = fused.spec["steps"][0]
+        f, k = fused.fmt, st["key"]
+        v = f[f"{k}_vals"]
+        c = _step_cols(st, f, v.device)
+        local, end, M = f.get(f"{k}_local"), f.get(f"{k}_end"), st["seg_rows"]
+        count(f"{mode} tiles B=1 (K3/K4)",
+              lambda: ops.seg_spmv(v, c, local, end, x1, M, mode=mode))
+        count(f"{mode} tiles B=8 (K10)",
+              lambda: ops.seg_spmm(v, c, local, end, x8, M, mode=mode))
+        count(f"{mode} fused plan B=1 (K6)", lambda: fused(x1))
+        count(f"{mode} fused plan B=8 (K11)", lambda: fused(x8))
+        count(f"{mode} unfused plan B=1", lambda: unfused(x1))
+        count(f"{mode} unfused plan B=8", lambda: unfused(x8))
+    print("bits_probe " + json.dumps({"calls": BITS_CALLS,
+                                      "differing_calls": out}))
+
+
+# -------------------------------- phase 14 --------------------------------
+
+GRANITE = "granite-3-2b"
+# (a) the card's fp32 step against float64 on the card: loss and
+# grad_norm relative, gradients as max abs error over max |float64|
+# (about 8x the 1.3e-6 measured on an H100, so that a TF32 step, the
+# control below, fails it); remat on against off the same; after one
+# AdamW step, PARAMS_SHARE of the parameters within PARAMS_CLOSE (1 % of
+# lr, the step a parameter moves by) and every one within 2 lr (a
+# gradient near 0 whose fp32 sign differs moves its parameter by up to
+# 2 lr in AdamW's first step)
+TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "grads": 1e-5, "remat": 1e-5}
+PARAMS_CLOSE, PARAMS_SHARE = 1e-5, 0.999
+BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 (data sheet)
+
+
+def adamw_f64(opt, grads, params, gnorm: float):
+    """The reference's first AdamW step (count 1, zero moments) in
+    float64, written out here as the plain version the card's float32
+    step is held to."""
+    from repro_torch.train.optimizer import _map
+    warm = min(1 / max(opt.warmup_steps, 1), 1.0)
+    frac = min(max((1 - opt.warmup_steps)
+                   / max(opt.total_steps - opt.warmup_steps, 1), 0.0), 1.0)
+    lr = opt.lr * warm * (0.1 + 0.9 * 0.5 * (1 + np.cos(np.pi * frac)))
+    scale = min(1.0, opt.grad_clip / (gnorm + 1e-9))
+
+    def upd(g, p):
+        g = g * scale
+        mh = (1 - opt.b1) * g / (1 - opt.b1)
+        vh = (1 - opt.b2) * g * g / (1 - opt.b2)
+        return p - lr * (mh / (torch.sqrt(vh) + opt.eps)
+                         + opt.weight_decay * p)
+    return _map(upd, grads, params), lr
+
+
+def rel_tree_err(got, want) -> float:
+    from repro_torch.train.optimizer import tree_leaves
+    scale = max(float(w.abs().max()) for w in tree_leaves(want))
+    return max(float((g.double() - w.double()).abs().max())
+               for g, w in zip(tree_leaves(got), tree_leaves(want))) / scale
+
+
+def train_check(dev) -> None:
+    """(a) granite-3-2b at full width, depth 2, batch 2 x 128 (synthetic
+    batch 0): one fp32 step on the card against the same step in float64
+    on the card, and remat on against off. A control runs the fp32
+    gradients once more with TF32 matmuls allowed: the gradient check must
+    fail it, or it could not tell TF32 from fp32."""
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import AdamWConfig, _map, tree_leaves
+    from repro_torch.train.step import (TrainConfig, init_state,
+                                        make_grad_fn, make_train_step)
+    cfg = llm_cfg(GRANITE, n_layers=2)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    tc = TrainConfig(opt=opt, compute_dtype="float32", remat=True)
+    batch = SyntheticTokenPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=128, global_batch=2, seed=0)).batch_at(0)
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    p32 = init_params(cfg, 0, dev)
+    (l32, _), g32 = make_grad_fn(cfg, tc)(p32, tb)
+    no_remat = make_grad_fn(cfg, dataclasses.replace(tc, remat=False))
+    _, g_off = no_remat(p32, tb)
+    remat_err = rel_tree_err(g32, g_off)
+    del g_off
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        (l_tf32, _), g_tf32 = no_remat(p32, tb)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    p64 = _map(lambda t: t.double(), p32)
+    (l64, _), g64 = make_grad_fn(cfg, dataclasses.replace(
+        tc, compute_dtype="float64", remat=False))(p64, tb)
+    grads_err = rel_tree_err(g32, g64)
+    tf32_err = rel_tree_err(g_tf32, g64)
+    gn64 = float(torch.sqrt(sum(torch.sum(g * g)
+                                for g in tree_leaves(g64))))
+    new64, lr = adamw_f64(opt, g64, p64, gn64)
+    del g64, g32, g_tf32, p64
+    state = init_state(cfg, tc, _map(torch.clone, p32))
+    state, met = make_train_step(cfg, tc)(state, batch)
+    torch.cuda.synchronize()
+    perr = torch.cat([(a.double() - b).abs().reshape(-1) for a, b in zip(
+        tree_leaves(state["params"]), tree_leaves(new64))])
+    loss, gn = float(met["loss"]), float(met["grad_norm"])
+    out = {"arch": GRANITE, "n_layers": cfg.n_layers, "batch": [2, 128],
+           "params": sum(t.numel() for t in tree_leaves(p32)),
+           "loss": loss, "loss_f64": float(l64),
+           "loss_rel_err": abs(loss - float(l64)) / abs(float(l64)),
+           "grad_norm": gn, "grad_norm_f64": gn64,
+           "grad_norm_rel_err": abs(gn - gn64) / gn64,
+           "grads_rel_err": grads_err, "remat_rel_err": remat_err,
+           "params_max_abs_err": float(perr.max()),
+           "params_share_within": float((perr <= PARAMS_CLOSE).double()
+                                        .mean()),
+           "lr": lr, "tf32_control": {
+               "grads_rel_err": tf32_err,
+               "loss_rel_err": abs(float(l_tf32) - float(l64))
+               / abs(float(l64))},
+           "tol": dict(TRAIN_TOL, params_max=2 * lr,
+                       params_close=PARAMS_CLOSE,
+                       params_share=PARAMS_SHARE)}
+    print("train_check " + json.dumps(out))
+    require(abs(float(l32) - loss) == 0.0,
+            "the step's loss is not its grad_fn's")
+    for k, key in (("loss", "loss_rel_err"),
+                   ("grad_norm", "grad_norm_rel_err"),
+                   ("grads", "grads_rel_err"), ("remat", "remat_rel_err"),
+                   ("params_max", "params_max_abs_err")):
+        require(out[key] <= out["tol"][k],
+                f"train_check {key} {out[key]:.3e} > {out['tol'][k]:.3e}")
+    require(out["params_share_within"] >= PARAMS_SHARE,
+            f"train_check: {out['params_share_within']:.5f} of the "
+            f"parameters within {PARAMS_CLOSE}, not {PARAMS_SHARE}")
+    require(tf32_err > TRAIN_TOL["grads"],
+            f"train_check: the TF32 control's gradients ({tf32_err:.3e}) "
+            f"pass the fp32 tolerance {TRAIN_TOL['grads']}")
+    del state, new64, p32, perr
+    torch.cuda.empty_cache()
+
+
+def model_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step (PaLM's count): 6 N per token,
+    N the parameter count (the tied embedding once, as the head's
+    matmul), plus 12 L H Q S per token for attention (no causal
+    halving); remat's recomputation is not counted."""
+    return batch * seq * (6 * cfg.n_params()
+                          + 12 * cfg.n_layers * cfg.n_heads * cfg.hd * seq)
+
+
+def split_timed_steps(step, state, batches):
+    """Run ``step`` (a ``make_train_step``) on each batch, each timed with
+    CUDA events and split where the step hands its gradients to
+    ``adamw_update`` (an event recorded there): ``(state, losses,
+    [(step_ms, fwd_bwd_ms, optimizer_ms)])``, fwd_bwd_ms + optimizer_ms
+    = step_ms for each step."""
+    import repro_torch.train.step as step_mod
+    real = step_mod.adamw_update
+    marks = []
+
+    def marked(*args, **kw):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        return real(*args, **kw)
+
+    losses, times = [], []
+    step_mod.adamw_update = marked
+    try:
+        for batch in batches:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            marks.clear()
+            a.record()
+            state, met = step(state, batch)
+            b.record()
+            b.synchronize()
+            require(len(marks) == 1, "the step did not call adamw_update "
+                    "once")
+            times.append((a.elapsed_time(b), a.elapsed_time(marks[0]),
+                          marks[0].elapsed_time(b)))
+            losses.append(float(met["loss"]))
+    finally:
+        step_mod.adamw_update = real
+    return state, losses, times
+
+
+def train_step_full(dev) -> None:
+    """(b) granite-3-2b at full width and depth (40 layers), bf16
+    compute, remat, batch 4 x 512: make_train_step for one warm-up and 6
+    timed steps, each split into forward+backward and optimizer; then one
+    grad_accum=2 step beside the grad_accum=1 loss on its batch."""
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import (TrainConfig, init_state,
+                                        make_train_step)
+    cfg = llm_cfg(GRANITE)
+    B, S = 4, 512
+    tc = TrainConfig(opt=AdamWConfig(lr=3e-4, warmup_steps=2,
+                                     total_steps=100),
+                     compute_dtype="bfloat16", remat=True)
+    pipe = SyntheticTokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                             global_batch=B, seed=0))
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in pipe.batch_at(s).items()} for s in range(8)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(cfg, tc, init_params(cfg, 0, dev))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = make_train_step(cfg, tc)
+    state, met = step(state, batches[0])       # warm-up
+    state, losses, split = split_timed_steps(step, state, batches[1:7])
+    losses.insert(0, float(met["loss"]))
+    with torch.no_grad():
+        loss1 = float(loss_fn(cfg, state["params"], batches[7],
+                              torch.bfloat16, remat=False)[0])
+    state, met2 = make_train_step(cfg, dataclasses.replace(
+        tc, grad_accum=2))(state, batches[7])
+    loss2 = float(met2["loss"])
+    torch.cuda.synchronize()
+    times = [t for t, _, _ in split]
+    step_ms = statistics.median(times)
+    flops = model_flops(cfg, B, S)
+    out = {"arch": GRANITE, "n_layers": cfg.n_layers,
+           "params": cfg.n_params(), "batch": [B, S],
+           "compute_dtype": "bfloat16", "remat": True,
+           "init_s": init_s, "step_ms": step_ms, "step_ms_all": times,
+           "fwd_bwd_ms": statistics.median(f for _, f, _ in split),
+           "optimizer_ms": statistics.median(o for _, _, o in split),
+           "fwd_bwd_ms_all": [f for _, f, _ in split],
+           "optimizer_ms_all": [o for _, _, o in split],
+           "tokens_per_s": B * S / (step_ms / 1e3),
+           "model_flops_per_step": flops,
+           "model_tflops_per_s": flops / (step_ms / 1e3) / 1e12,
+           "mfu_vs_bf16_peak": flops / (step_ms / 1e3) / BF16_FLOPS_PER_S,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "losses": losses, "loss_grad_accum_1": loss1,
+           "loss_grad_accum_2": loss2,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("train_step " + json.dumps(out))
+    require(all(np.isfinite(losses)) and np.isfinite(loss2),
+            "train_step: a non-finite loss")
+    require(abs(loss2 - loss1) <= 2e-2 * abs(loss1),
+            f"train_step: grad_accum=2 loss {loss2} vs {loss1}")
+    del state, batches
+    torch.cuda.empty_cache()
+
+
+def train_driver(dev) -> None:
+    """(c) TrainDriver on the card: granite-3-2b at full width, depth 2,
+    batch 2 x 128, 10 steps, checkpoints every 3 steps into a temporary
+    directory, compression on, a failure injected at step 7 (by then the
+    step-3 save has committed: a save waits for the one in flight): it
+    must restart once from a checkpoint and end with >= 8 steps run and a
+    finite loss. Then one blocking save and one restore of its final
+    state, timed, the restored leaves bit-identical."""
+    from repro_torch.launch.train import DriverConfig, TrainDriver
+    from repro_torch.train.optimizer import tree_leaves
+    scratch = ROOT / "results"               # listed in .gitignore
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        dc = DriverConfig(arch=GRANITE, reduced=False, steps=10, batch=2,
+                          seq=128, ckpt_dir=d, ckpt_every=3, fail_at_step=7,
+                          compression=True, log_every=100, device=str(dev))
+        drv = TrainDriver(dc)
+        drv.cfg = llm_cfg(GRANITE, n_layers=2)     # full width, depth 2
+        t0 = time.perf_counter()
+        res = drv.run()
+        run_s = time.perf_counter() - t0
+        steps = [m["step"] for m in drv.metrics_log]
+        back_at = [b for a, b in zip(steps, steps[1:]) if b <= a]
+        require(res["restarts"] == 1 and res["n_steps_run"] >= 8
+                and np.isfinite(res["final_loss"]) and len(back_at) == 1
+                and back_at[0] > 0, f"train_driver: {res}, steps {steps}")
+        last = Path(d) / f"step_{drv.ckpt.latest_step():08d}"
+        ckpt_bytes = sum(f.stat().st_size for f in last.iterdir())
+        t0 = time.perf_counter()
+        drv.ckpt.save(99, drv.state, blocking=True)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = drv.ckpt.restore(99, drv.state, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        require(all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(back), tree_leaves(drv.state))),
+            "train_driver: a restored leaf differs")
+        steps_s = [m["time"] for m in drv.metrics_log]
+    print("train_driver " + json.dumps({
+        **res, "n_layers": 2, "resumed_at_step": back_at[0],
+        "run_s": run_s, "step_s_median":
+        statistics.median(steps_s), "ckpt_bytes": ckpt_bytes,
+        "save_s": save_s, "restore_s": restore_s}))
+    del drv, back
+    torch.cuda.empty_cache()
+
+
+def train_cli() -> None:
+    """(d) ``python -m repro_torch.launch.train --arch granite-3-2b
+    --reduced --steps 50`` in a subprocess on the card (its default
+    device): return code 0 and a finite final loss (a ``train_cli
+    {...}`` line)."""
+    import ast
+    import os
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    scratch = ROOT / "results"               # listed in .gitignore
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             GRANITE, "--reduced", "--steps", "50", "--ckpt_dir", d],
+            capture_output=True, text=True, timeout=300, env=env)
+        secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:] + proc.stderr[-3000:])
+    require(proc.returncode == 0, f"train cli: rc {proc.returncode}")
+    res = ast.literal_eval(proc.stdout.strip().splitlines()[-1])
+    print("train_cli " + json.dumps({"returncode": proc.returncode,
+                                     "seconds": secs, **res}))
+    require(res["n_steps_run"] == 50 and np.isfinite(res["final_loss"]),
+            f"train cli: {res}")
+
+
+def train_phase(dev) -> None:
+    done = phase("14 training")
+    train_check(dev)
+    train_step_full(dev)
+    train_driver(dev)
+    train_cli()
+    done()
+
+
 def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
@@ -3211,11 +3716,16 @@ def main(argv: list) -> int:
               file=sys.stderr)
         return 2
     kernel_report = argv == ["--kernel-report"]
-    if argv and not kernel_report:
-        print(f"usage: {sys.argv[0]} [--kernel-report]", file=sys.stderr)
+    if argv and not kernel_report and argv != ["--bits-probe"]:
+        print(f"usage: {sys.argv[0]} [--kernel-report | --bits-probe]",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if argv == ["--bits-probe"]:
+        bits_probe()
+        return 0
     from repro_torch.core.matrices import banded_matrix, powerlaw_matrix
+    from repro_torch.kernels import ops
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -3242,13 +3752,18 @@ def main(argv: list) -> int:
     done()
 
     reset_launch_counts()                    # the compile path starts here
+    ops.rowmap_combine.launches = 0
     searched_b = searched_phase(B, xb, oracle_b, designer)
     banded, seg = fixed_phase(B, xb, oracle_b, P, xp, oracle_p, designer)
     torch.cuda.synchronize()
     launches = launch_counts()               # ... and ends here
-    print(f"  compile-path launches: {launches}")
-    require(all(launches[k] > 0 for k in SPMV_KERNELS),
-            f"a kernel of the compile path never launched: {launches}")
+    combines = ops.rowmap_combine.launches
+    print(f"  compile-path launches: {launches}, rowmap_combine {combines}")
+    require(all(launches[k] > 0 for k in SPMV_KERNELS) and combines > 0,
+            f"a kernel of the compile path never launched: {launches}, "
+            f"rowmap_combine {combines}")
+    if not kernel_report:
+        bitstable_phase(seg, xp)
 
     cases = kernel_cases(banded, seg, xb, xp, B.n_rows, P.n_rows)
     csr = {"banded": csr_on_device(B), "powerlaw": csr_on_device(P)}
@@ -3263,20 +3778,33 @@ def main(argv: list) -> int:
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as store_dir:
         reset_launch_counts()                # the serving path starts here
+        ops.rowmap_combine.launches = 0
         searched, swap_in, oracle8, x8 = serving_phase(W, designer,
                                                        store_dir)
         progs, xd = spmm_fixed_phase(W, swap_in, x8, oracle8, designer)
         torch.cuda.synchronize()
         serve_launches = launch_counts()     # ... and ends here
-    print(f"  serving-path launches: {serve_launches}")
-    require(all(serve_launches[k] > 0 for k in SPMM_KERNELS),
-            f"a kernel of the serving path never launched: {serve_launches}")
+        serve_combines = ops.rowmap_combine.launches
+    print(f"  serving-path launches: {serve_launches}, rowmap_combine "
+          f"{serve_combines}")
+    require(all(serve_launches[k] > 0 for k in SPMM_KERNELS)
+            and serve_combines > 0,
+            f"a kernel of the serving path never launched: {serve_launches},"
+            f" rowmap_combine {serve_combines}")
     launches.update({k: serve_launches[k] for k in SPMM_KERNELS})
     print("designer " + json.dumps({"host_seconds": designer}))
     csr_w = csr_on_device(W)
     rows += spmm_report_phase(spmm_cases(progs, xd, W.n_rows), launches,
                               csr_w, xd, W.n_rows)
     searched_seg_line(searched, xd, W.n_rows, serve_launches, csr_w)
+    xp8 = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (P.n_cols, 8)).astype(np.float32)).cuda()
+    dense_plans_line({
+        **{f"powerlaw {red} unfused": (seg[f"{red} unfused"], xp, xp8)
+           for red in ("SEG_SCAN_RED", "ONEHOT_MXU_RED", "GMEM_ATOM_RED")},
+        "serving searched": (searched, xd[:, 0].contiguous(), xd)},
+        seg, xp, P.n_rows, combines + serve_combines)
+    del xp8
     require(len(rows) == len(KERNELS), "the report misses a kernel")
     del progs, csr_w
     torch.cuda.empty_cache()
@@ -3300,6 +3828,7 @@ def main(argv: list) -> int:
     rows.append(dist_phase(W, P, xp, oracle_p, x8, oracle8, searched,
                            designer))
     llm_phase(torch.device("cuda", torch.cuda.current_device()))
+    train_phase(torch.device("cuda", torch.cuda.current_device()))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -45,7 +45,8 @@ import torch
 
 from repro_torch.core.graph import OperatorGraph, run_graph
 from repro_torch.core.kernel_builder import (build_kernel, build_program,
-                                             resolve_device, step_reads)
+                                             combine_orders, resolve_device,
+                                             step_reads)
 from repro_torch.core.matrices import SparseMatrix
 from repro_torch.core.search import (ProgramCache, SearchConfig, SearchResult,
                                      _graph_from_jsonable, _graph_to_jsonable,
@@ -267,6 +268,15 @@ class SpmvPlan:
     # process (not serialized)
     search_result: Optional[SearchResult] = dataclasses.field(
         default=None, compare=False, repr=False)
+    # derived, never serialized: kernel_builder.combine_orders, the fixed
+    # order of the plan's combines, built whenever a plan is made
+    # (compile, load, update, dataclasses.replace)
+    combine_state: Optional[dict] = dataclasses.field(
+        default=None, compare=False, repr=False)
+
+    def __post_init__(self):
+        self.combine_state = combine_orders(json.loads(self.spec_json),
+                                            self.fmt, self.target.backend)
 
     # -- geometry ----------------------------------------------------------
     @functools.cached_property
@@ -305,7 +315,7 @@ class SpmvPlan:
         on the plan's device (x is copied there first)."""
         x = torch.as_tensor(x).to(self.device, _x_dtype(self.target))
         fn = _dense_kernel(self.spec_json, self.target.backend)
-        return fn(self.fmt, x.contiguous())
+        return fn(self.fmt, x.contiguous(), self.combine_state)
 
     # -- dynamic sparsity --------------------------------------------------
     def update(self, delta) -> "SpmvPlan":

@@ -195,10 +195,9 @@ def main(argv=None) -> int:
     print(f"saved -> {args.out}; reloaded")
 
     # verify: the loaded plan's spec and format arrays are bit-identical
-    # to the live plan's, and both answer within the oracle tolerance.
-    # Outputs are not compared bit for bit: the cuda kernels (and
-    # index_add_ on the card) add with atomics in an order that changes
-    # from call to call, so one plan's two calls may differ in the last bit
+    # to the live plan's, its output is the live plan's bit for bit (the
+    # plans' combines add in a fixed order), and both answer within the
+    # oracle tolerance
     if not _same_plan(plan, loaded):
         print("FAIL: loaded plan is not bit-identical to the live plan")
         return 1
@@ -207,11 +206,16 @@ def main(argv=None) -> int:
     x_np = rng.standard_normal((m.n_cols,) if b == 1
                                else (m.n_cols, b)).astype(np.float32)
     x = torch.from_numpy(x_np).to(loaded.device)
+    y_live = plan(x)
+    y_load = loaded(x)
+    if not torch.equal(y_live, y_load):
+        print("FAIL: loaded plan's output is not bit-identical to the live "
+              "plan's")
+        return 1
     oracle = (m.spmv_dense_oracle(x_np) if b == 1
               else m.spmm_dense_oracle(x_np))
     scale = np.abs(oracle).max() + 1e-30
-    err = max(np.abs(p(x).cpu().numpy() - oracle).max() / scale
-              for p in (plan, loaded))
+    err = np.abs(y_live.cpu().numpy() - oracle).max() / scale
     if err > 1e-4:
         print(f"FAIL: rel error vs float64 oracle {err:.2e} > 1e-4")
         return 1

@@ -31,6 +31,11 @@ contiguous — affine slope-1 rowmap for ELL, per-tile ascending row runs
 for the seg family — the step is marked ``fused`` and the kernel adds its
 rows straight into y, so the scatter pass over tile partials disappears.
 
+Fixed combine order: a program's rowmap combines and its fused seg steps'
+shared rows add their partials in an order fixed once per program
+(:func:`combine_orders`, derived from the descriptors and never saved), so
+two calls of a program, or of a saved-and-loaded plan, give the same bits.
+
 Mixed-precision storage: ``storage_dtype="bfloat16"`` stores vals as bf16
 (and explicit cols arrays as int16 when ``n_cols`` fits), recorded per
 step under ``"store"``; kernels upcast in registers and accumulate fp32.
@@ -48,7 +53,8 @@ from .metadata import Block, EllTileLayout, MetadataSet, SegTileLayout
 
 __all__ = ["SpmvProgram", "build_program", "plan_format", "build_kernel",
            "register_layout_planner", "resolve_device", "run_spec_step",
-           "step_reads", "materialize_cols", "SPEC_VERSION", "BACKENDS"]
+           "step_reads", "materialize_cols", "combine_orders",
+           "SPEC_VERSION", "BACKENDS"]
 
 SPEC_VERSION = 2
 
@@ -79,19 +85,26 @@ class SpmvProgram:
     ``fmt`` (the packed format tensors) and ``spec`` (the JSON-able kernel
     description) fully determine the program; ``fn`` is
     ``build_kernel(spec, backend)`` and carries no baked-in constants.
+    ``order`` is the program's fixed combine order (:func:`combine_orders`),
+    derived from ``fmt`` and ``spec`` when the program is made.
     """
 
     n_rows: int
     n_cols: int
     nnz: int
     fmt: dict                     # name -> torch.Tensor (the stored format)
-    fn: Callable                  # fn(fmt, x) -> y
+    fn: Callable                  # fn(fmt, x, order) -> y
     descriptor: dict              # structural report (kernels, combines, fits)
     spec: dict = None             # JSON-able kernel spec (see plan_format)
     backend: str = "cuda"
+    order: dict = None            # derived: combine_orders(spec, fmt)
+
+    def __post_init__(self):
+        if self.order is None and self.spec is not None:
+            self.order = combine_orders(self.spec, self.fmt, self.backend)
 
     def __call__(self, x):
-        return self.fn(self.fmt, x)
+        return self.fn(self.fmt, x, self.order)
 
     @property
     def stored_bytes(self) -> int:
@@ -360,32 +373,53 @@ def _step_cols(step: dict, fmt: dict, device):
                            cspec["shape"], device)
 
 
-def _order_of(order, rm_key):
-    return None if order is None else order[rm_key]
+def combine_orders(spec: dict, fmt: dict, backend: str) -> dict:
+    """The fixed combine order of a program, by fmt key: for each rowmap
+    that a step scatters through on ``backend``, its ``(perm, offsets)``
+    (``kernels.combine.combine_order``); for each fused seg step on the
+    cuda backend, its ``FusedRows`` (``kernels.combine.fused_rows``)
+    under ``{key}_r0``. Derived from the descriptors (rowmaps, r0,
+    seg_end, local_row) on their device; never saved."""
+    from repro_torch.kernels.combine import combine_order, fused_rows
+    n_rows = spec["n_rows"]
+    out = {}
+    for step in spec["steps"]:
+        key = step["key"]
+        if step["kind"] == "ell":
+            if step["combine"]["mode"] == "rowmap":
+                rk = step["combine"]["key"]
+                out[rk] = combine_order(fmt[rk], n_rows)
+            continue
+        kind = step["reduce"]
+        if kind == "gmem_atom" and backend != "cuda":
+            continue                    # one index_add_ over the row stream
+        if (backend == "cuda" and step.get("fused")
+                and f"{key}_r0" in fmt):
+            mode = "seg_scan" if kind == "gmem_atom" else kind
+            aux = fmt[f"{key}_end" if mode == "seg_scan" else f"{key}_local"]
+            shape = fmt[f"{key}_vals"].shape
+            out[f"{key}_r0"] = fused_rows(fmt[f"{key}_r0"], aux,
+                                          step["seg_rows"], n_rows, mode,
+                                          shape[1] * shape[2])
+        else:
+            rk = f"{key}_rowmap"
+            out[rk] = combine_order(fmt[rk], n_rows)
+    return out
 
 
-def _add_rows(y, rm, flat, order=None):
-    """y[rm[i]] += flat[i] for every rm[i] >= 0 (the scatter combine);
-    ``flat`` is (N,) or (N, B). Given the rowmap's ``order`` (``perm``,
-    ``offsets`` of ``kernels.combine.combine_order``) the partials go
-    through ``kernels.combine.rowmap_combine`` in that order; otherwise
-    through ``index_add_``, whose order on the GPU is the atomics'.
-    Masking instead of boolean indexing keeps the call free of host
-    syncs."""
-    if order is not None:
-        from repro_torch.kernels import ops as kops
-        kops.rowmap_combine(y, flat.contiguous(), *order)
-        return
-    rm = rm.reshape(-1)
-    keep = rm >= 0
-    idx = torch.where(keep, rm, 0).long()
-    if flat.ndim == 2:
-        keep = keep[:, None]
-    y.index_add_(0, idx, torch.where(keep, flat, 0.0))
+def _add_rows(y, flat, order):
+    """y[rm[i]] += flat[i] for every rm[i] >= 0 of the step's rowmap rm
+    (the scatter combine); ``flat`` is (N,) or (N, B). The partials go
+    through
+    ``kernels.combine.rowmap_combine`` in the rowmap's ``order``
+    (``perm``, ``offsets`` of ``kernels.combine.combine_order``), so a
+    row's partials are added in one order on every call."""
+    from repro_torch.kernels import ops as kops
+    kops.rowmap_combine(y, flat.contiguous(), *order)
 
 
 def _run_ell_step(step: dict, fmt: dict, x, y, n_rows: int,
-                  backend: str, tiles_per_step: int = 1, order=None):
+                  backend: str, tiles_per_step: int, order: dict):
     rhs = tuple(x.shape[1:])
     key = step["key"]
     vals = fmt[f"{key}_vals"]
@@ -411,7 +445,7 @@ def _run_ell_step(step: dict, fmt: dict, x, y, n_rows: int,
     flat = partial.reshape((-1,) + rhs)
     if comb["mode"] == "rowmap":
         rm_key = comb["key"]
-        _add_rows(y, fmt[rm_key], flat, _order_of(order, rm_key))
+        _add_rows(y, flat, order[rm_key])
         return y
     b0, nv = comb["b0"], comb["nv"]
     y[b0:b0 + nv] += flat[:nv]
@@ -419,7 +453,7 @@ def _run_ell_step(step: dict, fmt: dict, x, y, n_rows: int,
 
 
 def _run_seg_step(step: dict, fmt: dict, x, y, n_rows: int,
-                  backend: str, tiles_per_step: int = 1, order=None):
+                  backend: str, tiles_per_step: int, order: dict):
     rhs = tuple(x.shape[1:])
     key = step["key"]
     kind = step["reduce"]
@@ -445,7 +479,8 @@ def _run_seg_step(step: dict, fmt: dict, x, y, n_rows: int,
         if step.get("fused") and f"{key}_r0" in fmt:
             op = kops.seg_spmm_fused if rhs else kops.seg_spmv_fused
             op(vals, cols, local, seg_end, fmt[f"{key}_r0"], x, seg_rows,
-               n_rows=n_rows, mode=pk, tiles_per_step=tiles_per_step, out=y)
+               n_rows=n_rows, mode=pk, tiles_per_step=tiles_per_step, out=y,
+               rows=order[f"{key}_r0"])
             return y
         op = kops.seg_spmm if rhs else kops.seg_spmv
         partial = op(vals, cols, local, seg_end, x, seg_rows, mode=pk)
@@ -454,18 +489,18 @@ def _run_seg_step(step: dict, fmt: dict, x, y, n_rows: int,
         op = kref.seg_spmm_ref if rhs else kref.seg_spmv_ref
         partial = op(vals, cols, local, seg_end, x, seg_rows, mode=kind)
     rm_key = f"{key}_rowmap"
-    _add_rows(y, fmt[rm_key], partial.reshape((-1,) + rhs),
-              _order_of(order, rm_key))
+    _add_rows(y, partial.reshape((-1,) + rhs), order[rm_key])
     return y
 
 
 def run_spec_step(step: dict, fmt: dict, x, y, n_rows: int,
-                  backend: str, tiles_per_step: int = 1, order=None):
+                  backend: str, tiles_per_step: int, order: dict):
     """Accumulate one spec step's contribution into y in place and return
     y; ``x`` is (n_cols,) or (n_cols, B) and y (n_rows,) or (n_rows, B).
     ``order`` maps a rowmap's fmt key to its fixed combine order
-    (``kernels.combine.combine_order``); a rowmap combine without one
-    scatters with ``index_add_``."""
+    (``kernels.combine.combine_order``) and a fused seg step's
+    ``{key}_r0`` to its ``FusedRows``: :func:`combine_orders` of the
+    program."""
     run = _run_ell_step if step["kind"] == "ell" else _run_seg_step
     return run(step, fmt, x, y, n_rows, backend, tiles_per_step, order)
 
@@ -494,19 +529,20 @@ def step_reads(step: dict, backend: str) -> list[str]:
 
 def build_kernel(spec: dict, backend: str = "cuda") -> Callable:
     """Stage 2: interpret a kernel spec into the runnable
-    ``fn(fmt, x, order=None)``.
+    ``fn(fmt, x, order)``.
 
     ``fn`` takes an x on the format's device, ``(n_cols,)`` or
     ``(n_cols, B)``, and returns a fresh fp32 ``(n_rows,)`` or
     ``(n_rows, B)`` tensor; the steps accumulate into it in place.
-    ``order`` fixes the rowmap combines' order (:func:`run_spec_step`)."""
+    ``order`` is :func:`combine_orders` of the program: the fixed order
+    of its combines (:func:`run_spec_step`)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (cuda | torch)")
     n_rows = spec["n_rows"]
     steps = spec["steps"]
     tiles_per_step = int(spec.get("tiles_per_step", 1))
 
-    def run(fmt, x, order=None):
+    def run(fmt, x, order):
         if x.ndim not in (1, 2):
             raise ValueError(f"x must be (n_cols,) or (n_cols, B), got "
                              f"shape {tuple(x.shape)}")

@@ -15,7 +15,9 @@
 //
 // Operands: perm lists the flat partials with a row (rowmap >= 0), sorted
 // by row, stably, so each row's partials keep their flat order; offsets
-// (n_rows + 1) bound each row's run in perm. One thread owns one (row, b)
+// (n_rows + 1) bound each row's run in perm. With a compact row list
+// (the rows that the fused seg kernels K6 / K11 leave to a side buffer,
+// few of y's), offsets bound each listed row's run. One thread owns one (row, b)
 // element of y (n_rows, B) and adds the row's partials to it one after
 // another, in perm order: no two threads write one element, no atomics,
 // and the sum is the same on every call. The plain version
@@ -34,32 +36,35 @@ constexpr int kThreads = 256;
 __global__ void __launch_bounds__(kThreads)
 rowmap_combine_kernel(float* __restrict__ y, const float* __restrict__ flat,
                       const int* __restrict__ perm,
-                      const long long* __restrict__ offsets, long long n_rows,
-                      int B) {
+                      const long long* __restrict__ offsets,
+                      const int* __restrict__ rows, long long n_out, int B) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n_rows * B) return;
-  const long long r = i / B;
-  const int b = (int)(i - r * B);
-  const long long lo = offsets[r], hi = offsets[r + 1];
+  if (i >= n_out * B) return;
+  const long long u = i / B;
+  const int b = (int)(i - u * B);
+  const long long lo = offsets[u], hi = offsets[u + 1];
   if (lo == hi) return;
-  float acc = y[i];
+  const long long at = (rows ? (long long)rows[u] : u) * B + b;
+  float acc = y[at];
   for (long long j = lo; j < hi; ++j) {
     acc += flat[(long long)perm[j] * B + b];
   }
-  y[i] = acc;
+  y[at] = acc;
 }
 
 }  // namespace
 
 // y (n_rows, B) += the partials of flat (N, B) that perm and offsets give
-// each row, in perm order.
+// each output row, in perm order. The output rows are y's rows 0 ..
+// n_out - 1 (rows = NULL, n_out = n_rows), or rows[0 .. n_out) (distinct:
+// a compact list, as for the fused seg kernels' shared rows).
 extern "C" int rowmap_combine(float* y, const float* flat, const int* perm,
-                              const long long* offsets, long long n_rows,
-                              int B, void* stream) {
-  const long long n = n_rows * B;
+                              const long long* offsets, const int* rows,
+                              long long n_out, int B, void* stream) {
+  const long long n = n_out * B;
   if (n == 0) return 0;
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   rowmap_combine_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      y, flat, perm, offsets, n_rows, B);
+      y, flat, perm, offsets, rows, n_out, B);
   return (int)cudaGetLastError();
 }

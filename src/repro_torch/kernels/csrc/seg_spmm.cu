@@ -23,9 +23,13 @@
 //    g[m] = S(clamp(end[m], 0, C)) and partial[m] = g[m] - g[m-1].
 //  * fused (K11): tile t's partials are added into y[r0[t] + m, :]. The
 //    TPU does it on a resident output block in grid order; blocks on the
-//    GPU run in any order, so the adds are atomicAdd into y, rows outside
-//    [0, n_rows) masked (the TPU clamps an out-of-range slice write, the
-//    GPU would corrupt memory) and exact zeros skipped.
+//    GPU run in any order, so here the wrapper's dst map
+//    (combine.fused_rows, built once per plan) gives each (tile,
+//    segment) its row where no other tile adds into that row, added
+//    there by its one writer, or a slot of a side buffer that
+//    the ordered combine (rowmap_combine.cu) adds into y in tile order.
+//    Empty segments and rows outside [0, n_rows) map to nothing (the TPU
+//    clamps an out-of-range slice write, the GPU would corrupt memory).
 //
 // Design: the blocked run reduction of runs.cuh, for B columns. A block
 // takes the ceil(2048 / C) tiles of one pass of 2048 slots, so that a pass
@@ -42,7 +46,10 @@
 // (spmm::load_cols), and in one-hot mode at B % 8 == 0 two lanes hold the
 // same 8 slots, 4 columns each; otherwise 1 column per gather.
 // Runs of equal key are summed in registers and over the warp; the thread
-// that ends a run adds it into acc with one shared atomicAdd per column.
+// that ends a run adds it into acc with one shared atomicAdd per column,
+// and the runs at a warp's two ends go through its boundary slots, folded
+// in a fixed order when kRing passes are done and at the window's end
+// (runs.cuh).
 // The window then writes out[t, m, :] (K10) or adds into y (K11). The
 // kernel is held to 85 registers, so that three blocks share an SM.
 //  * The key of a one-hot slot is its local row.
@@ -67,9 +74,9 @@
 // (16-byte, evict-first), gathers of x that stay in L1/L2, no chain of
 // dependent loads, and few atomics. Staging the next pass's slots in
 // shared memory (cp.async / TMA) is not done.
-// The sums are taken in another order than the plain version's scan, and
-// atomics add in an order that changes from run to run, so results agree
-// with the plain version to a tolerance, not bit for bit.
+// The sums are taken in another order than the plain version's scan, so
+// results agree with it to a tolerance; from call to call they are
+// bit-identical for sorted keys (the packers' tiles).
 #include <climits>
 
 #include "runs.cuh"
@@ -216,8 +223,10 @@ __device__ __forceinline__ void gather(const X* __restrict__ x, int n_cols,
 // K10a / K10b / K11: a block per group of K tiles, walked in windows of
 // nk keys (whole tiles when nk is a multiple of M) and cb columns; acc is
 // the window's (nk, cb) accumulator. In a pass the G lanes of a group hold
-// the same kPer slots, and each lane takes CW of every G * CW columns.
-// fused = 0: out[t, m, b]; fused = 1: atomicAdd into y[r0[t] + m, b].
+// the same kPer slots, and each lane takes CW of every G * CW columns;
+// bval (after acc) holds the boundary slots' sums. fused = 0: out[t, m,
+// b]; fused = 1: y (out) or the side buffer at dst[t * M + m], column b,
+// for m below n_used[t].
 template <int kMode, bool kVec, int CW, int G, typename V, typename C,
           typename X>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -225,9 +234,12 @@ seg_runs_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
                 const int* __restrict__ aux, const X* __restrict__ x,
                 int n_cols, int B, long long T, int Cn, int M, int K, int nk,
                 int cb, int fused, float* __restrict__ out,
-                const int* __restrict__ r0, long long n_rows) {
-  extern __shared__ float acc[];  // nk * cb
+                const int* __restrict__ dst, const int* __restrict__ n_used,
+                float* __restrict__ side) {
+  extern __shared__ float acc[];  // nk * cb, then kRing * kSlots * cb
   __shared__ int desc[kMaxWinTiles];
+  __shared__ int bkey[runs::kRing * runs::kSlots];
+  float* bval = acc + (long long)nk * cb;  // the ring's boundary sums
   const int tid = threadIdx.x;
   Window w;
   w.t0 = (long long)blockIdx.x * K;
@@ -256,19 +268,32 @@ seg_runs_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
         }
         any_desc = __syncthreads_or(found);
       }
+      int ring = 0;  // passes in the ring
       for (int s0 = 0; s0 < w.n; s0 += kPass / G) {
         int key[kPer], col[kPer];
         float v[kPer];
         load_slots<kMode, kVec>(vals, cols, aux, w, s0 + tid / G * kPer, Cn,
                                 M, desc, key, col, v);
         const runs::Runs r = runs::run_structure<G>(key);
+        int* bk = bkey + ring * runs::kSlots;
+        float* bv = bval + ring * runs::kSlots * cb;
         for (int cc = c0 + tid % G * CW; cc < cend; cc += G * CW) {
           float p[kPer][CW];
           gather<CW>(x, n_cols, B, cc, key, col, v, p);
-          runs::add_runs<CW, G>(r, key, p, acc, cb, cc - c0);
+          runs::add_runs<CW, G>(r, key, p, acc, cb, cc - c0, bk, bv);
+        }
+        if (++ring == runs::kRing && s0 + kPass / G < w.n) {
+          __syncthreads();
+          runs::fold_boundary(bkey, bval, cb, cend - c0,
+                              ring * runs::kSlots, acc);
+          __syncthreads();
+          ring = 0;
         }
       }
       __syncthreads();
+      // the fold and the descending tiles' sums write different keys
+      runs::fold_boundary(bkey, bval, cb, cend - c0, ring * runs::kSlots,
+                          acc);
       if (kMode == kSegScan && any_desc) {
         // a warp per segment of a tile whose ends descend: the signed sum
         // over [min, max) of its two clamped ends
@@ -296,19 +321,22 @@ seg_runs_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
             if (g == 0 && b < cend) acc[q * cb + (b - c0)] = sign * a;
           }
         }
-        __syncthreads();
       }
+      __syncthreads();
       const int cw = cend - c0;
       for (int i = tid; i < w.nk * cw; i += kThreads) {
         const int q = i / cw, b = c0 + (i - q * cw);
         const long long gk = w.k0 + q;
         const long long t = w.t0 + gk / M;
         const int m = (int)(gk % M);
+        if (fused && m >= n_used[t]) continue;  // an empty segment
         const float sum = acc[q * cb + (b - c0)];
         if (fused) {
-          const long long row = (long long)r0[t] + m;
-          if (sum != 0.f && row >= 0 && row < n_rows) {
-            atomicAdd(out + row * B + b, sum);
+          const int d = dst[t * M + m];
+          if (d >= 0) {  // one writer: the atomic's result is y + sum
+            atomicAdd(out + (long long)d * B + b, sum);
+          } else if (d <= -2) {
+            side[(long long)(-2 - d) * B + b] = sum;
           }
         } else {
           out[(t * M + m) * B + b] = sum;
@@ -323,9 +351,10 @@ template <int kMode, bool kVec, int CW, int G, typename V, typename C,
           typename X>
 int launch(const void* vals, const void* cols, const int* aux,
            const void* x, int n_cols, int B, long long T, int Cn, int M,
-           int K, int nk, int cb, int fused, float* out, const int* r0,
-           long long n_rows, cudaStream_t s) {
-  const size_t smem = (size_t)nk * cb * sizeof(float);
+           int K, int nk, int cb, int fused, float* out, const int* dst,
+           const int* n_used, float* side, cudaStream_t s) {
+  const size_t smem =
+      (size_t)(nk + runs::kRing * runs::kSlots) * cb * sizeof(float);
   const cudaError_t err =
       allow_dynamic_smem(seg_runs_kernel<kMode, kVec, CW, G, V, C, X>, smem);
   if (err != cudaSuccess) return (int)err;
@@ -333,7 +362,7 @@ int launch(const void* vals, const void* cols, const int* aux,
   seg_runs_kernel<kMode, kVec, CW, G, V, C, X>
       <<<blocks, kThreads, smem, s>>>(
       (const V*)vals, (const C*)cols, aux, (const X*)x, n_cols, B, T, Cn, M,
-      K, nk, cb, fused, out, r0, n_rows);
+      K, nk, cb, fused, out, dst, n_used, side);
   return (int)cudaGetLastError();
 }
 
@@ -349,12 +378,12 @@ template <int kMode, typename V, typename C, typename X>
 int launch_layout(bool vec, bool xvec, bool pairs, const void* vals,
                   const void* cols, const int* aux, const void* x,
                   int n_cols, int B, long long T, int Cn, int M, int K,
-                  int nk, int cb, int fused, float* out, const int* r0,
-                  long long n_rows, cudaStream_t s) {
+                  int nk, int cb, int fused, float* out, const int* dst,
+                  const int* n_used, float* side, cudaStream_t s) {
 #define SEG_RUNS_LAUNCH(VEC, CW, G)                                         \
   return launch<kMode, VEC, CW, G, V, C, X>(vals, cols, aux, x, n_cols, B, \
                                             T, Cn, M, K, nk, cb, fused,   \
-                                            out, r0, n_rows, s)
+                                            out, dst, n_used, side, s)
   if (vec) {
     if constexpr (kMode == kOnehot) {
       if (pairs) SEG_RUNS_LAUNCH(true, 4, 2);
@@ -373,16 +402,19 @@ bool aligned(const void* p, uintptr_t bytes) {
 }  // namespace
 
 // mode: 0 seg_scan (aux = seg_end (T, M)), 1 onehot_mxu (aux = local_row
-// (T, Cn)). fused = 0: out is (T, M, B) partials and r0 / n_rows are
-// unused; fused = 1: out is y (n_rows, B). tiles_per_block does not set
+// (T, Cn)). fused = 0: out is (T, M, B) partials and dst / side are
+// unused; fused = 1: out is y (n_rows, B), dst (T * M) maps each partial
+// to a row of y or a row of side (n_side, B), and n_used (T) bounds each
+// tile's segments that add anything. tiles_per_block does not set
 // the grid: a block takes the ceil(2048 / Cn) tiles of one pass, which
 // changes no sum (groups of more tiles left the last wave of blocks short
 // on the card).
 extern "C" int seg_spmm(const void* vals, int vals_bf16, const void* cols,
                         int cols_i16, const void* x, int x_bf16, int n_cols,
                         int B, const int* aux, long long T, int Cn, int M,
-                        int mode, int fused, float* out, const int* r0,
-                        long long n_rows, int tiles_per_block, void* stream) {
+                        int mode, int fused, float* out, const int* dst,
+                        const int* n_used, float* side, int tiles_per_block,
+                        void* stream) {
   if (T <= 0 || B <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   int dev = 0, optin = 0;
@@ -392,9 +424,11 @@ extern "C" int seg_spmm(const void* vals, int vals_bf16, const void* cols,
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
   if (err != cudaSuccess) return (int)err;
-  // the accumulator's floats: the block's shared memory less desc and a
+  // the window's floats, a column's nk accumulators and its kRing *
+  // kSlots boundary sums: the block's shared memory less desc, bkey and a
   // margin
   const long long cap = (optin - 1024) / (long long)sizeof(float);
+  const long long bnd = runs::kRing * runs::kSlots;
   const int per_pass = Cn > 0 ? (kPass + Cn - 1) / Cn : 1;
   const long long K = per_pass < T ? per_pass : T;
   // a window: whole tiles (enough for a pass) and all B columns; else one
@@ -403,18 +437,20 @@ extern "C" int seg_spmm(const void* vals, int vals_bf16, const void* cols,
   long long nk;
   int cb;
   const long long tile_floats = (long long)M * B;
-  if (tile_floats <= cap) {
+  if (tile_floats + bnd * B <= cap) {
     long long nt = per_pass < kMaxWinTiles ? per_pass : kMaxWinTiles;
     if (nt > K) nt = K;
-    if (nt > cap / tile_floats) nt = cap / tile_floats;
+    if (nt > (cap - bnd * B) / tile_floats) {
+      nt = (cap - bnd * B) / tile_floats;
+    }
     nk = nt * M;
     cb = B;
-  } else if (M <= cap) {
+  } else if (M + bnd <= cap) {
     nk = M;
-    cb = (int)(cap / M);
+    cb = (int)(cap / (M + bnd));
     if (cb >= 4) cb -= cb % 4;
   } else {
-    nk = cap;
+    nk = cap - bnd;
     cb = 1;
   }
   const bool vec = Cn % kPer == 0 && aligned(vals, 16) && aligned(cols, 16) &&
@@ -427,11 +463,12 @@ extern "C" int seg_spmm(const void* vals, int vals_bf16, const void* cols,
     if (mode == kSegScan) {
       return launch_layout<kSegScan, V, C, X>(
           vec, xvec, pairs, vals, cols, aux, x, n_cols, B, T, Cn, M, k, n,
-          cb, fused, out, r0, n_rows, s);
+          cb, fused, out, dst, n_used, side, s);
     }
     return launch_layout<kOnehot, V, C, X>(vec, xvec, pairs, vals, cols, aux,
                                            x, n_cols, B, T, Cn, M, k, n, cb,
-                                           fused, out, r0, n_rows, s);
+                                           fused, out, dst, n_used, side,
+                                           s);
   });
   return 0;  // not reached
 }

@@ -54,24 +54,33 @@
 //    16-byte aligned, checked on the host; scalar loads otherwise), then
 //    the 8 x gathers, all independent; runs of equal local row are summed
 //    in registers and over the warp, and the thread that ends a run adds
-//    it into a shared float[M] with one atomicAdd. A local row outside
-//    [0, M) gets the key kNone and adds nothing. The packer emits local
-//    rows sorted within a tile, so the atomics per tile fall from C to
-//    about (distinct rows + warps per pass); the sums are right for any
-//    local_row (unsorted, repeated, out of range), only fast for
-//    sorted ones. seg_end is not read, as the TPU kernel does not read it.
+//    it into a shared float[M] with one atomicAdd; the runs at a warp's
+//    two ends go through its boundary slots, folded in warp order after
+//    each pass (runs.cuh), so a row's sum is taken in one order on every
+//    call. A local row outside [0, M) gets the key kNone and adds
+//    nothing. The packer emits local rows sorted within a tile, so the
+//    atomics per tile fall from C to about (distinct rows + warps per
+//    pass); the sums are right for any local_row (unsorted, repeated, out
+//    of range), only fast and bit-stable for sorted ones. seg_end is not
+//    read, as the TPU kernel does not read it.
 //  * fused (K6): the TPU adds tile t's partials at y[r0[t] + m] on a
 //    resident output block, in sequential grid order; a row that
 //    straddles tiles t and t+1 gets its second add on top of the first.
-//    Blocks on the GPU run in parallel and in any order, so the adds are
-//    atomicAdd into y. Rows outside [0, n_rows) are masked: the TPU clamps
-//    an out-of-range slice write, the GPU would corrupt memory. seg_scan
-//    skips exact zeros (unused segments); one-hot walks tiles_per_block
-//    tiles a block, seg_scan sets its grid from C alone.
+//    Blocks on the GPU run in parallel and in any order, so here the
+//    wrapper's dst map (combine.fused_rows, built once per plan) gives
+//    each (tile, segment) its row where no other tile adds into that row,
+//    and the flush adds it there (one writer, so in no varying order); the
+//    partials of rows that several tiles share go to a side buffer, which
+//    the ordered combine (rowmap_combine.cu) then adds into y in tile
+//    order. Empty segments and rows outside [0, n_rows) map to nothing:
+//    the TPU clamps an out-of-range slice write, the GPU would corrupt
+//    memory. One-hot walks tiles_per_block tiles a block, seg_scan sets
+//    its grid from C alone; neither changes a sum.
 // runs.cuh holds the 8-slot loads and the run helpers, which the seg SpMM
 // kernels K10a/K10b/K11 run for B columns.
-// Atomics add in an order that changes from run to run, so sums agree
-// with the plain version to a tolerance, not bit for bit.
+// The sums are taken in another order than the plain version's, so they
+// agree with it to a tolerance; from call to call they are bit-identical
+// (for the packers' sorted local rows in one-hot mode).
 #include "runs.cuh"
 
 namespace {
@@ -88,6 +97,21 @@ constexpr int kSegScan = 0, kOnehot = 1, kOnehotVec = 2;
 
 __device__ __forceinline__ int clamp_end(int e, int Cn) {
   return e < 0 ? 0 : (e > Cn ? Cn : e);
+}
+
+// A fused partial's destination d (combine.fused_rows): y[d] when d >= 0,
+// whose only writer in the launch this is; side slot -2 - d when d <= -2;
+// nothing when d == -1. The add into y is an atomic without a return (a
+// reduction the memory system completes, so the thread does not wait for
+// y[d] as a load would); with no other writer it gives y[d] + v.
+__device__ __forceinline__ void put_fused(float* __restrict__ y,
+                                          float* __restrict__ side, int d,
+                                          float v) {
+  if (d >= 0) {
+    atomicAdd(y + d, v);
+  } else if (d <= -2) {
+    side[-2 - d] = v;
+  }
 }
 
 // The products of this thread's kPer slots from slot i (of `left` still
@@ -129,15 +153,16 @@ __device__ __forceinline__ void slot_products(
 }
 
 // K3 / K6 in seg_scan mode: tiles [t0, t0 + K) per block; cs holds their
-// in-tile inclusive sums. kFused = false: out[t, m]; kFused = true:
-// atomicAdd into y[r0[t] + m], rows outside [0, n_rows) masked.
+// in-tile inclusive sums. kFused = false: out[t, m]; kFused = true: y
+// (out) or the side buffer at dst[t * M + m] (see put_fused), for m below
+// n_used[t].
 template <bool kVec, bool kFused, typename V, typename C, typename X>
 __global__ void __launch_bounds__(kThreads)
 scan_tiles_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
                   const int* __restrict__ seg_end, const X* __restrict__ x,
                   int n_cols, long long T, int Cn, int M, int K,
-                  float* __restrict__ out, const int* __restrict__ r0,
-                  long long n_rows) {
+                  float* __restrict__ out, const int* __restrict__ dst,
+                  const int* __restrict__ n_used, float* __restrict__ side) {
   extern __shared__ float4 cs4[];  // K * Cn floats
   float* cs = reinterpret_cast<float*>(cs4);
   __shared__ float wsum[2][kWarps];  // per pass parity: warp totals ...
@@ -227,6 +252,7 @@ scan_tiles_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
   const int* end = seg_end + t0 * M;
   for (int i = tid; i < nt * M; i += kThreads) {
     const int tr = i / M, m = i - tr * M;
+    if (kFused && m >= n_used[t0 + tr]) continue;  // an empty segment
     const float* tcs = cs + tr * Cn;
     const int e = clamp_end(end[i], Cn);
     const int ep = m > 0 ? clamp_end(end[i - 1], Cn) : 0;
@@ -234,8 +260,7 @@ scan_tiles_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
     const float gp = ep > 0 ? tcs[ep - 1] : 0.f;
     const float part = g - gp;
     if constexpr (kFused) {
-      const long long row = (long long)r0[t0 + tr] + m;
-      if (part != 0.f && row >= 0 && row < n_rows) atomicAdd(out + row, part);
+      put_fused(out, side, dst[t0 * M + i], part);
     } else {
       out[t0 * M + i] = part;
     }
@@ -250,7 +275,8 @@ template <bool kVec, typename V, typename C, typename X>
 __device__ __forceinline__ void onehot_pass(
     const V* __restrict__ vals, const C* __restrict__ cols,
     const int* __restrict__ local, const X* __restrict__ x, int n_cols,
-    long long base, int s0, int Cn, int M, float* buf) {
+    long long base, int s0, int Cn, int M, float* buf, int* bkey,
+    float* bval) {
   int key[kPer], col[kPer];
   float v[kPer];
   // with kVec, Cn % kPer == 0: the kPer slots are all in or all out
@@ -283,36 +309,49 @@ __device__ __forceinline__ void onehot_pass(
     if ((unsigned)key[k] >= (unsigned)M) key[k] = runs::kNone;
   }
   const runs::Runs r = runs::run_structure<1>(key);
-  runs::add_runs<1, 1>(r, key, p, buf, 1, 0);
+  runs::add_runs<1, 1>(r, key, p, buf, 1, 0, bkey, bval);
 }
 
 // K4 / K6 in one-hot mode: partials of tiles [t0, t1) per block, out[t, m]
-// (fused = 0) or atomicAdd into y[r0[t] + m] masked at n_rows (fused = 1).
+// (fused = 0) or y / the side buffer at dst[t * M + m] for m below
+// n_used[t] (fused = 1).
 template <typename V, typename C, typename X, int kMode>
 __global__ void __launch_bounds__(kThreads)
 onehot_tiles_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
                     const int* __restrict__ local, const X* __restrict__ x,
                     int n_cols, long long T, int Cn, int M, int fused,
-                    float* __restrict__ out, const int* __restrict__ r0,
-                    long long n_rows, int tiles_per_block) {
+                    float* __restrict__ out, const int* __restrict__ dst,
+                    const int* __restrict__ n_used, float* __restrict__ side,
+                    int tiles_per_block) {
   extern __shared__ float buf[];  // M floats
+  __shared__ int bkey[runs::kRing * runs::kSlots];  // boundary slots
+  __shared__ float bval[runs::kRing * runs::kSlots];
   const long long t0 = (long long)blockIdx.x * tiles_per_block;
   const long long t1 = min(t0 + tiles_per_block, T);
   for (long long t = t0; t < t1; ++t) {
     const long long base = t * Cn;
     for (int m = threadIdx.x; m < M; m += kThreads) buf[m] = 0.f;
     __syncthreads();
+    int ring = 0;  // passes in the ring
     for (int start = 0; start < Cn; start += kPass) {
-      onehot_pass<kMode == kOnehotVec>(vals, cols, local, x, n_cols, base,
-                                       start + threadIdx.x * kPer, Cn, M,
-                                       buf);
+      onehot_pass<kMode == kOnehotVec>(
+          vals, cols, local, x, n_cols, base, start + threadIdx.x * kPer, Cn,
+          M, buf, bkey + ring * runs::kSlots, bval + ring * runs::kSlots);
+      if (++ring == runs::kRing && start + kPass < Cn) {
+        __syncthreads();
+        runs::fold_boundary(bkey, bval, 1, 1, ring * runs::kSlots, buf);
+        __syncthreads();
+        ring = 0;
+      }
     }
     __syncthreads();
-    for (int m = threadIdx.x; m < M; m += kThreads) {
+    runs::fold_boundary(bkey, bval, 1, 1, ring * runs::kSlots, buf);
+    __syncthreads();
+    const int lim = fused ? n_used[t] : M;  // past it, empty segments
+    for (int m = threadIdx.x; m < lim; m += kThreads) {
       const float v = buf[m];
       if (fused) {
-        const long long row = (long long)r0[t] + m;
-        if (row >= 0 && row < n_rows) atomicAdd(out + row, v);
+        put_fused(out, side, dst[t * M + m], v);
       } else {
         out[t * M + m] = v;
       }
@@ -337,14 +376,16 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 }  // namespace
 
 // mode: 0 seg_scan, 1 onehot_mxu. fused = 0: out is (T, M) partials and
-// r0 / n_rows are unused; fused = 1: out is y (n_rows,). tiles_per_block
+// dst / n_used / side are unused; fused = 1: out is y (n_rows,), dst (T *
+// M) maps each partial to y or to the side buffer (put_fused), and
+// n_used (T) bounds each tile's segments that add anything. tiles_per_block
 // sets the one-hot grid; seg_scan ignores it (a block takes the
 // ceil(2048 / Cn) tiles of one pass), which changes no sum.
 extern "C" int seg_tiles(const void* vals, int vals_bf16, const void* cols,
                          int cols_i16, const void* x, int x_bf16, int n_cols,
                          const int* aux, long long T, int Cn, int M, int mode,
-                         int fused, float* out, const int* r0,
-                         long long n_rows, int tiles_per_block,
+                         int fused, float* out, const int* dst,
+                         const int* n_used, float* side, int tiles_per_block,
                          void* stream) {
   if (T <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
@@ -357,7 +398,7 @@ extern "C" int seg_tiles(const void* vals, int vals_bf16, const void* cols,
 #define SCAN_LAUNCH(VEC, FUSED)                                            \
   return launch(scan_tiles_kernel<VEC, FUSED, V, C, X>, blocks, smem, s,   \
                 (const V*)vals, (const C*)cols, aux, (const X*)x, n_cols, \
-                T, Cn, M, K, out, r0, n_rows)
+                T, Cn, M, K, out, dst, n_used, side)
     SPMV_DISPATCH(vals_bf16, cols_i16, x_bf16, {
       if (vec) {
         if (fused) SCAN_LAUNCH(true, true);
@@ -375,11 +416,11 @@ extern "C" int seg_tiles(const void* vals, int vals_bf16, const void* cols,
     if (vec && aligned16(aux)) {
       return launch(onehot_tiles_kernel<V, C, X, kOnehotVec>, blocks, smem,
                     s, (const V*)vals, (const C*)cols, aux, (const X*)x,
-                    n_cols, T, Cn, M, fused, out, r0, n_rows, K);
+                    n_cols, T, Cn, M, fused, out, dst, n_used, side, K);
     }
     return launch(onehot_tiles_kernel<V, C, X, kOnehot>, blocks, smem, s,
                   (const V*)vals, (const C*)cols, aux, (const X*)x, n_cols,
-                  T, Cn, M, fused, out, r0, n_rows, K);
+                  T, Cn, M, fused, out, dst, n_used, side, K);
   });
   return 0;  // not reached
 }

@@ -204,13 +204,15 @@ def seg_spmm_fused_ref(vals, cols, local_row, seg_end, r0, x, seg_rows: int,
     return out
 
 
-def rowmap_combine_ref(y, flat, perm, offsets) -> torch.Tensor:
+def rowmap_combine_ref(y, flat, perm, offsets, rows=None) -> torch.Tensor:
     """The ordered rowmap combine: ``y[r] += flat[perm[j]]`` for the j in
-    ``[offsets[r], offsets[r+1])``, in that order, row by row. ``y`` is
-    (n_rows,) or (n_rows, B) fp32 and ``flat`` (N,) or (N, B); ``perm``
-    holds the flat indices sorted by their row (``combine_order``).
-    Returns ``y``, added to in place."""
+    ``[offsets[u], offsets[u+1])``, in that order, output row by output
+    row, where r = u, or ``rows[u]`` given a compact list of distinct
+    rows. ``y`` is (n_rows,) or (n_rows, B) fp32 and ``flat`` (N,) or (N,
+    B); ``perm`` holds the flat indices sorted by their row
+    (``combine_order``). Returns ``y``, added to in place."""
     counts = offsets[1:] - offsets[:-1]
-    rows = torch.repeat_interleave(
-        torch.arange(counts.numel(), device=y.device), counts.long())
-    return y.index_add_(0, rows, flat[perm.long()])
+    out = (torch.arange(counts.numel(), device=y.device) if rows is None
+           else rows.long())
+    return y.index_add_(0, torch.repeat_interleave(out, counts.long()),
+                        flat[perm.long()])

@@ -10,9 +10,17 @@ layout: caches are (n_blocks, batch, ...). Where the reference scans over
 blocks with ``lax.scan``, the port loops over views of the stacked
 leaves.
 
-The reference's ``remat``, ``unroll``, ``act_dp`` and ``seq_shard``
-options of ``forward`` are XLA and sharding knobs and are not ported
-here; they come with the training slice.
+Training: ``forward`` and ``loss_fn`` are differentiable with autograd
+over the parameter tree (``train.step`` takes gradients of ``loss_fn``).
+``remat=True`` (the reference's default) wraps each pattern block in
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, as the
+reference wraps its scan body in ``jax.checkpoint``, when autograd is
+recording. The reference's ``unroll`` (``lax.scan`` unrolling),
+``act_dp`` and ``seq_shard`` (activation sharding constraints over a
+mesh) have no meaning on one card: their defaults are accepted and any
+other value raises ``NotImplementedError``. Block views are
+``unbind``s of the stacked leaves, so a backward pass writes each
+stacked gradient once, not once a block.
 
 Parameters stay float32 by default; ``cast_params`` casts, once, the
 leaves the reference casts to the compute dtype at each use (embedding,
@@ -27,6 +35,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
@@ -132,12 +141,25 @@ def cast_params(params: dict, dtype) -> dict:
     return _cast_tree(params, dtype)
 
 
+def _split(tree, nb: int) -> list:
+    """``nb`` trees, tree b holding block b's view of every stacked leaf
+    (one ``unbind`` a leaf, whose backward stacks the blocks' gradients
+    once)."""
+    if isinstance(tree, dict):
+        parts = {k: _split(v, nb) for k, v in tree.items()}
+        return [{k: parts[k][b] for k in tree} for b in range(nb)]
+    if isinstance(tree, (list, tuple)):
+        parts = [_split(v, nb) for v in tree]
+        return [[q[b] for q in parts] for b in range(nb)]
+    return list(tree.unbind(0))
+
+
 def block_views(params: dict) -> list[list[dict]]:
     """Per block, per pattern position, the views of the stacked leaves."""
     blocks = params["blocks"]
     nb = next(iter(_leaves(blocks[0]))).shape[0]
-    return [[tree_map(lambda t, b=b: t[b], pos) for pos in blocks]
-            for b in range(nb)]
+    per_pos = [_split(pos, nb) for pos in blocks]
+    return [[pos[b] for pos in per_pos] for b in range(nb)]
 
 
 def _leaves(tree):
@@ -236,19 +258,37 @@ def _logits(cfg: ArchConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     return h @ head.to(h.dtype)
 
 
+def _check_knobs(unroll, act_dp, seq_shard) -> None:
+    if unroll != 1 or act_dp is not None or seq_shard:
+        raise NotImplementedError(
+            "unroll, act_dp and seq_shard are XLA scan and mesh-sharding "
+            "knobs of the reference with no meaning on one card; leave "
+            "them at their defaults (1, None, False)")
+
+
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None,
-            compute_dtype=torch.bfloat16, block_kv: Optional[int] = None):
+            compute_dtype=torch.bfloat16, block_kv: Optional[int] = None,
+            *, remat: bool = True, unroll: int = 1,
+            act_dp: Optional[tuple] = None, seq_shard: bool = False):
     """tokens: (B, S) -> (logits (B, S, vocab_padded), aux_loss).
 
     Logits cover token positions only (the stubbed modality prefix is
-    consumed but not predicted)."""
+    consumed but not predicted). ``remat`` recomputes each pattern block
+    in the backward pass instead of keeping its activations."""
+    _check_knobs(unroll, act_dp, seq_shard)
     specs = pattern_specs(cfg)
     h = _embed(cfg, params, tokens, prefix_embeds, compute_dtype)
     positions = torch.arange(h.shape[1], device=h.device)[None]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    ckpt = remat and torch.is_grad_enabled()
     for block in block_views(params):
-        h, a = _block_body(cfg, specs, block, h, positions, block_kv)
+        if ckpt:
+            h, a = torch.utils.checkpoint.checkpoint(
+                _block_body, cfg, specs, block, h, positions, block_kv,
+                use_reentrant=False)
+        else:
+            h, a = _block_body(cfg, specs, block, h, positions, block_kv)
         aux = aux + a
     h = L.apply_norm(params["final_norm"], h)
     if cfg.n_prefix:
@@ -257,13 +297,16 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
 
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict,
-            compute_dtype=torch.bfloat16, block_kv: Optional[int] = None):
-    """Next-token cross entropy + MoE aux + z-loss (its value). batch:
-    tokens, labels (+ prefix_embeds for vlm/audio). labels < 0 are
-    masked."""
+            compute_dtype=torch.bfloat16, block_kv: Optional[int] = None,
+            *, remat: bool = True, unroll: int = 1,
+            act_dp: Optional[tuple] = None, seq_shard: bool = False):
+    """Next-token cross entropy + MoE aux + z-loss: (total, {"ce", "aux",
+    "z"}). batch: tokens, labels (+ prefix_embeds for vlm/audio). labels
+    < 0 are masked."""
     logits, aux = forward(cfg, params, batch["tokens"],
                           batch.get("prefix_embeds"), compute_dtype,
-                          block_kv)
+                          block_kv, remat=remat, unroll=unroll,
+                          act_dp=act_dp, seq_shard=seq_shard)
     logits = logits.float()
     labels = batch["labels"].long()
     mask = (labels >= 0) & (labels < cfg.vocab)
@@ -417,8 +460,8 @@ class _Node(nn.Module):
             elif isinstance(v, (list, tuple)):
                 self.add_module(k, nn.ModuleList(_Node(x) for x in v))
             else:
-                # the serving slice computes no gradient; the training
-                # slice turns them on
+                # serving builds no autograd graph; training takes
+                # gradients on the parameter tree (train.step), not here
                 self.register_parameter(k, nn.Parameter(v,
                                                         requires_grad=False))
 

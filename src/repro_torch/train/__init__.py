@@ -1,5 +1,10 @@
-"""Training-side drivers (port of ``repro.train``). Only the dynamic
-pruning loop is ported; the optimizer, train step and compression wait
-for the LLM stack (ROADMAP queue 1, item 7)."""
+"""Training (port of ``repro.train``): AdamW, gradient compression, the
+train step and the dynamic pruning loop."""
+from .optimizer import AdamWConfig, adamw_init, adamw_update, lr_schedule  # noqa: F401
+from .step import TrainConfig, make_train_step  # noqa: F401
 from .dynamic import (PruningLoopReport, capacity_graph,  # noqa: F401
                       run_pruning_loop)
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "lr_schedule",
+           "TrainConfig", "make_train_step", "PruningLoopReport",
+           "capacity_graph", "run_pruning_loop"]

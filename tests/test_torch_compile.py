@@ -25,7 +25,8 @@ from repro.design.registry import OpSpec as RefOpSpec
 import repro_torch
 from repro_torch.core import matrices as tm
 from repro_torch.core.graph import run_graph
-from repro_torch.core.kernel_builder import build_kernel, plan_format
+from repro_torch.core.kernel_builder import build_kernel, combine_orders, \
+    plan_format
 from repro_torch.core.search import _graph_from_jsonable
 
 
@@ -112,7 +113,8 @@ def test_cuda_dispatch_on_cpu_tensors_matches_reference(family, fuse):
                                 device="cpu")
         assert json.dumps(spec) == json.dumps(ref.spec)
         x = _x(m, seed=tiles)
-        y = build_kernel(spec, backend="cuda")(fmt, torch.from_numpy(x))
+        y = build_kernel(spec, backend="cuda")(
+            fmt, torch.from_numpy(x), combine_orders(spec, fmt, "cuda"))
         _assert_close(y, np.asarray(ref(x), np.float64), 1e-5)
         _assert_close(y, m.spmv_dense_oracle(x), 1e-4)
 

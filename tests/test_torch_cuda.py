@@ -7,8 +7,10 @@ build the kernels with nvcc): here they skip; on the card run
 
 This file imports no jax (and needs none of tests/conftest.py), so it
 also runs where jax is not installed.
-Tolerance ``1e-4 * max|plain| + 1e-6``: the kernels sum in another order,
-and K4/K6 add with atomics whose order changes from run to run.
+Tolerance ``1e-4 * max|plain| + 1e-6``: the kernels sum in another order
+than the plain versions. Repeated calls of one plan, its saved-and-loaded
+copy and any tiles_per_step give the same bits (the combines add in an
+order fixed with the plan): those comparisons are exact.
 """
 import functools
 import importlib.util
@@ -35,6 +37,14 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernels are built with nvcc)")
     return torch.device("cuda")
+
+
+def _rows(g, vals, local, end, r0, m, n_rows, mode):
+    """The ``FusedRows`` that a fused seg kernel takes on the card (a plan
+    builds them once), from the descriptors moved by ``g``."""
+    from repro_torch.kernels.combine import fused_rows
+    return fused_rows(g(r0), g(end if mode == "seg_scan" else local), m,
+                      n_rows, mode, vals.shape[1] * vals.shape[2])
 
 
 def _close(got, want):
@@ -196,7 +206,8 @@ def test_seg_kernels_match_plain(dev, mode, case, shape, vd, cd):
     for k in (1, 3, 8):
         _close(ops.seg_spmv_fused(g(vals), g(cols), g(local), g(end), g(r0),
                                   g(x), M, n_rows=420, mode=mode,
-                                  tiles_per_step=k),
+                                  tiles_per_step=k, rows=_rows(
+                                      g, vals, local, end, r0, M, 420, mode)),
                ref.seg_spmv_fused_ref(vals, cols, local, end, r0, x, M,
                                       n_rows=420, mode=mode))
     torch.cuda.synchronize()
@@ -301,7 +312,8 @@ def test_seg_spmm_kernels_match_plain(dev, b, mode, vd, cd, xd):
     for k in (1, 3, 8):
         _close(ops.seg_spmm_fused(g(vals), g(cols), g(local), g(end), g(r0),
                                   g(x), M, n_rows=1000, mode=mode,
-                                  tiles_per_step=k),
+                                  tiles_per_step=k, rows=_rows(
+                                      g, vals, local, end, r0, M, 1000, mode)),
                ref.seg_spmm_fused_ref(vals, cols, local, end, r0, x, M,
                                       n_rows=1000, mode=mode))
     torch.cuda.synchronize()
@@ -327,7 +339,8 @@ def test_seg_spmm_full_chunk(dev, b, mode):
            ref.seg_spmm_ref(vals, cols, local, end, x, M, mode))
     _close(ops.seg_spmm_fused(g(vals), g(cols), g(local), g(end), g(r0),
                               g(x), M, n_rows=1900, mode=mode,
-                              tiles_per_step=3),
+                              tiles_per_step=3, rows=_rows(
+                                  g, vals, local, end, r0, M, 1900, mode)),
            ref.seg_spmm_fused_ref(vals, cols, local, end, r0, x, M,
                                   n_rows=1900, mode=mode))
     torch.cuda.synchronize()
@@ -343,7 +356,9 @@ def _check_seg_spmm(g, vals, cols, local, end, x, m, mode, r0, n_rows,
     for k in ks:
         _close(ops.seg_spmm_fused(g(vals), g(cols), g(local), g(end), g(r0),
                                   g(x), m, n_rows=n_rows, mode=mode,
-                                  tiles_per_step=k),
+                                  tiles_per_step=k, rows=_rows(
+                                      g, vals, local, end, r0, m, n_rows,
+                                      mode)),
                ref.seg_spmm_fused_ref(vals, cols, local, end, r0, x, m,
                                       n_rows=n_rows, mode=mode))
     torch.cuda.synchronize()
@@ -443,7 +458,9 @@ def _check_seg_scan(g, vals, cols, end, x, m, r0, n_rows, ks=(1, 3, 8, 16)):
     for k in ks:
         _close(ops.seg_spmv_fused(g(vals), g(cols), g(local), g(end), g(r0),
                                   g(x), m, n_rows=n_rows, mode="seg_scan",
-                                  tiles_per_step=k),
+                                  tiles_per_step=k, rows=_rows(
+                                      g, vals, local, end, r0, m, n_rows,
+                                      "seg_scan")),
                ref.seg_spmv_fused_ref(vals, cols, local, end, r0, x, m,
                                       n_rows=n_rows, mode="seg_scan"))
     torch.cuda.synchronize()
@@ -958,3 +975,163 @@ def test_mid_flight_join_on_the_card(dev):
                 assert c_join[k].is_cuda
                 assert torch.equal(c_solo[k][:, solo_slot],
                                    c_join[k][:, req._slot]), k
+
+
+# ----------------------------- bit stability -------------------------------
+
+def _seg_graph(red, chunk):
+    return OperatorGraph.chain(OpSpec.make("COMPRESS"),
+                               OpSpec.make("LANE_NNZ_BLOCK", chunk=chunk),
+                               OpSpec.make(red))
+
+
+@functools.lru_cache(maxsize=None)
+def _bitstable_matrix():
+    # rows of up to thousands of slots: runs across warps, passes and tiles
+    return tm.powerlaw_matrix(2 ** 15, 2 ** 15, 16.0, 1.5, seed=0)
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("red,chunk", [("SEG_SCAN_RED", 2048),
+                                       ("ONEHOT_MXU_RED", 2048),
+                                       ("GMEM_ATOM_RED", 512),
+                                       ("ONEHOT_MXU_RED", 512)])
+def test_dense_seg_plans_repeat_bit_for_bit(dev, red, chunk, fused, b,
+                                            tmp_path):
+    """K3, K4, K6 (both modes) at B = 1 and K10a, K10b, K11 at B = 8, and
+    the unfused steps' ordered combine: 20 calls and the loaded copy give
+    the bits of the first call."""
+    from repro_torch.api import _plan_from_program
+    from repro_torch.core.graph import run_graph
+    from repro_torch.core.kernel_builder import build_program
+    m = _bitstable_matrix()
+    prog = build_program(run_graph(m, _seg_graph(red, chunk)), "cuda",
+                         tiles_per_step=4, fuse_combine=fused)
+    assert all(st.get("fused", False) == fused for st in prog.spec["steps"])
+    plan = _plan_from_program(prog, None, repro_torch.Target())
+    plan.save(tmp_path / "p.npz")
+    loaded = repro_torch.load_plan(tmp_path / "p.npz")
+    rng = np.random.default_rng(b)
+    x = torch.from_numpy(rng.standard_normal(
+        (m.n_cols,) if b == 1 else (m.n_cols, b)).astype(np.float32)).to(dev)
+    y0 = plan(x)
+    for _ in range(19):
+        assert torch.equal(plan(x), y0)
+    assert torch.equal(loaded(x), y0)
+    assert torch.equal(prog(x), y0)
+    want = (m.spmv_dense_oracle(x.cpu().numpy()) if b == 1
+            else m.spmm_dense_oracle(x.cpu().numpy()))
+    assert np.abs(y0.cpu().numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("mode", ["seg_scan", "onehot_mxu"])
+def test_fused_seg_kernels_same_bits_at_any_tiles_per_step(dev, mode):
+    """K6 and K11: tiles_per_step 1, 3, 8 and 16, with FusedRows built
+    twice, give one result bit for bit; without FusedRows the kernels
+    refuse to launch."""
+    from repro_torch.core.graph import run_graph
+    from repro_torch.core.kernel_builder import plan_format
+    from repro_torch.kernels.combine import fused_rows
+    m = _bitstable_matrix()
+    red = "SEG_SCAN_RED" if mode == "seg_scan" else "ONEHOT_MXU_RED"
+    fmt, spec = plan_format(run_graph(m, _seg_graph(red, 512)),
+                            fuse_combine=True, device=dev)
+    key = spec["steps"][0]["key"]
+    v, c = fmt[f"{key}_vals"], fmt[f"{key}_cols"]
+    local, end, r0 = (fmt.get(f"{key}_local"), fmt.get(f"{key}_end"),
+                      fmt[f"{key}_r0"])
+    M = spec["steps"][0]["seg_rows"]
+    rows = fused_rows(r0, end if mode == "seg_scan" else local, M, m.n_rows,
+                      mode, v.shape[1] * v.shape[2])
+    assert rows.n_side > 0
+    again = fused_rows(r0, end if mode == "seg_scan" else local, M,
+                       m.n_rows, mode, v.shape[1] * v.shape[2])
+    rng = np.random.default_rng(0)
+    for x in (torch.from_numpy(rng.standard_normal(m.n_cols).astype(
+            np.float32)).to(dev),
+              torch.from_numpy(rng.standard_normal((m.n_cols, 8)).astype(
+                  np.float32)).to(dev)):
+        op = ops.seg_spmv_fused if x.ndim == 1 else ops.seg_spmm_fused
+        outs = [op(v, c, local, end, r0, x, M, n_rows=m.n_rows, mode=mode,
+                   tiles_per_step=k, rows=r)
+                for k in (1, 3, 8, 16) for r in (rows, again)]
+        assert all(torch.equal(o, outs[0]) for o in outs[1:])
+        with pytest.raises(ValueError, match="rows="):
+            op(v, c, local, end, r0, x, M, n_rows=m.n_rows, mode=mode)
+        plain = (ref.seg_spmv_fused_ref if x.ndim == 1
+                 else ref.seg_spmm_fused_ref)
+        _close(outs[0], plain(v.cpu(), c.cpu(), None if local is None
+                              else local.cpu(), None if end is None
+                              else end.cpu(), r0.cpu(), x.cpu(), M,
+                              n_rows=m.n_rows, mode=mode))
+
+
+def test_seg_update_on_the_card_is_bit_stable(dev):
+    """A dyn update of a fused seg plan derives its combine order afresh;
+    the patched plan repeats bit for bit and equals a plan built afresh
+    from its arrays, and a fresh compile of the updated matrix."""
+    import dataclasses
+    from repro_torch.dyn import PatternDelta
+    m = _bitstable_matrix()
+    plan = repro_torch.compile(m, repro_torch.Target(),
+                               graph=_seg_graph("SEG_SCAN_RED", 2048))
+    vals = m.vals.copy()
+    vals[::5] *= -1.5
+    m1 = dataclasses.replace(m, vals=vals)
+    upd = plan.update(PatternDelta.from_matrices(m, m1))
+    fresh = dataclasses.replace(upd, combine_state=None)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        m.n_cols).astype(np.float32)).to(dev)
+    y = upd(x)
+    assert all(torch.equal(upd(x), y) for _ in range(10))
+    assert torch.equal(fresh(x), y)
+    again = repro_torch.compile(m1, repro_torch.Target(),
+                                graph=_seg_graph("SEG_SCAN_RED", 2048))
+    assert torch.equal(again(x), y)
+    o = m1.spmv_dense_oracle(x.cpu().numpy())
+    assert np.abs(y.cpu().numpy() - o).max() <= 1e-5 * np.abs(o).max()
+
+
+# ------------------------------- training ----------------------------------
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """granite-3-2b reduced, fp32, batch 2 x 32, three steps of
+    make_train_step from the same weights on the card and on the CPU:
+    loss and grad_norm within 1e-4 relative (fp32 sums in another
+    order), parameters within 2 * lr a step (AdamW's sign of a gradient
+    near 0) and 99.9 % of them within 1e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import AdamWConfig, tree_leaves
+    from repro_torch.train.step import TrainConfig, init_state, \
+        make_train_step
+    cfg = get_config("granite-3-2b").reduced()
+    lr = 3e-4
+    tc = TrainConfig(opt=AdamWConfig(lr=lr, total_steps=10, warmup_steps=1),
+                     compute_dtype="float32")
+    params = init_params(cfg, 0, "cpu")
+    cpu = init_state(cfg, tc, params)
+    gpu = init_state(cfg, tc, _to(params, dev))
+    step = make_train_step(cfg, tc)
+    pipe = SyntheticTokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                             global_batch=2, seed=0))
+    for s in range(3):
+        cpu, mc = step(cpu, pipe.batch_at(s))
+        gpu, mg = step(gpu, pipe.batch_at(s))
+        assert mg["loss"].is_cuda
+        for k in ("loss", "grad_norm"):
+            assert abs(float(mg[k]) - float(mc[k])) <= 1e-4 * abs(float(mc[k]))
+    err = torch.cat([(a.cpu() - b).abs().reshape(-1) for a, b in zip(
+        tree_leaves(gpu["params"]), tree_leaves(cpu["params"]))])
+    assert float(err.max()) <= 2 * lr * 3
+    assert float((err <= 1e-5).float().mean()) >= 0.999
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)

@@ -33,7 +33,8 @@ from repro.dist import spmv as ref_dist
 import repro_torch
 from repro_torch.core import matrices as tm
 from repro_torch.core.graph import run_graph
-from repro_torch.core.kernel_builder import build_kernel, build_program
+from repro_torch.core.kernel_builder import build_kernel, build_program, \
+    combine_orders
 from repro_torch.core.search import SearchConfig
 from repro_torch.dist import make_data_mesh
 from repro_torch.dist import search as dsearch
@@ -665,8 +666,9 @@ def test_shard_body_matches_reference_build_kernel(case, mode):
                 xi = pad[i * width:(i + 1) * width]
             want = np.asarray(ref_run({k: v[i] for k, v in rstacks.items()},
                                       xi))
-            got = our_run({k: v[i] for k, v in stacks.items()},
-                          torch.from_numpy(np.ascontiguousarray(xi)))
+            fmt_i = {k: v[i] for k, v in stacks.items()}
+            got = our_run(fmt_i, torch.from_numpy(np.ascontiguousarray(xi)),
+                          combine_orders(spec, fmt_i, BACKEND))
             scale = np.abs(want).max() + 1e-30
             np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                        atol=1e-5 * scale)

@@ -101,3 +101,37 @@ print("ok")
     assert "verified: round trip bit-exact" in out.stdout
     assert out.stdout.strip().endswith("ok")
     assert (tmp_path / "demo.plan.npz").is_file()
+
+
+def test_training_path_in_fresh_process_never_loads_jax(tmp_path):
+    """The training modules (data, optimizer, compression, step,
+    sharding, meshes, checkpoints, the driver) import, train two steps on
+    the CPU, and ``python -m repro_torch.launch.train --help`` runs,
+    without loading jax or the reference."""
+    code = """
+import runpy, sys
+import repro_torch.ckpt, repro_torch.data, repro_torch.dist.sharding
+import repro_torch.launch.mesh, repro_torch.train
+from repro_torch.launch.train import DriverConfig, TrainDriver
+out = TrainDriver(DriverConfig(steps=2, batch=2, seq=16, ckpt_every=1,
+                               ckpt_dir=sys.argv[1], device="cpu",
+                               compression=True)).run()
+assert out["n_steps_run"] == 2, out
+sys.argv = ["repro_torch.launch.train", "--help"]
+try:
+    runpy.run_module("repro_torch.launch.train", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+leaked = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not leaked, leaked
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         capture_output=True, text=True, timeout=300,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin",
+                              "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "--fail_at_step" in out.stdout
+    assert out.stdout.strip().endswith("ok")

@@ -32,7 +32,8 @@ from repro.kernels import ops as ref_ops
 import repro_torch
 from repro_torch.core import matrices as tm
 from repro_torch.core.graph import run_graph
-from repro_torch.core.kernel_builder import build_kernel, plan_format
+from repro_torch.core.kernel_builder import build_kernel, combine_orders, \
+    plan_format
 from repro_torch.core.search import _graph_from_jsonable
 from repro_torch.kernels import ops
 
@@ -339,7 +340,8 @@ def test_torch_program_matches_reference_jax_on_2d_x(name):
         fmt, spec = plan_format(run_graph(_port(m), _port_graph(g)),
                                 fuse_combine=False, device="cpu")
         assert json.dumps(spec) == json.dumps(ref.spec), family
-        y = build_kernel(spec, backend="torch")(fmt, torch.from_numpy(x))
+        y = build_kernel(spec, backend="torch")(
+            fmt, torch.from_numpy(x), combine_orders(spec, fmt, "torch"))
         _assert_close(y, np.asarray(ref(x), np.float64), 1e-5)
         _assert_close(y, oracle, 1e-4)
 
@@ -363,7 +365,8 @@ def test_cuda_dispatch_spmm_on_cpu_tensors_matches_reference(family, fuse):
         assert json.dumps(spec) == json.dumps(ref.spec)
         for b in (1, 4):
             x = _xs(m, b, seed=tiles + b)
-            y = build_kernel(spec, backend="cuda")(fmt, torch.from_numpy(x))
+            y = build_kernel(spec, backend="cuda")(
+                fmt, torch.from_numpy(x), combine_orders(spec, fmt, "cuda"))
             _assert_close(y, np.asarray(ref(x), np.float64), 1e-5)
             _assert_close(y, m.spmm_dense_oracle(x), 1e-4)
 
