@@ -113,7 +113,7 @@ each printing its seconds:
    ``dyn_update {...}`` line), and again with a delta that drops the last
    entry of a third of the rows, which the fresh compile puts in narrower
    width buckets: output bit-identical (a ``dyn_update[move_buckets]
-   {...}`` line); (b) three steps of ``run_pruning_loop`` at
+   {...}`` line); (b) two steps of ``run_pruning_loop`` at
    lr 0.01 with a ``DynamicSparsityManager`` on a ``PlanExecutor`` over a
    ``capacity_graph(pad_to=512)`` plan, every served answer held to the
    oracle, the first step's delta also handed to a manager on (a)'s plan,
@@ -130,8 +130,9 @@ each printing its seconds:
    may rebuild a kernel library; (b) the same sweep with ``resume=True``,
    which must compile nothing; (c) ``train_from_store`` -> ``CorpusModel``
    (a ``corpus_model {...}`` line); (d) ``holdout_corpus("medium")`` and a
-   held-out power-law matrix (n = 2^19) compiled with anneal, learned and
-   portfolio (deadline 2 s), each held to the oracle and timed (one
+   held-out power-law matrix (n = 2^18; 2^19 up to PR 21) compiled with
+   anneal, learned and portfolio (deadline 2 s), each held to the oracle
+   and timed (one
    ``corpus_holdout {...}`` line each); (e) ``python -m repro_torch.cli``
    in subprocesses: a search, a B = 8 search, ``--no-search``, ``--sweep
    smoke`` and ``--train-from-store`` (a ``cli {...}`` line of return
@@ -195,7 +196,25 @@ each printing its seconds:
    step 7: one restart from a checkpoint, >= 8 steps run, a finite loss,
    then a timed save and restore of its state (a ``train_driver {...}``
    line); (d) ``python -m repro_torch.launch.train --arch granite-3-2b
-   --reduced --steps 50`` in a subprocess (a ``train_cli {...}`` line).
+   --reduced --steps 50`` in a subprocess (a ``train_cli {...}`` line);
+15. the dry run and the examples (``repro_torch.launch.dryrun``, which
+   allocates nothing and needs no card; ``examples/torch_*.py``): (a)
+   ``lower_cell`` of phase 14 (b)'s step on a one-device mesh
+   description, its argument + temporary bytes within 25 % of phase 14
+   (b)'s measured peak and its FLOPs 1.2-1.3x phase 14's model FLOPs
+   (the remat recompute; a ``dryrun_train {...}`` line); (b) the same for
+   qwen3-8b's decode at phase 13 (b)'s 8 slots and 512 positions, with
+   the reference's float32 weights and with the engine's bf16 ones, the
+   bf16 prediction within 25 % of phase 13 (b)'s peak while serving (a
+   ``dryrun_decode {...}`` line); (c) ``python -m
+   repro_torch.launch.dryrun --arch all --shape train_4k,decode_32k
+   --mesh single`` in a child, those cells of every architecture on the
+   reference's 16 x 16 pod description, 0 failed (a ``dryrun_sweep
+   {...}`` line); (d) the five examples on the card in children, at once
+   and beside (a)-(c): each returns 0, passes its
+   own check line (oracle errors, the loaded plan bit-identical, the
+   loss decreasing) and has launched every kernel its plans dispatch to,
+   by the children's launch counters (an ``examples {...}`` line).
 
 Phases 3-4 and phases 6-7 are the two paths: the launch counters are set
 to 0 before each and read after it, and each of its kernels must have
@@ -203,7 +222,11 @@ launched. Phase 10 is read the same way: K1 and K6 must launch in it;
 phase 11 prints its own process's counts (its searches pick the
 kernels); in phase 12 every kernel its plans' families dispatch to, and
 the combine, must launch; in phase 13's churn run K1 or K5 must
-launch, and no other kernel. The last two lines are the kernel report (the
+launch, and no other kernel. The script is the child subreaper of what
+it starts (children, and the orphans they leave, even outside their
+session) and, before its last lines and on a failure, kills and reaps
+every process still below it (a ``processes {...}`` line names those it
+found). The last two lines are the kernel report (the
 twelve kernels and the combine) and ``{"ok": true, "device": {...}}``.
 ``--kernel-report`` runs phases 1 and 3-8 alone and prints the twelve
 rows: copied into a checkout of another commit, it times that commit's
@@ -2030,7 +2053,7 @@ def manager_stats(mgr) -> dict:
                                "plan_version", "serving_stale")}
 
 
-def pruning_loop(W, plan_a, designer, steps: int = 3) -> None:
+def pruning_loop(W, plan_a, designer, steps: int = 2) -> None:
     """(b) ``run_pruning_loop`` at lr 0.01 on the dense weight behind W,
     with a manager attached to a ``PlanExecutor`` serving the plan. The
     plan pads lanes to 512 slots, so that every row keeps room for a
@@ -2341,7 +2364,7 @@ def holdout_phase(store_dir: Path, cfg) -> None:
     import repro_torch
     from repro_torch.corpus import holdout_corpus
     entries = holdout_corpus("medium") + [
-        corpus_entry("powerlaw", 7, n=2 ** 19, avg_row=8.0, alpha=1.2)]
+        corpus_entry("powerlaw", 7, n=2 ** 18, avg_row=8.0, alpha=1.2)]
     target = repro_torch.Target()
     for entry in entries:
         m = entry.build()
@@ -2399,30 +2422,32 @@ CLI_RUNS = {
 
 
 def cli_phase(work: Path) -> None:
-    """(e) ``python -m repro_torch.cli`` in subprocesses on the card."""
-    import os
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
-                               if p]))
+    """(e) ``python -m repro_torch.cli`` in subprocesses on the card: the
+    four that share nothing at once, then ``train`` on ``sweep``'s
+    store."""
     rcs, secs = {}, {}
-    for name, args in CLI_RUNS.items():
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.cli",
-             *(a.format(d=work) for a in args)],
-            capture_output=True, text=True, timeout=300, env=env)
-        secs[name] = round(time.perf_counter() - t0, 2)
-        rcs[name] = proc.returncode
-        lines = proc.stdout.strip().splitlines()
-        keep = [ln for ln in lines if ln.startswith(
-            ("searched", "compiled", "verified", "benchmark", "sweep[",
-             "trained"))]
-        print(f"  cli {name}: rc {proc.returncode}; " + " | ".join(keep))
-        if proc.returncode != 0:
-            print(proc.stdout[-3000:] + proc.stderr[-3000:])
-        if "--out" in args:
-            require(any(ln.startswith("verified:") for ln in lines),
-                    f"cli {name}: no verified line")
+
+    def run(names):
+        children = {name: start_child(
+            ["-m", "repro_torch.cli",
+             *(a.format(d=work) for a in CLI_RUNS[name])],
+            work / f"cli_{name}.log") for name in names}
+        for name, (rc, t, out) in wait_children(children, 300).items():
+            secs[name] = round(t, 2)
+            rcs[name] = rc
+            lines = out.strip().splitlines()
+            keep = [ln for ln in lines if ln.startswith(
+                ("searched", "compiled", "verified", "benchmark", "sweep[",
+                 "trained"))]
+            print(f"  cli {name}: rc {rc}; " + " | ".join(keep))
+            if rc != 0:
+                print(out[-6000:])
+            if "--out" in CLI_RUNS[name]:
+                require(any(ln.startswith("verified:") for ln in lines),
+                        f"cli {name}: no verified line")
+
+    run([n for n in CLI_RUNS if n != "train"])
+    run(["train"])
     print("cli " + json.dumps({"returncodes": rcs, "seconds": secs}))
     require(all(rc == 0 for rc in rcs.values()), f"cli return codes {rcs}")
 
@@ -3058,6 +3083,10 @@ def llm_serve_full(dev) -> dict:
     ex = eng.executor
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    # the peak while serving, apart from the fp32 weights of the init
+    # (the whole run's peak is still read at the end)
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     # one step that commits nothing: cuBLAS and the allocator warm up
     ex.decode(np.zeros((8, 1), np.int32), np.zeros(8, np.int32),
               np.zeros(8, bool))
@@ -3074,6 +3103,7 @@ def llm_serve_full(dev) -> dict:
         steps += 1
         require(steps <= sc.max_steps, "serving did not terminate")
     wall = time.perf_counter() - t0
+    serve_peak = torch.cuda.max_memory_allocated()
     failed = sum(r.failed for r in reqs)
     require(failed == 0 and all(r.done and len(r.out_tokens) == 32
                                 for r in reqs),
@@ -3107,7 +3137,9 @@ def llm_serve_full(dev) -> dict:
             "weight_bytes": wb, "weight_bound_ms": wb / HBM_BYTES_PER_S * 1e3,
             "cache_bytes": cb,
             "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3,
-            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            "max_memory_allocated": max(init_peak,
+                                        torch.cuda.max_memory_allocated()),
+            "serve_peak_bytes": serve_peak}
     line.update(prof)
     print(f"llm_serve {json.dumps(line)}")
     require(joined > 0, "no request of the second eight joined mid-flight")
@@ -3322,17 +3354,20 @@ def llm_ssm(dev) -> dict:
     return line
 
 
-def llm_phase(dev) -> None:
+def llm_phase(dev) -> dict:
     """Phase 13: the LLM serving path (``repro_torch.models``,
-    ``ModelExecutor``, ``ServingEngine``) at full width."""
+    ``ModelExecutor``, ``ServingEngine``) at full width; returns each
+    part's line."""
     done = phase("13 LLM serving")
+    lines = {}
     for part in (llm_correctness, llm_serve_full, llm_moe, llm_ssm):
         t0 = time.perf_counter()
-        part(dev)
+        lines[part.__name__] = part(dev)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         print(f"  {part.__name__}: {time.perf_counter() - t0:.1f} s")
     done()
+    return lines
 
 
 # ------------------------------- --bits-probe ------------------------------
@@ -3557,7 +3592,7 @@ def split_timed_steps(step, state, batches):
     return state, losses, times
 
 
-def train_step_full(dev) -> None:
+def train_step_full(dev) -> dict:
     """(b) granite-3-2b at full width and depth (40 layers), bf16
     compute, remat, batch 4 x 512: make_train_step for one warm-up and 6
     timed steps, each split into forward+backward and optimizer; then one
@@ -3583,7 +3618,12 @@ def train_step_full(dev) -> None:
     init_s = time.perf_counter() - t0
     step = make_train_step(cfg, tc)
     state, met = step(state, batches[0])       # warm-up
+    # the peak of the six timed steps alone (the whole part's peak is
+    # still read at the end)
+    pre_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     state, losses, split = split_timed_steps(step, state, batches[1:7])
+    step_peak = torch.cuda.max_memory_allocated()
     losses.insert(0, float(met["loss"]))
     with torch.no_grad():
         loss1 = float(loss_fn(cfg, state["params"], batches[7],
@@ -3610,7 +3650,9 @@ def train_step_full(dev) -> None:
            "first_loss": losses[0], "last_loss": losses[-1],
            "losses": losses, "loss_grad_accum_1": loss1,
            "loss_grad_accum_2": loss2,
-           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_memory_gb": max(pre_peak,
+                                 torch.cuda.max_memory_allocated()) / 1e9,
+           "step_peak_gb": step_peak / 1e9}
     print("train_step " + json.dumps(out))
     require(all(np.isfinite(losses)) and np.isfinite(loss2),
             "train_step: a non-finite loss")
@@ -3618,6 +3660,7 @@ def train_step_full(dev) -> None:
             f"train_step: grad_accum=2 loss {loss2} vs {loss1}")
     del state, batches
     torch.cuda.empty_cache()
+    return out
 
 
 def train_driver(dev) -> None:
@@ -3697,12 +3740,343 @@ def train_cli() -> None:
             f"train cli: {res}")
 
 
-def train_phase(dev) -> None:
+def train_phase(dev) -> dict:
+    """Phase 14; returns (b)'s ``train_step`` line."""
     done = phase("14 training")
     train_check(dev)
-    train_step_full(dev)
+    step = train_step_full(dev)
     train_driver(dev)
     train_cli()
+    done()
+    return step
+
+
+# -------------------------------- phase 15 --------------------------------
+
+# (a), (b): the dry run's argument + temporary bytes against the card's
+# measured peak (relative); (a)'s FLOPs over phase 14's model FLOPs, the
+# remat recompute (the forward counted twice, matmuls only)
+DRYRUN_MEM_TOL = 0.25
+DRYRUN_FLOPS_RATIO = (1.2, 1.3)
+# (c): the single-pod sweep's cells and its worker processes (all 32
+# cells took 139 s beside (d) on the H100 machine, and the run's total
+# neared its 1200 s: the train and decode cells here, 20 cells; the
+# whole sweep's time is in PERF.md)
+DRYRUN_SHAPES = "train_4k,decode_32k"
+DRYRUN_JOBS = 4
+DRYRUN_TIMEOUT_S = 420
+# (d): each example at a short budget, and the check its own line must pass
+EXAMPLE_TIMEOUT_S = 300
+EXAMPLES = {
+    "torch_quickstart": (["--seconds", "5"],
+                         lambda c: c["oracle_rel_err"] <= c["tol"]
+                         and c["bit_identical_load"]),
+    "torch_custom_operator": (["--seconds", "5"],
+                              lambda c: c["oracle_rel_err"] <= c["tol"]
+                              and c["bit_identical_load"]
+                              and c["structures_with_op"] > 0),
+    "torch_serve_requests": ([],
+                             lambda c: c["requests_served"] == c["requests"]
+                             and c["sparse_linear_rel_err"] <= c["tol"]
+                             and c["matvec_rel_err"] <= c["tol"]
+                             and c["matvecs_ok"] == c["matvecs"]
+                             and c["hot_swaps"] == 1),
+    "torch_spmv_search_report": (["--seconds", "3"],
+                                 lambda c: c["oracle_rel_err"] <= c["tol"]),
+    "torch_train_lm": (["--tiny", "--steps", "30"],
+                       lambda c: c["steps"] == 30 and c["loss_decreased"]),
+}
+
+
+def child_env() -> dict:
+    import os
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+
+
+def start_child(args: list, log: Path) -> tuple:
+    """A child process in its own session (so that a timeout stops it
+    and every process it started), its output in ``log``; a thread
+    notes the time it ends."""
+    import threading
+    f = open(log, "w")
+    proc = subprocess.Popen([sys.executable] + args, stdout=f,
+                            stderr=subprocess.STDOUT, env=child_env(),
+                            cwd=ROOT, start_new_session=True)
+    ended = {}
+
+    def watch():
+        proc.wait()
+        ended["t"] = time.perf_counter()
+    threading.Thread(target=watch, daemon=True).start()
+    return proc, f, time.perf_counter(), ended
+
+
+def wait_children(children: dict, timeout: float) -> dict:
+    """{name: (return code, seconds, output)} once every child has ended;
+    a child past ``timeout`` is killed with its session and returns
+    None. Each child's seconds run to its own end."""
+    import os
+    import signal
+    ends = {}
+    while len(ends) < len(children):
+        for name, child in children.items():
+            proc, _, t0, ended = child
+            if name in ends:
+                continue
+            if "t" in ended:
+                ends[name] = (proc.returncode, ended["t"] - t0)
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, signal.SIGKILL)   # what it left
+            elif time.perf_counter() - t0 > timeout:
+                stop_child(child)
+                ends[name] = (None, time.perf_counter() - t0)
+        time.sleep(0.2)
+    out = {}
+    for name, (proc, f, _, _) in children.items():
+        f.close()
+        out[name] = ends[name] + (Path(f.name).read_text(),)
+    return out
+
+
+def stop_child(child: tuple) -> None:
+    """Kill a child with every process of its session."""
+    import os
+    import signal
+    proc, f, _, _ = child
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    f.close()
+
+
+def become_subreaper() -> None:
+    """Make this process the child subreaper of everything it starts: a
+    process orphaned below it (a killed child's leftovers, a worker pool's
+    resource tracker) is handed to it, not to the machine's init, so that
+    :func:`stop_strays` finds and reaps it."""
+    import ctypes
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, 1, 0, 0, 0) != 0:          # PR_SET_CHILD_SUBREAPER
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def descendants() -> dict:
+    """{pid: command line} of every process below this one, zombies
+    included."""
+    import os
+    parent = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            with contextlib.suppress(OSError):
+                stat = Path(f"/proc/{entry}/stat").read_text()
+                parent[int(entry)] = int(stat[stat.rindex(")") + 2:]
+                                         .split()[1])
+    below, frontier = set(), {os.getpid()}
+    while frontier:
+        frontier = {p for p, pp in parent.items() if pp in frontier} - below
+        below |= frontier
+    out = {}
+    for pid in below:
+        with contextlib.suppress(OSError):
+            out[pid] = (Path(f"/proc/{pid}/cmdline").read_bytes()
+                        .replace(b"\0", b" ").decode(errors="replace")
+                        .strip()[:160])
+    return out
+
+
+def stop_strays(timeout: float = 20.0) -> list:
+    """Kill every process still below this one and reap it, once each
+    child of this script has been waited for; the command lines of those
+    found (a zombie's is empty). Raises if one outlives ``timeout``."""
+    import os
+    import signal
+    found = {}
+    deadline = time.perf_counter() + timeout
+    while True:
+        left = descendants()
+        for pid, cmd in left.items():
+            found.setdefault(pid, cmd)
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+        with contextlib.suppress(ChildProcessError):
+            while os.waitpid(-1, os.WNOHANG)[0]:
+                pass
+        if not left:
+            return [found[p] for p in sorted(found)]
+        if time.perf_counter() > deadline:
+            raise RuntimeError(f"processes outlived SIGKILL: {left}")
+        time.sleep(0.05)
+
+
+def tagged(out: str, tag: str):
+    """The JSON of the last ``<tag> {...}`` line of ``out`` (None if
+    there is none)."""
+    lines = [ln for ln in out.splitlines() if ln.startswith(tag + " ")]
+    return json.loads(lines[-1][len(tag) + 1:]) if lines else None
+
+
+def dryrun_train(train: dict) -> None:
+    """(a) ``lower_cell`` of phase 14 (b)'s step (granite-3-2b, 40
+    layers, 4 x 512, bf16, remat) on a one-device mesh description,
+    beside what phase 14 (b) measured on the card."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainConfig
+    B, S = train["batch"]
+    tc = TrainConfig(opt=AdamWConfig(lr=3e-4, warmup_steps=2,
+                                     total_steps=100),
+                     compute_dtype="bfloat16", remat=True)
+    low = lower_cell(llm_cfg(GRANITE), ShapeCell("smoke_train", S, B,
+                                                 "train"),
+                     Mesh(("data", "model"), (1, 1)), tc)
+    comp = low.compile()
+    mem, ca = comp.memory_analysis(), comp.cost_analysis()
+    predicted = mem["argument_bytes"] + mem["temp_bytes"]
+    peak = train["peak_memory_gb"] * 1e9
+    step_peak = train["step_peak_gb"] * 1e9
+    ratio = ca["flops_global"] / train["model_flops_per_step"]
+    line = {"arch": GRANITE, "cell": [B, S, "train"], "lower_s": low.lower_s,
+            "compile_s": comp.compile_s, "memory_s": comp.memory_s,
+            "argument_bytes": mem["argument_bytes"],
+            "temp_bytes": mem["temp_bytes"], "predicted_bytes": predicted,
+            "measured_peak_bytes": peak,
+            "predicted_over_peak": predicted / peak,
+            "measured_step_peak_bytes": step_peak,
+            "predicted_over_step_peak": predicted / step_peak,
+            "flops_global": ca["flops_global"],
+            "model_flops": train["model_flops_per_step"],
+            "flops_over_model_flops": ratio,
+            "bytes_accessed": ca["bytes accessed"],
+            "transcendentals": ca["transcendentals"],
+            "collectives_total_bytes": comp.collectives()["total_bytes"]}
+    print("dryrun_train " + json.dumps(line))
+    require(abs(predicted / peak - 1) <= DRYRUN_MEM_TOL,
+            f"dry run of the train step: {predicted:.4g} bytes predicted, "
+            f"{peak:.4g} measured")
+    require(DRYRUN_FLOPS_RATIO[0] <= ratio <= DRYRUN_FLOPS_RATIO[1],
+            f"dry-run FLOPs {ratio:.3f}x model FLOPs")
+
+
+def dryrun_decode(serve: dict) -> None:
+    """(b) ``lower_cell`` of qwen3-8b's decode at phase 13 (b)'s slots and
+    cache length, with the reference's float32 weights and with the bf16
+    weights the engine holds, beside what phase 13 (b) measured: its
+    whole peak (the float32 init included) and its peak while serving."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import Mesh
+    B, S = serve["max_batch"], serve["max_seq"]
+    line = {"arch": QWEN, "cell": [B, S, "decode"],
+            "measured_peak_bytes": serve["max_memory_allocated"],
+            "measured_serve_peak_bytes": serve["serve_peak_bytes"]}
+    for name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        comp = lower_cell(llm_cfg(QWEN), ShapeCell("smoke_decode", S, B,
+                                                   "decode"),
+                          Mesh(("data", "model"), (1, 1)),
+                          param_dtype=dtype).compile()
+        mem = comp.memory_analysis()
+        pred = mem["argument_bytes"] + mem["temp_bytes"]
+        line[name] = {"argument_bytes": mem["argument_bytes"],
+                      "temp_bytes": mem["temp_bytes"],
+                      "alias_bytes": mem["alias_bytes"],
+                      "predicted_bytes": pred,
+                      "predicted_over_peak":
+                          pred / serve["max_memory_allocated"],
+                      "predicted_over_serve_peak":
+                          pred / serve["serve_peak_bytes"],
+                      "flops_global": comp.flops_global,
+                      "compile_s": comp.compile_s}
+    print("dryrun_decode " + json.dumps(line))
+    r = line["bfloat16"]["predicted_over_serve_peak"]
+    require(abs(r - 1) <= DRYRUN_MEM_TOL,
+            f"dry run of the bf16 decode step: {r:.3f}x the serving peak")
+
+
+def dryrun_sweep_result(child: tuple, out_dir: Path) -> None:
+    """(c) the single-pod sweep's child: 0 failed, one record a cell."""
+    from repro_torch.configs import REGISTRY, cells_for
+    rc, secs, out = wait_children({"sweep": child},
+                                  DRYRUN_TIMEOUT_S)["sweep"]
+    want = sum(1 for cfg in REGISTRY.values() for c in cells_for(cfg)
+               if DRYRUN_SHAPES == "all"
+               or c.name in DRYRUN_SHAPES.split(","))
+    summary = re.search(r"dry-run complete: (\d+) ok, (\d+) failed", out)
+    recs = [json.loads(p.read_text()) for p in sorted(out_dir.glob("*.json"))]
+    line = {"mesh": "pod16x16", "shapes": DRYRUN_SHAPES,
+            "jobs": DRYRUN_JOBS, "returncode": rc, "seconds": secs,
+            "cells": want, "records": len(recs),
+            "ok": int(summary.group(1)) if summary else None,
+            "failed": int(summary.group(2)) if summary else None,
+            "cell_wall_s_sum": sum(r["wall_s"] for r in recs),
+            "largest_argument_bytes": max(
+                (r["memory"]["argument_bytes"], r["arch"], r["shape"])
+                for r in recs if r["ok"]) if recs else None}
+    print("dryrun_sweep " + json.dumps(line))
+    if rc != 0:
+        print(out[-3000:])
+    require(rc == 0 and line["failed"] == 0 and line["ok"] == want
+            and len(recs) == want, f"dry-run sweep: {line}")
+
+
+def start_examples(work: Path) -> dict:
+    """(d) the five examples on the card, in children at once."""
+    return {name: start_child([str(ROOT / "examples" / f"{name}.py"), *args]
+                              + (["--ckpt", str(work / "ckpt")]
+                                 if name == "torch_train_lm" else []),
+                              work / f"{name}.log")
+            for name, (args, _) in EXAMPLES.items()}
+
+
+def examples_result(children: dict) -> None:
+    """(d) each example must end with rc 0, pass its own check line, and
+    have launched every kernel its plans dispatch to (its ``launches``
+    and ``dispatch`` lines)."""
+    line, bad = {}, []
+    for name, (rc, secs, out) in wait_children(children,
+                                               EXAMPLE_TIMEOUT_S).items():
+        check, launches = tagged(out, "check"), tagged(out, "launches")
+        dispatch = tagged(out, "dispatch") or []
+        ok = (rc == 0 and check is not None and EXAMPLES[name][1](check)
+              and all((launches or {}).get(k, 0) > 0 for k in dispatch))
+        line[name] = {"returncode": rc, "seconds": secs, "check": check,
+                      "dispatch": dispatch,
+                      "launches": {k: v for k, v in (launches or {}).items()
+                                   if v}}
+        if not ok:
+            bad.append(name)
+            print(f"--- {name} (rc {rc}) ---\n{out[-3000:]}")
+    print("examples " + json.dumps(line))
+    require(not bad, f"examples that failed or launched nothing of their "
+            f"plans: {bad}")
+
+
+def dryrun_phase(serve: dict, train: dict) -> None:
+    """Phase 15: the dry run (``repro_torch.launch.dryrun``, no card)
+    against phases 13 and 14, its single-pod sweep in a child, and the
+    five examples on the card, the sweep and the examples at once."""
+    done = phase("15 dry run and examples")
+    scratch = ROOT / "results"               # listed in .gitignore
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        work = Path(d)
+        sweep = start_child(["-m", "repro_torch.launch.dryrun", "--arch",
+                             "all", "--shape", DRYRUN_SHAPES, "--mesh",
+                             "single", "--jobs", str(DRYRUN_JOBS), "--out",
+                             str(work / "dryrun")], work / "dryrun.log")
+        examples = start_examples(work)
+        try:
+            dryrun_train(train)
+            dryrun_decode(serve)
+            examples_result(examples)
+        except BaseException:
+            for child in [sweep, *examples.values()]:
+                stop_child(child)
+            raise
+        dryrun_sweep_result(sweep, work / "dryrun")
     done()
 
 
@@ -3721,6 +4095,24 @@ def main(argv: list) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    become_subreaper()
+    try:
+        return run(argv, kernel_report)
+    finally:
+        stop_strays()                        # on a failure too
+
+
+def finish(rows: list, t_start: float) -> None:
+    """The last lines, once no process this run started is left."""
+    print("processes " + json.dumps({"stopped_at_end": stop_strays()}))
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def run(argv: list, kernel_report: bool) -> int:
     if argv == ["--bits-probe"]:
         bits_probe()
         return 0
@@ -3809,11 +4201,7 @@ def main(argv: list) -> int:
     del progs, csr_w
     torch.cuda.empty_cache()
     if kernel_report:
-        print(f"total {time.perf_counter() - t_start:.1f} s")
-        print(json.dumps({"kernels": rows}))
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
+        finish(rows, t_start)
         return 0
 
     x1 = xd[:, 0].contiguous()
@@ -3827,13 +4215,11 @@ def main(argv: list) -> int:
                   f"serving searched B={SERVE_B}": (searched, xd)})
     rows.append(dist_phase(W, P, xp, oracle_p, x8, oracle8, searched,
                            designer))
-    llm_phase(torch.device("cuda", torch.cuda.current_device()))
-    train_phase(torch.device("cuda", torch.cuda.current_device()))
-    print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": rows}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    llm = llm_phase(dev)
+    train = train_phase(dev)
+    dryrun_phase(llm["llm_serve_full"], train)
+    finish(rows, t_start)
     return 0
 
 

@@ -2,8 +2,11 @@
 Generator, Search Engine (paper sections IV-VI).
 
 The entry point is ``repro_torch.compile(matrix, target)`` (see
-``repro_torch.api``). Attribute access is lazy, so importing this package
-does not import torch.
+``repro_torch.api``). The historical one-off entry points (``search``,
+``build_spmv``) remain as deprecated shims over that surface. Attribute
+access is lazy, except for ``search``: the shim shares its name with its
+module, so it is bound when the package is imported (as the reference
+binds it), and the name is the function, not the module.
 """
 
 _EXPORTS = {
@@ -13,10 +16,11 @@ _EXPORTS = {
     "OPERATORS": "operators", "OpSpec": "operators",
     "OperatorGraph": "graph", "GraphError": "graph", "run_graph": "graph",
     "SpmvProgram": "kernel_builder", "build_program": "kernel_builder",
+    "build_spmv": "kernel_builder",
     "build_kernel": "kernel_builder", "plan_format": "kernel_builder",
     "AlphaSparseSearch": "search", "ProgramCache": "search",
     "SearchConfig": "search", "SearchResult": "search",
-    "run_search": "search",
+    "run_search": "search", "search": "search",
 }
 
 __all__ = sorted(_EXPORTS)
@@ -33,3 +37,6 @@ def __getattr__(name):
 
 def __dir__():
     return __all__
+
+
+from .search import search  # noqa: E402,F401

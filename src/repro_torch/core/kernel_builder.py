@@ -49,11 +49,13 @@ import numpy as np
 import torch
 
 from . import compress
+from .deprecation import warn_once
 from .metadata import Block, EllTileLayout, MetadataSet, SegTileLayout
 
-__all__ = ["SpmvProgram", "build_program", "plan_format", "build_kernel",
+__all__ = ["SpmvProgram", "build_program", "build_spmv", "plan_format",
+           "build_kernel",
            "register_layout_planner", "resolve_device", "run_spec_step",
-           "step_reads", "materialize_cols", "combine_orders",
+           "step_reads", "spec_kernels", "materialize_cols", "combine_orders",
            "SPEC_VERSION", "BACKENDS"]
 
 SPEC_VERSION = 2
@@ -527,6 +529,33 @@ def step_reads(step: dict, backend: str) -> list[str]:
     return keys
 
 
+def spec_kernels(spec: dict, batched: bool = False) -> list[str]:
+    """The kernel IDs (``kernels.ops.launch_counts``' keys) that a kernel
+    spec's steps launch on the cuda backend, for an x of (n_cols,) or,
+    with ``batched``, (n_cols, B); as :func:`run_spec_step` dispatches
+    them."""
+    ids = set()
+    for st in spec["steps"]:
+        fused = bool(st.get("fused"))
+        if st["kind"] == "ell":
+            comb = st["combine"]
+            if fused and comb["mode"] == "affine":
+                ids.add("K9" if batched else "K5")
+            elif comb["mode"] == "affine" and comb.get("direct"):
+                ids.add("K8" if batched else "K2")
+            else:
+                ids.add("K7" if batched else "K1")
+            if comb["mode"] == "rowmap":
+                ids.add("rowmap_combine")
+        elif fused:
+            ids.add("K11" if batched else "K6")
+        else:
+            onehot = st["reduce"] == "onehot_mxu"
+            ids.add(("K10b" if onehot else "K10a") if batched
+                    else ("K4" if onehot else "K3"))
+            ids.add("rowmap_combine")
+    return sorted(ids)
+
 def build_kernel(spec: dict, backend: str = "cuda") -> Callable:
     """Stage 2: interpret a kernel spec into the runnable
     ``fn(fmt, x, order)``.
@@ -580,3 +609,19 @@ def build_program(meta: MetadataSet, backend: str = "cuda",
     return SpmvProgram(n_rows=meta.n_rows, n_cols=meta.n_cols, nnz=meta.nnz,
                        fmt=fmt, fn=build_kernel(spec, backend=backend),
                        descriptor=descriptor, spec=spec, backend=backend)
+
+
+def build_spmv(meta: MetadataSet, backend: str = "cuda",
+               do_compress: bool = True) -> SpmvProgram:
+    """Deprecated alias of :func:`build_program` (old four-entrypoint API).
+
+    Prefer ``repro_torch.compile(matrix, target)`` for the full matrix-in
+    / plan-out path, or :func:`build_program` when you already hold a
+    designed ``MetadataSet``. The reference's ``interpret`` and ``jit``
+    (Pallas and XLA switches) have no counterpart.
+    """
+    warn_once("build_spmv",
+              "repro_torch.core.build_spmv is deprecated; use "
+              "repro_torch.compile(matrix, target) or "
+              "repro_torch.core.build_program(meta)")
+    return build_program(meta, backend=backend, do_compress=do_compress)

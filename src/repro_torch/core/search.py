@@ -46,12 +46,13 @@ import torch
 from repro_torch.design.space import DesignSpace, Structure
 from repro_torch.design.strategies import CandidateResult, make_strategy
 from .cost_model import program_features
+from .deprecation import warn_once
 from .graph import GraphError, OperatorGraph, run_graph
 from .kernel_builder import SpmvProgram, build_program, resolve_device
 from .matrices import SparseMatrix
 
 __all__ = ["SearchConfig", "SearchResult", "AlphaSparseSearch",
-           "run_search", "ProgramCache", "Structure", "DesignSpace",
+           "run_search", "search", "ProgramCache", "Structure", "DesignSpace",
            "CandidateTimeout", "FAILURE_BUCKETS", "fault_hook",
            "check_candidate_deadline", "sleep_checking_deadline",
            "cooperative_deadline_available", "current_search_matrix"]
@@ -819,3 +820,23 @@ def run_search(matrix: SparseMatrix, config: SearchConfig = None,
     if cache is not None:
         cache.put(matrix, config, res, strategy)
     return res
+
+
+def search(matrix: SparseMatrix, config: SearchConfig = None,
+           cache: Optional[ProgramCache] = None) -> SearchResult:
+    """Deprecated one-call API, now a thin shim over ``repro_torch.compile``.
+
+    ``repro_torch.compile(matrix, target, budget=config)`` is the
+    replacement; it returns an ``SpmvPlan`` whose ``search_result``
+    attribute carries this function's return value."""
+    warn_once("search",
+              "repro_torch.core.search.search is deprecated; use "
+              "repro_torch.compile(matrix, target, budget=config) — the "
+              "returned SpmvPlan's .search_result holds the SearchResult")
+    from repro_torch.api import Target, compile as _compile  # lazy: no cycle
+    config = config or SearchConfig()
+    plan = _compile(matrix,
+                    Target(backend=config.backend,
+                           batch_size=max(config.batch_size, 1)),
+                    budget=config, cache=cache)
+    return plan.search_result

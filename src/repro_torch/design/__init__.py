@@ -44,6 +44,7 @@ _EXPORTS = {
     "AnnealStrategy": "repro_torch.design.strategies",
     "GridStrategy": "repro_torch.design.strategies",
     "CostModelGuidedStrategy": "repro_torch.design.strategies",
+    "LearnedStrategy": "repro_torch.design.strategies",
     "register_strategy": "repro_torch.design.strategies",
     "make_strategy": "repro_torch.design.strategies",
     "strategy_names": "repro_torch.design.strategies",

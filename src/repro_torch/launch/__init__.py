@@ -1,3 +1,3 @@
-"""Launchers: meshes and the training driver (port of ``repro.launch``;
-the reference's multi-pod dry-run, which reads XLA's compiled programs,
-is not ported)."""
+"""Launchers: meshes, the training driver and the multi-pod dry run (port
+of ``repro.launch``; the reference's ``compat`` shim for jax's
+cost-analysis return shapes has no counterpart, see ``dryrun``)."""

@@ -1,6 +1,7 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither jax nor the reference package ``repro``, and a fresh process
-compiles and serves a request on the ``torch`` backend without loading
+"""The port stands alone: ``repro_torch``, its examples
+(``examples/torch_*.py``) and ``chip_smoke.py`` import neither jax nor
+the reference package ``repro``, and a fresh process compiles and serves
+a request on the ``torch`` backend, or dry-runs a cell, without loading
 either."""
 import ast
 import subprocess
@@ -10,8 +11,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -135,3 +136,31 @@ print("ok")
     assert out.returncode == 0, out.stderr[-2000:]
     assert "--fail_at_step" in out.stdout
     assert out.stdout.strip().endswith("ok")
+
+
+def test_dryrun_in_fresh_process_never_loads_jax(tmp_path):
+    """``python -m repro_torch.launch.dryrun`` dry-runs a cell of a full
+    configuration on a production mesh without loading jax or the
+    reference."""
+    code = """
+import runpy, sys
+sys.argv = ["repro_torch.launch.dryrun", "--arch", "mamba2-1.3b",
+            "--shape", "long_500k", "--mesh", "single", "--out", sys.argv[1]]
+try:
+    runpy.run_module("repro_torch.launch.dryrun", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+leaked = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not leaked, leaked
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         capture_output=True, text=True, timeout=300,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin",
+                              "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "1 ok, 0 failed" in out.stdout
+    assert out.stdout.strip().endswith("ok")
+    assert (tmp_path / "mamba2-1.3b.long_500k.pod16x16.json").is_file()
