@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-report   # phases 1 and 3-8 only
     python3 chip_smoke.py --bits-probe      # repeated calls' bits only
+    python3 chip_smoke.py --fused-split     # what K6 / K11's flush costs
 
 Drives the port's paths at realistic sizes and holds every CUDA kernel
 they run (K1-K11 and the sharded plans' ordered combine) against its plain
@@ -66,7 +67,11 @@ each printing its seconds:
    time included); ``device_ms`` (and ``library_device_ms``) times the
    card alone, with the host's enqueueing hidden behind a sleep kernel.
    K6 in one-hot mode (the fused ONEHOT_MXU_RED plan) is timed the same
-   way and printed on a line of its own (``K6[onehot_mxu] {...}``). The
+   way and printed on a line of its own (``K6[onehot_mxu] {...}``). Both
+   K6 rows are also held bit for bit to the unfused kernel's partials
+   (K3 / K4) placed in the fused step's fixed order (one-writer rows y +
+   v, shared rows through ``rowmap_combine`` in perm order), and carry
+   the step's side slots and shared rows (``n_side``, ``shared_rows``). The
    K3 and K6 (seg_scan) rows add two probes on their vals and cols, on
    the card alone: ``gather_device_ms`` (K1 on them viewed as (T, C/16,
    16) ELL tiles: the same bytes and x gathers in K1's structure) and
@@ -93,7 +98,9 @@ each printing its seconds:
    (``one_tile_ms``). When the searched B = 8 plan of phase 6 is a seg
    plan, its fused seg step is timed with K11 at its own chunk and
    tiles_per_step and printed on a line of its own (``K11[searched]
-   {...}``, with the cuSPARSE SpMM times), outside the twelve rows;
+   {...}``, with the cuSPARSE SpMM times), outside the twelve rows; K11
+   and ``K11[searched]`` are held to K10a / K10b's partials placed in
+   order, as K6 is, and carry ``n_side`` and ``shared_rows``;
 9. the paper's baselines (``repro_torch.sparse``: CSR, COO, ELL, SELL,
    HYB, Merge, ACSR, CSR-Adaptive, eager torch ops) on the banded,
    powerlaw and serving matrices with a 1-D x: each built on the card,
@@ -232,9 +239,11 @@ twelve kernels and the combine) and ``{"ok": true, "device": {...}}``.
 rows: copied into a checkout of another commit, it times that commit's
 kernels on the same card (the A/B recipe of the verify notes);
 ``--bits-probe`` counts, in the same way, the calls of the seg kernels
-and plans whose bits differ from the first call's. The script exits non-zero,
-printing no result, without a GPU or outside a checkout of the
-repository. It imports neither jax nor ``repro``.
+and plans whose bits differ from the first call's, and ``--fused-split``
+times the fused seg steps (K6, K11) against their unfused kernels and
+with their flush cut down (``fused_split {...}`` lines). The script
+exits non-zero, printing no result, without a GPU or outside a checkout
+of the repository. It imports neither jax nor ``repro``.
 """
 from __future__ import annotations
 
@@ -1068,17 +1077,62 @@ def nbytes(*ts) -> int:
 def fused_kw(v, local, end, r0, M: int, n_rows: int, mode: str) -> dict:
     """``rows=`` for a fused seg wrapper (K6 / K11), which it requires on
     the card: the ``FusedRows`` of its operands, built once, as a plan
-    builds them, so that a timed call is the kernel and its ordered side
-    combine alone."""
+    builds them, so that a timed call is the kernel's one launch alone."""
     from repro_torch.kernels import combine
     aux = end if mode == "seg_scan" else local
     return {"rows": combine.fused_rows(r0, aux, M, n_rows, mode,
                                        v.shape[1] * v.shape[2])}
 
 
+def shared_slots(rows) -> tuple:
+    """The shared pairs of a ``FusedRows`` and their side slots (a package
+    without ``FusedRows.shared_pairs`` codes slot k as -2 - k)."""
+    if hasattr(rows, "shared_pairs"):
+        return rows.shared_pairs()
+    pairs = torch.nonzero(rows.dst <= -2).reshape(-1)
+    return pairs, -2 - rows.dst.long()[pairs]
+
+
+def placed_in_order(rows, part, y):
+    """The unfused kernel's partials ``part`` ((T * M,) or (T * M, B))
+    placed where a fused step's ``rows`` puts them, in its fixed order:
+    each one-writer pair's partial at its row (y[d] + v), then each listed
+    row's side slots through ``rowmap_combine`` in perm order. Adds into
+    ``y`` and returns it."""
+    from repro_torch.kernels import ops
+    d = rows.dst.long()
+    direct = d >= 0
+    y[d[direct]] = y[d[direct]] + part[direct]
+    side = torch.empty((rows.n_side,) + tuple(part.shape[1:]),
+                       device=part.device)
+    pairs, slot = shared_slots(rows)
+    side[slot] = part[pairs]
+    off = torch.zeros(y.shape[0] + 1, dtype=torch.int64, device=y.device)
+    off[rows.rows.long() + 1] = rows.offsets[1:] - rows.offsets[:-1]
+    return ops.rowmap_combine(y, side, rows.perm, torch.cumsum(off, 0))
+
+
+def check_placement(label: str, got: torch.Tensor, want: torch.Tensor,
+                    rows_list) -> dict:
+    """A fused K6 / K11 call's output bit for bit against the unfused
+    kernel's partials placed in order (``placed_in_order``); the fields
+    its report line gains: the side slots and the shared rows of its
+    steps."""
+    require(torch.equal(got, want), f"{label}: the fused kernel differs "
+            "from the unfused kernel's partials placed in order")
+    out = {"n_side": sum(r.n_side for r in rows_list),
+           "shared_rows": sum(int(r.rows.numel()) for r in rows_list),
+           "placement_bits_equal": True}
+    print(f"  {label}: bit for bit the unfused partials placed in order "
+          f"({json.dumps(out)})")
+    return out
+
+
 def kernel_cases(banded, seg, xb, xp, n_b, n_p):
     """For K1-K6: (vals, cols, kernel fn, plain fn, bytes fn, flops,
-    matrix, probes) at the operands of a phase-4 plan. The fused kernels
+    matrix, probes, placed) at the operands of a phase-4 plan; ``placed``
+    (K6 only, else None) checks a fused call bit for bit against the
+    unfused kernel's partials placed in order. The fused kernels
     add into ``out`` (fresh zeros when None); timing reuses one buffer so
     that no memset is timed with them. ``probes`` (K3 and K6 in seg_scan
     mode, else None) run other kernels on the same vals and cols:
@@ -1108,7 +1162,7 @@ def kernel_cases(banded, seg, xb, xp, n_b, n_p):
             pf = ref.ell_spmv_ref if kid == "K1" else ref.ell_spmv_direct_ref
             run = lambda vv, cc, out=None: fn(vv, cc, xb)
             plain = lambda vv, cc: pf(vv, cc, xb)
-        return v, c, run, plain, byt, flops, "banded", None
+        return v, c, run, plain, byt, flops, "banded", None, None
 
     def segk(prog_name, kid, mode):
         step, o = _step(seg[prog_name])
@@ -1127,12 +1181,18 @@ def kernel_cases(banded, seg, xb, xp, n_b, n_p):
                 tiles_per_step=k, out=out, **kw)
             plain = lambda vv, cc: ref.seg_spmv_fused_ref(
                 vv, cc, local, end, r0, xp, M, n_rows=n_p, mode=mode)
+            placed = lambda label, vv, cc: check_placement(
+                label, run(vv, cc), placed_in_order(
+                    kw["rows"], ops.seg_spmv(vv, cc, local, end, xp, M,
+                                             mode=mode).reshape(-1),
+                    torch.zeros(n_p, device=xp.device)), [kw["rows"]])
         else:
             byt = lambda vv, cc: nbytes(vv, cc, aux, xp) + 4 * T * M
             run = lambda vv, cc, out=None: ops.seg_spmv(vv, cc, local, end,
                                                         xp, M, mode=mode)
             plain = lambda vv, cc: ref.seg_spmv_ref(vv, cc, local, end, xp,
                                                     M, mode)
+            placed = None
         probes = None
         if mode == "seg_scan":
             x1 = xp.view(-1, 1)
@@ -1146,7 +1206,7 @@ def kernel_cases(banded, seg, xb, xp, n_b, n_p):
                                                  mode=mode)
             probes = {"gather": lambda vv, cc: ops.ell_spmv(
                 vv.view(T, -1, 16), cc.view(T, -1, 16), xp), "b1_spmm": b1}
-        return v, c, run, plain, byt, flops, "powerlaw", probes
+        return v, c, run, plain, byt, flops, "powerlaw", probes, placed
 
     return {"K1": ell("K1 scatter", "K1"),
             "K2": ell("K2 direct", "K2"),
@@ -1175,10 +1235,12 @@ def report_phase(cases, launches, csr, xs, n_rows):
     print(f"  library (torch.sparse_csr_tensor @ x) ms: {library}, on the "
           f"card alone: {library_dev}")
     rows = []
-    for kid, (v, c, run, plain, byt, flops, mat, probes) in cases.items():
+    for kid, (v, c, run, plain, byt, flops, mat, probes,
+              placed) in cases.items():
         name, source, replaces = KERNELS[kid[:2]]
         err = check_kernel(f"{kid} {name} fp32 {tuple(v.shape)}",
                            run(v, c), plain(v, c))
+        shared = placed(kid, v, c) if placed else {}
         v16 = v.to(torch.bfloat16)
         c16 = c.to(torch.int16) if int(c.max()) <= 32767 else c
         check_kernel(f"{kid} {name} bf16/{str(c16.dtype)[6:]}",
@@ -1199,7 +1261,7 @@ def report_phase(cases, launches, csr, xs, n_rows):
                "device_ms": dev_ms,
                "library_device_ms": library_dev[mat],
                "shape": list(v.shape), "matrix": mat,
-               "bytes": byt(v, c)}
+               "bytes": byt(v, c), **shared}
         if probes:
             row.update(probe_times(probes, v, c))
         if kid == ONEHOT_K6:     # not one of the twelve rows: a line apart
@@ -1512,15 +1574,22 @@ def spmm_cases(progs, xd, n_rows):
             plain = lambda vs, cs: ref.seg_spmm_fused_ref(
                 vs[0], cs[0], local, end, r0, xd, M, n_rows=n_rows,
                 mode=mode)
+            placed = lambda label, vs, cs: check_placement(
+                label, run(vs, cs), placed_in_order(
+                    kw["rows"], ops.seg_spmm(vs[0], cs[0], local, end, xd,
+                                             M, mode=mode).reshape(-1, B),
+                    torch.zeros((n_rows, B), device=xd.device)),
+                [kw["rows"]])
             out_bytes = 8 * n_rows * B
         else:
             run = lambda vs, cs, out=None: ops.seg_spmm(
                 vs[0], cs[0], local, end, xd, M, mode=mode)
             plain = lambda vs, cs: ref.seg_spmm_ref(vs[0], cs[0], local,
                                                     end, xd, M, mode)
+            placed = None
             out_bytes = 4 * T * M * B
         return {"vals": [v0], "cols": [o["cols"]], "run": run,
-                "plain": plain,
+                "plain": plain, "placed": placed,
                 "bytes": lambda vs, cs: nbytes(*vs, *cs, aux, r0 if kid ==
                                                "K11" else None)
                 + x_bytes + out_bytes,
@@ -1572,6 +1641,8 @@ def spmm_report_phase(cases, launches, csr, xd, n_rows):
         c16 = [c.to(torch.int16) for c in cs]
         check_kernel(f"{kid} {name} bf16/int16", case["run"](v16, c16),
                      case["plain"](v16, c16))
+        shared = (case["placed"](kid, vs, cs) if case.get("placed")
+                  else {})
         out = torch.zeros((n_rows, xd.shape[1]), device=xd.device)
         ms = cuda_ms(lambda: case["run"](vs, cs, out))
         dev_ms = device_ms(lambda: case["run"](vs, cs, out))
@@ -1589,7 +1660,7 @@ def spmm_report_phase(cases, launches, csr, xd, n_rows):
                      "library_device_ms": library_dev,
                      "shape": case["shape"],
                      "matrix": "qwen3_8b_ffn_up_pruned_0.08",
-                     "B": int(xd.shape[1]), "bytes": byt})
+                     "B": int(xd.shape[1]), "bytes": byt, **shared})
         if kid == "K7":
             rows[-1].update(k7_host_and_one_tile(vs, cs, xd))
         print(f"  {kid}: {ms:.4f} ms ({dev_ms:.4f} on the card), bound "
@@ -1643,6 +1714,13 @@ def searched_seg_line(plan, xd, n_rows, launches, csr) -> None:
 
     err = check_kernel(f"{SEARCHED_K11} {plan.graph.label()}", run(),
                        run(plain=True))
+    want = torch.zeros((n_rows, B), device=xd.device)
+    for st, o, mode, kw in zip(fused, ops_, modes, kws):
+        placed_in_order(kw["rows"], ops.seg_spmm(
+            o["vals"], o["cols"], o["local"], o["end"], xd, st["seg_rows"],
+            mode=mode).reshape(-1, B), want)
+    shared = check_placement(SEARCHED_K11, run(), want,
+                             [kw["rows"] for kw in kws])
     out = torch.zeros((n_rows, B), device=xd.device)
     ms = cuda_ms(lambda: run(out))
     dev_ms = device_ms(lambda: run(out))
@@ -1664,7 +1742,7 @@ def searched_seg_line(plan, xd, n_rows, launches, csr) -> None:
             "bytes": byt, "B": int(B),
             "shape": [list(o["vals"].shape) + [st["seg_rows"]]
                       for o, st in zip(ops_, fused)],
-            "storage": plan.spec["storage_dtype"]}
+            "storage": plan.spec["storage_dtype"], **shared}
     print(f"{SEARCHED_K11} {json.dumps(line)}")
 
 
@@ -3424,6 +3502,131 @@ def bits_probe() -> None:
                                       "differing_calls": out}))
 
 
+SPLIT_ROUNDS = 3
+
+
+def _cut_flush(rows) -> dict:
+    """``rows`` (a ``FusedRows``) with its flush cut down: no segment used
+    (``no_flush``), every pair mapped to nothing (``flush_reads_only``:
+    dst and n_used read, nothing written) and every used pair added by an
+    atomic into its row (``all_atomic``: the placement without an order,
+    no side slot)."""
+    d = rows.dst.long()
+    direct = d.clone()
+    if rows.n_side:
+        of_slot = torch.empty(rows.n_side, dtype=torch.long, device=d.device)
+        of_slot[rows.perm.long()] = torch.repeat_interleave(
+            rows.rows.long(), rows.offsets[1:] - rows.offsets[:-1])
+        pairs, slot = shared_slots(rows)
+        direct[pairs] = of_slot[slot]
+    empty = {f: rows.dst[:0] for f in ("perm", "rows", "slot_row", "count",
+                                       "arrive") if f in rows._fields}
+    if "cells" in rows._fields:
+        empty["cells"] = rows.cells[:0]
+    return {"no_flush": rows._replace(n_used=torch.zeros_like(rows.n_used)),
+            "flush_reads_only": rows._replace(
+                dst=torch.full_like(rows.dst, -1)),
+            "all_atomic": rows._replace(
+                dst=direct.to(torch.int32), n_side=0,
+                offsets=torch.zeros(1, dtype=torch.int64, device=d.device),
+                **empty)}
+
+
+def split_line(label, prog, x, n_rows, tps=(4,)) -> None:
+    """One ``fused_split {...}`` line: the card time of the fused step of
+    ``prog`` (its one seg step) and of its parts, on x ((n,) for K6, (n,
+    B) for K11); see :func:`fused_split`."""
+    from repro_torch.core.kernel_builder import _step_cols
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import seg_spmv as segmod
+    st = prog.spec["steps"][0]
+    f, key = prog.fmt, st["key"]
+    v = f[f"{key}_vals"]
+    c = _step_cols(st, f, v.device)
+    local, end, r0 = f.get(f"{key}_local"), f.get(f"{key}_end"), f[f"{key}_r0"]
+    M = st["seg_rows"]
+    mode = "seg_scan" if st["reduce"] == "gmem_atom" else st["reduce"]
+    rows = fused_kw(v, local, end, r0, M, n_rows, mode)["rows"]
+    fop = ops.seg_spmv_fused if x.ndim == 1 else ops.seg_spmm_fused
+    uop = ops.seg_spmv if x.ndim == 1 else ops.seg_spmm
+    out = torch.zeros((n_rows,) + tuple(x.shape[1:]), device=x.device)
+    second = getattr(segmod, "launch_combine", None)
+
+    def fused(r, k=tps[0], alone=False):
+        if alone and second is not None:  # the kernel without its second
+            segmod.launch_combine = lambda *a, **kw: None   # launch
+        try:
+            fop(v, c, local, end, r0, x, M, n_rows=n_rows, mode=mode,
+                tiles_per_step=k, out=out, rows=r)
+        finally:
+            if second is not None:
+                segmod.launch_combine = second
+
+    fns = {"unfused": lambda: uop(v, c, local, end, x, M, mode=mode)}
+    fns.update({f"fused_tps{k}": functools.partial(fused, rows, k)
+                for k in tps})
+    if second is not None:
+        fns["kernel_only"] = functools.partial(fused, rows, alone=True)
+        side = torch.zeros((rows.n_side,) + tuple(x.shape[1:]),
+                           device=x.device)
+        fns["combine_only"] = lambda: second(out, side, rows.perm,
+                                             rows.offsets, rows.rows)
+    for name, r in _cut_flush(rows).items():
+        fns[name] = functools.partial(fused, r, alone=True)
+    times = {k: [] for k in fns}
+    for _ in range(SPLIT_ROUNDS):
+        for k, fn in fns.items():
+            times[k].append(device_ms(fn))
+    cnt = rows.offsets[1:] - rows.offsets[:-1]
+    line = {"operand": label, "mode": mode, "shape": list(v.shape) + [M],
+            "B": 1 if x.ndim == 1 else int(x.shape[1]),
+            "n_side": rows.n_side, "shared_rows": int(rows.rows.numel()),
+            "most_writers": int(cnt.max()) if cnt.numel() else 0,
+            "second_launch": second is not None,
+            "device_ms": {k: statistics.median(t) for k, t in times.items()},
+            "rounds": times}
+    print("fused_split " + json.dumps(line), flush=True)
+
+
+def fused_split() -> None:
+    """What a fused seg step (K6, K11) spends beyond its unfused kernel, in
+    the checkout this script sits in (the A/B recipe copies it into the
+    parent's): the card time of the unfused kernel (K3/K4, K10a/K10b), the
+    fused call, and the fused kernel with its flush cut down
+    (:func:`_cut_flush`); where the package adds shared rows in a second
+    launch (``seg_spmv.launch_combine``), also the call without it
+    (``kernel_only``) and that launch alone (``combine_only``). On phase
+    4's power-law operands (K6 in both modes; one-hot at tiles_per_step
+    1, 2, 4 and 8) and on the serving matrix (K11 at C = 2048 and 512, B
+    = 8; K6 at C = 512). The median of SPLIT_ROUNDS rounds."""
+    from repro_torch.core.graph import run_graph
+    from repro_torch.core.kernel_builder import build_program
+    from repro_torch.core.matrices import powerlaw_matrix
+    P = powerlaw_matrix(2 ** 20, 2 ** 20, 8.0, 1.5, seed=0)
+    rng = np.random.default_rng(1)
+    xp = torch.from_numpy(rng.standard_normal(P.n_cols).astype(
+        np.float32)).cuda()
+    for red, tps in (("ONEHOT_MXU_RED", (4, 1, 2, 8)), ("SEG_SCAN_RED", (4,))):
+        meta = run_graph(P, chain(("COMPRESS", {}), ("LANE_NNZ_BLOCK",
+                                                      {"chunk": 2048}),
+                                  (red, {})))
+        split_line("powerlaw", build_program(meta, "cuda", tiles_per_step=4),
+                   xp, P.n_rows, tps)
+    W = serving_matrix({})
+    x8 = torch.from_numpy(rng.standard_normal((W.n_cols, 8)).astype(
+        np.float32)).cuda()
+    for red, chunk in (("SEG_SCAN_RED", 2048), ("ONEHOT_MXU_RED", 2048),
+                       ("SEG_SCAN_RED", 512)):
+        meta = run_graph(W, chain(("COMPRESS", {}), ("LANE_NNZ_BLOCK",
+                                                      {"chunk": chunk}),
+                                  (red, {})))
+        prog = build_program(meta, "cuda", tiles_per_step=4)
+        split_line(f"serving C={chunk}", prog, x8, W.n_rows)
+        if chunk == 512:
+            split_line(f"serving C={chunk}", prog, x8[:, 0].contiguous(),
+                       W.n_rows)
+
+
 # -------------------------------- phase 14 --------------------------------
 
 GRANITE = "granite-3-2b"
@@ -4090,9 +4293,10 @@ def main(argv: list) -> int:
               file=sys.stderr)
         return 2
     kernel_report = argv == ["--kernel-report"]
-    if argv and not kernel_report and argv != ["--bits-probe"]:
-        print(f"usage: {sys.argv[0]} [--kernel-report | --bits-probe]",
-              file=sys.stderr)
+    if argv and not kernel_report and argv not in (["--bits-probe"],
+                                                   ["--fused-split"]):
+        print(f"usage: {sys.argv[0]} [--kernel-report | --bits-probe | "
+              "--fused-split]", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     become_subreaper()
@@ -4115,6 +4319,10 @@ def finish(rows: list, t_start: float) -> None:
 def run(argv: list, kernel_report: bool) -> int:
     if argv == ["--bits-probe"]:
         bits_probe()
+        return 0
+    if argv == ["--fused-split"]:
+        device_phase()
+        fused_split()
         return 0
     from repro_torch.core.matrices import banded_matrix, powerlaw_matrix
     from repro_torch.kernels import ops

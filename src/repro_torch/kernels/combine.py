@@ -7,11 +7,14 @@ order that can change from call to call. The order is fixed once, when
 the plan is built or loaded (``combine_order``), so two calls, and a
 saved-and-loaded plan, give the same bits.
 
-The fused seg kernels K6 and K11 use it for the rows that straddle
-tiles: ``fused_rows`` gives each (tile, segment) of a fused step either
-its output row, when no other tile adds into that row, or a slot of a
-side buffer, whose slots the kernel's wrapper then adds into y through
-the same combine, in tile order.
+The fused seg kernels K6 and K11 add the rows that straddle tiles in the
+same order, inside their one launch: ``fused_rows`` gives each (tile,
+segment) of a fused step either its output row, when no other tile adds
+into that row, or its place among the row's shared partials. The last of
+a row's partials to arrive adds them all into y in (tile, segment)
+order, as ``rowmap_combine`` would over their side slots: a row of two
+through a 64-bit exchange cell a column, a longer one through side
+slots and an arrival counter (``csrc/flush.cuh``).
 
 ``rowmap_combine`` runs its plain version (``ref.rowmap_combine_ref``)
 on CPU tensors and launches its CUDA kernel on GPU tensors;
@@ -29,7 +32,8 @@ from . import build
 from .ell_spmv import _stream
 from .ref import rowmap_combine_ref
 
-__all__ = ["combine_order", "rowmap_combine", "FusedRows", "fused_rows"]
+__all__ = ["combine_order", "rowmap_combine", "FusedRows", "fused_rows",
+           "SLOT_BASE", "CELL_COLS"]
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
@@ -81,7 +85,10 @@ def rowmap_combine(y, flat, perm, offsets) -> torch.Tensor:
             raise ValueError(f"{name} must be contiguous on {y.device}")
     if not y.is_contiguous():
         raise ValueError("y must be contiguous")
-    launch_combine(y, flat, perm, offsets)
+    lib = _lib()
+    build.check(lib, lib.rowmap_combine(
+        y.data_ptr(), flat.data_ptr(), perm.data_ptr(), offsets.data_ptr(),
+        0, n_rows, B, _stream(y)), "rowmap_combine")
     rowmap_combine.launches += 1
     return y
 
@@ -89,30 +96,34 @@ def rowmap_combine(y, flat, perm, offsets) -> torch.Tensor:
 rowmap_combine.launches = 0
 
 
-def launch_combine(y, flat, perm, offsets, rows=None) -> None:
-    """Launch the combine kernel on checked operands; ``rows`` (int32) is
-    a compact list of the output rows that ``offsets`` bound (the fused
-    seg wrappers' second pass, counted as part of their own launch)."""
-    lib = _lib()
-    n_out = y.shape[0] if rows is None else rows.numel()
-    build.check(lib, lib.rowmap_combine(
-        y.data_ptr(), flat.data_ptr(), perm.data_ptr(), offsets.data_ptr(),
-        0 if rows is None else rows.data_ptr(), n_out,
-        1 if y.ndim == 1 else y.shape[1], _stream(y)), "rowmap_combine")
+# the pair codes of FusedRows.dst and the exchange cells' columns; the
+# kernels' flush.cuh holds the same constants
+SLOT_BASE = -(1 << 30)
+CELL_COLS = 32
 
 
 class FusedRows(NamedTuple):
-    """Where a fused seg step puts each (tile, segment) partial.
+    """Where a fused seg step puts each (tile, segment) partial, and the
+    state with which its kernel adds the rows that tiles share in a fixed
+    order inside its one launch (``csrc/flush.cuh``).
 
-    ``dst`` (T * seg_rows int32): the output row when this pair is the
-    only one of the step that adds into that row; -1 when the pair adds
-    nothing (an empty segment, or a row past n_rows); ``-2 - k`` for slot
-    k of the side buffer (a row that several tiles add into).
-    ``n_used`` (T int32): one past each tile's last segment that adds
-    anything (the kernels skip the rest). The side's ``n_side`` slots are
-    numbered in (tile, segment) order; ``rows`` (int32) lists the distinct
-    rows they add into, ascending, and ``perm`` / ``offsets`` give each
-    listed row its slots, in that order."""
+    ``dst`` (T * seg_rows int32), a code per pair: the output row when
+    this pair is the only one of the step that adds into that row; -1
+    when it adds nothing (an empty segment, or a row past n_rows); for a
+    row that several pairs add into, the pair's side slot k, numbered in
+    (tile, segment) order, as ``SLOT_BASE - k``, or, where the row has
+    two pairs, ``-2 - (2 u + r)``: listed row u's exchange, rank r (0 for
+    the first pair in (tile, segment) order). ``n_used`` (T int32): one
+    past each tile's last segment that adds anything (the kernels skip the
+    rest). ``rows`` (int32) lists the shared rows, ascending, ``perm`` /
+    ``offsets`` give each its ``n_side`` slots in (tile, segment) order,
+    ``slot_row`` (n_side int32) names each slot's listed row and ``count``
+    (int32) each listed row's slots. The kernels' state: ``arrive``
+    (int32, a listed row's arrival counter, which the kernels count
+    modulo ``count``) and ``cells`` (int64, ``CELL_COLS`` exchange cells a
+    listed row). Both start at zero and every launch leaves them there,
+    so they are never reset; they belong to one plan, whose fused step
+    must not run on two streams at once."""
 
     dst: torch.Tensor
     n_used: torch.Tensor
@@ -120,6 +131,22 @@ class FusedRows(NamedTuple):
     offsets: torch.Tensor
     rows: torch.Tensor
     n_side: int
+    slot_row: torch.Tensor
+    count: torch.Tensor
+    arrive: torch.Tensor
+    cells: torch.Tensor
+
+    def shared_pairs(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The pairs (flat indices into ``dst``) that add into a shared
+        row, and each one's side slot."""
+        d = self.dst.long()
+        pairs = torch.nonzero(d <= -2).reshape(-1)
+        code = d[pairs]
+        slot = SLOT_BASE - code
+        ex = code > SLOT_BASE
+        c = -2 - code[ex]
+        slot[ex] = self.perm.long()[self.offsets[c // 2] + c % 2]
+        return pairs, slot
 
 
 def fused_rows(r0, aux, seg_rows: int, n_rows: int, mode: str,
@@ -151,14 +178,31 @@ def fused_rows(r0, aux, seg_rows: int, n_rows: int, mode: str,
     rows, used = rows.reshape(-1), used.reshape(-1)
     count = torch.bincount(rows[used], minlength=n_rows)
     shared = used & (count[rows.clamp(0, max(n_rows - 1, 0))] > 1)
-    side = torch.cumsum(shared.long(), 0) - 1
-    dst = torch.where(shared, -2 - side, torch.where(used, rows, -1))
     side_rows = rows[shared]
     perm = torch.sort(side_rows, stable=True).indices
     listed, counts = torch.unique_consecutive(side_rows[perm],
                                               return_counts=True)
-    offsets = torch.zeros(listed.numel() + 1, dtype=torch.int64, device=dev)
+    n_side, n_listed = int(perm.numel()), int(listed.numel())
+    if n_side >= -SLOT_BASE - 2:
+        raise ValueError(f"{n_side} shared (tile, segment) pairs: more "
+                         "than the pair codes hold")
+    offsets = torch.zeros(n_listed + 1, dtype=torch.int64, device=dev)
     offsets[1:] = torch.cumsum(counts, 0)
+    owner = torch.repeat_interleave(torch.arange(n_listed, device=dev),
+                                    counts)
+    slot_row = torch.empty(n_side, dtype=torch.long, device=dev)
+    slot_row[perm] = owner
+    rank = torch.empty(n_side, dtype=torch.long, device=dev)
+    rank[perm] = torch.arange(n_side, device=dev) - offsets[:-1][owner]
+    k = torch.arange(n_side, device=dev)
+    code = torch.where(counts[slot_row] == 2, -2 - (2 * slot_row + rank),
+                       SLOT_BASE - k)
+    dst = torch.where(used, rows, -1)
+    dst[shared] = code
     return FusedRows(dst.to(torch.int32), n_used.to(torch.int32),
                      perm.to(torch.int32), offsets, listed.to(torch.int32),
-                     int(perm.numel()))
+                     n_side, slot_row.to(torch.int32),
+                     counts.to(torch.int32),
+                     torch.zeros(n_listed, dtype=torch.int32, device=dev),
+                     torch.zeros(n_listed * CELL_COLS, dtype=torch.int64,
+                                 device=dev))

@@ -15,11 +15,10 @@
 //
 // Operands: perm lists the flat partials with a row (rowmap >= 0), sorted
 // by row, stably, so each row's partials keep their flat order; offsets
-// (n_rows + 1) bound each row's run in perm. With a compact row list
-// (the rows that the fused seg kernels K6 / K11 leave to a side buffer,
-// few of y's), offsets bound each listed row's run. One thread owns one (row, b)
-// element of y (n_rows, B) and adds the row's partials to it one after
-// another, in perm order: no two threads write one element, no atomics,
+// (n_rows + 1) bound each row's run in perm; with a compact list of
+// distinct rows, offsets bound each listed row's run. One thread owns one
+// (row, b) element of y (n_rows, B) and adds the row's partials to it one
+// after another, in perm order: no two threads write one element, no atomics,
 // and the sum is the same on every call. The plain version
 // (`rowmap_combine_ref`) adds in the same order.
 //
@@ -57,7 +56,7 @@ rowmap_combine_kernel(float* __restrict__ y, const float* __restrict__ flat,
 // y (n_rows, B) += the partials of flat (N, B) that perm and offsets give
 // each output row, in perm order. The output rows are y's rows 0 ..
 // n_out - 1 (rows = NULL, n_out = n_rows), or rows[0 .. n_out) (distinct:
-// a compact list, as for the fused seg kernels' shared rows).
+// a compact list).
 extern "C" int rowmap_combine(float* y, const float* flat, const int* perm,
                               const long long* offsets, const int* rows,
                               long long n_out, int B, void* stream) {

@@ -23,13 +23,23 @@
 //    g[m] = S(clamp(end[m], 0, C)) and partial[m] = g[m] - g[m-1].
 //  * fused (K11): tile t's partials are added into y[r0[t] + m, :]. The
 //    TPU does it on a resident output block in grid order; blocks on the
-//    GPU run in any order, so here the wrapper's dst map
+//    GPU run in any order, so here the wrapper's FusedRows
 //    (combine.fused_rows, built once per plan) gives each (tile,
 //    segment) its row where no other tile adds into that row, added
-//    there by its one writer, or a slot of a side buffer that
-//    the ordered combine (rowmap_combine.cu) adds into y in tile order.
-//    Empty segments and rows outside [0, n_rows) map to nothing (the TPU
-//    clamps an out-of-range slice write, the GPU would corrupt memory).
+//    there by its one writer. A row that several tiles share is added
+//    inside this launch, in (tile, segment) order, by the last of its
+//    partials to arrive (flush.cuh): a row of two column by column
+//    through 64-bit exchange cells, as the flush writes them; a longer
+//    row, or any row at more than flush::kCellCols columns, through side
+//    slots (a slot's columns may be written over several windows) and,
+//    after a window's last columns, one arrival a pair on the row's
+//    counter, the rows whose last slot the block wrote listed in shared
+//    memory and added a thread a column. That order is the ordered
+//    combine's (rowmap_combine.cu), so the bits are those of the unfused
+//    partials combined by it. One plan's fused step runs on one stream
+//    at a time (the cells and counters are the plan's). Empty segments
+//    and rows outside [0, n_rows) map to nothing (the TPU clamps an
+//    out-of-range slice write, the GPU would corrupt memory).
 //
 // Design: the blocked run reduction of runs.cuh, for B columns. A block
 // takes the ceil(2048 / C) tiles of one pass of 2048 slots, so that a pass
@@ -79,6 +89,7 @@
 // bit-identical for sorted keys (the packers' tiles).
 #include <climits>
 
+#include "flush.cuh"
 #include "runs.cuh"
 #include "spmm.cuh"
 
@@ -225,8 +236,10 @@ __device__ __forceinline__ void gather(const X* __restrict__ x, int n_cols,
 // the window's (nk, cb) accumulator. In a pass the G lanes of a group hold
 // the same kPer slots, and each lane takes CW of every G * CW columns;
 // bval (after acc) holds the boundary slots' sums. fused = 0: out[t, m,
-// b]; fused = 1: y (out) or the side buffer at dst[t * M + m], column b,
-// for m below n_used[t].
+// b]; fused = 1: y (out), an exchange cell or a side slot as f.dst[t * M
+// + m] says, column b, for m below f.n_used[t]; after a window's last
+// columns its counted pairs count in on their listed rows, and the block
+// adds the rows whose last slot it wrote (flush.cuh), a thread a column.
 template <int kMode, bool kVec, int CW, int G, typename V, typename C,
           typename X>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -234,11 +247,11 @@ seg_runs_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
                 const int* __restrict__ aux, const X* __restrict__ x,
                 int n_cols, int B, long long T, int Cn, int M, int K, int nk,
                 int cb, int fused, float* __restrict__ out,
-                const int* __restrict__ dst, const int* __restrict__ n_used,
-                float* __restrict__ side) {
+                const flush::Rows f) {
   extern __shared__ float acc[];  // nk * cb, then kRing * kSlots * cb
   __shared__ int desc[kMaxWinTiles];
   __shared__ int bkey[runs::kRing * runs::kSlots];
+  __shared__ int n_last;  // listed rows the window's pairs completed
   float* bval = acc + (long long)nk * cb;  // the ring's boundary sums
   const int tid = threadIdx.x;
   Window w;
@@ -250,10 +263,12 @@ seg_runs_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
     const int tiles = (int)((w.k0 + w.nk - 1) / M) - w.ta + 1;
     w.base = (w.t0 + w.ta) * Cn;
     w.n = tiles * Cn;
+    bool counted = false;  // this thread wrote a side slot of the window
     for (int c0 = 0; c0 < B; c0 += cb) {
       const int cend = min(B, c0 + cb);
       for (int i = tid; i < w.nk * cb; i += kThreads) acc[i] = 0.f;
       if (tid < tiles) desc[tid] = 0;
+      if (tid == 0) n_last = 0;
       __syncthreads();
       bool any_desc = false;
       if constexpr (kMode == kSegScan) {
@@ -329,17 +344,41 @@ seg_runs_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
         const long long gk = w.k0 + q;
         const long long t = w.t0 + gk / M;
         const int m = (int)(gk % M);
-        if (fused && m >= n_used[t]) continue;  // an empty segment
+        if (fused && m >= __ldg(f.n_used + t)) continue;  // empty segment
         const float sum = acc[q * cb + (b - c0)];
         if (fused) {
-          const int d = dst[t * M + m];
+          const int d = __ldg(f.dst + t * M + m);
+          const long long row = (long long)__ldg(f.r0 + t) + m;
           if (d >= 0) {  // one writer: the atomic's result is y + sum
             atomicAdd(out + (long long)d * B + b, sum);
-          } else if (d <= -2) {
-            side[(long long)(-2 - d) * B + b] = sum;
+          } else if (flush::exchanged(d, B)) {
+            flush::exchange(out, f, d, row * B + b, b, sum);
+          } else if (d != -1) {
+            f.side[flush::slot_of(f, d) * B + b] = sum;
+            counted = true;
           }
         } else {
           out[(t * M + m) * B + b] = sum;
+        }
+      }
+      // every column of the window's side slots is written: a thread a
+      // counted pair counts in, and the rows whose last slot this was are
+      // listed in acc, whose sums are all read
+      if (fused && cend == B && __syncthreads_or(counted)) {
+        int* last = reinterpret_cast<int*>(acc);
+        for (int q = tid; q < w.nk; q += kThreads) {
+          const long long gk = w.k0 + q;
+          const long long t = w.t0 + gk / M;
+          const int m = (int)(gk % M);
+          if (m >= __ldg(f.n_used + t)) continue;
+          const int d = __ldg(f.dst + t * M + m);
+          if (d >= -1 || flush::exchanged(d, B)) continue;
+          const int u = __ldg(f.slot_row + flush::slot_of(f, d));
+          if (flush::arrive_last(f, u)) last[atomicAdd(&n_last, 1)] = u;
+        }
+        __syncthreads();
+        for (int i = tid; i < n_last * B; i += kThreads) {
+          flush::add_row(out, f, last[i / B], B, i % B);
         }
       }
       __syncthreads();  // acc and desc are rewritten by the next window
@@ -351,8 +390,8 @@ template <int kMode, bool kVec, int CW, int G, typename V, typename C,
           typename X>
 int launch(const void* vals, const void* cols, const int* aux,
            const void* x, int n_cols, int B, long long T, int Cn, int M,
-           int K, int nk, int cb, int fused, float* out, const int* dst,
-           const int* n_used, float* side, cudaStream_t s) {
+           int K, int nk, int cb, int fused, float* out,
+           const flush::Rows& f, cudaStream_t s) {
   const size_t smem =
       (size_t)(nk + runs::kRing * runs::kSlots) * cb * sizeof(float);
   const cudaError_t err =
@@ -362,7 +401,7 @@ int launch(const void* vals, const void* cols, const int* aux,
   seg_runs_kernel<kMode, kVec, CW, G, V, C, X>
       <<<blocks, kThreads, smem, s>>>(
       (const V*)vals, (const C*)cols, aux, (const X*)x, n_cols, B, T, Cn, M,
-      K, nk, cb, fused, out, dst, n_used, side);
+      K, nk, cb, fused, out, f);
   return (int)cudaGetLastError();
 }
 
@@ -378,12 +417,12 @@ template <int kMode, typename V, typename C, typename X>
 int launch_layout(bool vec, bool xvec, bool pairs, const void* vals,
                   const void* cols, const int* aux, const void* x,
                   int n_cols, int B, long long T, int Cn, int M, int K,
-                  int nk, int cb, int fused, float* out, const int* dst,
-                  const int* n_used, float* side, cudaStream_t s) {
+                  int nk, int cb, int fused, float* out,
+                  const flush::Rows& f, cudaStream_t s) {
 #define SEG_RUNS_LAUNCH(VEC, CW, G)                                         \
   return launch<kMode, VEC, CW, G, V, C, X>(vals, cols, aux, x, n_cols, B, \
                                             T, Cn, M, K, nk, cb, fused,   \
-                                            out, dst, n_used, side, s)
+                                            out, f, s)
   if (vec) {
     if constexpr (kMode == kOnehot) {
       if (pairs) SEG_RUNS_LAUNCH(true, 4, 2);
@@ -402,21 +441,27 @@ bool aligned(const void* p, uintptr_t bytes) {
 }  // namespace
 
 // mode: 0 seg_scan (aux = seg_end (T, M)), 1 onehot_mxu (aux = local_row
-// (T, Cn)). fused = 0: out is (T, M, B) partials and dst / side are
-// unused; fused = 1: out is y (n_rows, B), dst (T * M) maps each partial
-// to a row of y or a row of side (n_side, B), and n_used (T) bounds each
-// tile's segments that add anything. tiles_per_block does not set
-// the grid: a block takes the ceil(2048 / Cn) tiles of one pass, which
-// changes no sum (groups of more tiles left the last wave of blocks short
-// on the card).
+// (T, Cn)). fused = 0: out is (T, M, B) partials and the FusedRows
+// pointers (dst .. cells) are unused; fused = 1: out is y (n_rows, B), dst
+// (T * M) gives each partial its row of y, its exchange cells or its row
+// of side (n_side, B), the kernel adds the shared rows into y
+// (flush.cuh), n_used (T) bounds each tile's segments that add anything
+// and r0 (T) is each tile's first row. A block takes the ceil(2048 / Cn)
+// tiles of one pass, which changes no sum (groups of more tiles left the
+// last wave of blocks short on the card).
 extern "C" int seg_spmm(const void* vals, int vals_bf16, const void* cols,
                         int cols_i16, const void* x, int x_bf16, int n_cols,
                         int B, const int* aux, long long T, int Cn, int M,
                         int mode, int fused, float* out, const int* dst,
-                        const int* n_used, float* side, int tiles_per_block,
+                        const int* n_used, float* side, const int* slot_row,
+                        const int* count, unsigned* arrive, const int* perm,
+                        const long long* offsets, const int* rows,
+                        const int* r0, unsigned long long* cells,
                         void* stream) {
   if (T <= 0 || B <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  const flush::Rows f{dst,   n_used, r0,      side, slot_row, count,
+                      arrive, perm,  offsets, rows, cells};
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
@@ -463,12 +508,11 @@ extern "C" int seg_spmm(const void* vals, int vals_bf16, const void* cols,
     if (mode == kSegScan) {
       return launch_layout<kSegScan, V, C, X>(
           vec, xvec, pairs, vals, cols, aux, x, n_cols, B, T, Cn, M, k, n,
-          cb, fused, out, dst, n_used, side, s);
+          cb, fused, out, f, s);
     }
     return launch_layout<kOnehot, V, C, X>(vec, xvec, pairs, vals, cols, aux,
                                            x, n_cols, B, T, Cn, M, k, n, cb,
-                                           fused, out, dst, n_used, side,
-                                           s);
+                                           fused, out, f, s);
   });
   return 0;  // not reached
 }

@@ -66,21 +66,31 @@
 //  * fused (K6): the TPU adds tile t's partials at y[r0[t] + m] on a
 //    resident output block, in sequential grid order; a row that
 //    straddles tiles t and t+1 gets its second add on top of the first.
-//    Blocks on the GPU run in parallel and in any order, so here the
-//    wrapper's dst map (combine.fused_rows, built once per plan) gives
-//    each (tile, segment) its row where no other tile adds into that row,
-//    and the flush adds it there (one writer, so in no varying order); the
-//    partials of rows that several tiles share go to a side buffer, which
-//    the ordered combine (rowmap_combine.cu) then adds into y in tile
-//    order. Empty segments and rows outside [0, n_rows) map to nothing:
-//    the TPU clamps an out-of-range slice write, the GPU would corrupt
-//    memory. One-hot walks tiles_per_block tiles a block, seg_scan sets
-//    its grid from C alone; neither changes a sum.
+//    Blocks on the GPU run in parallel and in any order. The wrapper's
+//    FusedRows (combine.fused_rows, built once per plan) gives each (tile,
+//    segment) its row where no other tile adds into that row, and the
+//    flush adds it there (one writer, so in no varying order). A row that
+//    several tiles share is added inside this launch, in (tile, segment)
+//    order, by the last of its partials to arrive (flush.cuh): a row of
+//    two through a 64-bit exchange cell, a longer one through side slots
+//    and an arrival counter. That order is the ordered combine's
+//    (rowmap_combine.cu), so the bits are those of the unfused partials
+//    combined by it, with no second launch; what it costs is a shared
+//    pair's wait for its exchange, about one round trip to L2 at the end
+//    of a block (chip_smoke.py --fused-split; PERF.md). The
+//    cells and counters belong to the plan, so one plan's fused step runs
+//    on one stream at a time. Empty segments and rows outside [0, n_rows)
+//    map to nothing: the TPU clamps an out-of-range slice write, the GPU
+//    would corrupt memory. One-hot takes a tile a block (walking several
+//    tiles a block in turn was slower on the card: their run reductions'
+//    barriers and folds in series), seg_scan sets its grid from C alone;
+//    neither changes a sum.
 // runs.cuh holds the 8-slot loads and the run helpers, which the seg SpMM
 // kernels K10a/K10b/K11 run for B columns.
 // The sums are taken in another order than the plain version's, so they
 // agree with it to a tolerance; from call to call they are bit-identical
 // (for the packers' sorted local rows in one-hot mode).
+#include "flush.cuh"
 #include "runs.cuh"
 
 namespace {
@@ -97,21 +107,6 @@ constexpr int kSegScan = 0, kOnehot = 1, kOnehotVec = 2;
 
 __device__ __forceinline__ int clamp_end(int e, int Cn) {
   return e < 0 ? 0 : (e > Cn ? Cn : e);
-}
-
-// A fused partial's destination d (combine.fused_rows): y[d] when d >= 0,
-// whose only writer in the launch this is; side slot -2 - d when d <= -2;
-// nothing when d == -1. The add into y is an atomic without a return (a
-// reduction the memory system completes, so the thread does not wait for
-// y[d] as a load would); with no other writer it gives y[d] + v.
-__device__ __forceinline__ void put_fused(float* __restrict__ y,
-                                          float* __restrict__ side, int d,
-                                          float v) {
-  if (d >= 0) {
-    atomicAdd(y + d, v);
-  } else if (d <= -2) {
-    side[-2 - d] = v;
-  }
 }
 
 // The products of this thread's kPer slots from slot i (of `left` still
@@ -154,15 +149,14 @@ __device__ __forceinline__ void slot_products(
 
 // K3 / K6 in seg_scan mode: tiles [t0, t0 + K) per block; cs holds their
 // in-tile inclusive sums. kFused = false: out[t, m]; kFused = true: y
-// (out) or the side buffer at dst[t * M + m] (see put_fused), for m below
-// n_used[t].
+// (out) or a side slot as f.dst[t * M + m] says (flush::put), for m below
+// f.n_used[t].
 template <bool kVec, bool kFused, typename V, typename C, typename X>
 __global__ void __launch_bounds__(kThreads)
 scan_tiles_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
                   const int* __restrict__ seg_end, const X* __restrict__ x,
                   int n_cols, long long T, int Cn, int M, int K,
-                  float* __restrict__ out, const int* __restrict__ dst,
-                  const int* __restrict__ n_used, float* __restrict__ side) {
+                  float* __restrict__ out, const flush::Rows f) {
   extern __shared__ float4 cs4[];  // K * Cn floats
   float* cs = reinterpret_cast<float*>(cs4);
   __shared__ float wsum[2][kWarps];  // per pass parity: warp totals ...
@@ -252,7 +246,8 @@ scan_tiles_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
   const int* end = seg_end + t0 * M;
   for (int i = tid; i < nt * M; i += kThreads) {
     const int tr = i / M, m = i - tr * M;
-    if (kFused && m >= n_used[t0 + tr]) continue;  // an empty segment
+    // past n_used, empty segments
+    if (kFused && m >= __ldg(f.n_used + t0 + tr)) continue;
     const float* tcs = cs + tr * Cn;
     const int e = clamp_end(end[i], Cn);
     const int ep = m > 0 ? clamp_end(end[i - 1], Cn) : 0;
@@ -260,7 +255,8 @@ scan_tiles_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
     const float gp = ep > 0 ? tcs[ep - 1] : 0.f;
     const float part = g - gp;
     if constexpr (kFused) {
-      put_fused(out, side, dst[t0 * M + i], part);
+      const long long row = (long long)__ldg(f.r0 + t0 + tr) + m;
+      flush::put(out, f, __ldg(f.dst + t0 * M + i), row, part);
     } else {
       out[t0 * M + i] = part;
     }
@@ -312,51 +308,47 @@ __device__ __forceinline__ void onehot_pass(
   runs::add_runs<1, 1>(r, key, p, buf, 1, 0, bkey, bval);
 }
 
-// K4 / K6 in one-hot mode: partials of tiles [t0, t1) per block, out[t, m]
-// (fused = 0) or y / the side buffer at dst[t * M + m] for m below
-// n_used[t] (fused = 1).
-template <typename V, typename C, typename X, int kMode>
+// K4 / K6 in one-hot mode: the partials of tile t = blockIdx.x, out[t, m]
+// (kFused = false) or y / a cell / a side slot as f.dst[t * M + m] says
+// for m below f.n_used[t] (kFused = true).
+template <typename V, typename C, typename X, int kMode, bool kFused>
 __global__ void __launch_bounds__(kThreads)
 onehot_tiles_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
                     const int* __restrict__ local, const X* __restrict__ x,
-                    int n_cols, long long T, int Cn, int M, int fused,
-                    float* __restrict__ out, const int* __restrict__ dst,
-                    const int* __restrict__ n_used, float* __restrict__ side,
-                    int tiles_per_block) {
+                    int n_cols, int Cn, int M, float* __restrict__ out,
+                    const flush::Rows f) {
   extern __shared__ float buf[];  // M floats
   __shared__ int bkey[runs::kRing * runs::kSlots];  // boundary slots
   __shared__ float bval[runs::kRing * runs::kSlots];
-  const long long t0 = (long long)blockIdx.x * tiles_per_block;
-  const long long t1 = min(t0 + tiles_per_block, T);
-  for (long long t = t0; t < t1; ++t) {
-    const long long base = t * Cn;
-    for (int m = threadIdx.x; m < M; m += kThreads) buf[m] = 0.f;
-    __syncthreads();
-    int ring = 0;  // passes in the ring
-    for (int start = 0; start < Cn; start += kPass) {
-      onehot_pass<kMode == kOnehotVec>(
-          vals, cols, local, x, n_cols, base, start + threadIdx.x * kPer, Cn,
-          M, buf, bkey + ring * runs::kSlots, bval + ring * runs::kSlots);
-      if (++ring == runs::kRing && start + kPass < Cn) {
-        __syncthreads();
-        runs::fold_boundary(bkey, bval, 1, 1, ring * runs::kSlots, buf);
-        __syncthreads();
-        ring = 0;
-      }
+  const long long t = blockIdx.x;
+  const long long base = t * Cn;
+  for (int m = threadIdx.x; m < M; m += kThreads) buf[m] = 0.f;
+  __syncthreads();
+  int ring = 0;  // passes in the ring
+  for (int start = 0; start < Cn; start += kPass) {
+    onehot_pass<kMode == kOnehotVec>(
+        vals, cols, local, x, n_cols, base, start + threadIdx.x * kPer, Cn,
+        M, buf, bkey + ring * runs::kSlots, bval + ring * runs::kSlots);
+    if (++ring == runs::kRing && start + kPass < Cn) {
+      __syncthreads();
+      runs::fold_boundary(bkey, bval, 1, 1, ring * runs::kSlots, buf);
+      __syncthreads();
+      ring = 0;
     }
-    __syncthreads();
-    runs::fold_boundary(bkey, bval, 1, 1, ring * runs::kSlots, buf);
-    __syncthreads();
-    const int lim = fused ? n_used[t] : M;  // past it, empty segments
-    for (int m = threadIdx.x; m < lim; m += kThreads) {
-      const float v = buf[m];
-      if (fused) {
-        put_fused(out, side, dst[t * M + m], v);
-      } else {
-        out[t * M + m] = v;
-      }
+  }
+  __syncthreads();
+  runs::fold_boundary(bkey, bval, 1, 1, ring * runs::kSlots, buf);
+  __syncthreads();
+  // past n_used, empty segments
+  const int lim = kFused ? __ldg(f.n_used + t) : M;
+  const long long row0 = kFused ? __ldg(f.r0 + t) : 0;
+  for (int m = threadIdx.x; m < lim; m += kThreads) {
+    const float v = buf[m];
+    if constexpr (kFused) {
+      flush::put(out, f, __ldg(f.dst + t * M + m), row0 + m, v);
+    } else {
+      out[t * M + m] = v;
     }
-    __syncthreads();  // buf is rewritten by the next tile
   }
 }
 
@@ -376,19 +368,25 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 }  // namespace
 
 // mode: 0 seg_scan, 1 onehot_mxu. fused = 0: out is (T, M) partials and
-// dst / n_used / side are unused; fused = 1: out is y (n_rows,), dst (T *
-// M) maps each partial to y or to the side buffer (put_fused), and
-// n_used (T) bounds each tile's segments that add anything. tiles_per_block
-// sets the one-hot grid; seg_scan ignores it (a block takes the
-// ceil(2048 / Cn) tiles of one pass), which changes no sum.
+// the FusedRows pointers (dst .. cells) are unused; fused = 1: out is y
+// (n_rows,), dst (T * M) gives each partial its row of y, its exchange
+// cell or its side slot, and the kernel adds the shared rows into y
+// (flush.cuh); r0 (T) is each tile's first row. One-hot takes a tile a
+// block (several tiles a block in turn were slower on the card),
+// seg_scan the ceil(2048 / Cn) tiles of one pass; neither changes a sum.
 extern "C" int seg_tiles(const void* vals, int vals_bf16, const void* cols,
                          int cols_i16, const void* x, int x_bf16, int n_cols,
                          const int* aux, long long T, int Cn, int M, int mode,
                          int fused, float* out, const int* dst,
-                         const int* n_used, float* side, int tiles_per_block,
+                         const int* n_used, float* side, const int* slot_row,
+                         const int* count, unsigned* arrive, const int* perm,
+                         const long long* offsets, const int* rows,
+                         const int* r0, unsigned long long* cells,
                          void* stream) {
   if (T <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  const flush::Rows f{dst,   n_used, r0,      side, slot_row, count,
+                      arrive, perm,  offsets, rows, cells};
   const bool vec = Cn % kPer == 0 && aligned16(vals) && aligned16(cols);
   if (mode == kSegScan) {
     const int per_pass = Cn > 0 ? (kPass + Cn - 1) / Cn : 1;
@@ -398,7 +396,7 @@ extern "C" int seg_tiles(const void* vals, int vals_bf16, const void* cols,
 #define SCAN_LAUNCH(VEC, FUSED)                                            \
   return launch(scan_tiles_kernel<VEC, FUSED, V, C, X>, blocks, smem, s,   \
                 (const V*)vals, (const C*)cols, aux, (const X*)x, n_cols, \
-                T, Cn, M, K, out, dst, n_used, side)
+                T, Cn, M, K, out, f)
     SPMV_DISPATCH(vals_bf16, cols_i16, x_bf16, {
       if (vec) {
         if (fused) SCAN_LAUNCH(true, true);
@@ -409,18 +407,19 @@ extern "C" int seg_tiles(const void* vals, int vals_bf16, const void* cols,
     });
 #undef SCAN_LAUNCH
   }
-  const int K = tiles_per_block;
-  const unsigned blocks = (unsigned)((T + K - 1) / K);
   const size_t smem = (size_t)M * sizeof(float);
+#define ONEHOT_LAUNCH(MODE, FUSED)                                           \
+  return launch(onehot_tiles_kernel<V, C, X, MODE, FUSED>, (unsigned)T, smem, \
+                s, (const V*)vals, (const C*)cols, aux, (const X*)x, n_cols, \
+                Cn, M, out, f)
   SPMV_DISPATCH(vals_bf16, cols_i16, x_bf16, {
     if (vec && aligned16(aux)) {
-      return launch(onehot_tiles_kernel<V, C, X, kOnehotVec>, blocks, smem,
-                    s, (const V*)vals, (const C*)cols, aux, (const X*)x,
-                    n_cols, T, Cn, M, fused, out, dst, n_used, side, K);
+      if (fused) ONEHOT_LAUNCH(kOnehotVec, true);
+      ONEHOT_LAUNCH(kOnehotVec, false);
     }
-    return launch(onehot_tiles_kernel<V, C, X, kOnehot>, blocks, smem, s,
-                  (const V*)vals, (const C*)cols, aux, (const X*)x, n_cols,
-                  T, Cn, M, fused, out, dst, n_used, side, K);
+    if (fused) ONEHOT_LAUNCH(kOnehot, true);
+    ONEHOT_LAUNCH(kOnehot, false);
   });
+#undef ONEHOT_LAUNCH
   return 0;  // not reached
 }

@@ -8,8 +8,8 @@ never falls back from one to the other. ``seg_spmv.launches`` and
 ``seg_spmm.launches`` count launches per mode (K3/K10a ``seg_scan``,
 K4/K10b ``onehot_mxu``); ``seg_spmv_fused.launches`` and
 ``seg_spmm_fused.launches`` count K6 and K11 launches in either mode. A
-fused launch is the kernel and, where tiles share rows, the ordered
-combine of their side partials (``combine.fused_rows``): one count.
+fused call is one kernel launch: the rows that several tiles share are
+added into y inside it, in a fixed order (``combine.fused_rows``).
 
 Replaced TPU kernels (``src/repro/kernels/seg_spmv.py``): K3/K4
 ``seg_spmv_pallas``, K6 ``seg_spmv_fused_pallas``, K10a/K10b
@@ -24,7 +24,7 @@ import ctypes
 import torch
 
 from . import build
-from .combine import FusedRows, launch_combine
+from .combine import CELL_COLS, FusedRows
 from .ell_spmv import _check_tiles, _stream, _type_args
 from .ref import (SEG_MODES, seg_spmm_fused_ref, seg_spmm_ref,
                   seg_spmv_fused_ref, seg_spmv_ref)
@@ -38,7 +38,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load_library("seg_spmv")
     if lib.seg_tiles.argtypes is None:
         lib.seg_tiles.argtypes = [_P, _I, _P, _I, _P, _I, _I, _P, _L, _I, _I,
-                                  _I, _I, _P, _P, _P, _P, _I, _P]
+                                  _I, _I, _P, *[_P] * 11, _P]
         lib.seg_tiles.restype = _I
     return lib
 
@@ -47,7 +47,7 @@ def _spmm_lib() -> ctypes.CDLL:
     lib = build.load_library("seg_spmm")
     if lib.seg_spmm.argtypes is None:
         lib.seg_spmm.argtypes = [_P, _I, _P, _I, _P, _I, _I, _I, _P, _L, _I,
-                                 _I, _I, _I, _P, _P, _P, _P, _I, _P]
+                                 _I, _I, _I, _P, *[_P] * 11, _P]
         lib.seg_spmm.restype = _I
     return lib
 
@@ -75,49 +75,62 @@ def _check_seg(vals, cols, local_row, seg_end, x, seg_rows, mode, out,
     return aux
 
 
-def _fused_operands(vals, seg_rows, rows, out) -> tuple:
-    """Check the fused step's ``FusedRows`` and make a side buffer for its
-    shared rows."""
+def _fused_operands(vals, seg_rows, r0, rows, out) -> tuple:
+    """Check the fused step's ``r0`` and ``FusedRows`` and make a side
+    buffer for its shared rows."""
     T = vals.shape[0]
     if rows is None:
         raise ValueError("a fused seg kernel needs rows= (combine.fused_rows "
                          "of its descriptors, built once with the plan)")
-    if (rows.dst.dtype != torch.int32 or rows.dst.numel() != T * seg_rows
-            or rows.dst.device != vals.device
-            or rows.n_used.dtype != torch.int32
-            or rows.n_used.shape != (T,)):
-        raise ValueError(f"rows must hold an int32 dst of {T}x{seg_rows} "
-                         f"entries and an int32 n_used of {T} on "
+    n_listed = rows.rows.numel()
+    want = {"dst": (torch.int32, T * seg_rows), "n_used": (torch.int32, T),
+            "slot_row": (torch.int32, rows.n_side),
+            "perm": (torch.int32, rows.n_side),
+            "rows": (torch.int32, n_listed), "count": (torch.int32, n_listed),
+            "arrive": (torch.int32, n_listed),
+            "offsets": (torch.int64, n_listed + 1),
+            "cells": (torch.int64, n_listed * CELL_COLS)}
+    for name, (dtype, n) in want.items():
+        t = getattr(rows, name)
+        if (t.dtype != dtype or t.numel() != n or t.device != vals.device
+                or not t.is_contiguous()):
+            raise ValueError(f"rows.{name} must be a contiguous {dtype} "
+                             f"tensor of {n} entries on {vals.device}")
+    if (r0 is None or r0.dtype != torch.int32 or r0.shape != (T,)
+            or r0.device != vals.device or not r0.is_contiguous()):
+        raise ValueError(f"r0 must be a contiguous int32 ({T},) tensor on "
                          f"{vals.device}")
     side = torch.empty((rows.n_side,) + tuple(out.shape[1:]),
                        dtype=torch.float32, device=vals.device)
-    return rows, side
+    return rows, side, r0
 
 
-def _fused_ptrs(rows, side) -> tuple:
-    """The kernels' dst, n_used and side pointers (0 when not fused)."""
+def _fused_ptrs(rows, side, r0) -> tuple:
+    """The kernels' ``FusedRows`` pointers and r0, in the C entries'
+    order (0 when not fused)."""
     if rows is None:
-        return 0, 0, 0
-    return rows.dst.data_ptr(), rows.n_used.data_ptr(), side.data_ptr()
+        return (0,) * 11
+    return (rows.dst.data_ptr(), rows.n_used.data_ptr(), side.data_ptr(),
+            rows.slot_row.data_ptr(), rows.count.data_ptr(),
+            rows.arrive.data_ptr(), rows.perm.data_ptr(),
+            rows.offsets.data_ptr(), rows.rows.data_ptr(), r0.data_ptr(),
+            rows.cells.data_ptr())
 
 
 def _launch(vals, cols, local_row, seg_end, x, seg_rows, mode, out,
-            fused=None, tiles_per_step=1) -> None:
+            fused=None) -> None:
     """Check the operands and launch ``seg_tiles``; ``fused`` is the
-    (rows, side) of a fused step, whose side the combine then adds."""
+    (rows, side, r0) of a fused step."""
     aux = _check_seg(vals, cols, local_row, seg_end, x, seg_rows, mode, out,
                      1)
     T = vals.shape[0]
     c = vals.shape[1] * vals.shape[2]
-    k = max(min(int(tiles_per_step), T), 1)
-    rows, side = fused or (None, None)
+    rows, side, r0 = fused or (None, None, None)
     lib = _lib()
     build.check(lib, lib.seg_tiles(
         *_type_args(vals, cols, x), aux.data_ptr(), T, c, seg_rows,
         SEG_MODES.index(mode), int(fused is not None), out.data_ptr(),
-        *_fused_ptrs(rows, side), k, _stream(vals)), "seg_tiles")
-    if rows is not None and rows.n_side:
-        launch_combine(out, side, rows.perm, rows.offsets, rows.rows)
+        *_fused_ptrs(rows, side, r0), _stream(vals)), "seg_tiles")
 
 
 def seg_spmv(vals, cols, local_row, seg_end, x, seg_rows: int,
@@ -143,11 +156,18 @@ def seg_spmv_fused(vals, cols, local_row, seg_end, r0, x, seg_rows: int, *,
     when None. Requires per-tile contiguous rows (``rowmap[t, m] = r0[t] +
     m``; the plain version on CPU tensors reads ``r0``). On the GPU,
     ``rows`` (``combine.fused_rows`` of these descriptors, which a plan
-    builds once) fixes where each partial goes and is required. The sums
-    are bit-identical from call to call. ``tiles_per_step`` does not change the result. In one-hot
-    mode it is the number of tiles one GPU block walks (clamped to [1,
-    T]); in seg_scan mode it does not set the grid either: a block takes
-    the ceil(2048 / C) tiles of one 2048-slot pass (``csrc/seg_spmv.cu``)."""
+    builds once) fixes where each partial goes and is required: a row one
+    tile adds into gets that partial by an atomic (its one writer), and
+    a row several tiles add into is added inside the one launch by the
+    last of its partials to arrive, in (tile, segment) order
+    (``csrc/flush.cuh``). So the sums are bit-identical from call to
+    call, and equal to the unfused kernel's partials combined in that
+    order by ``rowmap_combine``. ``rows`` holds the step's exchange cells
+    and arrival counters: one plan's fused step must not run on two
+    streams at once (the port runs every plan on the current stream).
+    ``tiles_per_step`` changes neither the result nor, on the GPU, the
+    grid: one-hot mode takes a tile a block, seg_scan mode the ceil(2048
+    / C) tiles of one 2048-slot pass (``csrc/seg_spmv.cu``)."""
     if not vals.is_cuda:
         return seg_spmv_fused_ref(vals, cols, local_row, seg_end, r0, x,
                                   seg_rows, n_rows=n_rows, mode=mode,
@@ -157,9 +177,8 @@ def seg_spmv_fused(vals, cols, local_row, seg_end, r0, x, seg_rows: int, *,
     if out.dtype != torch.float32 or out.shape != (n_rows,):
         raise ValueError("out must be an fp32 (n_rows,) tensor")
     _check_seg(vals, cols, local_row, seg_end, x, seg_rows, mode, out, 1)
-    fused = _fused_operands(vals, seg_rows, rows, out)
-    _launch(vals, cols, local_row, seg_end, x, seg_rows, mode, out, fused,
-            tiles_per_step)
+    fused = _fused_operands(vals, seg_rows, r0, rows, out)
+    _launch(vals, cols, local_row, seg_end, x, seg_rows, mode, out, fused)
     seg_spmv_fused.launches += 1
     return out
 
@@ -167,23 +186,20 @@ def seg_spmv_fused(vals, cols, local_row, seg_end, r0, x, seg_rows: int, *,
 # ----------------------------- multi-RHS (SpMM) -----------------------------
 
 def _spmm_launch(vals, cols, local_row, seg_end, x, seg_rows, mode, out,
-                 fused=None, tiles_per_step=1) -> None:
+                 fused=None) -> None:
     """Check the operands and launch ``seg_spmm``; ``fused`` as in
     :func:`_launch`."""
     aux = _check_seg(vals, cols, local_row, seg_end, x, seg_rows, mode, out,
                      2)
     T = vals.shape[0]
     c = vals.shape[1] * vals.shape[2]
-    k = max(min(int(tiles_per_step), T), 1)
-    rows, side = fused or (None, None)
+    rows, side, r0 = fused or (None, None, None)
     lib = _spmm_lib()
     build.check(lib, lib.seg_spmm(
         *_type_args(vals, cols, x), x.shape[1], aux.data_ptr(), T, c,
         seg_rows, SEG_MODES.index(mode), int(fused is not None),
-        out.data_ptr(), *_fused_ptrs(rows, side), k, _stream(vals)),
+        out.data_ptr(), *_fused_ptrs(rows, side, r0), _stream(vals)),
         "seg_spmm")
-    if rows is not None and rows.n_side:
-        launch_combine(out, side, rows.perm, rows.offsets, rows.rows)
 
 
 def seg_spmm(vals, cols, local_row, seg_end, x, seg_rows: int,
@@ -208,10 +224,11 @@ def seg_spmm_fused(vals, cols, local_row, seg_end, r0, x, seg_rows: int, *,
     """K11: add tile t's (seg_rows, B) partials into ``out[r0[t] + m, :]``
     (rows ``>= n_rows`` dropped) and return ``out``, a fresh fp32
     (n_rows, B) zero tensor when None. Requires per-tile contiguous rows.
-    ``rows`` as for :func:`seg_spmv_fused`; the sums are bit-identical
-    from call to call. ``tiles_per_step`` does not change the result, and
-    on the GPU it does not set the grid either: a block takes the
-    ceil(2048 / C) tiles of one 2048-slot pass (``csrc/seg_spmm.cu``)."""
+    ``rows`` as for :func:`seg_spmv_fused`, the same one launch and the
+    same concurrency rule; the sums are bit-identical from call to call.
+    ``tiles_per_step`` changes neither the result nor, on the GPU, the
+    grid: a block takes the ceil(2048 / C) tiles of one 2048-slot pass
+    (``csrc/seg_spmm.cu``)."""
     if not vals.is_cuda:
         return seg_spmm_fused_ref(vals, cols, local_row, seg_end, r0, x,
                                   seg_rows, n_rows=n_rows, mode=mode,
@@ -224,9 +241,9 @@ def seg_spmm_fused(vals, cols, local_row, seg_end, r0, x, seg_rows: int, *,
     if out.dtype != torch.float32 or out.shape != (n_rows, B):
         raise ValueError("out must be an fp32 (n_rows, B) tensor")
     _check_seg(vals, cols, local_row, seg_end, x, seg_rows, mode, out, 2)
-    fused = _fused_operands(vals, seg_rows, rows, out)
+    fused = _fused_operands(vals, seg_rows, r0, rows, out)
     _spmm_launch(vals, cols, local_row, seg_end, x, seg_rows, mode, out,
-                 fused, tiles_per_step)
+                 fused)
     seg_spmm_fused.launches += 1
     return out
 

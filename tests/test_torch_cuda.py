@@ -1067,6 +1067,136 @@ def test_fused_seg_kernels_same_bits_at_any_tiles_per_step(dev, mode):
                               n_rows=m.n_rows, mode=mode))
 
 
+def _parent_placement(rows, part, y0):
+    """The unfused kernel's partials ``part`` ((T * M,) or (T * M, B))
+    placed in the fused step's fixed order: y0 plus each one-writer pair's
+    partial at its row (y[d] + v), then the listed rows' side slots
+    through ``rowmap_combine`` in perm order."""
+    y = y0.clone()
+    d = rows.dst.long()
+    direct = d >= 0
+    y[d[direct]] = y[d[direct]] + part[direct]
+    side = torch.empty((rows.n_side,) + tuple(part.shape[1:]),
+                       device=part.device)
+    pairs, slot = rows.shared_pairs()
+    side[slot] = part[pairs]
+    off = torch.zeros(y.shape[0] + 1, dtype=torch.int64, device=y.device)
+    off[rows.rows.long() + 1] = rows.count.long()
+    return ops.rowmap_combine(y, side, rows.perm, torch.cumsum(off, 0))
+
+
+def _shared_rows_case(kind, mode, dev):
+    """Fused seg operands whose tiles share rows: ``plan`` (a fused plan's
+    step on the power-law matrix, C = 512), ``overlap`` (41 tiles, each
+    sharing 5 rows with the next) and ``stacked`` (41 tiles on the same
+    24 rows, so each row has up to 41 writers), the last rows cut."""
+    if kind == "plan":
+        from repro_torch.core.graph import run_graph
+        from repro_torch.core.kernel_builder import plan_format
+        m = _bitstable_matrix()
+        red = "SEG_SCAN_RED" if mode == "seg_scan" else "ONEHOT_MXU_RED"
+        fmt, spec = plan_format(run_graph(m, _seg_graph(red, 512)),
+                                fuse_combine=True, device=dev)
+        key = spec["steps"][0]["key"]
+        return (fmt[f"{key}_vals"], fmt[f"{key}_cols"],
+                fmt.get(f"{key}_local"), fmt.get(f"{key}_end"),
+                fmt[f"{key}_r0"], spec["steps"][0]["seg_rows"], m.n_rows,
+                m.n_cols)
+    rng = np.random.default_rng(41)
+    T, S, L, M, n_cols = 41, 4, 128, 24, 3000
+    local, end = _seg_case(rng, T, S, L, M)
+    vals = torch.from_numpy(rng.standard_normal((T, S, L)).astype(np.float32))
+    cols = torch.from_numpy(rng.integers(0, n_cols, (T, S, L)).astype(np.int32))
+    r0 = np.arange(T) * (M - 5) if kind == "overlap" else np.zeros(T)
+    r0 = torch.from_numpy(r0.astype(np.int32))
+    n_rows = int(r0.max()) + M - 3
+    g = lambda t: t.to(dev)
+    return (g(vals), g(cols), g(local), g(end), g(r0), M, n_rows, n_cols)
+
+
+def _hold_to_parent(op, unfused, v, c, local, end, r0, x, M, n_rows, mode,
+                    k, rows, calls=50):
+    """The fused kernel's partials are the unfused kernel's bits (its
+    one-writer rows from a zero y), and ``calls`` calls into a random y
+    give the parent's placement bit for bit, the counters back at 0."""
+    B = x.shape[1:]
+    part = unfused(v, c, local, end, x, M, mode=mode).reshape(
+        (-1,) + tuple(B))
+    d = rows.dst.long()
+    zero = op(v, c, local, end, r0, x, M, n_rows=n_rows, mode=mode,
+              tiles_per_step=k, rows=rows)
+    assert torch.equal(zero[d[d >= 0]], part[d >= 0])
+    y0 = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (n_rows,) + tuple(B)).astype(np.float32)).to(x.device)
+    want = _parent_placement(rows, part, y0)
+    for _ in range(calls):
+        got = op(v, c, local, end, r0, x, M, n_rows=n_rows, mode=mode,
+                 tiles_per_step=k, out=y0.clone(), rows=rows)
+        assert torch.equal(got, want)
+    assert not bool(rows.arrive.any()) and not bool(rows.cells.any())
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("b", [1, 3, 8, 17, 40])
+@pytest.mark.parametrize("kind", ["plan", "overlap", "stacked"])
+@pytest.mark.parametrize("mode", ["seg_scan", "onehot_mxu"])
+def test_fused_seg_kernels_equal_the_unfused_partials_in_order(dev, mode,
+                                                               kind, b, k):
+    """K6 (1-D x; at b = 1) and K11 ((n_cols, b) x) add their shared rows
+    inside the one launch: 50 calls equal the unfused kernel's (K3/K4,
+    K10a/K10b) partials placed in (tile, segment) order through
+    rowmap_combine, bit for bit, at tiles_per_step 1, 3 and 8 (41 tiles:
+    not a multiple of 3 or 8), with rows of two writers (exchanged) and
+    of up to 41 (counted), and at b = 40, past the exchange cells'
+    columns (all counted); the cells and counters end at 0."""
+    from repro_torch.kernels.combine import fused_rows
+    v, c, local, end, r0, M, n_rows, n_cols = _shared_rows_case(kind, mode,
+                                                               dev)
+    rows = fused_rows(r0, end if mode == "seg_scan" else local, M, n_rows,
+                      mode, v.shape[1] * v.shape[2])
+    assert rows.n_side > 0
+    if kind == "stacked":
+        assert int(rows.count.max()) > 32
+    rng = np.random.default_rng(b)
+    if b == 1:
+        x = torch.from_numpy(rng.standard_normal(n_cols).astype(
+            np.float32)).to(dev)
+        _hold_to_parent(ops.seg_spmv_fused, ops.seg_spmv, v, c, local, end,
+                        r0, x, M, n_rows, mode, k, rows)
+    x = torch.from_numpy(rng.standard_normal((n_cols, b)).astype(
+        np.float32)).to(dev)
+    _hold_to_parent(ops.seg_spmm_fused, ops.seg_spmm, v, c, local, end, r0,
+                    x, M, n_rows, mode, k, rows)
+
+
+@pytest.mark.parametrize("b", [8, 17])
+@pytest.mark.parametrize("mode", ["seg_scan", "onehot_mxu"])
+def test_fused_seg_spmm_shared_rows_over_column_windows(dev, mode, b):
+    """K11 with M = 8192: one tile's M x b accumulator passes the block's
+    shared memory, so a window takes 4 of the columns and a pair's side
+    slot is written over several windows; tiles overlap by half, so most
+    rows are shared. 50 calls equal the parent's placement."""
+    from repro_torch.kernels.combine import fused_rows
+    rng = np.random.default_rng(b)
+    T, S, L, M, n_cols = 5, 64, 128, 8192, 4000
+    local, end = _seg_case(rng, T, S, L, M)
+    g = lambda t: t.to(dev)
+    v = g(torch.from_numpy(rng.standard_normal((T, S, L)).astype(
+        np.float32)))
+    c = g(torch.from_numpy(rng.integers(0, n_cols, (T, S, L)).astype(
+        np.int32)))
+    r0 = g(torch.from_numpy((np.arange(T) * (M // 2)).astype(np.int32)))
+    n_rows = int(r0.max()) + M
+    local, end = g(local), g(end)
+    rows = fused_rows(r0, end if mode == "seg_scan" else local, M, n_rows,
+                      mode, S * L)
+    assert rows.n_side > M
+    x = g(torch.from_numpy(rng.standard_normal((n_cols, b)).astype(
+        np.float32)))
+    _hold_to_parent(ops.seg_spmm_fused, ops.seg_spmm, v, c, local, end, r0,
+                    x, M, n_rows, mode, 2, rows)
+
+
 def test_seg_update_on_the_card_is_bit_stable(dev):
     """A dyn update of a fused seg plan derives its combine order afresh;
     the patched plan repeats bit for bit and equals a plan built afresh
