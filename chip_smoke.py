@@ -4,6 +4,7 @@
     python3 chip_smoke.py --kernel-report   # phases 1 and 3-8 only
     python3 chip_smoke.py --bits-probe      # repeated calls' bits only
     python3 chip_smoke.py --fused-split     # what K6 / K11's flush costs
+    python3 chip_smoke.py --sharded-only    # phase 16 alone, every card
 
 Drives the port's paths at realistic sizes and holds every CUDA kernel
 they run (K1-K11 and the sharded plans' ordered combine) against its plain
@@ -14,8 +15,10 @@ Target(batch_size=8), store=)`` -> ``PlanExecutor`` -> ``SpmvEngine``
 with a ``PlanStore`` hot-swap (the multi-RHS kernels K7-K11); the sharded
 path is ``compile(matrix, Target(mesh=make_data_mesh(4, device="cuda:0")))``
 -> ``ShardedSpmvPlan`` (phase 12); the LLM serving path is
-``ServingEngine`` -> ``ModelExecutor`` -> ``CausalLM`` (phase 13). Phases,
-each printing its seconds:
+``ServingEngine`` -> ``ModelExecutor`` -> ``CausalLM`` (phase 13); the
+training path is ``make_train_step`` and ``TrainDriver`` (phase 14), and
+on a mesh of processes, one a card, with the state sharded (phase 16).
+Phases, each printing its seconds:
 
 1. device: the card's name and power limit, the kernels' nvcc build;
 2. SpMV kernels on small odd shapes (T not a multiple of tiles_per_step,
@@ -45,8 +48,8 @@ each printing its seconds:
    one and the same bits, and so do K7 and K9 at B = 8 (a ``row_sums
    {...}`` line);
 3. a searched compile of ``banded_matrix(2**21, 4)`` (18.87 M nnz) on the
-   default Target, checked against the float64 oracle, plus a save/load
-   round trip;
+   default Target (a 10 s budget), checked against the float64 oracle,
+   plus a save/load round trip;
 4. fixed-graph compiles that force every SpMV kernel: ELL on the banded
    matrix (scatter K1, grid_acc K2, fused K5 at tiles_per_step 1 and 8,
    bf16), and the seg family on ``powerlaw_matrix(2**20, 2**20, 8.0,
@@ -81,9 +84,9 @@ each printing its seconds:
    stay in a few L1 lines;
 6. the serving path at full width: Qwen3-8B's FFN up-projection
    (d_ff x d_model = 12288 x 4096) magnitude-pruned to density 0.08
-   (4,026,531 nnz), a searched ``Target(batch_size=8)`` compile through a
-   ``PlanStore``, ``PlanExecutor`` with buckets (1, 2, 4, 8), and
-   ``SpmvEngine`` serving 200 requests in ragged waves while a fixed-graph
+   (4,026,531 nnz), a searched ``Target(batch_size=8)`` compile (a 10 s
+   budget) through a ``PlanStore``, ``PlanExecutor`` with buckets (1, 2,
+   4, 8), and ``SpmvEngine`` serving 200 requests in ragged waves while a fixed-graph
    plan lands in the store and is hot-swapped in; every answer is checked
    against the float64 oracle;
 7. fixed-graph compiles on the same matrix that force every SpMM kernel
@@ -120,27 +123,29 @@ each printing its seconds:
    ``dyn_update {...}`` line), and again with a delta that drops the last
    entry of a third of the rows, which the fresh compile puts in narrower
    width buckets: output bit-identical (a ``dyn_update[move_buckets]
-   {...}`` line); (b) two steps of ``run_pruning_loop`` at
+   {...}`` line); (b) one step of ``run_pruning_loop`` at
    lr 0.01 with a ``DynamicSparsityManager`` on a ``PlanExecutor`` over a
    ``capacity_graph(pad_to=512)`` plan, every served answer held to the
    oracle, the first step's delta also handed to a manager on (a)'s plan,
    where it does not fit and a background re-search on the card takes
-   over (``pruning step`` and ``pruning {...}`` lines); (c) one update of phase 4's fused seg_scan plan (K6)
-   on the powerlaw matrix (a ``dyn_seg_update {...}`` line);
+   over (``pruning step`` and ``pruning {...}`` lines); (c) one update
+   of phase 4's fused seg_scan plan (K6) on the powerlaw matrix (a ``dyn_seg_update {...}`` line);
 11. fleet compilation (``repro_torch.corpus``, every compile on the cuda
-   backend): (a) ``run_sweep(isolate="process")`` over
-   ``synthetic_corpus("medium")`` (10 entries) and two real-size entries
+   backend): (a) ``run_sweep(isolate="process")`` over the first three
+   entries of ``synthetic_corpus("medium")`` (banded, uniform and
+   power-law at n = 1024) and two real-size entries
    (banded n = 2^20, powerlaw n = 2^20; 9.4 M and 7.85 M nnz) under
    the reference test's coarse budget, one ``corpus_sweep {...}`` line per
-   entry, the real-size ones with the Designer's seconds on
-   ``capacity_graph()`` before and after the one-pass ELL layout; no child
-   may rebuild a kernel library; (b) the same sweep with ``resume=True``,
+   entry; no child may rebuild a kernel library; (b) the same sweep with ``resume=True``,
    which must compile nothing; (c) ``train_from_store`` -> ``CorpusModel``
    (a ``corpus_model {...}`` line); (d) ``holdout_corpus("medium")`` and a
    held-out power-law matrix (n = 2^18; 2^19 up to PR 21) compiled with
    anneal, learned and portfolio (deadline 2 s), each held to the oracle
    and timed (one
-   ``corpus_holdout {...}`` line each); (e) ``python -m repro_torch.cli``
+   ``corpus_holdout {...}`` line each), and on the held-out power-law
+   matrix the Designer's seconds on ``capacity_graph()`` before and after
+   the one-pass ELL layout, whose layouts must agree (a ``designer_layout
+   {...}`` line); (e) ``python -m repro_torch.cli``
    in subprocesses: a search, a B = 8 search, ``--no-search``, ``--sweep
    smoke`` and ``--train-from-store`` (a ``cli {...}`` line of return
    codes); (f) ``SpmvPlan.cost_analysis`` of phase 3's and phase 6's
@@ -155,7 +160,7 @@ each printing its seconds:
    bytes and slots, launches per call, ``ms`` / ``device_ms`` at B = 1
    and 8, beside phase 6's dense searched plan and cuSPARSE; (b)
    ``dist_search`` of phase 4's power-law operand (row mode, nnz balance,
-   8 s, 2 structures, 1 coarse sample a shard), and again with shard 0's
+   4 s, 2 structures, 1 coarse sample a shard), and again with shard 0's
    search crashing (it must fall back), each held to the oracle at B = 1
    and 8 (``dist_search {...}`` lines); (c) ``sparsify_linear_sharded``
    on the serving weight answering an (8, 4096) batch. The ordered
@@ -171,7 +176,7 @@ each printing its seconds:
    bit-identical slot caches; an ``llm_check {...}`` line); (b) qwen3-8b
    at its full 36 layers, bf16 weights: a ``ServingEngine`` of 8 slots
    (max_seq 512, 32 new tokens) serves 16 seeded requests (prompts of
-   8-64 tokens) arriving one every two steps, the second eight joining
+   8-32 tokens) arriving one every two steps, the second eight joining
    mid-flight; then one decode step of 8 live rows timed as a caller
    sees it (``step_ms``), on the card alone (``step_device_ms``: the step
    in a CUDA graph, under ``device_ms``) and under ``torch.profiler``
@@ -214,14 +219,36 @@ each printing its seconds:
    the reference's float32 weights and with the engine's bf16 ones, the
    bf16 prediction within 25 % of phase 13 (b)'s peak while serving (a
    ``dryrun_decode {...}`` line); (c) ``python -m
-   repro_torch.launch.dryrun --arch all --shape train_4k,decode_32k
-   --mesh single`` in a child, those cells of every architecture on the
+   repro_torch.launch.dryrun --arch all --shape train_4k --mesh
+   single`` in a child, that cell of every architecture on the
    reference's 16 x 16 pod description, 0 failed (a ``dryrun_sweep
-   {...}`` line); (d) the five examples on the card in children, at once
-   and beside (a)-(c): each returns 0, passes its
+   {...}`` line): it needs no card, so it runs beside phases 4 and 4b
+   (nothing timed there) and is read after phase 4b; (d) the five
+   examples on the card in children, at once and beside (a)-(b): each
+   returns 0, passes its
    own check line (oracle errors, the loaded plan bit-identical, the
    loss decreasing) and has launched every kernel its plans dispatch to,
-   by the children's launch counters (an ``examples {...}`` line).
+   by the children's launch counters (an ``examples {...}`` line);
+16. sharded training (``repro_torch.dist.collectives``, the step with
+   ``grad_specs`` on a mesh of processes; no kernel of its own): torchrun
+   starts this script's ``--sharded-worker`` mode, one process a card,
+   NCCL, on a mesh of every visible card ((1, 1) on one card; (n, 1) and,
+   for n >= 4, (n / 2, 2) on n): (a) granite-3-2b at full width, depth
+   2, fp32, batch 8 x 128: the sharded step's first gradients and three
+   steps against the one-device step on the same weights and batches,
+   within phase 14 (a)'s limits (a ``sharded_check {...}`` line); (b)
+   granite-3-2b at its full 40 layers, bf16, remat, 4 x 512 tokens a
+   data position: the unsharded step on 4 x 512 and the sharded step in
+   one process, each with a warm-up, 3
+   timed steps split at the optimizer and one under ``torch.profiler``
+   (the card's busy time, its idle share of the step, host time,
+   collectives), each rank's peak memory and state bytes, beside phase
+   14 (b)'s unsharded step (a ``sharded_step {...}`` line);
+   (c) ``python -m repro_torch.launch.train`` under torchrun on (n, 1),
+   reduced, with a failure injected, beside the first (a) (the first
+   (b) waits for it to end): one restart, a finite loss (a
+   ``sharded_cli {...}`` line). Each line carries the card's name and
+   power limit.
 
 Phases 3-4 and phases 6-7 are the two paths: the launch counters are set
 to 0 before each and read after it, and each of its kernels must have
@@ -241,7 +268,10 @@ kernels on the same card (the A/B recipe of the verify notes);
 ``--bits-probe`` counts, in the same way, the calls of the seg kernels
 and plans whose bits differ from the first call's, and ``--fused-split``
 times the fused seg steps (K6, K11) against their unfused kernels and
-with their flush cut down (``fused_split {...}`` lines). The script
+with their flush cut down (``fused_split {...}`` lines);
+``--sharded-only`` runs phase 16 alone (on every visible card: the
+multi-card meshes' check), and ``--sharded-worker OUT DATA MODEL GATE``
+is one rank of it. The script
 exits non-zero, printing no result, without a GPU or outside a checkout
 of the repository. It imports neither jax nor ``repro``.
 """
@@ -300,6 +330,9 @@ ONEHOT_K6 = "K6[onehot_mxu]"     # reported apart from the twelve rows
 SEARCHED_K11 = "K11[searched]"   # ... and so is the searched plan's K11
 SPMM_KERNELS = ("K7", "K8", "K9", "K10a", "K10b", "K11")
 SERVE_B = 8                      # the serving plan's searched batch size
+# search budgets of phases 3 and 6, short for the smoke run's time limit
+# (the seed pass may run to twice the budget)
+SEARCH_SECONDS = {"banded": 10.0, "serving": 10.0}
 STORAGES = [(torch.float32, torch.int32, torch.float32),
             (torch.bfloat16, torch.int16, torch.float32),
             (torch.bfloat16, torch.int16, torch.bfloat16)]
@@ -398,10 +431,7 @@ def device_ms(fn, reps: int = 20, warmup: int = 3,
 def device_phase():
     from repro_torch.kernels import build
     done = phase("1 device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -928,7 +958,8 @@ def timed(label: str, designer: dict, fn, *args, **kw):
 def searched_phase(B, xb, oracle_b, designer):
     import repro_torch
     done = phase("3 searched compile, banded 2**21")
-    cfg = repro_torch.SearchConfig(max_seconds=60.0, max_structures=1,
+    cfg = repro_torch.SearchConfig(max_seconds=SEARCH_SECONDS["banded"],
+                                   max_structures=1,
                                    coarse_samples=2, fine_eval_budget=0,
                                    use_cost_model=False, timing_repeats=3,
                                    seed=0)
@@ -1357,11 +1388,14 @@ def serving_matrix(designer):
     return m
 
 
-def oracle_cols(m, xt: np.ndarray, chunk: int = 40) -> np.ndarray:
-    """``m.spmm_dense_oracle`` of an (n_cols, n) stack, in column chunks
-    (the float64 product of all 200 columns at once needs gigabytes)."""
-    return np.concatenate([m.spmm_dense_oracle(xt[:, i:i + chunk])
-                           for i in range(0, xt.shape[1], chunk)], axis=1)
+def oracle_cols(m, xt: np.ndarray) -> np.ndarray:
+    """``m.spmm_dense_oracle`` of an (n_cols, n) stack: the same float64
+    products, summed by scipy's CSR product (``np.add.at`` over the
+    serving matrix's 200 columns took 21 s of the host)."""
+    import scipy.sparse as sp
+    a = sp.csr_matrix((m.vals.astype(np.float64), (m.rows, m.cols)),
+                      shape=(m.n_rows, m.n_cols))
+    return np.asarray(a @ xt.astype(np.float64))
 
 
 def serving_phase(W, designer, store_dir):
@@ -1370,7 +1404,8 @@ def serving_phase(W, designer, store_dir):
     from repro_torch.serve.engine import _percentile as percentile
     done = phase("6 serving path, pruned 12288x4096 at B=8")
     target = repro_torch.Target(batch_size=SERVE_B)
-    cfg = repro_torch.SearchConfig(max_seconds=30.0, max_structures=2,
+    cfg = repro_torch.SearchConfig(max_seconds=SEARCH_SECONDS["serving"],
+                                   max_structures=2,
                                    coarse_samples=2, fine_eval_budget=0,
                                    use_cost_model=False, timing_repeats=3,
                                    seed=0)
@@ -2104,7 +2139,7 @@ def served_manager(W, plan, executor, probe, **kw):
             xs = np.random.default_rng(len(self.log)).standard_normal(
                 (4, self.matrix.n_cols)).astype(np.float32)
             got = self.executor.execute(xs).T
-            want = self.matrix.spmm_dense_oracle(xs.T)
+            want = oracle_cols(self.matrix, xs.T)
             err = float(np.abs(got - want).max())
             tol = 1e-5 * float(np.abs(want).max())
             require(err <= tol, f"pruning step {len(self.log) + 1}: a "
@@ -2131,7 +2166,7 @@ def manager_stats(mgr) -> dict:
                                "plan_version", "serving_stale")}
 
 
-def pruning_loop(W, plan_a, designer, steps: int = 2) -> None:
+def pruning_loop(W, plan_a, designer, steps: int = 1) -> None:
     """(b) ``run_pruning_loop`` at lr 0.01 on the dense weight behind W,
     with a manager attached to a ``PlanExecutor`` serving the plan. The
     plan pads lanes to 512 slots, so that every row keeps room for a
@@ -2244,6 +2279,7 @@ def dyn_phase(W, P, seg_prog, designer) -> None:
 # also the budget of the holdout's anneal and learned compiles
 SWEEP_SECONDS = 4.0
 PORTFOLIO_DEADLINE_S = 2.0
+SWEEP_MEDIUM = 3         # entries of synthetic_corpus("medium") swept
 
 
 def corpus_entry(family: str, seed: int, **params):
@@ -2263,21 +2299,6 @@ def real_size_entries() -> list:
     time (PERF.md §6)."""
     return [corpus_entry("banded", 0, n=2 ** 20, bandwidth=4),
             corpus_entry("powerlaw", 0, n=2 ** 20, avg_row=8.0, alpha=1.5)]
-
-
-@contextlib.contextmanager
-def families_built_once(families):
-    """Memoise the corpus generators of ``families`` while the phase runs,
-    so the sweep's parent and the Designer timing share one build of each
-    matrix (the isolated children build their own)."""
-    from repro_torch.corpus.datasets import CORPUS_FAMILIES
-    saved = {f: CORPUS_FAMILIES[f] for f in families}
-    for f, fn in saved.items():
-        CORPUS_FAMILIES[f] = functools.lru_cache(maxsize=None)(fn)
-    try:
-        yield
-    finally:
-        CORPUS_FAMILIES.update(saved)
 
 
 def per_width_ell_layout(b):
@@ -2385,33 +2406,31 @@ def sweep_phase(store_dir: Path, cfg) -> None:
     from repro_torch.corpus import (default_model_path, load_records,
                                     synthetic_corpus, train_from_store)
     from repro_torch.corpus.sweep import RECORDS_FILENAME
-    sets = {"medium": synthetic_corpus("medium"),
+    # the first three families at their smaller size: an isolated child
+    # takes about 10 s to start whatever its entry, which bought the
+    # other entries little at the run's time limit
+    sets = {"medium": synthetic_corpus("medium")[:SWEEP_MEDIUM],
             "real": real_size_entries()}
-    real = {e.name for e in sets["real"]}
     store = repro_torch.PlanStore(store_dir)
     libs = kernel_libraries()
-    with families_built_once({e.family for e in sets["real"]}):
-        t0 = time.perf_counter()
-        recs = corpus_sweep(sets, store, cfg, resume=False)
-        sweep_s = time.perf_counter() - t0
-        require(kernel_libraries() == libs,
-                "a sweep child rebuilt the kernel libraries")
-        n = len(sets["medium"]) + len(sets["real"])
-        require(len(recs) == n, f"{len(recs)} of {n} entries swept")
-        for rec, entry in zip(recs, sets["medium"] + sets["real"]):
-            line = {"name": rec.name, "rows": rec.n_rows, "nnz": rec.nnz,
-                    "label": rec.label, "gflops": rec.gflops,
-                    "wall_s": round(rec.wall_seconds, 3),
-                    "n_evaluations": rec.n_evaluations,
-                    "failure_counts": rec.failure_counts,
-                    "error": rec.error}
-            if rec.name in real:
-                line.update(designer_before_after(entry.build()))
-            print("corpus_sweep " + json.dumps(line), flush=True)
-            require(rec.error is None, f"{rec.name}: {rec.error}")
-            bad = {"crash", "wrong_result", "fallback"} & set(
-                rec.failure_counts)
-            require(not bad, f"{rec.name}: search failures {bad}")
+    t0 = time.perf_counter()
+    recs = corpus_sweep(sets, store, cfg, resume=False)
+    sweep_s = time.perf_counter() - t0
+    require(kernel_libraries() == libs,
+            "a sweep child rebuilt the kernel libraries")
+    n = len(sets["medium"]) + len(sets["real"])
+    require(len(recs) == n, f"{len(recs)} of {n} entries swept")
+    for rec in recs:
+        print("corpus_sweep " + json.dumps({
+            "name": rec.name, "rows": rec.n_rows, "nnz": rec.nnz,
+            "label": rec.label, "gflops": rec.gflops,
+            "wall_s": round(rec.wall_seconds, 3),
+            "n_evaluations": rec.n_evaluations,
+            "failure_counts": rec.failure_counts, "error": rec.error}),
+              flush=True)
+        require(rec.error is None, f"{rec.name}: {rec.error}")
+        bad = {"crash", "wrong_result", "fallback"} & set(rec.failure_counts)
+        require(not bad, f"{rec.name}: search failures {bad}")
     print(f"  sweep of {n} entries in isolated children: {sweep_s:.1f} s; "
           "no child rebuilt a kernel library")
     journal = store_dir / RECORDS_FILENAME
@@ -2437,15 +2456,19 @@ def sweep_phase(store_dir: Path, cfg) -> None:
 def holdout_phase(store_dir: Path, cfg) -> None:
     """(d) held-out matrices compiled cold with anneal, and with the
     learned and portfolio strategies from a copy of the swept store's
-    sidecars and model (so no holdout plan is reused by the next)."""
+    sidecars and model (so no holdout plan is reused by the next); the
+    Designer's layouts before and after on the real-size one."""
     import shutil
     import repro_torch
     from repro_torch.corpus import holdout_corpus
-    entries = holdout_corpus("medium") + [
-        corpus_entry("powerlaw", 7, n=2 ** 18, avg_row=8.0, alpha=1.2)]
+    real = corpus_entry("powerlaw", 7, n=2 ** 18, avg_row=8.0, alpha=1.2)
     target = repro_torch.Target()
-    for entry in entries:
+    for entry in holdout_corpus("medium") + [real]:
         m = entry.build()
+        if entry is real:
+            print("designer_layout " + json.dumps(
+                {"name": entry.name, "rows": m.n_rows, "nnz": m.nnz,
+                 **designer_before_after(m)}), flush=True)
         x_np = np.random.default_rng(3).standard_normal(
             m.n_cols).astype(np.float32)
         oracle = m.spmv_dense_oracle(x_np)
@@ -2582,7 +2605,7 @@ def corpus_phase(cost_plans) -> None:
 DIST_SHARDS = 4
 DIST_TOL = 1e-4          # the reference's dist tests: 1e-4 * max|oracle|
 # a coarse per-shard search budget (the reference's dist tests' shape)
-DIST_SEARCH = dict(max_seconds=8, max_structures=2, coarse_samples=1,
+DIST_SEARCH = dict(max_seconds=4, max_structures=2, coarse_samples=1,
                    fine_eval_budget=0, use_cost_model=False, seed=0)
 COMBINE = ("rowmap_combine", "src/repro_torch/kernels/csrc/rowmap_combine.cu",
            "src/repro/core/kernel_builder.py:395")
@@ -2825,7 +2848,7 @@ def searched_shards(P, xp, oracle_p, mesh, designer) -> list:
                               search=repro_torch.SearchConfig(**DIST_SEARCH))
     rng = np.random.default_rng(3)
     x8 = rng.standard_normal((P.n_cols, 8)).astype(np.float32)
-    o8 = P.spmm_dense_oracle(x8)
+    o8 = oracle_cols(P, x8)
     x8 = torch.from_numpy(x8).cuda()
 
     def crash(shard):
@@ -2896,7 +2919,7 @@ def sharded_layer(W, mesh, designer) -> None:
     check_launches("sparsify_linear_sharded B=8", lambda: layer(X),
                    layer.program.steps, layer.program.n_shards, True)
     check_dist("sparsify_linear_sharded (8, 4096) batch", Y.T,
-               W.spmm_dense_oracle(X.cpu().numpy().T))
+               oracle_cols(W, X.cpu().numpy().T))
 
 
 def dist_phase(W, P, xp, oracle_p, x8, oracle8, dense, designer) -> dict:
@@ -3145,7 +3168,7 @@ def graph_device_ms(fn, reps: int = 10) -> float:
 
 def llm_serve_full(dev) -> dict:
     """(b) qwen3-8b at full width and depth, bf16 weights on the card:
-    16 seeded requests (prompts of 8-64 tokens) arrive one every two
+    16 seeded requests (prompts of 8-32 tokens) arrive one every two
     engine steps at a ``ServingEngine`` of 8 slots; the second eight join
     mid-flight as slots free. Then one decode step of 8 live rows is
     timed (``ms``, ``device_ms``) and profiled."""
@@ -3169,7 +3192,7 @@ def llm_serve_full(dev) -> dict:
     ex.decode(np.zeros((8, 1), np.int32), np.zeros(8, np.int32),
               np.zeros(8, bool))
     rng = np.random.default_rng(20)
-    lens = rng.integers(8, 65, 16)
+    lens = rng.integers(8, 33, 16)
     reqs = [Request(i, rng.integers(0, cfg.vocab, int(n)))
             for i, n in enumerate(lens)]
     pending = list(reqs)
@@ -3963,10 +3986,12 @@ DRYRUN_MEM_TOL = 0.25
 DRYRUN_FLOPS_RATIO = (1.2, 1.3)
 # (c): the single-pod sweep's cells and its worker processes (all 32
 # cells took 139 s beside (d) on the H100 machine, and the run's total
-# neared its 1200 s: the train and decode cells here, 20 cells; the
-# whole sweep's time is in PERF.md)
-DRYRUN_SHAPES = "train_4k,decode_32k"
-DRYRUN_JOBS = 4
+# neared its 1200 s: the train and decode cells here, 20 cells, which
+# took 108 s with 4 workers; 6 of the machine's 8 cores once the
+# examples (d) have ended; the whole sweep's time is in PERF.md)
+# the train cell of every architecture (decode is (b)'s cell in-process)
+DRYRUN_SHAPES = "train_4k"
+DRYRUN_JOBS = 6
 DRYRUN_TIMEOUT_S = 420
 # (d): each example at a short budget, and the check its own line must pass
 EXAMPLE_TIMEOUT_S = 300
@@ -3984,7 +4009,7 @@ EXAMPLES = {
                              and c["matvec_rel_err"] <= c["tol"]
                              and c["matvecs_ok"] == c["matvecs"]
                              and c["hot_swaps"] == 1),
-    "torch_spmv_search_report": (["--seconds", "3"],
+    "torch_spmv_search_report": (["--seconds", "1"],
                                  lambda c: c["oracle_rel_err"] <= c["tol"]),
     "torch_train_lm": (["--tiny", "--steps", "30"],
                        lambda c: c["steps"] == 30 and c["loss_decreased"]),
@@ -4199,6 +4224,37 @@ def dryrun_decode(serve: dict) -> None:
             f"dry run of the bf16 decode step: {r:.3f}x the serving peak")
 
 
+def start_dryrun_sweep() -> tuple:
+    """(c) the single-pod dry-run sweep in a child: ``(child, its
+    output directory)``. It needs no card and times nothing of the port,
+    so the full run starts it beside phases 4 and 4b, which compile and
+    check bits but time nothing, and reads it before phase 5."""
+    scratch = ROOT / "results"               # listed in .gitignore
+    scratch.mkdir(exist_ok=True)
+    work = tempfile.TemporaryDirectory(dir=scratch)
+    out = Path(work.name)
+    child = start_child(["-m", "repro_torch.launch.dryrun", "--arch",
+                         "all", "--shape", DRYRUN_SHAPES, "--mesh",
+                         "single", "--jobs", str(DRYRUN_JOBS), "--out",
+                         str(out / "dryrun")], out / "dryrun.log")
+    return child, work
+
+
+def dryrun_sweep_phase(sweep: tuple) -> None:
+    """Phase 15 (c), read before phase 5: the wait for the sweep beside
+    phases 4 and 4b, then its line."""
+    done = phase("15c dry-run sweep (started before phase 4)")
+    child, work = sweep
+    t0 = time.perf_counter()
+    try:
+        dryrun_sweep_result(child, Path(work.name) / "dryrun")
+    finally:
+        work.cleanup()
+    print(f"  waited {time.perf_counter() - t0:.1f} s for the sweep after "
+          "phase 4b")
+    done()
+
+
 def dryrun_sweep_result(child: tuple, out_dir: Path) -> None:
     """(c) the single-pod sweep's child: 0 failed, one record a cell."""
     from repro_torch.configs import REGISTRY, cells_for
@@ -4259,27 +4315,376 @@ def examples_result(children: dict) -> None:
 
 def dryrun_phase(serve: dict, train: dict) -> None:
     """Phase 15: the dry run (``repro_torch.launch.dryrun``, no card)
-    against phases 13 and 14, its single-pod sweep in a child, and the
-    five examples on the card, the sweep and the examples at once."""
+    against phases 13 and 14, and the five examples on the card at once
+    beside it; its single-pod sweep ran beside phases 4 and 4b."""
     done = phase("15 dry run and examples")
     scratch = ROOT / "results"               # listed in .gitignore
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as d:
-        work = Path(d)
-        sweep = start_child(["-m", "repro_torch.launch.dryrun", "--arch",
-                             "all", "--shape", DRYRUN_SHAPES, "--mesh",
-                             "single", "--jobs", str(DRYRUN_JOBS), "--out",
-                             str(work / "dryrun")], work / "dryrun.log")
-        examples = start_examples(work)
+        examples = start_examples(Path(d))
         try:
             dryrun_train(train)
             dryrun_decode(serve)
             examples_result(examples)
         except BaseException:
-            for child in [sweep, *examples.values()]:
+            for child in examples.values():
                 stop_child(child)
             raise
-        dryrun_sweep_result(sweep, work / "dryrun")
+    done()
+
+
+# -------------------------------- phase 16 --------------------------------
+
+SHARDED_TIMEOUT_S = 420
+# (a)'s global batch: 8 rows split over 1, 2, 4 or 8 data positions
+SHARDED_CHECK_BATCH = (8, 128)
+SHARDED_CHECK_STEPS = 3
+SHARDED_FULL_SEQ = 512
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def sharded_meshes(n: int) -> list:
+    """(data, model) meshes of every visible card: (1, 1) on one card;
+    (n, 1) and, for n >= 4, (n / 2, 2) on n."""
+    if n == 1:
+        return [(1, 1)]
+    return [(n, 1)] + ([(n // 2, 2)] if n >= 4 else [])
+
+
+def state_slices(mesh, specs, full: dict) -> dict:
+    """This rank's slices of a parameter tree (the leaves themselves
+    where a slice is the whole leaf)."""
+    from repro_torch.dist.sharding import map_specs, shard_leaf
+    coords = mesh.coords
+    return map_specs(lambda sp, p: shard_leaf(p, sp, mesh, coords), specs,
+                     full)
+
+
+def on(dev, batch: dict) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in batch.items()}
+
+
+def sharded_check(mesh) -> dict:
+    """(a) granite-3-2b at full width, depth 2, fp32, batch 8 x 128: the
+    sharded step's first gradients and three steps (loss, grad_norm, the
+    parameters after AdamW, gathered whole) against the one-device step
+    on the same weights and global batches, within phase 14 (a)'s
+    limits; parameters within 2 lr a step."""
+    import torch.distributed as dist
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.dist.collectives import Layout, gather_leaf
+    from repro_torch.dist.sharding import (param_specs, shard_batch,
+                                           spec_leaves)
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import AdamWConfig, _map, tree_leaves
+    from repro_torch.train.step import (TrainConfig, init_state,
+                                        make_grad_fn, make_train_step)
+    cfg = llm_cfg(GRANITE, n_layers=2)
+    dev, coords = mesh.device, mesh.coords
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    tc = TrainConfig(opt=opt, compute_dtype="float32", remat=True)
+    B, S = SHARDED_CHECK_BATCH
+    pipe = SyntheticTokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                             global_batch=B, seed=0))
+    batches = [pipe.batch_at(s) for s in range(SHARDED_CHECK_STEPS)]
+    full = init_params(cfg, 0, dev)
+    specs = param_specs(cfg, mesh, full)
+    # copies: the two steps update their states in place
+    local = _map(torch.clone, state_slices(mesh, specs, full))
+    t0 = time.perf_counter()
+    (l1, _), g1 = make_grad_fn(cfg, tc)(full, on(dev, batches[0]))
+    (ln, _), gn = make_grad_fn(cfg, tc, Layout(cfg, mesh, specs))(
+        local, on(dev, shard_batch(batches[0], cfg, mesh, coords)))
+    scale = max(float(g.abs().max()) for g in tree_leaves(g1))
+    grads_err = max(float((gather_leaf(a, sp, mesh) - b).abs().max())
+                    for a, b, sp in zip(tree_leaves(gn), tree_leaves(g1),
+                                        spec_leaves(specs))) / scale
+    del g1, gn
+    one = init_state(cfg, tc, full)
+    shd = init_state(cfg, tc, local)
+    step_one = make_train_step(cfg, tc)
+    step_shd = make_train_step(cfg, tc, grad_specs=specs, mesh=mesh)
+    steps = []
+    for b in batches:
+        one, m1 = step_one(one, b)
+        shd, mn = step_shd(shd, shard_batch(b, cfg, mesh, coords))
+        steps.append({k: (float(mn[k]), float(m1[k]))
+                      for k in ("loss", "grad_norm")})
+    torch.cuda.synchronize()
+    perr = torch.cat([(gather_leaf(a, sp, mesh) - b).abs().reshape(-1)
+                      for a, b, sp in zip(tree_leaves(shd["params"]),
+                                          tree_leaves(one["params"]),
+                                          spec_leaves(specs))])
+    lr = float(opt.lr)
+    out = {"arch": GRANITE, "n_layers": cfg.n_layers, "batch": [B, S],
+           "mesh": list(mesh.sizes), "backend": dist.get_backend(),
+           "steps": len(batches), "seconds": time.perf_counter() - t0,
+           "losses": [st["loss"][0] for st in steps],
+           "loss_rel_err": max(abs(a - b) / abs(b) for a, b in
+                               (st["loss"] for st in steps)),
+           "grad_norm_rel_err": max(abs(a - b) / abs(b) for a, b in
+                                    (st["grad_norm"] for st in steps)),
+           "first_loss_equal": float(l1) == float(ln),
+           "grads_rel_err": grads_err,
+           "params_max_abs_err": float(perr.max()),
+           "params_share_within": float((perr <= PARAMS_CLOSE).double()
+                                        .mean()),
+           "tol": dict(loss=TRAIN_TOL["loss"],
+                       grad_norm=TRAIN_TOL["grad_norm"],
+                       grads=TRAIN_TOL["grads"],
+                       params_max=2 * lr * len(batches),
+                       params_close=PARAMS_CLOSE,
+                       params_share=PARAMS_SHARE)}
+    for k, key in (("loss", "loss_rel_err"),
+                   ("grad_norm", "grad_norm_rel_err"),
+                   ("grads", "grads_rel_err"),
+                   ("params_max", "params_max_abs_err")):
+        require(out[key] <= out["tol"][k],
+                f"sharded_check {key} {out[key]:.3e} > {out['tol'][k]:.3e}")
+    require(out["params_share_within"] >= PARAMS_SHARE,
+            f"sharded_check: {out['params_share_within']:.5f} of the "
+            f"parameters within {PARAMS_CLOSE}")
+    del one, shd, full, local, perr
+    torch.cuda.empty_cache()
+    return out
+
+
+def span_ms(spans: list) -> float:
+    """The length of the union of ``(start, end)`` spans (µs), in ms."""
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return busy / 1e3
+
+
+def profiled_step(step, state, batch, step_ms: float):
+    """One more step under ``torch.profiler``: ``(state, {...})``, the
+    card's busy time outside NCCL's kernels (the union of the other
+    kernels' and copies' spans; an NCCL kernel also spins while it waits
+    for the other ranks) and the idle share of ``step_ms`` (an
+    unprofiled step's time) that leaves, the NCCL kernels' time, the
+    host time and the collectives issued (None where the profiler saw
+    no device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    nccl = [(e.time_range.start, e.time_range.end) for e in dev
+            if "nccl" in e.name.lower()]
+    other = [(e.time_range.start, e.time_range.end) for e in dev
+             if "nccl" not in e.name.lower()]
+    busy_ms = span_ms(other) if dev else None
+    ka = prof.key_averages()
+    return state, {
+        "device_busy_ms": busy_ms, "nccl_kernel_ms": span_ms(nccl),
+        "idle_share": None if busy_ms is None else 1 - busy_ms / step_ms,
+        "host_ms": sum(e.self_cpu_time_total for e in ka) / 1e3,
+        "collectives": sum(e.count for e in ka
+                           if e.key == "record_param_comms")}
+
+
+def full_step_line(step, state, batches) -> tuple:
+    """A warm-up, three timed steps split at the optimizer
+    (``split_timed_steps``) and one profiled: ``(state, {...})``."""
+    state, met = step(state, batches[0])
+    state, losses, split = split_timed_steps(step, state, batches[1:4])
+    step_ms = statistics.median(t for t, _, _ in split)
+    state, prof = profiled_step(step, state, batches[4], step_ms)
+    return state, {"step_ms": step_ms, "step_ms_all": [t for t, _, _ in split],
+                   "fwd_bwd_ms": statistics.median(f for _, f, _ in split),
+                   "optimizer_ms": statistics.median(o for _, _, o in split),
+                   "losses": [float(met["loss"])] + losses, **prof}
+
+
+def sharded_full(mesh) -> dict:
+    """(b) granite-3-2b at full width and depth, bf16 compute, remat,
+    4 x 512 tokens a data position (the global batch 4 x 512 on one
+    card): in this process the unsharded step on 4 rows (phase 14 (b)'s
+    batch), then the sharded step on this rank's rows of the global
+    batch, each with a warm-up, 3 timed steps (CUDA events) and one
+    under the profiler; each rank's peak memory and state bytes (the
+    largest over the ranks)."""
+    import torch.distributed as dist
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.dist.sharding import dp_axes, param_specs, shard_batch
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import AdamWConfig, tree_leaves
+    from repro_torch.train.step import TrainConfig, init_state, \
+        make_train_step
+    cfg = llm_cfg(GRANITE)
+    dev, coords = mesh.device, mesh.coords
+    n_dp = int(np.prod([mesh.shape[a] for a in dp_axes(mesh)]))
+    B, S = 4 * n_dp, SHARDED_FULL_SEQ
+    tc = TrainConfig(opt=AdamWConfig(lr=3e-4, warmup_steps=2,
+                                     total_steps=100),
+                     compute_dtype="bfloat16", remat=True)
+    pipe = SyntheticTokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                             global_batch=B, seed=0))
+    glob = [pipe.batch_at(s) for s in range(5)]
+    out = {"arch": GRANITE, "n_layers": cfg.n_layers,
+           "params": cfg.n_params(), "batch": [B, S],
+           "mesh": list(mesh.sizes), "compute_dtype": "bfloat16",
+           "remat": True}
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(cfg, tc, init_params(cfg, 0, dev))
+    state, one = full_step_line(make_train_step(cfg, tc), state,
+                                [on(dev, {k: v[:4] for k, v in b.items()})
+                                 for b in glob])
+    one["tokens_per_s"] = 4 * S / (one["step_ms"] / 1e3)
+    one["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = init_params(cfg, 0, dev)
+    specs = param_specs(cfg, mesh, full)
+    params = state_slices(mesh, specs, full)
+    del full                                 # (1, 1): the slices are it
+    state = init_state(cfg, tc, params)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(state))
+    state, shd = full_step_line(
+        make_train_step(cfg, tc, grad_specs=specs, mesh=mesh), state,
+        [on(dev, shard_batch(b, cfg, mesh, coords)) for b in glob])
+    peak = torch.tensor([torch.cuda.max_memory_allocated(), state_bytes],
+                        dtype=torch.float64, device=dev)
+    dist.all_reduce(peak, op=dist.ReduceOp.MAX)
+    out.update(shd, tokens_per_s=B * S / (shd["step_ms"] / 1e3),
+               model_tflops_per_s=model_flops(cfg, B, S)
+               / (shd["step_ms"] / 1e3) / 1e12,
+               peak_memory_gb=float(peak[0]) / 1e9,
+               state_bytes_per_rank=int(peak[1]),
+               unsharded_same_process=one)
+    require(all(np.isfinite(shd["losses"] + one["losses"])),
+            "sharded_step: a non-finite loss")
+    del state, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def wait_for_file(path: Path, timeout: float) -> None:
+    deadline = time.perf_counter() + timeout
+    while not path.exists():
+        require(time.perf_counter() < deadline, f"{path.name} never came")
+        time.sleep(0.1)
+
+
+def sharded_worker(argv: list) -> int:
+    """One rank of phase 16 (started by torchrun): ``OUT DATA MODEL
+    GATE``; (a), then, once the file ``GATE`` exists (the parent makes it
+    when (c), which shares the card, has ended), (b); rank 0 writes the
+    results to ``OUT`` as JSON."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    out, data, model = Path(argv[0]), int(argv[1]), int(argv[2])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    dist.init_process_group("nccl")
+    try:
+        mesh = make_local_mesh(data, model)
+        res = {"check": sharded_check(mesh)}
+        wait_for_file(Path(argv[3]), SHARDED_TIMEOUT_S)
+        res["step"] = sharded_full(mesh)
+        if mesh.rank == 0:
+            out.write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def torchrun(n: int, args: list) -> list:
+    return ["-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(n)] + args
+
+
+def start_sharded_cli(work: Path, n: int) -> tuple:
+    """(c) ``python -m repro_torch.launch.train`` under torchrun on an
+    (n, 1) mesh over NCCL: granite-3-2b reduced, 20 steps, checkpoints
+    every 3, a failure injected at step 7."""
+    return start_child(torchrun(n, [
+        "-m", "repro_torch.launch.train", "--arch", GRANITE, "--reduced",
+        "--steps", "20", "--ckpt_every", "3", "--fail_at_step", "7",
+        "--data_mesh", str(n), "--ckpt_dir", str(work / "cli_ckpt")]),
+        work / "sharded_cli.log")
+
+
+def sharded_cli_result(child: tuple, n: int) -> dict:
+    """(c)'s line: the restart contract of the reference's driver tests
+    and a finite loss."""
+    import ast
+    rc, secs, text = wait_children({"cli": child}, SHARDED_TIMEOUT_S)["cli"]
+    if rc != 0:
+        print(text[-6000:])
+    require(rc == 0, f"sharded train cli: rc {rc}")
+    lines = [ln for ln in text.splitlines() if ln.startswith("{'")]
+    require(len(lines) == 1, "sharded train cli: rank 0 did not print "
+            "its result once")
+    res = ast.literal_eval(lines[0])
+    require(res["restarts"] == 1 and res["n_steps_run"] >= 20
+            and np.isfinite(res["final_loss"]), f"sharded train cli: {res}")
+    return {"returncode": rc, "seconds": secs, "mesh": [n, 1], **res}
+
+
+def sharded_phase(train) -> None:
+    """Phase 16: the sharded train step on a mesh of every visible card,
+    one process a card (torchrun, NCCL), beside phase 14 (b)'s unsharded
+    step (``train``; None with ``--sharded-only``)."""
+    train = train or {"step_ms": None, "peak_memory_gb": None,
+                      "step_peak_gb": None}
+    done = phase("16 sharded training")
+    card = card_line()
+    n = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    scratch = ROOT / "results"               # listed in .gitignore
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        work = Path(d)
+        cli = start_sharded_cli(work, n)
+        for i, (data, model) in enumerate(sharded_meshes(n)):
+            out = work / f"sharded_{data}x{model}.json"
+            gate = work / f"gate_{data}x{model}"
+            child = start_child(torchrun(data * model, [
+                str(ROOT / "chip_smoke.py"), "--sharded-worker", str(out),
+                str(data), str(model), str(gate)]),
+                work / f"sharded_{data}x{model}.log")
+            if i == 0:                       # (c) beside the first (a)
+                try:
+                    cli_line = sharded_cli_result(cli, n)
+                except BaseException:
+                    stop_child(child)
+                    raise
+            gate.touch()
+            rc, secs, text = wait_children({"w": child},
+                                           SHARDED_TIMEOUT_S)["w"]
+            if rc != 0:
+                print(text[-8000:])
+            require(rc == 0, f"sharded training on ({data}, {model}): rc {rc}")
+            res = json.loads(out.read_text())
+            print("sharded_check " + json.dumps({**res["check"],
+                                                 "card": card}))
+            print("sharded_step " + json.dumps({
+                **res["step"], "child_s": secs,
+                "phase14_step_ms": train["step_ms"],
+                "phase14_peak_memory_gb": train["peak_memory_gb"],
+                "phase14_step_peak_gb": train["step_peak_gb"],
+                "card": card}))
+        print("sharded_cli " + json.dumps({**cli_line, "card": card}))
     done()
 
 
@@ -4292,11 +4697,14 @@ def main(argv: list) -> int:
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 2
+    if argv[:1] == ["--sharded-worker"] and len(argv) == 5:
+        sys.path.insert(0, str(ROOT / "src"))
+        return sharded_worker(argv[1:])
     kernel_report = argv == ["--kernel-report"]
-    if argv and not kernel_report and argv not in (["--bits-probe"],
-                                                   ["--fused-split"]):
+    if argv and not kernel_report and argv not in (
+            ["--bits-probe"], ["--fused-split"], ["--sharded-only"]):
         print(f"usage: {sys.argv[0]} [--kernel-report | --bits-probe | "
-              "--fused-split]", file=sys.stderr)
+              "--fused-split | --sharded-only]", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     become_subreaper()
@@ -4323,6 +4731,12 @@ def run(argv: list, kernel_report: bool) -> int:
     if argv == ["--fused-split"]:
         device_phase()
         fused_split()
+        return 0
+    if argv == ["--sharded-only"]:
+        t_start = time.perf_counter()
+        print(card_line())
+        sharded_phase(None)
+        finish([], t_start)
         return 0
     from repro_torch.core.matrices import banded_matrix, powerlaw_matrix
     from repro_torch.kernels import ops
@@ -4354,6 +4768,7 @@ def run(argv: list, kernel_report: bool) -> int:
     reset_launch_counts()                    # the compile path starts here
     ops.rowmap_combine.launches = 0
     searched_b = searched_phase(B, xb, oracle_b, designer)
+    sweep = None if kernel_report else start_dryrun_sweep()
     banded, seg = fixed_phase(B, xb, oracle_b, P, xp, oracle_p, designer)
     torch.cuda.synchronize()
     launches = launch_counts()               # ... and ends here
@@ -4364,6 +4779,7 @@ def run(argv: list, kernel_report: bool) -> int:
             f"rowmap_combine {combines}")
     if not kernel_report:
         bitstable_phase(seg, xp)
+        dryrun_sweep_phase(sweep)
 
     cases = kernel_cases(banded, seg, xb, xp, B.n_rows, P.n_rows)
     csr = {"banded": csr_on_device(B), "powerlaw": csr_on_device(P)}
@@ -4427,6 +4843,7 @@ def run(argv: list, kernel_report: bool) -> int:
     llm = llm_phase(dev)
     train = train_phase(dev)
     dryrun_phase(llm["llm_serve_full"], train)
+    sharded_phase(train)
     finish(rows, t_start)
     return 0
 

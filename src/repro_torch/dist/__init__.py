@@ -9,6 +9,9 @@
                axis and per-shard execution of per-family stacked operands.
 ``search``   — per-shard AlphaSparse search (each partition gets its own
                machine-designed format).
+``collectives`` — the sharded train step's collectives over a mesh of
+               processes (autograd Functions) and ``Layout``, which
+               applies them to a state laid out by ``param_specs``.
 """
 from .sharding import (ShardingRules, batch_specs, cache_specs, dp_axes,  # noqa: F401
                        param_specs)

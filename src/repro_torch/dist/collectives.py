@@ -1,0 +1,302 @@
+"""Collectives of the sharded train step, as autograd Functions over the
+axis groups of a mesh of processes (``launch.mesh.make_local_mesh``
+inside a process group), and ``Layout``, which applies them to a state
+laid out by ``dist.sharding.param_specs``.
+
+* Gather for use (``Layout.use``): forward all-gathers a leaf's slices
+  over the axes named; backward brings the gradient of the whole leaf
+  back into the leaf's layout. Over the data axes it is a sum (each data
+  position computed on other rows of the batch): a reduce-scatter over
+  the axes that split the leaf, an all-reduce over those that replicate
+  it. Over ``model`` it is the position's own part: the model positions
+  that use a gathered leaf all compute the same thing, so their
+  gradients are equal and taking one is exact.
+* Megatron's pair for tensor parallelism over ``model``
+  (``TensorParallel``): ``enter`` (identity forward, all-reduce
+  backward) before the column-parallel products, ``exit`` (all-reduce
+  forward, identity backward) after the row-parallel one.
+* ``Layout.dp_sum`` sums the loss's parts over the data axes with
+  ``exit``'s pair: every position then holds the global loss, whose
+  gradient with respect to its own part is the identity.
+
+Gradients are summed in float32 whatever their dtype (a bfloat16
+gradient is cast back after the sum), so a bfloat16 leaf's gradient is
+rounded once, as on one device. No collective special-cases a group of
+one: on one device every collective is still issued, over groups of one
+process.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.distributed as dist
+
+from .sharding import (TP_AXIS, dp_axes, map_specs, spec_axes,
+                       spec_leaves)
+
+__all__ = ["Layout", "TensorParallel", "gather_leaf", "TP_SPLIT"]
+
+# the leaves a tensor-parallel region splits over ``model`` (by columns:
+# wq, wk, wv, w_up, w_gate; by rows: wo, w_down)
+TP_SPLIT = frozenset({"wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down"})
+
+
+def _size(mesh, axes) -> int:
+    return math.prod(mesh.shape[a] for a in axes)
+
+
+def _all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """The ``n`` positions' ``x`` joined along ``dim`` in group order."""
+    xm = x.movedim(dim, 0).contiguous()
+    out = xm.new_empty((n * xm.shape[0],) + tuple(xm.shape[1:]))
+    gather = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    gather(out, xm, group=group)
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group,
+                    n: int) -> torch.Tensor:
+    """Part (group rank) of the sum of the ``n`` positions' ``x``, cut
+    along ``dim``."""
+    xm = x.movedim(dim, 0).contiguous()
+    out = xm.new_empty((xm.shape[0] // n,) + tuple(xm.shape[1:]))
+    scatter = getattr(dist, "reduce_scatter_single", None) \
+        or dist.reduce_scatter_tensor
+    scatter(out, xm, group=group)
+    return out.movedim(0, dim)
+
+
+def _all_reduce(x: torch.Tensor, group,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=op, group=group)
+    return y
+
+
+class _GatherForUse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, gathers, sums, part):
+        ctx.mesh, ctx.gathers, ctx.sums, ctx.part = mesh, gathers, sums, part
+        if not gathers:
+            return x.view_as(x)
+        for dim, axes in gathers:
+            x = _all_gather(x, dim, mesh.group(axes), _size(mesh, axes))
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dtype = ctx.mesh, g.dtype
+        g = g.float()
+        for dim, axes in reversed(ctx.gathers):       # model: own part
+            if axes == (TP_AXIS,):
+                n = g.shape[dim] // mesh.shape[TP_AXIS]
+                g = g.narrow(dim, ctx.part * n, n)
+        for dim, axes in reversed(ctx.gathers):       # data: summed
+            if axes != (TP_AXIS,):
+                g = _reduce_scatter(g, dim, mesh.group(axes),
+                                    _size(mesh, axes))
+        if ctx.sums:
+            g = _all_reduce(g, mesh.group(ctx.sums))
+        return g.to(dtype), None, None, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """Identity forward, all-reduce of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _Exit(torch.autograd.Function):
+    """All-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class TensorParallel:
+    """Megatron's f/g pair over the ``model`` axis of ``mesh``: a
+    column-parallel product takes ``enter(x)``, a row-parallel one's
+    partial sums leave through ``exit``."""
+
+    def __init__(self, mesh):
+        self.group = mesh.group(TP_AXIS)
+        self.size = mesh.shape[TP_AXIS]
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return _Enter.apply(x, self.group)
+
+    def exit(self, x: torch.Tensor) -> torch.Tensor:
+        return _Exit.apply(x, self.group)
+
+
+def gather_leaf(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole leaf on every position (no autograd): its slices
+    all-gathered over every axis ``spec`` names."""
+    for dim, e in enumerate(spec):
+        axes = spec_axes(e)
+        if axes:
+            x = _all_gather(x, dim, mesh.group(axes), _size(mesh, axes))
+    return x
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [v for k in sorted(tree) for v in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [v for t in tree for v in _leaves(t)]
+    return [tree]
+
+
+class Layout:
+    """A parameter tree laid out over a mesh of processes: ``specs`` (from
+    ``param_specs`` on the global shapes) and the mesh's groups.
+
+    Attention at a pattern position runs tensor-parallel over ``model``
+    when ``n_kv_heads`` divides by the model size and the specs split
+    ``wq``/``wk``/``wv`` by columns and ``wo`` by rows over ``model``:
+    each position then holds ``n_heads / tp`` whole query heads and their
+    ``n_kv_heads / tp`` kv heads. A dense MLP does when the specs split
+    ``w_up``/``w_gate`` by columns and ``w_down`` by rows (any column
+    split is whole FFN columns). Elsewhere (the split would cut a head,
+    as 2 kv heads on ``model=4``; MoE tables; Mamba projections;
+    embedding and head) a leaf is gathered over ``model`` too and the
+    model positions compute the same thing. A model axis of one is tensor
+    parallel with groups of one."""
+
+    def __init__(self, cfg, mesh, specs):
+        if not getattr(mesh, "distributed", False):
+            raise ValueError("a Layout needs a mesh of processes "
+                             "(make_local_mesh inside a process group)")
+        self.cfg, self.mesh, self.specs = cfg, mesh, specs
+        self.coords = mesh.coords
+        self.dp = dp_axes(mesh)
+        self.n_dp = _size(mesh, self.dp)
+        self.tp = TensorParallel(mesh)
+        self.attn_tp, self.mlp_tp = [], []
+        for sp in specs["blocks"]:
+            self.attn_tp.append("attn" in sp and self._attn_tp(sp["attn"]))
+            self.mlp_tp.append("ffn" in sp and "router" not in sp["ffn"]
+                               and self._mlp_tp(sp["ffn"]))
+
+    def _attn_tp(self, sp) -> bool:
+        tp = self.tp.size
+        if self.cfg.n_kv_heads % tp:
+            return False
+        return tp == 1 or (all(sp[k][-1] == TP_AXIS
+                               for k in ("wq", "wk", "wv"))
+                           and sp["wo"][-2] == TP_AXIS)
+
+    def _mlp_tp(self, sp) -> bool:
+        return self.tp.size == 1 or (
+            all(sp[k][-1] == TP_AXIS for k in ("w_up", "w_gate") if k in sp)
+            and sp["w_down"][-2] == TP_AXIS)
+
+    # ------------------------------ use ------------------------------------
+
+    def use(self, x: torch.Tensor, spec, model: bool = True,
+            tp_whole: bool = False) -> torch.Tensor:
+        """``x``'s slices gathered for use over every data axis ``spec``
+        names and, with ``model``, over ``model`` too (see the module's
+        docstring for the backward). ``tp_whole``: a leaf that each model
+        position uses whole on its own heads inside a tensor-parallel
+        region (qk-norm scales): its gradient is summed over ``model``
+        too."""
+        gathers = tuple((d, spec_axes(e)) for d, e in enumerate(spec)
+                        if e is not None and (model or e != TP_AXIS))
+        named = spec_axes(spec)
+        sums = tuple(a for a in self.mesh.axis_names
+                     if a not in named and (a in self.dp or tp_whole))
+        return _GatherForUse.apply(x, self.mesh, gathers, sums,
+                                   self.coords.get(TP_AXIS, 0))
+
+    def top(self, params: dict) -> dict:
+        """``params`` with every leaf but the blocks gathered for use."""
+        out = {k: map_specs(lambda s, x: self.use(x, s), self.specs[k], v)
+               for k, v in params.items() if k != "blocks"}
+        out["blocks"] = params["blocks"]
+        return out
+
+    def block(self, views: list) -> list:
+        """One block's views (a dict a pattern position, leading dim
+        dropped) with each leaf gathered for use: over the data axes, and
+        over ``model`` where the position does not run tensor-parallel."""
+        out = []
+        for i, (p, sp) in enumerate(zip(views, self.specs["blocks"])):
+            q = {}
+            for k, v in p.items():
+                keep = (k == "attn" and self.attn_tp[i]) or \
+                    (k == "ffn" and self.mlp_tp[i])
+                q[k] = {name: self.use(x, sp[k][name][1:], not keep,
+                                       keep and name not in TP_SPLIT)
+                        for name, x in v.items()}
+            out.append(q)
+        return out
+
+    # ---------------------------- reductions -------------------------------
+
+    def dp_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the data axes (identity backward)."""
+        return _Exit.apply(x, self.mesh.group(self.dp))
+
+    def global_norm(self, tree) -> torch.Tensor:
+        """The float32 norm of a tree laid out as the parameters: each
+        leaf's sum of squares over its slices, a leaf counted once however
+        many positions replicate it (only the positions at index 0 on the
+        axes its spec does not name add it), summed over the leaves in
+        flattening order as ``optimizer.global_norm`` sums them."""
+        leaves, specs = _leaves(tree), spec_leaves(self.specs)
+        if len(leaves) != len(specs):
+            raise ValueError(f"{len(leaves)} leaves for {len(specs)} specs")
+        zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        sq = []
+        for g, s in zip(leaves, specs):
+            named = spec_axes(s)
+            mine = all(self.coords[a] == 0 for a in self.mesh.axis_names
+                       if a not in named)
+            sq.append(torch.sum(g.to(torch.float32) ** 2) if mine else zero)
+        sq = _all_reduce(torch.stack(sq), self.mesh.group(
+            tuple(self.mesh.axis_names)))
+        total = 0
+        for v in sq.unbind():
+            total = total + v
+        return torch.sqrt(total)
+
+    def chunk_amax(self, g: torch.Tensor, spec, chunk: int):
+        """For compression: ``(amax, ids)``, the max |.| of every
+        ``chunk`` consecutive values of the whole leaf flattened (the
+        reference's chunks), all-reduced (max) over the mesh, and each
+        local value's chunk index, shaped like ``g``."""
+        sizes = dict(self.mesh.shape)
+        flat = torch.zeros((), dtype=torch.int64, device=g.device)
+        stride = 1
+        for d in reversed(range(g.ndim)):
+            axes = spec_axes(spec[d])
+            i = 0
+            for a in axes:
+                i = i * sizes[a] + self.coords[a]
+            n = g.shape[d]
+            ar = (torch.arange(n, device=g.device) + i * n) * stride
+            flat = flat + ar.reshape((n,) + (1,) * (g.ndim - 1 - d))
+            stride *= n * math.prod(sizes[a] for a in axes)
+        ids = (flat // chunk).expand(g.shape)
+        amax = torch.zeros(-(-stride // chunk), dtype=torch.float32,
+                           device=g.device)
+        amax.scatter_reduce_(0, ids.reshape(-1),
+                             g.abs().reshape(-1).to(torch.float32), "amax")
+        amax = _all_reduce(amax, self.mesh.group(
+            tuple(self.mesh.axis_names)), dist.ReduceOp.MAX)
+        return amax, ids

@@ -7,8 +7,13 @@ axis name, or a tuple of two or more names, where the reference has a
 as a PartitionSpec canonicalises them: a group of one axis as its name,
 an empty group as None). The rules are pure
 functions of an ``ArchConfig`` and a mesh's ``.shape`` and
-``.axis_names``; on one card nothing is sharded, and the specs describe
-the layout a mesh of many devices would give the state.
+``.axis_names``. On a mesh of processes (``launch.mesh.make_local_mesh``
+inside a process group) each process holds, of every state leaf, the
+slice that the leaf's spec gives its mesh coordinates (``shard_leaf``):
+a dim of entry ``a`` is cut into ``mesh.shape[a]`` equal parts, a dim of
+a group ``(a, b)`` into ``size(a) * size(b)`` parts taken row-major over
+the group, as jax lays out a ``NamedSharding``. ``unshard_leaf`` puts
+the slices back together.
 
 One ``ShardingRules`` object per (ArchConfig, mesh) pair decides, for every
 parameter / batch / cache leaf, which mesh axes shard which tensor dims:
@@ -38,7 +43,9 @@ import numpy as np
 from repro_torch.configs.base import ArchConfig
 
 __all__ = ["ShardingRules", "dp_axes", "param_specs", "batch_specs",
-           "cache_specs", "spec"]
+           "cache_specs", "spec", "spec_axes", "spec_leaves", "map_specs",
+           "mesh_coords", "mesh_positions", "shard_slices", "shard_leaf",
+           "unshard_leaf", "shard_batch"]
 
 TP_AXIS = "model"
 
@@ -244,3 +251,126 @@ def cache_specs(cfg: ArchConfig, mesh, caches):
         return spec(*entries)
 
     return _map_with_path(spec_one, caches)
+
+
+# ------------------------- slices of a sharded leaf -------------------------
+
+def spec_axes(entry) -> tuple:
+    """The mesh axes of one spec entry (or of a whole spec), in order."""
+    if entry is None:
+        return ()
+    if isinstance(entry, str):
+        return (entry,)
+    return tuple(a for e in entry for a in spec_axes(e))
+
+
+def spec_leaves(specs) -> list:
+    """The specs of a spec tree in the order ``optimizer.tree_leaves``
+    gives the leaves of the tree it describes (dict keys sorted; a spec
+    is a tuple, a list is a container)."""
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [s for v in specs for s in spec_leaves(v)]
+    return [specs]
+
+
+def map_specs(fn, specs, *trees):
+    """``fn(spec, *leaves)`` over a spec tree and trees of its structure."""
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, specs[k], *(t[k] for t in trees))
+                for k in specs}
+    if isinstance(specs, list):
+        return [map_specs(fn, s, *(t[i] for t in trees))
+                for i, s in enumerate(specs)]
+    return fn(specs, *trees)
+
+
+def mesh_coords(mesh, rank: int) -> dict:
+    """{axis: index} of position ``rank``, row-major over the axes."""
+    out = {}
+    for name in reversed(tuple(mesh.axis_names)):
+        size = int(mesh.shape[name])
+        out[name] = rank % size
+        rank //= size
+    return {a: out[a] for a in mesh.axis_names}
+
+
+def mesh_positions(mesh) -> list[dict]:
+    """The coordinates of every position, in rank order."""
+    n = int(np.prod([mesh.shape[a] for a in mesh.axis_names]))
+    return [mesh_coords(mesh, r) for r in range(n)]
+
+
+def shard_slices(shape, spec_, mesh, coords: dict) -> tuple:
+    """One ``slice`` a dim: the part of a leaf of global ``shape`` that
+    the position at ``coords`` holds under ``spec_``."""
+    sizes = dict(mesh.shape)
+    out = []
+    for d, (dim, entry) in enumerate(zip(shape, spec_)):
+        axes = spec_axes(entry)
+        n = int(np.prod([sizes[a] for a in axes]))
+        if dim % n:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                             f"over {axes} ({n} parts)")
+        i = 0
+        for a in axes:
+            i = i * sizes[a] + coords[a]
+        step = dim // n
+        out.append(slice(i * step, (i + 1) * step))
+    return tuple(out)
+
+
+def shard_leaf(full, spec_, mesh, coords: dict):
+    """The slice of ``full`` (a tensor or a numpy array) at ``coords``, a
+    contiguous array of its own where it is not the whole leaf."""
+    part = full[shard_slices(full.shape, spec_, mesh, coords)]
+    if isinstance(full, np.ndarray):
+        return np.ascontiguousarray(part)
+    return part.contiguous()
+
+
+def unshard_leaf(shards: dict, spec_, mesh):
+    """The whole leaf from ``{coordinates: slice}``, the coordinates a
+    tuple in the mesh's axis order, every position present; positions
+    that hold the same slice (a replicated axis) must agree."""
+    sizes = dict(mesh.shape)
+    first = next(iter(shards.values()))
+    shape = tuple(int(s) * int(np.prod([sizes[a] for a in spec_axes(e)]))
+                  for s, e in zip(first.shape, spec_))
+    is_np = isinstance(first, np.ndarray)
+    if is_np:
+        full = np.empty(shape, first.dtype)
+    else:
+        import torch
+        full = torch.empty(shape, dtype=first.dtype, device=first.device)
+    seen = {}
+    for pos in mesh_positions(mesh):
+        part = shards[tuple(pos[a] for a in mesh.axis_names)]
+        sl = shard_slices(shape, spec_, mesh, pos)
+        key = tuple((s.start, s.stop) for s in sl)
+        if key in seen:
+            same = (np.array_equal(seen[key], part) if is_np
+                    else bool((seen[key] == part).all()))
+            if not same:
+                raise ValueError(f"the replicas of slice {key} differ")
+            continue
+        seen[key] = part
+        full[sl] = part
+    return full
+
+
+def shard_batch(batch: dict, cfg: ArchConfig, mesh, coords: dict) -> dict:
+    """The rows of a global batch that the position at ``coords`` trains
+    on (``batch_specs``: the batch dim over the data axes, the same rows
+    for every position of the ``model`` axis). Raises when the batch does
+    not split over every data axis: a replicated batch would count its
+    tokens once a replica in the data-parallel sums."""
+    gb = int(np.shape(batch["tokens"])[0])
+    specs = batch_specs(cfg, mesh, gb)
+    if spec_axes(specs["tokens"][0]) != dp_axes(mesh):
+        n = int(np.prod([mesh.shape[a] for a in dp_axes(mesh)]))
+        raise ValueError(f"a global batch of {gb} rows does not split "
+                         f"over the data axes' {n} positions")
+    return {k: v[shard_slices(np.shape(v), specs[k], mesh, coords)]
+            for k, v in batch.items()}

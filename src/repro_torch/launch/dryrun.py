@@ -38,10 +38,11 @@ What each key means here, against the reference's XLA numbers:
   ``alias_bytes`` for the donated arguments (the train state, the decode
   caches: the port updates both in place). ``temp_bytes`` is the peak of
   live fake-tensor bytes beyond the arguments in a second fake pass at
-  the **per-device batch** (global batch / batch shards). The port has
-  no tensor-parallel step, so in that pass the activations are whole over
-  the ``model`` axis, and so are the parameter-shaped temporaries
-  (gradients, the optimizer's): the record says so in ``temp_basis``.
+  the **per-device batch** (global batch / batch shards). That pass runs
+  the one-device step (the sharded step, ``dist.collectives``, needs a
+  process group), so in it the activations are whole over the ``model``
+  axis, and so are the parameter-shaped temporaries (gradients, the
+  optimizer's): the record says so in ``temp_basis``.
   ``code_bytes`` is 0.
 * ``collectives``: the port has no SPMD partitioner and no HLO to read.
   The schedule is derived from the same specs by this rule, with the
@@ -76,8 +77,9 @@ What each key means here, against the reference's XLA numbers:
 collapses jax's drift in the return shape of
 ``Compiled.cost_analysis()``, and here the counts are a dict from the
 start (so is ``SpmvPlan.cost_analysis``). The reference's ``--variant
-opt`` (its ``act_dp`` activation-sharding constraints) has no torch
-meaning: ``models.forward`` refuses ``act_dp``, so only ``base`` runs.
+opt`` (its ``act_dp`` activation-sharding constraints) is not run:
+``models.forward`` accepts ``act_dp`` only in a sharded step on a mesh
+of processes, which the dry run does not build, so only ``base`` runs.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
@@ -588,8 +590,8 @@ def main(argv=None) -> int:
                     choices=["single", "multi", "both"])
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--variant", default="base", choices=["base"],
-                    help="the reference's 'opt' (act_dp) has no torch "
-                    "meaning")
+                    help="the reference's 'opt' (act_dp) needs a "
+                    "sharded step on a mesh of processes")
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells dry-run at once, one process each")
     args = ap.parse_args(argv)

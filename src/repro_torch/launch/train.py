@@ -2,20 +2,30 @@
 with fault-tolerance hooks (port of ``repro.launch.train``).
 
 Runs real steps on one device: the current GPU by default (raises
-without one), or the CPU with ``device="cpu"``. ``--arch <id>
---reduced`` trains the CI-scale variant.
+without one), or the CPU with ``device="cpu"``; or, inside a process
+group of ``data_mesh * model_mesh`` processes (``torchrun``), on a
+(data, model) mesh of processes, one a position: the state sharded by
+``dist.sharding.param_specs`` (FSDP over the data axis, tensor
+parallelism over ``model``), each rank training on its rows of the
+global batch that the one-shard pipeline gives for the step (what the
+reference's single-controller driver feeds its mesh), so its losses are
+a one-device run's. Rank 0 logs and writes the checkpoints. ``--arch
+<id> --reduced`` trains the CI-scale variant.
 
 The outer loop is restart-idempotent: on (simulated or real) failure it
 restores the latest committed checkpoint and replays from there; the data
 pipeline is keyed by step so no batch is skipped or repeated.
 
-A (data, model) mesh larger than one device is refused: the sharding
-rules (``dist.sharding``) give the specs such a mesh would use, but
-sharded training is not ported.
+A mesh larger than one position outside such a process group is
+refused.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
       --reduced --steps 50 --batch 8 --seq 128
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.train --reduced --data_mesh 2 --model_mesh 2
+  (add ``--device cpu`` to run the ranks on the CPU over gloo; on the GPU
+  they use NCCL, rank r on ``cuda:LOCAL_RANK``)
 """
 from __future__ import annotations
 
@@ -28,7 +38,8 @@ import time
 from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
-from repro_torch.dist.sharding import batch_specs, param_specs
+from repro_torch.dist.sharding import (batch_specs, map_specs, param_specs,
+                                       shard_batch, shard_leaf)
 from repro_torch.ft.manager import FaultToleranceManager, NodeFailure
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.model import init_params, resolve_device
@@ -64,20 +75,28 @@ class TrainDriver:
         self.dc = dc
         cfg = get_config(dc.arch)
         self.cfg = cfg.reduced() if dc.reduced else cfg
-        self.device = resolve_device(dc.device)
-        self.mesh = make_local_mesh(data=dc.data_mesh, model=dc.model_mesh,
-                                    device=self.device)
-        if self.mesh.size > 1:
-            raise NotImplementedError(
-                f"a {dc.data_mesh}x{dc.model_mesh} mesh: sharded training "
-                "is not ported; train on one device (data_mesh = "
-                "model_mesh = 1)")
+        if _in_process_group():
+            self.mesh = make_local_mesh(data=dc.data_mesh,
+                                        model=dc.model_mesh, device=dc.device)
+            self.device = self.mesh.device
+        else:
+            self.device = resolve_device(dc.device)
+            self.mesh = make_local_mesh(data=dc.data_mesh,
+                                        model=dc.model_mesh,
+                                        device=self.device)
+            if self.mesh.size > 1:
+                raise ValueError(
+                    f"a {dc.data_mesh}x{dc.model_mesh} mesh trains one "
+                    "process a position: start the driver in a process "
+                    "group of that size (torchrun)")
+        self.sharded = self.mesh.distributed
+        self.log = not self.sharded or self.mesh.rank == 0
         self.tc = TrainConfig(
             opt=AdamWConfig(total_steps=dc.steps,
                             warmup_steps=max(dc.steps // 20, 1)),
             compute_dtype=dc.compute_dtype, grad_accum=dc.grad_accum,
             compression=CompressionConfig(enabled=dc.compression))
-        self.ckpt = CheckpointManager(dc.ckpt_dir)
+        self.ckpt = CheckpointManager(dc.ckpt_dir, mesh=self.mesh)
         self.ft = FaultToleranceManager()
         self.ft.register("host0")
         self.data = SyntheticTokenPipeline(
@@ -89,9 +108,13 @@ class TrainDriver:
     # ------------------------------------------------------------------
     def _build_state(self):
         params = init_params(self.cfg, self.dc.seed, self.device)
-        state = init_state(self.cfg, self.tc, params)
-        # the layout a mesh would give the state (one device: replicated)
         pspecs = param_specs(self.cfg, self.mesh, params)
+        if self.sharded:                         # this rank's slices
+            coords = self.mesh.coords
+            params = map_specs(lambda sp, p: shard_leaf(p, sp, self.mesh,
+                                                        coords),
+                               pspecs, params)
+        state = init_state(self.cfg, self.tc, params)
         self.state_specs = {"params": pspecs,
                             "opt": {"m": pspecs, "v": pspecs, "count": ()}}
         if self.tc.compression.enabled:
@@ -99,21 +122,30 @@ class TrainDriver:
         self.batch_specs = batch_specs(self.cfg, self.mesh, self.dc.batch)
         return state
 
+    def _batch(self, step: int) -> dict:
+        batch = self.data.batch_at(step)
+        if self.sharded:
+            batch = shard_batch(batch, self.cfg, self.mesh, self.mesh.coords)
+        return batch
+
     # ------------------------------------------------------------------
     def run(self) -> dict:
         dc = self.dc
         state = self._build_state()
-        fn = make_train_step(self.cfg, self.tc)
+        specs = self.state_specs if self.sharded else None
+        fn = make_train_step(self.cfg, self.tc, mesh=self.mesh,
+                             grad_specs=specs["params"] if specs else None)
         start = self.ckpt.latest_step()
         if start is not None:
-            state = self.ckpt.restore(start, state, device=self.device)
+            state = self.ckpt.restore(start, state, device=self.device,
+                                      specs=specs)
             start += 1
         else:
             start = 0
         step = start
         while step < dc.steps:
             try:
-                batch = self.data.batch_at(step)
+                batch = self._batch(step)
                 if dc.fail_at_step == step and not self._failed_once:
                     self._failed_once = True
                     raise NodeFailure(f"injected failure at step {step}")
@@ -123,19 +155,20 @@ class TrainDriver:
                 dt = time.perf_counter() - t0
                 self.ft.heartbeat("host0", step, dt)
                 rep = self.ft.check_straggler("host0", dt)
-                if rep is not None:
+                if rep is not None and self.log:
                     print(f"[ft] straggler: {rep}")
                 self.metrics_log.append(
                     {"step": step, "loss": loss, "time": dt})
-                if step % dc.log_every == 0:
+                if step % dc.log_every == 0 and self.log:
                     print(f"step {step:5d} loss {loss:.4f} "
                           f"lr {float(metrics['lr']):.2e} {dt*1e3:.0f}ms",
                           flush=True)
                 if dc.ckpt_every and step and step % dc.ckpt_every == 0:
-                    self.ckpt.save(step, state)
+                    self.ckpt.save(step, state, specs=specs)
                 step += 1
             except NodeFailure as e:
-                print(f"[ft] {e}; restart from last checkpoint")
+                if self.log:
+                    print(f"[ft] {e}; restart from last checkpoint")
                 self.ft.record_restart()
                 latest = self.ckpt.latest_step()
                 if latest is None:
@@ -144,9 +177,10 @@ class TrainDriver:
                 else:
                     self.ckpt.wait()
                     state = self.ckpt.restore(latest, state,
-                                              device=self.device)
+                                              device=self.device,
+                                              specs=specs)
                     step = latest + 1
-        self.ckpt.save(dc.steps - 1, state, blocking=True)
+        self.ckpt.save(dc.steps - 1, state, blocking=True, specs=specs)
         self.state = state
         return {"final_loss": self.metrics_log[-1]["loss"]
                 if self.metrics_log else None,
@@ -156,10 +190,16 @@ class TrainDriver:
                 "restarts": self.ft.restarts}
 
 
+def _in_process_group() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="Train one of the assigned architectures on one device "
-                    "(the synthetic token pipeline, random initial weights).")
+        description="Train one of the assigned architectures on one device, "
+                    "or on a mesh of processes under torchrun (the synthetic "
+                    "token pipeline, random initial weights).")
     for f in dataclasses.fields(DriverConfig):
         if f.type in ("bool", bool):
             ap.add_argument(f"--{f.name}", action="store_true",
@@ -171,6 +211,22 @@ def main(argv=None):
                             default=f.default)
     args = ap.parse_args(argv)
     dc = DriverConfig(**vars(args))
+    if "WORLD_SIZE" in os.environ and "MASTER_ADDR" in os.environ \
+            and not _in_process_group():         # started by torchrun
+        import torch
+        import torch.distributed as dist
+        cpu = dc.device is not None and torch.device(dc.device).type == "cpu"
+        if not cpu:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("gloo" if cpu else "nccl")
+        try:
+            drv = TrainDriver(dc)
+            out = drv.run()
+            if drv.log:
+                print(out, flush=True)
+        finally:
+            dist.destroy_process_group()
+        return
     out = TrainDriver(dc).run()
     print(out)
 

@@ -10,6 +10,19 @@ dtype at its use (``.to`` is free when the leaf already has it), and
 norm scales and ``q_norm``/``k_norm`` are applied in float32, as the
 reference does. Attention is the reference's einsum arithmetic, not a
 fused attention kernel, so that the port computes what it computes.
+
+Tensor parallelism (the sharded train step, ``dist.collectives``):
+``attention_train`` and ``apply_mlp`` take ``tp``, a
+``TensorParallel`` over the mesh's ``model`` axis, when the weights they
+are given are this position's column blocks of ``wq``/``wk``/``wv``/
+``w_up``/``w_gate`` and row blocks of ``wo``/``w_down``. Attention then
+runs the heads those columns hold (head counts come from the weights'
+shapes: ``n_heads / tp`` query heads with their ``n_kv_heads / tp`` kv
+heads, which needs ``n_kv_heads`` divisible by the model size), the MLP
+its FFN columns; the input enters through ``tp.enter`` and the
+row-parallel partial sums leave through ``tp.exit``. Where a split would
+cut a head (2 kv heads on ``model=4``, or granite's 8 on the production
+``model=16``) the caller gathers the weights whole and passes no ``tp``.
 """
 from __future__ import annotations
 
@@ -118,10 +131,12 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
 
 
 def _qkv(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
+    """q, k, v of the heads ``wq``/``wk``/``wv`` hold (all of them, or a
+    tensor-parallel position's)."""
     hd = cfg.hd
-    q = _split_heads(x @ p["wq"].to(x.dtype), cfg.n_heads, hd)
-    k = _split_heads(x @ p["wk"].to(x.dtype), cfg.n_kv_heads, hd)
-    v = _split_heads(x @ p["wv"].to(x.dtype), cfg.n_kv_heads, hd)
+    q = _split_heads(x @ p["wq"].to(x.dtype), p["wq"].shape[-1] // hd, hd)
+    k = _split_heads(x @ p["wk"].to(x.dtype), p["wk"].shape[-1] // hd, hd)
+    v = _split_heads(x @ p["wv"].to(x.dtype), p["wv"].shape[-1] // hd, hd)
     if cfg.qk_norm:
         q = rms_head_norm(p["q_norm"], q)
         k = rms_head_norm(p["k_norm"], k)
@@ -134,9 +149,9 @@ def _qkv(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
 def _gqa_scores_softmax_v(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """q: (B,S,H,hd); k,v: (B,T,KV,hd); mask: (B,1,S,T) additive."""
-    groups = cfg.n_heads // cfg.n_kv_heads
     b, s, h, hd = q.shape
-    qg = q.reshape(b, s, cfg.n_kv_heads, groups, hd)
+    kvh = k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, hd)
     # the reference divides by ``np.sqrt(hd)``, a numpy float64 that jax
     # takes as float32: bf16 scores become float32 before the division
     scores = torch.einsum("bskgh,btkh->bkgst", qg, k).float() / math.sqrt(hd)
@@ -164,7 +179,7 @@ def _gqa_blockwise(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
     reference's ``lax.scan``, as a loop): peak memory per chunk is
     O(B*H*S*block_kv) instead of O(B*H*S*S)."""
     b, s, h, hd = q.shape
-    kvh = cfg.n_kv_heads
+    kvh = k.shape[2]
     groups = h // kvh
     qg = q.reshape(b, s, kvh, groups, hd)
     scale = 1.0 / math.sqrt(hd)
@@ -198,8 +213,12 @@ def _gqa_blockwise(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
 
 
 def attention_train(cfg: ArchConfig, p: dict, x: torch.Tensor,
-                    positions: torch.Tensor,
-                    block_kv: Optional[int] = None) -> torch.Tensor:
+                    positions: torch.Tensor, block_kv: Optional[int] = None,
+                    tp=None) -> torch.Tensor:
+    """Causal self-attention over x (B, S, D); with ``tp`` the position's
+    heads, their output summed over ``model``."""
+    if tp is not None:
+        x = tp.enter(x)
     q, k, v = _qkv(cfg, p, x, positions)
     if block_kv is not None and x.shape[1] % block_kv == 0 \
             and x.shape[1] > block_kv:
@@ -208,7 +227,8 @@ def attention_train(cfg: ArchConfig, p: dict, x: torch.Tensor,
         mask = causal_mask(x.shape[1], window=cfg.window, device=x.device)
         mask = mask.expand((x.shape[0],) + mask.shape[1:])
         out = _gqa_scores_softmax_v(cfg, q, k, v, mask)
-    return out @ p["wo"].to(x.dtype)
+    out = out @ p["wo"].to(x.dtype)
+    return out if tp is None else tp.exit(out)
 
 
 def attention_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, pos,
@@ -268,10 +288,16 @@ def init_mlp(cfg: ArchConfig, gen: torch.Generator, lead=()) -> dict:
     return p
 
 
-def apply_mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(cfg: ArchConfig, p: dict, x: torch.Tensor,
+              tp=None) -> torch.Tensor:
+    """The gated or plain MLP; with ``tp`` the position's FFN columns,
+    their output summed over ``model``."""
+    if tp is not None:
+        x = tp.enter(x)
     up = x @ p["w_up"].to(x.dtype)
     if cfg.mlp_kind == "swiglu":
         h = F.silu(x @ p["w_gate"].to(x.dtype)) * up
     else:
         h = gelu(up)
-    return h @ p["w_down"].to(x.dtype)
+    out = h @ p["w_down"].to(x.dtype)
+    return out if tp is None else tp.exit(out)

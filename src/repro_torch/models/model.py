@@ -15,12 +15,23 @@ over the parameter tree (``train.step`` takes gradients of ``loss_fn``).
 ``remat=True`` (the reference's default) wraps each pattern block in
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, as the
 reference wraps its scan body in ``jax.checkpoint``, when autograd is
-recording. The reference's ``unroll`` (``lax.scan`` unrolling),
-``act_dp`` and ``seq_shard`` (activation sharding constraints over a
-mesh) have no meaning on one card: their defaults are accepted and any
-other value raises ``NotImplementedError``. Block views are
-``unbind``s of the stacked leaves, so a backward pass writes each
-stacked gradient once, not once a block.
+recording. Block views are ``unbind``s of the stacked leaves, so a
+backward pass writes each stacked gradient once, not once a block.
+
+Sharded training: with ``layout`` (a ``dist.collectives.Layout``) the
+parameter tree holds this process's slices of a state laid out over a
+mesh of processes. The embedding, head and final norm are gathered for
+use once; each block's leaves are gathered for use one block at a time,
+inside the remat region (so a block's whole weights live only while it
+runs, and are gathered again for the backward), attention and the dense
+MLP tensor-parallel over ``model`` where their split keeps whole heads
+(``layers``); ``loss_fn`` takes the global masked mean (the sums of nll,
+lse^2 and the mask summed over the data axes) and MoE's aux loss the
+global batch's statistics. The reference's ``act_dp`` is accepted when
+it names the mesh's data axes (the batch is split that way already);
+``seq_shard`` (sequence parallelism) and ``unroll`` (``lax.scan``
+unrolling) raise ``NotImplementedError``, as ``act_dp`` does without a
+layout.
 
 Parameters stay float32 by default; ``cast_params`` casts, once, the
 leaves the reference casts to the compute dtype at each use (embedding,
@@ -215,27 +226,38 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
 
 # ------------------------------ forward ------------------------------------
 
-def _ffn(cfg: ArchConfig, spec: PositionSpec, p: dict, h: torch.Tensor):
-    """The position's MLP or MoE on ln2(h): (y, aux)."""
+def _ffn(cfg: ArchConfig, spec: PositionSpec, p: dict, h: torch.Tensor,
+         tp=None, dp=None):
+    """The position's MLP or MoE on ln2(h): (y, aux). ``tp``: the MLP's
+    tensor parallelism; ``dp``: the layout whose data axes MoE's aux loss
+    sums over."""
     xn = L.apply_norm(p["ln2"], h)
     if spec.ffn == "moe":
-        return MOE.apply_moe(cfg, p["ffn"], xn)
-    return L.apply_mlp(cfg, p["ffn"], xn), None
+        return MOE.apply_moe(cfg, p["ffn"], xn, dp=dp)
+    return L.apply_mlp(cfg, p["ffn"], xn, tp=tp), None
 
 
 def _block_body(cfg: ArchConfig, specs, block_params: list[dict],
-                h: torch.Tensor, positions: torch.Tensor, block_kv=None):
-    """One pattern block (train path). Returns (h, aux_loss)."""
+                h: torch.Tensor, positions: torch.Tensor, block_kv=None,
+                layout=None):
+    """One pattern block (train path). Returns (h, aux_loss). With
+    ``layout`` the block's slices are gathered for use here."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for spec, p in zip(specs, block_params):
+    if layout is not None:
+        block_params = layout.block(block_params)
+    for i, (spec, p) in enumerate(zip(specs, block_params)):
+        attn_tp = mlp_tp = None
+        if layout is not None:
+            attn_tp = layout.tp if layout.attn_tp[i] else None
+            mlp_tp = layout.tp if layout.mlp_tp[i] else None
         xn = L.apply_norm(p["ln1"], h)
         if spec.kind == "A":
             h = h + L.attention_train(cfg, p["attn"], xn, positions,
-                                      block_kv=block_kv)
+                                      block_kv=block_kv, tp=attn_tp)
         else:
             h = h + SSM.mamba_train(cfg, p["mamba"], xn)
         if spec.ffn is not None:
-            y, a = _ffn(cfg, spec, p, h)
+            y, a = _ffn(cfg, spec, p, h, tp=mlp_tp, dp=layout)
             if a is not None:
                 aux = aux + a
             h = h + y
@@ -258,26 +280,41 @@ def _logits(cfg: ArchConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     return h @ head.to(h.dtype)
 
 
-def _check_knobs(unroll, act_dp, seq_shard) -> None:
-    if unroll != 1 or act_dp is not None or seq_shard:
+def _check_knobs(unroll, act_dp, seq_shard, layout) -> None:
+    if unroll != 1:
         raise NotImplementedError(
-            "unroll, act_dp and seq_shard are XLA scan and mesh-sharding "
-            "knobs of the reference with no meaning on one card; leave "
-            "them at their defaults (1, None, False)")
+            "unroll is the reference's lax.scan unrolling; the port loops "
+            "over blocks: leave it at 1")
+    if seq_shard:
+        raise NotImplementedError(
+            "seq_shard (sequence parallelism) is not ported yet; it is "
+            "queued after SSM tensor parallelism in ROADMAP.md")
+    if act_dp is not None and (layout is None
+                               or tuple(act_dp) != tuple(layout.dp)):
+        raise NotImplementedError(
+            f"act_dp {act_dp!r}: activations are split over the data axes "
+            "of a sharded step's mesh "
+            f"({None if layout is None else layout.dp}) and over nothing "
+            "else; leave it at None or name those axes")
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None,
             compute_dtype=torch.bfloat16, block_kv: Optional[int] = None,
             *, remat: bool = True, unroll: int = 1,
-            act_dp: Optional[tuple] = None, seq_shard: bool = False):
+            act_dp: Optional[tuple] = None, seq_shard: bool = False,
+            layout=None):
     """tokens: (B, S) -> (logits (B, S, vocab_padded), aux_loss).
 
     Logits cover token positions only (the stubbed modality prefix is
     consumed but not predicted). ``remat`` recomputes each pattern block
-    in the backward pass instead of keeping its activations."""
-    _check_knobs(unroll, act_dp, seq_shard)
+    in the backward pass instead of keeping its activations. ``layout``:
+    ``params`` are this process's slices (see the module's docstring),
+    ``tokens`` its rows of the global batch."""
+    _check_knobs(unroll, act_dp, seq_shard, layout)
     specs = pattern_specs(cfg)
+    if layout is not None:
+        params = layout.top(params)
     h = _embed(cfg, params, tokens, prefix_embeds, compute_dtype)
     positions = torch.arange(h.shape[1], device=h.device)[None]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -286,9 +323,10 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
         if ckpt:
             h, a = torch.utils.checkpoint.checkpoint(
                 _block_body, cfg, specs, block, h, positions, block_kv,
-                use_reentrant=False)
+                layout, use_reentrant=False)
         else:
-            h, a = _block_body(cfg, specs, block, h, positions, block_kv)
+            h, a = _block_body(cfg, specs, block, h, positions, block_kv,
+                               layout)
         aux = aux + a
     h = L.apply_norm(params["final_norm"], h)
     if cfg.n_prefix:
@@ -299,14 +337,16 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict,
             compute_dtype=torch.bfloat16, block_kv: Optional[int] = None,
             *, remat: bool = True, unroll: int = 1,
-            act_dp: Optional[tuple] = None, seq_shard: bool = False):
+            act_dp: Optional[tuple] = None, seq_shard: bool = False,
+            layout=None):
     """Next-token cross entropy + MoE aux + z-loss: (total, {"ce", "aux",
     "z"}). batch: tokens, labels (+ prefix_embeds for vlm/audio). labels
-    < 0 are masked."""
+    < 0 are masked. With ``layout`` the means are over the global batch:
+    every position returns the same loss."""
     logits, aux = forward(cfg, params, batch["tokens"],
                           batch.get("prefix_embeds"), compute_dtype,
                           block_kv, remat=remat, unroll=unroll,
-                          act_dp=act_dp, seq_shard=seq_shard)
+                          act_dp=act_dp, seq_shard=seq_shard, layout=layout)
     logits = logits.float()
     labels = batch["labels"].long()
     mask = (labels >= 0) & (labels < cfg.vocab)
@@ -314,9 +354,18 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict,
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (lse - ll) * mask
-    denom = torch.clamp(mask.sum(), min=1)
-    ce = nll.sum() / denom
-    z_loss = 1e-4 * ((lse * mask) ** 2).sum() / denom
+    if layout is None:
+        nll_sum, z_sum = nll.sum(), ((lse * mask) ** 2).sum()
+        denom = torch.clamp(mask.sum(), min=1)
+    else:
+        # the mean of per-position means is wrong once a position's
+        # labels are masked: sum first, then divide
+        sums = layout.dp_sum(torch.stack([
+            nll.sum(), ((lse * mask) ** 2).sum(),
+            mask.sum().to(torch.float32)]))
+        nll_sum, z_sum, denom = sums[0], sums[1], torch.clamp(sums[2], min=1)
+    ce = nll_sum / denom
+    z_loss = 1e-4 * z_sum / denom
     total = ce + z_loss + 1e-2 * aux
     return total, {"ce": ce, "aux": aux, "z": z_loss}
 

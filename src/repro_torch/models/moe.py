@@ -10,7 +10,12 @@ per-expert capacity buffer, run through dense expert GEMMs and gathered
 back: no (tokens, E, C) tensor.
 
 Both drop overflow tokens beyond per-expert capacity (capacity_factor).
-The router and its softmax run in float32, as the reference's do.
+The router and its softmax run in float32, as the reference's do. In a
+sharded train step (``dp``, a ``dist.collectives.Layout``) the aux
+loss's expert statistics are the global batch's: their sums are summed
+over the data axes before the division. Expert tables are gathered whole
+for use (expert parallelism, an all-to-all over ``model``, is not
+ported).
 """
 from __future__ import annotations
 
@@ -65,17 +70,24 @@ def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
-def _router(cfg: ArchConfig, p: dict, x: torch.Tensor):
-    """x: (B,S,d) -> top-k (gates, idx) and the load-balance aux loss."""
+def _router(cfg: ArchConfig, p: dict, x: torch.Tensor, dp=None):
+    """x: (B,S,d) -> top-k (gates, idx) and the load-balance aux loss
+    (over the global batch with ``dp``)."""
     e = cfg.moe
     logits = x.float() @ p["router"].float()
     probs = torch.softmax(logits, -1)                        # (B,S,E)
     gate_vals, idx = torch.topk(probs, e.top_k, dim=-1)      # (B,S,K)
     gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
     # Switch-style aux loss: E * sum_e f_e * P_e
-    me = probs.mean((0, 1))
-    ce = _one_hot(idx, e.n_experts, torch.float32).sum(-2).mean((0, 1)) \
-        / e.top_k
+    routed = _one_hot(idx, e.n_experts, torch.float32).sum(-2)
+    if dp is None:
+        me = probs.mean((0, 1))
+        ce = routed.mean((0, 1)) / e.top_k
+    else:
+        n = x.shape[0] * x.shape[1] * dp.n_dp          # global tokens
+        sums = dp.dp_sum(torch.cat([probs.sum((0, 1)), routed.sum((0, 1))]))
+        me = sums[:e.n_experts] / n
+        ce = sums[e.n_experts:] / n / e.top_k
     aux = e.n_experts * torch.sum(me * ce)
     return gate_vals, idx, aux
 
@@ -156,10 +168,10 @@ def _moe_sorted(cfg: ArchConfig, p: dict, x: torch.Tensor, gate_vals,
     return y
 
 
-def apply_moe(cfg: ArchConfig, p: dict, x: torch.Tensor):
-    """x: (B,S,d) -> (y, aux_loss)."""
+def apply_moe(cfg: ArchConfig, p: dict, x: torch.Tensor, dp=None):
+    """x: (B,S,d) -> (y, aux_loss); ``dp``: the sharded step's layout."""
     e = cfg.moe
-    gate_vals, idx, aux = _router(cfg, p, x)
+    gate_vals, idx, aux = _router(cfg, p, x, dp)
     if e.impl == "sorted":
         y = _moe_sorted(cfg, p, x, gate_vals, idx)
     else:

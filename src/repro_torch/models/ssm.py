@@ -9,7 +9,9 @@ state.
 
 Shapes: d_in = expand*d_model, H = d_in/head_dim heads, P = head_dim,
 N = d_state, G = 1 (single B/C group). ``A_log``, ``dt_bias`` and
-``gate_norm`` are applied in float32, as the reference does.
+``gate_norm`` are applied in float32, as the reference does. A sharded
+train step gathers the projections whole for use (SSM tensor
+parallelism is not ported).
 """
 from __future__ import annotations
 

@@ -12,6 +12,11 @@ the parameters, ``m`` and ``v`` in place (a 2.5 B-parameter state is
 40 GB in float32, and fresh copies of it would not fit one card beside
 it); each element is computed by the same operations in the same order,
 so the values are the reference's either way.
+
+In a sharded step (``layout``, a ``dist.collectives.Layout``) every leaf
+is this process's slice: the update runs on the slices, and the clip's
+global norm sums each leaf's squares over its slices once, however many
+positions replicate it.
 """
 from __future__ import annotations
 
@@ -76,9 +81,12 @@ def adamw_init(params) -> dict:
                                  device=leaf.device)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, layout=None) -> torch.Tensor:
     """sqrt of the sum, over the leaves in flattening order, of each
-    leaf's float32 sum of squares."""
+    leaf's float32 sum of squares (of the whole leaves, with ``layout``,
+    whose slices ``tree`` holds)."""
+    if layout is not None:
+        return layout.global_norm(tree)
     total = 0
     for leaf in tree_leaves(tree):
         total = total + torch.sum(leaf.to(torch.float32) ** 2)
@@ -86,13 +94,14 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, params, state):
+def adamw_update(cfg: AdamWConfig, grads, params, state, layout=None):
     """One AdamW step: returns ``(params, state, {"lr", "grad_norm"})``.
     ``params``, ``state["m"]`` and ``state["v"]`` are updated in place and
-    returned; ``grads`` is read only. Every leaf is float32."""
+    returned; ``grads`` is read only. Every leaf is float32. ``layout``:
+    the leaves are slices of a sharded state."""
     count = state["count"] + 1
     lr = lr_schedule(cfg, count)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, layout)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     countf = count.to(torch.float32)
     b1c = 1.0 - torch.pow(cfg.b1, countf)

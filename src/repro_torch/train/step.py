@@ -10,6 +10,20 @@ the reference's ``lax.scan`` does; the optimizer then steps once.
 The state is ``{"params", "opt", "err"}`` (``err`` only with compression
 on), every leaf float32 (``opt["count"]`` int32). The step updates it in
 place (``optimizer.adamw_update``) and returns it.
+
+Sharded (``grad_specs`` and ``mesh``, a mesh of processes from
+``launch.mesh.make_local_mesh`` inside a process group): each leaf of the
+state is this process's slice under ``grad_specs`` (``param_specs`` on
+the global shapes; ``dist.sharding.shard_leaf``) and the batch its rows
+of the global batch (``dist.sharding.shard_batch``). The forward gathers
+the slices for use and their backward brings each gradient back into its
+leaf's layout, summed over the data axes (``dist.collectives``), so the
+gradients land in the state's layout, as the reference's
+``with_sharding_constraint`` on ``grad_specs`` makes XLA reduce-scatter
+them. The loss is the global batch's masked mean, so the sum over the
+data positions is the data-parallel mean. ``grad_accum`` splits each
+position's rows. ``cast_params_bf16`` casts the float32 slices before
+they are gathered, which halves the gather's bytes.
 """
 from __future__ import annotations
 
@@ -57,13 +71,15 @@ def _to_device(batch: dict, device) -> dict:
     return out
 
 
-def make_grad_fn(cfg: ArchConfig, tc: TrainConfig):
+def make_grad_fn(cfg: ArchConfig, tc: TrainConfig, layout=None):
     """``grad_fn(params, batch) -> ((loss, parts), grads)``: the loss of
     ``tc``'s forward (compute dtype, remat, ``cast_params_bf16``) and its
     gradients with respect to every parameter leaf, shaped like
     ``params`` (float32 for float32 parameters). ``compute_dtype``
     "float64" (a reference check, on float64 parameters) is accepted
-    beside the reference's two."""
+    beside the reference's two. ``layout`` (a
+    ``dist.collectives.Layout``): ``params`` are slices of a sharded
+    state, and so are the gradients."""
     dtype = _DTYPES[tc.compute_dtype]
 
     def loss_wrap(params, batch):
@@ -73,7 +89,7 @@ def make_grad_fn(cfg: ArchConfig, tc: TrainConfig):
                      if a.dtype == torch.float32 and a.ndim >= 2 else a, p)
         return loss_fn(cfg, p, batch, dtype, tc.block_kv, remat=tc.remat,
                        unroll=tc.scan_unroll, act_dp=tc.act_dp,
-                       seq_shard=tc.seq_shard)
+                       seq_shard=tc.seq_shard, layout=layout)
 
     def grad_fn(params, batch):
         leaves = [t.detach().requires_grad_(True)
@@ -90,21 +106,34 @@ def make_grad_fn(cfg: ArchConfig, tc: TrainConfig):
     return grad_fn
 
 
-def make_train_step(cfg: ArchConfig, tc: TrainConfig, grad_specs=None):
+def make_train_step(cfg: ArchConfig, tc: TrainConfig, grad_specs=None,
+                    mesh=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
     holds ``tokens`` and ``labels`` (numpy arrays or tensors), moved to the
     parameters' device. ``metrics`` are ``{"loss", "lr", "grad_norm"}``
     and, without gradient accumulation, the loss's parts ``ce``, ``aux``
     and ``z``: 0-d tensors.
 
-    ``grad_specs`` anchors the reference's gradient sharding to its FSDP
-    layout; on one card there is none, and only None is accepted."""
-    if grad_specs is not None:
+    ``grad_specs`` (the parameters' spec tree) with ``mesh`` (a mesh of
+    processes) makes the sharded step (see the module's docstring); the
+    metrics are then the global ones, the same on every position. Specs
+    without such a mesh raise ``NotImplementedError``: sharding is over
+    processes."""
+    if grad_specs is not None and not getattr(mesh, "distributed", False):
         raise NotImplementedError(
-            "grad_specs shards gradients over a mesh; on one card pass None")
+            "grad_specs lays gradients out over a mesh of processes; pass "
+            "mesh=make_local_mesh(...) inside a process group, or None for "
+            "one device")
+    if grad_specs is None and getattr(mesh, "distributed", False):
+        raise ValueError("a sharded step needs grad_specs, the spec tree "
+                         "the state is laid out by")
     if tc.grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {tc.grad_accum}")
-    grad_fn = make_grad_fn(cfg, tc)
+    layout = None
+    if grad_specs is not None:
+        from repro_torch.dist.collectives import Layout
+        layout = Layout(cfg, mesh, grad_specs)
+    grad_fn = make_grad_fn(cfg, tc, layout)
 
     def train_step(state, batch):
         params = state["params"]
@@ -132,10 +161,10 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig, grad_specs=None):
         new_state = dict(state)
         if tc.compression.enabled:
             grads, new_err = compress_decompress(tc.compression, grads,
-                                                 state["err"])
+                                                 state["err"], layout)
             new_state["err"] = new_err
         new_params, new_opt, opt_metrics = adamw_update(
-            tc.opt, grads, params, state["opt"])
+            tc.opt, grads, params, state["opt"], layout)
         new_state["params"] = new_params
         new_state["opt"] = new_opt
         metrics = {"loss": loss, **opt_metrics, **parts}

@@ -1,0 +1,194 @@
+"""The rank side of tests/test_torch_sharded_train.py.
+
+``python tests/_torch_ranks.py RANK WORLD RDZV JOB OUT`` joins a gloo
+process group of WORLD processes through the file ``RDZV``, lays the
+mesh of the pickled ``JOB`` over it (``make_local_mesh``'s keywords:
+``data``, ``model`` and maybe ``pod``), runs the job's cases
+in order and saves their results to ``OUT.<RANK>.pt``. It imports torch,
+numpy and repro_torch only; ``run`` starts the ranks from a test.
+
+Cases (dicts with a ``kind``):
+
+* ``steps``: ``n`` train steps of ``arch`` from the numpy parameter tree
+  ``params`` on the global ``batches``, ``tc`` the ``TrainConfig``'s
+  fields (``opt`` and ``compression`` as dicts); returns each step's
+  metrics, the first step's gradients and the final state, as this
+  rank's slices. With ``ckpt`` the final state is saved there (step n-1)
+  in the reference's layout.
+* ``compress``: ``compress_decompress`` of the numpy trees ``grads`` and
+  ``err`` (shaped like ``arch``'s parameters), each rank on its slices.
+* ``restore``: the slices of the checkpoint ``step`` in ``ckpt``, laid
+  out by ``arch``'s parameter specs (``tc`` as in ``steps``).
+* ``knobs``: ``loss_fn`` on the first batch with ``act_dp`` the data
+  axes (equal to the loss without it?) and which of ``act_dp=("model",)``,
+  ``seq_shard=True`` and ``unroll=2`` raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def run(job: dict, world: int, work: Path, timeout: float = 300) -> list:
+    """Start ``world`` ranks on ``job`` and return each rank's results
+    (rank order); raises with the ranks' output if one fails."""
+    work.mkdir(parents=True, exist_ok=True)
+    jobf, rdzv = work / "job.pkl", work / "rdzv"
+    jobf.write_bytes(pickle.dumps(job))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, str(r), str(world), str(rdzv), str(jobf),
+         str(work / "out")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, env=env, text=True)
+        for r in range(world)]
+    deadline, logs = time.monotonic() + timeout, []
+    try:
+        for p in procs:
+            left = max(deadline - time.monotonic(), 1)
+            logs.append(p.communicate(timeout=left)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise RuntimeError("\n".join(
+            f"--- rank {r} rc {p.returncode}\n{log[-4000:]}"
+            for r, (p, log) in enumerate(zip(procs, logs))))
+    return [torch.load(work / f"out.{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def _np(tree):
+    if isinstance(tree, dict):
+        return {k: _np(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_np(v) for v in tree]
+    return tree.detach().cpu().numpy() if torch.is_tensor(tree) else tree
+
+
+def _train_config(tc: dict):
+    from repro_torch.train.compression import CompressionConfig
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainConfig
+    tc = dict(tc)
+    tc["opt"] = AdamWConfig(**tc.get("opt", {}))
+    tc["compression"] = CompressionConfig(**tc.get("compression", {}))
+    return TrainConfig(**tc)
+
+
+def _state_specs(pspecs, compression: bool) -> dict:
+    specs = {"params": pspecs, "opt": {"m": pspecs, "v": pspecs,
+                                       "count": ()}}
+    if compression:
+        specs["err"] = pspecs
+    return specs
+
+
+def _case(case: dict, mesh) -> dict:
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.dist.collectives import Layout
+    from repro_torch.dist.sharding import (map_specs, param_specs,
+                                           shard_batch, shard_leaf)
+    from repro_torch.models.weights import params_from_numpy
+    from repro_torch.train.compression import compress_decompress
+    from repro_torch.train.step import (init_state, make_grad_fn,
+                                        make_train_step)
+    cfg = get_config(case["arch"]).reduced()
+    cpu, coords = torch.device("cpu"), mesh.coords
+    # a copy: the step updates the state in place
+    shard = lambda sp, a: np.array(shard_leaf(a, sp, mesh, coords))  # noqa: E731
+    if case["kind"] == "compress":
+        pspecs = param_specs(cfg, mesh, case["grads"])
+        layout = Layout(cfg, mesh, pspecs)
+        g = params_from_numpy(map_specs(shard, pspecs, case["grads"]), cpu)
+        e = params_from_numpy(map_specs(shard, pspecs, case["err"]), cpu)
+        cc = _train_config({"compression": case["compression"]}).compression
+        deq, err = compress_decompress(cc, g, e, layout)
+        return {"deq": _np(deq), "err": _np(err)}
+    if case["kind"] == "knobs":
+        return _knobs(case, cfg, mesh, shard)
+    tc = _train_config(case["tc"])
+    pspecs = param_specs(cfg, mesh, case["params"])
+    if case["kind"] == "restore":
+        like = init_state(cfg, tc, params_from_numpy(
+            map_specs(shard, pspecs, case["params"]), cpu))
+        mgr = CheckpointManager(case["ckpt"], mesh=mesh)
+        got = mgr.restore(case["step"], like, specs=_state_specs(
+            pspecs, tc.compression.enabled))
+        return {"state": _np(got), "latest": mgr.latest_step()}
+    params = params_from_numpy(map_specs(shard, pspecs, case["params"]), cpu)
+    state = init_state(cfg, tc, params)
+    layout = Layout(cfg, mesh, pspecs)
+    first = shard_batch(case["batches"][0], cfg, mesh, coords)
+    (_, _), grads = make_grad_fn(cfg, tc, layout)(
+        params, {k: torch.from_numpy(v) for k, v in first.items()})
+    step = make_train_step(cfg, tc, grad_specs=pspecs, mesh=mesh)
+    metrics = []
+    for b in case["batches"]:
+        state, met = step(state, shard_batch(b, cfg, mesh, coords))
+        metrics.append({k: float(v) for k, v in met.items()})
+    if case.get("ckpt"):
+        CheckpointManager(case["ckpt"], mesh=mesh).save(
+            len(case["batches"]) - 1, state, blocking=True,
+            specs=_state_specs(pspecs, tc.compression.enabled))
+    return {"metrics": metrics, "grads": _np(grads), "state": _np(state)}
+
+
+def _knobs(case, cfg, mesh, shard) -> dict:
+    from repro_torch.dist.collectives import Layout
+    from repro_torch.dist.sharding import map_specs, param_specs, \
+        shard_batch
+    from repro_torch.models import loss_fn
+    from repro_torch.models.weights import params_from_numpy
+    pspecs = param_specs(cfg, mesh, case["params"])
+    layout = Layout(cfg, mesh, pspecs)
+    params = params_from_numpy(map_specs(shard, pspecs, case["params"]),
+                               torch.device("cpu"))
+    batch = {k: torch.from_numpy(v) for k, v in shard_batch(
+        case["batches"][0], cfg, mesh, mesh.coords).items()}
+    loss = lambda **kw: loss_fn(cfg, params, batch,  # noqa: E731
+                                torch.float32, layout=layout, **kw)[0]
+    raised = []
+    for name, kw in (("act_dp_model", dict(act_dp=("model",))),
+                     ("seq_shard", dict(seq_shard=True)),
+                     ("unroll", dict(unroll=2))):
+        try:
+            loss(**kw)
+        except NotImplementedError:
+            raised.append(name)
+    return {"act_dp_equal": bool(loss(act_dp=("data",)) == loss()),
+            "raised": raised}
+
+
+def main(rank: int, world: int, rdzv: str, jobf: str, out: str) -> None:
+    torch.set_num_threads(1)
+    job = pickle.loads(Path(jobf).read_bytes())
+    dist.init_process_group("gloo", init_method=f"file://{rdzv}",
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch.launch.mesh import make_local_mesh
+        mesh = make_local_mesh(**job["mesh"], device="cpu")
+        results = {"coords": mesh.coords, "cases": [
+            _case(c, mesh) for c in job["cases"]]}
+        torch.save(results, f"{out}.{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
+         sys.argv[5])

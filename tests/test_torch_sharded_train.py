@@ -1,0 +1,543 @@
+"""repro_torch's sharded train step on meshes of processes, on the CPU.
+
+The ranks are processes of a gloo group (``tests/_torch_ranks.py``, a
+file rendezvous under ``tmp_path``), one a position of a (data, model)
+mesh ((2, 2), (4, 1), (1, 4)) or a (pod, data, model) one ((2, 1, 2):
+FSDP over the group of two axes); each holds its slices of the state (``dist.sharding.shard_leaf``
+of the parameter specs) and trains on its rows of the global batch. The
+whole leaves put back together (``unshard_leaf``, which also checks that
+replicas agree) are held to the port's one-device step and to the
+reference's mesh-less jitted step, on the same weights (the reference's,
+``params_from_numpy``) and the same global batches.
+
+Tolerances, each with its reason:
+* loss and grad_norm of every step: 1e-5 relative (only the order of
+  float32 sums differs: a product's columns split over ``model``, the
+  batch over ``data``).
+* parameters after three steps, the first step's gradients, m and v:
+  each leaf within 2e-4 * max |leaf| + 1e-6, the limit
+  tests/test_torch_train.py holds the port's gradients to.
+* compression: the quantisation of the same gradients is bit for bit the
+  one device's (the chunks of the whole leaf, their max reduced over the
+  mesh); in a step, where the gradients differ in their last bits, a
+  value may round to the neighbouring int8 level (1/127 of its chunk's
+  max), so m and v are held within 2e-2 of their max |.| as in
+  tests/test_torch_train.py, and the residuals within one level.
+* ``cast_params_bf16``: the gradients of the bfloat16 weights are
+  rounded to bfloat16 (8 bits) once, from sums in another order, so a
+  value may land one bfloat16 step (2^-8 relative) away: loss and
+  grad_norm within 1e-3 relative, parameters within 2 lr per step (the
+  most an AdamW step moves one).
+* the restart contract of the reference's driver tests (restarts == 1,
+  n_steps_run >= 8, a finite loss), and its final loss within 1e-5 of a
+  one-device driver's.
+* checkpoints: bit for bit.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as RC
+from repro.ckpt.checkpoint import CheckpointManager as RefManager
+from repro.data.pipeline import DataConfig as RDataConfig
+from repro.data.pipeline import SyntheticTokenPipeline as RPipeline
+from repro.models import init_params as ref_init_params
+from repro.train import optimizer as ROPT
+from repro.train import step as RSTEP
+
+import repro_torch.configs as TC
+from repro_torch.ckpt import CheckpointManager
+from repro_torch.dist.sharding import (map_specs, mesh_coords,
+                                       mesh_positions, param_specs,
+                                       shard_batch, shard_leaf, shard_slices,
+                                       spec_leaves, unshard_leaf)
+from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.train import DriverConfig, TrainDriver
+from repro_torch.models.weights import params_from_numpy
+from repro_torch.train.compression import (CompressionConfig,
+                                           compress_decompress)
+from repro_torch.train.optimizer import tree_leaves
+from repro_torch.train.step import init_state, make_grad_fn, make_train_step
+
+sys.path.insert(0, str(Path(__file__).parent))
+import _torch_ranks as RANKS  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+CPU = torch.device("cpu")
+GRANITE = "granite-3-2b"
+LR = 3e-4
+OPT = dict(lr=LR, total_steps=10, warmup_steps=1)
+FP32 = dict(opt=OPT, compute_dtype="float32")
+MESHES = {"2x2": dict(data=2, model=2), "4x1": dict(data=4, model=1),
+          "1x4": dict(data=1, model=4),
+          # FSDP over the group ("pod", "data"), TP over model
+          "2x1x2": dict(pod=2, data=1, model=2)}
+
+
+# --------------------------- slices, no processes ---------------------------
+
+class MockMesh:
+    def __init__(self, shape: dict):
+        self.shape = shape
+        self.axis_names = tuple(shape)
+
+
+MOCKS = {"2x2": MockMesh({"data": 2, "model": 2}),
+         "4x1": MockMesh({"data": 4, "model": 1}),
+         "1x4": MockMesh({"data": 1, "model": 4}),
+         "3x2": MockMesh({"data": 3, "model": 2}),      # 64 % 3: fallback
+         "pod": MockMesh({"pod": 2, "data": 2, "model": 2}),
+         "16x16": MockMesh({"data": 16, "model": 16})}
+
+
+def _ref_params(arch):
+    p = ref_init_params(RC.get_config(arch).reduced(), jax.random.PRNGKey(0))
+    return jax.tree.map(np.asarray, p)
+
+
+@pytest.mark.parametrize("mesh", sorted(MOCKS))
+@pytest.mark.parametrize("arch", [GRANITE, "deepseek-moe-16b",
+                                  "mamba2-1.3b"])
+def test_shard_then_unshard_gives_the_leaf(arch, mesh):
+    m = MOCKS[mesh]
+    params = _ref_params(arch)
+    specs = param_specs(TC.get_config(arch).reduced(), m, params)
+    for leaf, sp in zip(tree_leaves(params), spec_leaves(specs)):
+        parts = {}
+        for pos in mesh_positions(m):
+            part = shard_leaf(leaf, sp, m, pos)
+            for d, (n, e) in enumerate(zip(leaf.shape, sp)):
+                k = int(np.prod([m.shape[a] for a in
+                                 ((e,) if isinstance(e, str) else e or ())]))
+                assert part.shape[d] * k == n
+            parts[tuple(pos[a] for a in m.axis_names)] = part
+        assert np.array_equal(unshard_leaf(parts, sp, m), leaf)
+        t = torch.from_numpy(leaf.copy())
+        tparts = {c: torch.from_numpy(p.copy()) for c, p in parts.items()}
+        assert torch.equal(unshard_leaf(tparts, sp, m), t)
+        assert torch.equal(shard_leaf(t, sp, m, mesh_positions(m)[-1]),
+                           tparts[tuple(mesh_positions(m)[-1][a]
+                                        for a in m.axis_names)])
+
+
+def test_a_group_splits_a_dim_row_major():
+    m = MOCKS["pod"]
+    sp = (("pod", "data"), "model")
+    assert [mesh_coords(m, r) for r in (0, 5)] == [
+        {"pod": 0, "data": 0, "model": 0}, {"pod": 1, "data": 0, "model": 1}]
+    leaf = np.arange(8 * 4).reshape(8, 4)
+    for pos in mesh_positions(m):
+        i = pos["pod"] * 2 + pos["data"]
+        sl = shard_slices(leaf.shape, sp, m, pos)
+        assert sl == (slice(2 * i, 2 * i + 2),
+                      slice(2 * pos["model"], 2 * pos["model"] + 2))
+
+
+def test_uneven_splits_and_differing_replicas_are_refused():
+    m = MOCKS["2x2"]
+    with pytest.raises(ValueError, match="does not split"):
+        shard_leaf(np.zeros((3, 4)), ("data", None), m,
+                   {"data": 0, "model": 0})
+    parts = {(d, t): np.full((1, 2), float(t)) for d in range(2)
+             for t in range(2)}
+    with pytest.raises(ValueError, match="replicas"):
+        unshard_leaf(parts, ("data", None), m)
+
+
+def test_shard_batch_gives_each_data_position_its_rows():
+    cfg = TC.get_config(GRANITE).reduced()
+    m = MOCKS["2x2"]
+    batch = {"tokens": np.arange(4 * 3).reshape(4, 3),
+             "labels": -np.arange(4 * 3).reshape(4, 3)}
+    for pos in mesh_positions(m):
+        got = shard_batch(batch, cfg, m, pos)
+        rows = slice(2 * pos["data"], 2 * pos["data"] + 2)
+        for k in batch:
+            assert np.array_equal(got[k], batch[k][rows])
+    with pytest.raises(ValueError, match="does not split"):
+        shard_batch({k: v[:1] for k, v in batch.items()}, cfg, m,
+                    mesh_positions(m)[0])
+
+
+def test_without_a_process_group_specs_are_refused():
+    cfg = TC.get_config(GRANITE).reduced()
+    with pytest.raises(NotImplementedError, match="mesh of processes"):
+        make_train_step(cfg, RANKS._train_config(FP32), grad_specs={},
+                        mesh=Mesh(("data", "model"), (1, 1)))
+
+
+# ------------------------- the ranks' runs (fixtures) -----------------------
+
+def _batches(cfg, n=3, gb=4, seq=32, seed=0):
+    pipe = RPipeline(RDataConfig(vocab=cfg.vocab, seq_len=seq,
+                                 global_batch=gb, seed=seed))
+    return [pipe.batch_at(s) for s in range(n)]
+
+
+def _masked(batches):
+    """Every label of rows 0-1 (data position 0 on a (2, 2) mesh) masked,
+    and a few elsewhere."""
+    out = []
+    for b in batches:
+        b = {k: v.copy() for k, v in b.items()}
+        b["labels"][:2] = -1
+        b["labels"][3, :5] = -1
+        out.append(b)
+    return out
+
+
+@pytest.fixture(scope="module")
+def granite():
+    return _ref_params(GRANITE)
+
+
+def _steps(arch, params, batches, tc=FP32, **kw):
+    return dict(kind="steps", arch=arch, params=params, batches=batches,
+                tc=tc, **kw)
+
+
+def _compress_case(granite):
+    rng = np.random.default_rng(5)
+    grads = jax.tree.map(
+        lambda a: rng.standard_normal(a.shape).astype(np.float32), granite)
+    err = jax.tree.map(
+        lambda a: 1e-3 * rng.standard_normal(a.shape).astype(np.float32),
+        granite)
+    return dict(kind="compress", arch=GRANITE, grads=grads, err=err,
+                compression=dict(enabled=True))
+
+
+CASES_2X2 = ["fp32", "accum", "compress_step", "bf16", "moe", "mamba",
+             "masked", "compress", "knobs"]
+
+
+@pytest.fixture(scope="module")
+def cases_2x2(granite, tmp_path_factory):
+    cfg = RC.get_config(GRANITE).reduced()
+    work = tmp_path_factory.mktemp("r2x2")
+    b = _batches(cfg)
+    cases = {
+        "fp32": _steps(GRANITE, granite, b, ckpt=str(work / "ckpt")),
+        "accum": _steps(GRANITE, granite, b,
+                        dict(FP32, grad_accum=2)),
+        "compress_step": _steps(GRANITE, granite, b,
+                                dict(FP32, compression=dict(enabled=True))),
+        "bf16": _steps(GRANITE, granite, b,
+                       dict(FP32, cast_params_bf16=True)),
+        "moe": _steps("deepseek-moe-16b", _ref_params("deepseek-moe-16b"), b),
+        "mamba": _steps("mamba2-1.3b", _ref_params("mamba2-1.3b"), b),
+        "masked": _steps(GRANITE, granite, _masked(b)),
+        "compress": _compress_case(granite),
+        "knobs": dict(kind="knobs", arch=GRANITE, params=granite,
+                      batches=b[:1]),
+    }
+    res = RANKS.run({"mesh": MESHES["2x2"],
+                     "cases": [cases[k] for k in CASES_2X2]}, 4, work)
+    return {"cases": cases, "ranks": res, "mesh": MESHES["2x2"],
+            "ckpt": work / "ckpt"}
+
+
+@pytest.fixture(scope="module")
+def ref_ckpt(granite, tmp_path_factory):
+    """The reference's CheckpointManager's save of a one-device state
+    after three steps (the reference's own step), and that state."""
+    rcfg = RC.get_config(GRANITE).reduced()
+    rtc = RSTEP.TrainConfig(opt=ROPT.AdamWConfig(**OPT),
+                            compute_dtype="float32")
+    st = RSTEP.init_state(rcfg, rtc, jax.tree.map(jnp.asarray, granite))
+    step = jax.jit(RSTEP.make_train_step(rcfg, rtc))
+    for b in _batches(rcfg):
+        st, _ = step(st, b)
+    d = tmp_path_factory.mktemp("refckpt")
+    RefManager(str(d)).save(2, st, blocking=True)
+    return d, jax.tree.map(np.asarray, st)
+
+
+def _run_one(name, granite, tmp_path_factory, extra=()):
+    cfg = RC.get_config(GRANITE).reduced()
+    mesh = MESHES[name]
+    res = RANKS.run({"mesh": mesh, "cases": [
+        _steps(GRANITE, granite, _batches(cfg)), *extra]},
+        _mesh(mesh).size, tmp_path_factory.mktemp("r" + name))
+    return {"ranks": res, "mesh": mesh}
+
+
+@pytest.fixture(scope="module")
+def runs(granite, cases_2x2, ref_ckpt, tmp_path_factory):
+    restore = [dict(kind="restore", arch=GRANITE, params=granite, tc=FP32,
+                    ckpt=str(d), step=2)
+               for d in (cases_2x2["ckpt"], ref_ckpt[0])]
+    return {"2x2": {"ranks": [{"coords": r["coords"],
+                               "cases": r["cases"][:1]}
+                              for r in cases_2x2["ranks"]],
+                    "mesh": MESHES["2x2"]},
+            "4x1": _run_one("4x1", granite, tmp_path_factory, restore),
+            "1x4": _run_one("1x4", granite, tmp_path_factory),
+            "2x1x2": _run_one("2x1x2", granite, tmp_path_factory)}
+
+
+# ------------------------------ comparisons ---------------------------------
+
+def _mesh(sizes: dict) -> Mesh:
+    axes = tuple(a for a in ("pod", "data", "model") if a in sizes)
+    return Mesh(axes, tuple(sizes[a] for a in axes))
+
+
+def _whole(run, i, part, params):
+    """Case i's ``part`` tree (e.g. the state's params) of every rank put
+    back together, laid out by the parameter specs (of the whole
+    ``params``) on the run's mesh."""
+    m = _mesh(run["mesh"])
+    ranks = run["ranks"]
+    coords = [tuple(r["coords"][a] for a in m.axis_names) for r in ranks]
+    trees = [r["cases"][i] for r in ranks]
+    for key in part:
+        trees = [t[key] for t in trees]
+    specs = param_specs(TC.get_config(run.get("arch", GRANITE)).reduced(),
+                        m, params)
+    return map_specs(lambda sp, *parts: unshard_leaf(
+        dict(zip(coords, parts)), sp, m), specs, *trees)
+
+
+def _one_device(arch, params, batches, tc=FP32):
+    """The port's one-device step: (metrics, first gradients, state).
+    The step updates its state in place: it runs on a copy of
+    ``params``."""
+    params = jax.tree.map(np.array, params)
+    cfg = TC.get_config(arch).reduced()
+    tcfg = RANKS._train_config(tc)
+    p = params_from_numpy(params, CPU)
+    (_, _), grads = make_grad_fn(cfg, tcfg)(p, {
+        k: torch.from_numpy(v) for k, v in batches[0].items()})
+    state = init_state(cfg, tcfg, params_from_numpy(params, CPU))
+    step = make_train_step(cfg, tcfg)
+    mets = []
+    for b in batches:
+        state, met = step(state, b)
+        mets.append({k: float(v) for k, v in met.items()})
+    return mets, grads, state
+
+
+@pytest.fixture(scope="module")
+def one_device(granite):
+    cfg = TC.get_config(GRANITE).reduced()
+    return _one_device(GRANITE, granite, _batches(cfg))
+
+
+@pytest.fixture(scope="module")
+def reference(granite):
+    """The reference's mesh-less jitted step: metrics and final state."""
+    rcfg = RC.get_config(GRANITE).reduced()
+    rtc = RSTEP.TrainConfig(opt=ROPT.AdamWConfig(**OPT),
+                            compute_dtype="float32")
+    st = RSTEP.init_state(rcfg, rtc, jax.tree.map(jnp.asarray, granite))
+    step = jax.jit(RSTEP.make_train_step(rcfg, rtc))
+    mets = []
+    for b in _batches(rcfg):
+        st, m = step(st, b)
+        mets.append({k: float(v) for k, v in m.items()})
+    return mets, jax.tree.map(np.asarray, st)
+
+
+def _close_metrics(got, want, keys=("loss", "grad_norm"), rel=1e-5):
+    assert len(got) == len(want)
+    for s, (g, w) in enumerate(zip(got, want)):
+        for k in keys:
+            assert abs(g[k] - w[k]) <= rel * abs(w[k]), (s, k, g[k], w[k])
+
+
+def _close_trees(got, want, rel=2e-4, atol=1e-6):
+    g, w = tree_leaves(got), tree_leaves(want)
+    assert len(g) == len(w)
+    for i, (a, b) in enumerate(zip(g, w)):
+        a = np.asarray(a, np.float64)
+        b = np.asarray(b.detach().numpy() if torch.is_tensor(b) else b,
+                       np.float64)
+        assert a.shape == b.shape and np.isfinite(a).all()
+        tol = rel * np.abs(b).max() + atol
+        assert np.abs(a - b).max() <= tol, (i, np.abs(a - b).max(), tol)
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_sharded_steps_match_one_device_and_reference(mesh, runs, granite,
+                                                      one_device, reference):
+    run = runs[mesh]
+    got = run["ranks"][0]["cases"][0]
+    mets, grads, state = one_device
+    # every rank reports the global metrics
+    for r in run["ranks"]:
+        assert r["cases"][0]["metrics"] == got["metrics"]
+    _close_metrics(got["metrics"], mets)
+    _close_metrics(got["metrics"], reference[0])
+    for k in ("lr",):
+        assert [m[k] for m in got["metrics"]] == [m[k] for m in mets]
+    _close_trees(_whole(run, 0, ("grads",), granite), grads)
+    params = _whole(run, 0, ("state", "params"), granite)
+    _close_trees(params, state["params"])
+    _close_trees(params, reference[1]["params"])
+    for name in ("m", "v"):
+        _close_trees(_whole(run, 0, ("state", "opt", name), granite),
+                     state["opt"][name])
+    assert all(int(r["cases"][0]["state"]["opt"]["count"]) == 3
+               for r in run["ranks"])
+
+
+def _case(cases_2x2, name):
+    i = CASES_2X2.index(name)
+    run = {"ranks": cases_2x2["ranks"], "mesh": cases_2x2["mesh"],
+           "arch": cases_2x2["cases"][name]["arch"]}
+    return run, i, cases_2x2["cases"][name]
+
+
+@pytest.mark.parametrize("name", ["accum", "moe", "mamba", "masked"])
+def test_sharded_step_cases_match_one_device(name, cases_2x2):
+    """grad_accum 2 (each rank splits its rows), one MoE and one Mamba
+    architecture (the aux loss over the global batch; expert tables and
+    projections gathered over ``model``), and a mask that empties data
+    position 0's rows (the global masked mean)."""
+    run, i, case = _case(cases_2x2, name)
+    mets, _, state = _one_device(case["arch"], case["params"],
+                                 case["batches"], case["tc"])
+    got = run["ranks"][0]["cases"][i]
+    _close_metrics(got["metrics"], mets)
+    if name in ("moe",):
+        _close_metrics(got["metrics"], mets, keys=("aux", "ce", "z"))
+    _close_trees(_whole(run, i, ("state", "params"), case["params"]),
+                 state["params"])
+    if name == "masked":
+        assert all(b["labels"][:2].max() < 0 for b in case["batches"])
+
+
+def test_sharded_compression_is_the_one_device_quantisation(cases_2x2):
+    """The same gradients and residuals quantised on (2, 2) slices and on
+    whole leaves: bit for bit (the chunks of the whole leaf flattened, a
+    slice cut along non-leading dims holding pieces of many)."""
+    run, i, case = _case(cases_2x2, "compress")
+    want_deq, want_err = compress_decompress(
+        CompressionConfig(enabled=True), params_from_numpy(case["grads"],
+                                                           CPU),
+        params_from_numpy(case["err"], CPU))
+    for part, want in (("deq", want_deq), ("err", want_err)):
+        got = _whole(run, i, (part,), case["grads"])
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            assert np.array_equal(a, b.numpy())
+
+
+def test_sharded_compression_step(cases_2x2):
+    run, i, case = _case(cases_2x2, "compress_step")
+    mets, _, state = _one_device(GRANITE, case["params"], case["batches"],
+                                 case["tc"])
+    _close_metrics(run["ranks"][0]["cases"][i]["metrics"], mets)
+    for name in ("m", "v"):
+        _close_trees(_whole(run, i, ("state", "opt", name), case["params"]),
+                     state["opt"][name], rel=2e-2, atol=1e-9)
+    g = tree_leaves(_whole(run, i, ("state", "err"), case["params"]))
+    for a, b in zip(g, tree_leaves(state["err"])):
+        b = b.numpy()
+        assert np.abs(a - b).max() <= 2.01 * np.abs(b).max() + 1e-12
+
+
+def test_sharded_cast_params_bf16(cases_2x2):
+    """The float32 slices cast to bfloat16 before the gather: the state
+    stays float32 and the step is the one device's."""
+    run, i, case = _case(cases_2x2, "bf16")
+    mets, _, state = _one_device(GRANITE, case["params"], case["batches"],
+                                 case["tc"])
+    _close_metrics(run["ranks"][0]["cases"][i]["metrics"], mets, rel=1e-3)
+    got = _whole(run, i, ("state", "params"), case["params"])
+    for a, b in zip(tree_leaves(got), tree_leaves(state["params"])):
+        assert a.dtype == np.float32
+        assert np.abs(a - b.numpy()).max() <= 2 * LR * 3
+
+
+def test_sharded_loss_takes_act_dp_and_refuses_the_rest(cases_2x2):
+    """On a sharded step ``act_dp`` naming the data axes gives the loss
+    without it; ``act_dp`` naming ``model``, ``seq_shard`` and ``unroll``
+    raise ``NotImplementedError``."""
+    run, i, _ = _case(cases_2x2, "knobs")
+    for r in run["ranks"]:
+        assert r["cases"][i] == {"act_dp_equal": True,
+                                 "raised": ["act_dp_model", "seq_shard",
+                                            "unroll"]}
+
+
+# ------------------------------- checkpoints --------------------------------
+
+def test_a_2x2_checkpoint_restores_on_one_device_and_in_the_reference(
+        cases_2x2, granite):
+    """The (2, 2) ranks' save is whole leaves in the reference's layout:
+    the port's one-device manager and the reference's restore it, bit for
+    bit the ranks' slices put together."""
+    run = {"ranks": cases_2x2["ranks"], "mesh": MESHES["2x2"]}
+    want = _whole(run, 0, ("state", "params"), granite)
+    d = cases_2x2["ckpt"]
+    mgr = CheckpointManager(str(d))
+    assert mgr.latest_step() == 2
+    tcfg = TC.get_config(GRANITE).reduced()
+    like = init_state(tcfg, RANKS._train_config(FP32),
+                      params_from_numpy(granite, CPU))
+    got = mgr.restore(2, like)
+    for a, b in zip(tree_leaves(got["params"]), tree_leaves(want)):
+        assert np.array_equal(a.numpy(), b)
+    assert int(got["opt"]["count"]) == 3
+    ref = RefManager(str(d)).restore(2, jax.tree.map(jnp.asarray, {
+        "params": granite, "opt": {"m": granite, "v": granite,
+                                   "count": np.int32(0)}}))
+    for a, b in zip(jax.tree.leaves(ref["params"]), tree_leaves(want)):
+        assert np.array_equal(np.asarray(a), b)
+
+
+@pytest.mark.parametrize("which", [1, 2])
+def test_checkpoints_restore_across_meshes(runs, cases_2x2, ref_ckpt, which,
+                                           granite):
+    """(4, 1) ranks restore, each its slices: the (2, 2) ranks' save
+    (case 1) and the reference's (case 2), bit for bit."""
+    if which == 1:
+        want = _whole({"ranks": cases_2x2["ranks"], "mesh": MESHES["2x2"]},
+                      0, ("state", "params"), granite)
+    else:
+        want = ref_ckpt[1]["params"]
+    run = runs["4x1"]
+    got = _whole(run, which, ("state", "params"), granite)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert np.array_equal(a, np.asarray(b))
+    assert all(r["cases"][which]["latest"] == 2 for r in run["ranks"])
+
+
+# ------------------------------ the driver ----------------------------------
+
+def test_sharded_driver_meets_the_restart_contract(tmp_path):
+    """``python -m repro_torch.launch.train`` under torchrun on a (2, 1)
+    mesh of CPU processes with a failure injected at step 5: the
+    contract of the reference's driver tests, and the final loss of a
+    one-device driver's run."""
+    args = ["--arch", GRANITE, "--reduced", "--steps", "8", "--batch", "2",
+            "--seq", "32", "--ckpt_every", "3", "--fail_at_step", "5",
+            "--log_every", "100", "--device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train", *args,
+         "--data_mesh", "2", "--ckpt_dir", str(tmp_path / "sharded")],
+        capture_output=True, text=True, timeout=240, env=env, cwd=tmp_path)
+    assert proc.returncode == 0, (proc.stdout + proc.stderr)[-4000:]
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    assert len(lines) == 1                      # rank 0 alone prints
+    out = ast.literal_eval(lines[0])
+    assert out["restarts"] == 1
+    assert out["n_steps_run"] >= 8
+    assert np.isfinite(out["final_loss"])
+    one = TrainDriver(DriverConfig(
+        arch=GRANITE, reduced=True, steps=8, batch=2, seq=32, ckpt_every=3,
+        log_every=100, device="cpu", ckpt_dir=str(tmp_path / "one"))).run()
+    assert abs(out["final_loss"] - one["final_loss"]) \
+        <= 1e-5 * abs(one["final_loss"])
+    assert (tmp_path / "sharded" / "step_00000007" / "COMMITTED").exists()

@@ -12,8 +12,10 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # A child that starts two grandchildren and ends at once: one in its own
 # session (the child's process group is killed without it) and one that
-# stays in the group. The smoke's helpers run in a process of their own,
-# so that the test process does not become a subreaper.
+# stays in the group. The child waits (bounded) until the first has left
+# its session, so that the group kill cannot take it first on a loaded
+# machine. The smoke's helpers run in a process of their own, so that the
+# test process does not become a subreaper.
 DRIVER = r"""
 import importlib.util, json, os, sys, time
 from pathlib import Path
@@ -21,10 +23,13 @@ spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
 cs.become_subreaper()
-code = ("import subprocess, sys; "
+code = ("import os, subprocess, sys, time; "
         "a = subprocess.Popen([sys.executable, '-c', "
         "'import os, time; os.setsid(); time.sleep(120)']); "
         "b = subprocess.Popen(['sleep', '121']); "
+        "end = time.monotonic() + 30\n"
+        "while os.getsid(a.pid) == os.getsid(0) and time.monotonic() < end:"
+        " time.sleep(0.01)\n"
         "print('pids', a.pid, b.pid, flush=True)")
 out = cs.wait_children({"c": cs.start_child(
     ["-c", code], Path(sys.argv[2]))}, 60)["c"]
