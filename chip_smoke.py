@@ -5,6 +5,7 @@
     python3 chip_smoke.py --bits-probe      # repeated calls' bits only
     python3 chip_smoke.py --fused-split     # what K6 / K11's flush costs
     python3 chip_smoke.py --sharded-only    # phase 16 alone, every card
+    python3 chip_smoke.py --sharded-only 2x2    # ... on these meshes only
 
 Drives the port's paths at realistic sizes and holds every CUDA kernel
 they run (K1-K11 and the sharded plans' ordered combine) against its plain
@@ -233,17 +234,21 @@ Phases, each printing its seconds:
    ``grad_specs`` on a mesh of processes; no kernel of its own): torchrun
    starts this script's ``--sharded-worker`` mode, one process a card,
    NCCL, on a mesh of every visible card ((1, 1) on one card; (n, 1) and,
-   for n >= 4, (n / 2, 2) on n): (a) granite-3-2b at full width, depth
-   2, fp32, batch 8 x 128: the sharded step's first gradients and three
-   steps against the one-device step on the same weights and batches,
-   within phase 14 (a)'s limits (a ``sharded_check {...}`` line); (b)
-   granite-3-2b at its full 40 layers, bf16, remat, 4 x 512 tokens a
-   data position: the unsharded step on 4 x 512 and the sharded step in
-   one process, each with a warm-up, 3
+   for n >= 4, (n / 2, 2) and (1, n) on n): (a) granite-3-2b,
+   granite-moe-3b-a800m (its 40 experts split over ``model``, a tied
+   vocabulary) and mamba2-1.3b (its 64 SSD heads split, an untied head)
+   at full width, depth 2, fp32, batch 8 x 128: the sharded step's first
+   gradients and three steps against the one-device step on the same
+   weights and batches, within phase 14 (a)'s limits (a ``sharded_check
+   {...}`` line each, with the layout's splits); (b) granite-3-2b at its
+   full 40 layers (and on (n / 2, 2) and (1, n) the other two at their
+   full 32 and 48), bf16, remat, 4 x 512 tokens a data position: for
+   granite the unsharded step on 4 x 512 and the sharded step in one
+   process, each with a warm-up, 3
    timed steps split at the optimizer and one under ``torch.profiler``
    (the card's busy time, its idle share of the step, host time,
    collectives), each rank's peak memory and state bytes, beside phase
-   14 (b)'s unsharded step (a ``sharded_step {...}`` line);
+   14 (b)'s unsharded step (a ``sharded_step {...}`` line each);
    (c) ``python -m repro_torch.launch.train`` under torchrun on (n, 1),
    reduced, with a failure injected, beside the first (a) (the first
    (b) waits for it to end): one restart, a finite loss (a
@@ -270,8 +275,9 @@ and plans whose bits differ from the first call's, and ``--fused-split``
 times the fused seg steps (K6, K11) against their unfused kernels and
 with their flush cut down (``fused_split {...}`` lines);
 ``--sharded-only`` runs phase 16 alone (on every visible card: the
-multi-card meshes' check), and ``--sharded-worker OUT DATA MODEL GATE``
-is one rank of it. The script
+multi-card meshes' check; ``DATAxMODEL`` arguments keep those meshes
+only), and ``--sharded-worker OUT DATA MODEL GATE ARCHS`` is one rank
+of it. The script
 exits non-zero, printing no result, without a GPU or outside a checkout
 of the repository. It imports neither jax nor ``repro``.
 """
@@ -4340,6 +4346,13 @@ SHARDED_TIMEOUT_S = 420
 SHARDED_CHECK_BATCH = (8, 128)
 SHARDED_CHECK_STEPS = 3
 SHARDED_FULL_SEQ = 512
+# (a) checks granite's dense blocks and the model splits of MoE experts
+# (40 a layer, top 8, a tied vocabulary) and Mamba heads (64, an untied
+# head); (b) runs granite on every mesh, the other two at full depth on
+# the four-card meshes of ``--sharded-only``
+GMOE = "granite-moe-3b-a800m"
+SHARDED_CHECK_ARCHS = (GRANITE, GMOE, MAMBA)
+SHARDED_SPLIT_ARCHS = (GMOE, MAMBA)
 
 
 def card_line() -> str:
@@ -4351,11 +4364,17 @@ def card_line() -> str:
 
 
 def sharded_meshes(n: int) -> list:
-    """(data, model) meshes of every visible card: (1, 1) on one card;
-    (n, 1) and, for n >= 4, (n / 2, 2) on n."""
+    """``((data, model), archs)``: the meshes of every visible card and
+    the architectures (b) runs on each: (1, 1) on one card, granite;
+    (n, 1) and, for n >= 4, (n / 2, 2) on n, granite, and on (n / 2, 2)
+    and (1, n) the two model splits too."""
     if n == 1:
-        return [(1, 1)]
-    return [(n, 1)] + ([(n // 2, 2)] if n >= 4 else [])
+        return [((1, 1), (GRANITE,))]
+    if n < 4:
+        return [((n, 1), (GRANITE,))]
+    return [((n, 1), (GRANITE,)),
+            ((n // 2, 2), (GRANITE,) + SHARDED_SPLIT_ARCHS),
+            ((1, n), SHARDED_SPLIT_ARCHS)]
 
 
 def state_slices(mesh, specs, full: dict) -> dict:
@@ -4372,8 +4391,8 @@ def on(dev, batch: dict) -> dict:
             for k, v in batch.items()}
 
 
-def sharded_check(mesh) -> dict:
-    """(a) granite-3-2b at full width, depth 2, fp32, batch 8 x 128: the
+def sharded_check(mesh, arch: str = GRANITE) -> dict:
+    """(a) ``arch`` at full width, depth 2, fp32, batch 8 x 128: the
     sharded step's first gradients and three steps (loss, grad_norm, the
     parameters after AdamW, gathered whole) against the one-device step
     on the same weights and global batches, within phase 14 (a)'s
@@ -4387,7 +4406,7 @@ def sharded_check(mesh) -> dict:
     from repro_torch.train.optimizer import AdamWConfig, _map, tree_leaves
     from repro_torch.train.step import (TrainConfig, init_state,
                                         make_grad_fn, make_train_step)
-    cfg = llm_cfg(GRANITE, n_layers=2)
+    cfg = llm_cfg(arch, n_layers=2)
     dev, coords = mesh.device, mesh.coords
     opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     tc = TrainConfig(opt=opt, compute_dtype="float32", remat=True)
@@ -4401,7 +4420,8 @@ def sharded_check(mesh) -> dict:
     local = _map(torch.clone, state_slices(mesh, specs, full))
     t0 = time.perf_counter()
     (l1, _), g1 = make_grad_fn(cfg, tc)(full, on(dev, batches[0]))
-    (ln, _), gn = make_grad_fn(cfg, tc, Layout(cfg, mesh, specs))(
+    layout = Layout(cfg, mesh, specs)
+    (ln, _), gn = make_grad_fn(cfg, tc, layout)(
         local, on(dev, shard_batch(batches[0], cfg, mesh, coords)))
     scale = max(float(g.abs().max()) for g in tree_leaves(g1))
     grads_err = max(float((gather_leaf(a, sp, mesh) - b).abs().max())
@@ -4424,10 +4444,15 @@ def sharded_check(mesh) -> dict:
                                           tree_leaves(one["params"]),
                                           spec_leaves(specs))])
     lr = float(opt.lr)
-    out = {"arch": GRANITE, "n_layers": cfg.n_layers, "batch": [B, S],
+    out = {"arch": arch, "n_layers": cfg.n_layers, "batch": [B, S],
+           # the layout's tensor-parallel flags (None where an older
+           # package, timed with this script, has no such flag)
+           "splits": {k: getattr(layout, f"{k}_tp", None)
+                      for k in ("attn", "mlp", "moe", "ssm", "vocab")},
            "mesh": list(mesh.sizes), "backend": dist.get_backend(),
            "steps": len(batches), "seconds": time.perf_counter() - t0,
            "losses": [st["loss"][0] for st in steps],
+           "grad_norms": [st["grad_norm"] for st in steps],
            "loss_rel_err": max(abs(a - b) / abs(b) for a, b in
                                (st["loss"] for st in steps)),
            "grad_norm_rel_err": max(abs(a - b) / abs(b) for a, b in
@@ -4443,15 +4468,19 @@ def sharded_check(mesh) -> dict:
                        params_max=2 * lr * len(batches),
                        params_close=PARAMS_CLOSE,
                        params_share=PARAMS_SHARE)}
-    for k, key in (("loss", "loss_rel_err"),
-                   ("grad_norm", "grad_norm_rel_err"),
-                   ("grads", "grads_rel_err"),
-                   ("params_max", "params_max_abs_err")):
-        require(out[key] <= out["tol"][k],
-                f"sharded_check {key} {out[key]:.3e} > {out['tol'][k]:.3e}")
-    require(out["params_share_within"] >= PARAMS_SHARE,
-            f"sharded_check: {out['params_share_within']:.5f} of the "
-            f"parameters within {PARAMS_CLOSE}")
+    bad = [f"{key} {out[key]:.3e} > {out['tol'][k]:.3e}"
+           for k, key in (("loss", "loss_rel_err"),
+                          ("grad_norm", "grad_norm_rel_err"),
+                          ("grads", "grads_rel_err"),
+                          ("params_max", "params_max_abs_err"))
+           if not out[key] <= out["tol"][k]]
+    if out["params_share_within"] < PARAMS_SHARE:
+        bad.append(f"{out['params_share_within']:.5f} of the parameters "
+                   f"within {PARAMS_CLOSE}")
+    if bad:
+        print("sharded_check " + json.dumps(out), flush=True)
+    require(not bad, f"sharded_check {arch} on {list(mesh.sizes)}: "
+            + "; ".join(bad))
     del one, shd, full, local, perr
     torch.cuda.empty_cache()
     return out
@@ -4511,13 +4540,13 @@ def full_step_line(step, state, batches) -> tuple:
                    "losses": [float(met["loss"])] + losses, **prof}
 
 
-def sharded_full(mesh) -> dict:
-    """(b) granite-3-2b at full width and depth, bf16 compute, remat,
-    4 x 512 tokens a data position (the global batch 4 x 512 on one
-    card): in this process the unsharded step on 4 rows (phase 14 (b)'s
-    batch), then the sharded step on this rank's rows of the global
-    batch, each with a warm-up, 3 timed steps (CUDA events) and one
-    under the profiler; each rank's peak memory and state bytes (the
+def sharded_full(mesh, arch: str = GRANITE) -> dict:
+    """(b) ``arch`` at full width and depth, bf16 compute, remat, 4 x 512
+    tokens a data position (the global batch 4 x 512 on one card): for
+    granite, in this process the unsharded step on 4 rows (phase 14
+    (b)'s batch) first; then the sharded step on this rank's rows of the
+    global batch, each with a warm-up, 3 timed steps (CUDA events) and
+    one under the profiler; each rank's peak memory and state bytes (the
     largest over the ranks)."""
     import torch.distributed as dist
     from repro_torch.data import DataConfig, SyntheticTokenPipeline
@@ -4526,7 +4555,7 @@ def sharded_full(mesh) -> dict:
     from repro_torch.train.optimizer import AdamWConfig, tree_leaves
     from repro_torch.train.step import TrainConfig, init_state, \
         make_train_step
-    cfg = llm_cfg(GRANITE)
+    cfg = llm_cfg(arch)
     dev, coords = mesh.device, mesh.coords
     n_dp = int(np.prod([mesh.shape[a] for a in dp_axes(mesh)]))
     B, S = 4 * n_dp, SHARDED_FULL_SEQ
@@ -4536,19 +4565,21 @@ def sharded_full(mesh) -> dict:
     pipe = SyntheticTokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=S,
                                              global_batch=B, seed=0))
     glob = [pipe.batch_at(s) for s in range(5)]
-    out = {"arch": GRANITE, "n_layers": cfg.n_layers,
+    out = {"arch": arch, "n_layers": cfg.n_layers,
            "params": cfg.n_params(), "batch": [B, S],
            "mesh": list(mesh.sizes), "compute_dtype": "bfloat16",
            "remat": True}
-    torch.cuda.reset_peak_memory_stats()
-    state = init_state(cfg, tc, init_params(cfg, 0, dev))
-    state, one = full_step_line(make_train_step(cfg, tc), state,
-                                [on(dev, {k: v[:4] for k, v in b.items()})
-                                 for b in glob])
-    one["tokens_per_s"] = 4 * S / (one["step_ms"] / 1e3)
-    one["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    del state
-    torch.cuda.empty_cache()
+    one = None
+    if arch == GRANITE:
+        torch.cuda.reset_peak_memory_stats()
+        state = init_state(cfg, tc, init_params(cfg, 0, dev))
+        state, one = full_step_line(
+            make_train_step(cfg, tc), state,
+            [on(dev, {k: v[:4] for k, v in b.items()}) for b in glob])
+        one["tokens_per_s"] = 4 * S / (one["step_ms"] / 1e3)
+        one["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del state
+        torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     full = init_params(cfg, 0, dev)
     specs = param_specs(cfg, mesh, full)
@@ -4569,7 +4600,7 @@ def sharded_full(mesh) -> dict:
                peak_memory_gb=float(peak[0]) / 1e9,
                state_bytes_per_rank=int(peak[1]),
                unsharded_same_process=one)
-    require(all(np.isfinite(shd["losses"] + one["losses"])),
+    require(all(np.isfinite(shd["losses"] + (one or shd)["losses"])),
             "sharded_step: a non-finite loss")
     del state, params
     torch.cuda.empty_cache()
@@ -4585,22 +4616,25 @@ def wait_for_file(path: Path, timeout: float) -> None:
 
 def sharded_worker(argv: list) -> int:
     """One rank of phase 16 (started by torchrun): ``OUT DATA MODEL
-    GATE``; (a), then, once the file ``GATE`` exists (the parent makes it
-    when (c), which shares the card, has ended), (b); rank 0 writes the
-    results to ``OUT`` as JSON."""
+    GATE ARCHS``; (a) for every architecture of ``SHARDED_CHECK_ARCHS``,
+    then, once the file ``GATE`` exists (the parent makes it when (c),
+    which shares the card, has ended), (b) for each of ``ARCHS`` (comma
+    separated); rank 0 writes the results to ``OUT`` as JSON."""
     import os
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_local_mesh
     out, data, model = Path(argv[0]), int(argv[1]), int(argv[2])
+    archs = argv[4].split(",")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
     dist.init_process_group("nccl")
     try:
         mesh = make_local_mesh(data, model)
-        res = {"check": sharded_check(mesh)}
+        res = {"check": [sharded_check(mesh, a)
+                         for a in SHARDED_CHECK_ARCHS]}
         wait_for_file(Path(argv[3]), SHARDED_TIMEOUT_S)
-        res["step"] = sharded_full(mesh)
+        res["step"] = [sharded_full(mesh, a) for a in archs]
         if mesh.rank == 0:
             out.write_text(json.dumps(res))
     finally:
@@ -4641,10 +4675,11 @@ def sharded_cli_result(child: tuple, n: int) -> dict:
     return {"returncode": rc, "seconds": secs, "mesh": [n, 1], **res}
 
 
-def sharded_phase(train) -> None:
+def sharded_phase(train, only=None) -> None:
     """Phase 16: the sharded train step on a mesh of every visible card,
     one process a card (torchrun, NCCL), beside phase 14 (b)'s unsharded
-    step (``train``; None with ``--sharded-only``)."""
+    step (``train``; None with ``--sharded-only``); ``only``: the
+    ``(data, model)`` meshes to run, of ``sharded_meshes``'s."""
     train = train or {"step_ms": None, "peak_memory_gb": None,
                       "step_peak_gb": None}
     done = phase("16 sharded training")
@@ -4656,12 +4691,15 @@ def sharded_phase(train) -> None:
     with tempfile.TemporaryDirectory(dir=scratch) as d:
         work = Path(d)
         cli = start_sharded_cli(work, n)
-        for i, (data, model) in enumerate(sharded_meshes(n)):
+        meshes = [(m, a) for m, a in sharded_meshes(n)
+                  if only is None or m in only]
+        require(meshes, f"no mesh of {only} on {n} cards")
+        for i, ((data, model), archs) in enumerate(meshes):
             out = work / f"sharded_{data}x{model}.json"
             gate = work / f"gate_{data}x{model}"
             child = start_child(torchrun(data * model, [
                 str(ROOT / "chip_smoke.py"), "--sharded-worker", str(out),
-                str(data), str(model), str(gate)]),
+                str(data), str(model), str(gate), ",".join(archs)]),
                 work / f"sharded_{data}x{model}.log")
             if i == 0:                       # (c) beside the first (a)
                 try:
@@ -4676,14 +4714,16 @@ def sharded_phase(train) -> None:
                 print(text[-8000:])
             require(rc == 0, f"sharded training on ({data}, {model}): rc {rc}")
             res = json.loads(out.read_text())
-            print("sharded_check " + json.dumps({**res["check"],
-                                                 "card": card}))
-            print("sharded_step " + json.dumps({
-                **res["step"], "child_s": secs,
-                "phase14_step_ms": train["step_ms"],
-                "phase14_peak_memory_gb": train["peak_memory_gb"],
-                "phase14_step_peak_gb": train["step_peak_gb"],
-                "card": card}))
+            for check in res["check"]:
+                print("sharded_check " + json.dumps({**check,
+                                                     "card": card}))
+            for step in res["step"]:
+                print("sharded_step " + json.dumps({
+                    **step, "child_s": secs,
+                    "phase14_step_ms": train["step_ms"],
+                    "phase14_peak_memory_gb": train["peak_memory_gb"],
+                    "phase14_step_peak_gb": train["step_peak_gb"],
+                    "card": card}))
         print("sharded_cli " + json.dumps({**cli_line, "card": card}))
     done()
 
@@ -4697,14 +4737,18 @@ def main(argv: list) -> int:
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 2
-    if argv[:1] == ["--sharded-worker"] and len(argv) == 5:
+    if argv[:1] == ["--sharded-worker"] and len(argv) == 6:
         sys.path.insert(0, str(ROOT / "src"))
         return sharded_worker(argv[1:])
     kernel_report = argv == ["--kernel-report"]
+    meshes = [tuple(int(n) for n in a.split("x")) for a in argv[1:]
+              if re.fullmatch(r"[0-9]+x[0-9]+", a)]
     if argv and not kernel_report and argv not in (
-            ["--bits-probe"], ["--fused-split"], ["--sharded-only"]):
+            ["--bits-probe"], ["--fused-split"]) and not (
+            argv[0] == "--sharded-only" and len(meshes) == len(argv) - 1):
         print(f"usage: {sys.argv[0]} [--kernel-report | --bits-probe | "
-              "--fused-split | --sharded-only]", file=sys.stderr)
+              "--fused-split | --sharded-only [DATAxMODEL ...]]",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     become_subreaper()
@@ -4732,10 +4776,11 @@ def run(argv: list, kernel_report: bool) -> int:
         device_phase()
         fused_split()
         return 0
-    if argv == ["--sharded-only"]:
+    if argv[:1] == ["--sharded-only"]:
         t_start = time.perf_counter()
         print(card_line())
-        sharded_phase(None)
+        sharded_phase(None, [tuple(int(n) for n in a.split("x"))
+                             for a in argv[1:]] or None)
         finish([], t_start)
         return 0
     from repro_torch.core.matrices import banded_matrix, powerlaw_matrix

@@ -10,11 +10,18 @@ laid out by ``dist.sharding.param_specs``.
   the axes that split the leaf, an all-reduce over those that replicate
   it. Over ``model`` it is the position's own part: the model positions
   that use a gathered leaf all compute the same thing, so their
-  gradients are equal and taking one is exact.
+  gradients are equal and taking one is exact. A leaf that each model
+  position uses in part (``tp_whole``: Mamba's ``in_proj``, whose split
+  over ``model`` does not fall on head boundaries, or a per-head vector)
+  has a partial gradient on each: it is summed over ``model`` too.
 * Megatron's pair for tensor parallelism over ``model``
   (``TensorParallel``): ``enter`` (identity forward, all-reduce
   backward) before the column-parallel products, ``exit`` (all-reduce
-  forward, identity backward) after the row-parallel one.
+  forward, identity backward) after the row-parallel one. ``sum`` is an
+  all-reduce both ways, for a sum that each position then uses on its
+  own part (the gated norm's sum of squares over its heads' channels),
+  and ``vocab_lse`` the log-sum-exp and target logit of logits split
+  over the vocabulary.
 * ``Layout.dp_sum`` sums the loss's parts over the data axes with
   ``exit``'s pair: every position then holds the global loss, whose
   gradient with respect to its own part is the identity.
@@ -77,8 +84,9 @@ def _all_reduce(x: torch.Tensor, group,
 
 class _GatherForUse(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, gathers, sums, part):
+    def forward(ctx, x, mesh, gathers, sums, part, sum_model):
         ctx.mesh, ctx.gathers, ctx.sums, ctx.part = mesh, gathers, sums, part
+        ctx.sum_model = sum_model
         if not gathers:
             return x.view_as(x)
         for dim, axes in gathers:
@@ -90,7 +98,10 @@ class _GatherForUse(torch.autograd.Function):
         mesh, dtype = ctx.mesh, g.dtype
         g = g.float()
         for dim, axes in reversed(ctx.gathers):       # model: own part
-            if axes == (TP_AXIS,):
+            if axes == (TP_AXIS,) and ctx.sum_model:  # ... or summed
+                g = _reduce_scatter(g, dim, mesh.group(axes),
+                                    mesh.shape[TP_AXIS])
+            elif axes == (TP_AXIS,):
                 n = g.shape[dim] // mesh.shape[TP_AXIS]
                 g = g.narrow(dim, ctx.part * n, n)
         for dim, axes in reversed(ctx.gathers):       # data: summed
@@ -99,7 +110,7 @@ class _GatherForUse(torch.autograd.Function):
                                     _size(mesh, axes))
         if ctx.sums:
             g = _all_reduce(g, mesh.group(ctx.sums))
-        return g.to(dtype), None, None, None, None
+        return g.to(dtype), None, None, None, None, None
 
 
 class _Enter(torch.autograd.Function):
@@ -127,20 +138,80 @@ class _Exit(torch.autograd.Function):
         return g, None
 
 
+class _Sum(torch.autograd.Function):
+    """All-reduce forward and backward: a sum of the positions' parts
+    that each position then uses on its own part of the work, so its
+    gradient there is partial too."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _VocabLse(torch.autograd.Function):
+    """Logits split over the vocabulary, ``(..., V / tp)`` on each
+    position, its columns starting at ``start``: the log-sum-exp over the
+    whole vocabulary and the logit of each ``label`` (taken from the
+    position that holds it), the same on every position. The row max is
+    all-reduced (MAX) and held constant, the sum of exponentials and the
+    target logit are summed. Backward, on the position's columns:
+    ``g_lse * softmax + g_ll * one_hot(label)``."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, start, group):
+        n = logits.shape[-1]
+        m = _all_reduce(logits.amax(-1), group, dist.ReduceOp.MAX)
+        se = _all_reduce(torch.exp(logits - m[..., None]).sum(-1), group)
+        lse = m + torch.log(se)
+        local = labels - start
+        mine = (local >= 0) & (local < n)
+        local = torch.where(mine, local, 0)
+        ll = torch.gather(logits, -1, local[..., None])[..., 0]
+        ll = _all_reduce(torch.where(mine, ll, 0.0), group)
+        ctx.save_for_backward(logits, lse, local, mine)
+        return lse, ll
+
+    @staticmethod
+    def backward(ctx, g_lse, g_ll):
+        logits, lse, local, mine = ctx.saved_tensors
+        g = torch.exp(logits - lse[..., None]) * g_lse[..., None]
+        g.scatter_add_(-1, local[..., None],
+                       torch.where(mine, g_ll, 0.0)[..., None])
+        return g, None, None, None
+
+
 class TensorParallel:
     """Megatron's f/g pair over the ``model`` axis of ``mesh``: a
     column-parallel product takes ``enter(x)``, a row-parallel one's
-    partial sums leave through ``exit``."""
+    partial sums leave through ``exit``. ``rank`` is the position's
+    index on ``model``."""
 
     def __init__(self, mesh):
         self.group = mesh.group(TP_AXIS)
         self.size = mesh.shape[TP_AXIS]
+        self.rank = mesh.coords.get(TP_AXIS, 0)
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         return _Enter.apply(x, self.group)
 
     def exit(self, x: torch.Tensor) -> torch.Tensor:
         return _Exit.apply(x, self.group)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over ``model``, its gradient summed too."""
+        return _Sum.apply(x, self.group)
+
+    def vocab_lse(self, logits: torch.Tensor, labels: torch.Tensor):
+        """``(lse, target logit)`` of logits whose last dim is this
+        position's part of the vocabulary (part ``rank`` of ``size``
+        equal parts); ``labels`` index the whole vocabulary."""
+        return _VocabLse.apply(logits, labels,
+                               self.rank * logits.shape[-1], self.group)
 
 
 def gather_leaf(x: torch.Tensor, spec, mesh) -> torch.Tensor:
@@ -165,17 +236,46 @@ class Layout:
     """A parameter tree laid out over a mesh of processes: ``specs`` (from
     ``param_specs`` on the global shapes) and the mesh's groups.
 
-    Attention at a pattern position runs tensor-parallel over ``model``
-    when ``n_kv_heads`` divides by the model size and the specs split
-    ``wq``/``wk``/``wv`` by columns and ``wo`` by rows over ``model``:
-    each position then holds ``n_heads / tp`` whole query heads and their
-    ``n_kv_heads / tp`` kv heads. A dense MLP does when the specs split
-    ``w_up``/``w_gate`` by columns and ``w_down`` by rows (any column
-    split is whole FFN columns). Elsewhere (the split would cut a head,
-    as 2 kv heads on ``model=4``; MoE tables; Mamba projections;
-    embedding and head) a leaf is gathered over ``model`` too and the
-    model positions compute the same thing. A model axis of one is tensor
-    parallel with groups of one."""
+    Each leaf that the specs split over ``model`` is used split, in a
+    tensor-parallel region (``TensorParallel``), where the split keeps
+    whole units of work; the flags below say where, per pattern position,
+    and are decided by the specs. A model axis of one counts as split,
+    with groups of one.
+
+    * ``attn_tp``: attention, when ``n_kv_heads`` divides by the model
+      size and the specs split ``wq``/``wk``/``wv`` by columns and ``wo``
+      by rows: each position holds ``n_heads / tp`` whole query heads and
+      their ``n_kv_heads / tp`` kv heads.
+    * ``mlp_tp``: a dense MLP, when the specs split ``w_up``/``w_gate``
+      by columns and ``w_down`` by rows (any column split is whole FFN
+      columns).
+    * ``moe_tp``: MoE, ``"ep"`` when the specs split the experts
+      (``_MOE_EP``: ``n_experts`` divides): each position runs its
+      ``n_experts / tp`` experts; ``"hidden"`` where the reference falls
+      back to splitting the expert hidden dim (``_MOE_HIDDEN_TP``): each
+      runs every expert on its ``d_expert / tp`` columns. The router runs
+      whole on every position, before the region. The shared experts run
+      column/row-parallel in the same region when the specs split them.
+    * ``ssm_tp``: Mamba, when the head count divides and the specs split
+      ``out_proj`` by rows (which then fall on head boundaries): each
+      position runs ``heads / tp`` SSD heads. ``in_proj`` and ``conv_w``
+      are split over ``model`` in contiguous columns (rows) that do not
+      fall on head boundaries, and B and C are every head's: they are
+      gathered whole and used in part (``tp_whole``), as are the
+      per-head ``A_log``/``dt_bias``/``D`` and the channel vectors
+      ``gate_norm``/``conv_b``; their gradients are summed over
+      ``model``.
+    * ``vocab_tp`` (once): the embedding's rows and the head's columns,
+      when the specs split the padded vocabulary; the loss takes the
+      log-sum-exp over the split.
+
+    Where a split is not possible the position's leaves are gathered
+    whole over ``model`` and the model positions compute the same thing:
+    a head count that does not divide (2 kv heads on ``model=4``: the
+    specs still split ``wq``/``wk``/``wv``'s columns, which GSPMD would
+    partition inside a head; a Mamba head count), or an expert count and
+    an expert hidden dim that do not (the specs replicate the experts
+    then, and the shared experts run outside the region too)."""
 
     def __init__(self, cfg, mesh, specs):
         if not getattr(mesh, "distributed", False):
@@ -186,24 +286,43 @@ class Layout:
         self.dp = dp_axes(mesh)
         self.n_dp = _size(mesh, self.dp)
         self.tp = TensorParallel(mesh)
-        self.attn_tp, self.mlp_tp = [], []
+        self.attn_tp, self.mlp_tp, self.moe_tp, self.ssm_tp = [], [], [], []
         for sp in specs["blocks"]:
+            ffn = sp.get("ffn", {})
             self.attn_tp.append("attn" in sp and self._attn_tp(sp["attn"]))
-            self.mlp_tp.append("ffn" in sp and "router" not in sp["ffn"]
-                               and self._mlp_tp(sp["ffn"]))
+            self.mlp_tp.append(bool(ffn) and "router" not in ffn
+                               and self._mlp_tp(ffn))
+            self.moe_tp.append(self._moe_tp(ffn) if "router" in ffn
+                               else None)
+            self.ssm_tp.append("mamba" in sp and self._ssm_tp(sp["mamba"]))
+        self.vocab_tp = self._split(specs["embed"], 0) and (
+            "lm_head" not in specs or self._split(specs["lm_head"], -1))
+
+    def _split(self, spec, dim: int) -> bool:
+        return self.tp.size == 1 or spec[dim] == TP_AXIS
 
     def _attn_tp(self, sp) -> bool:
-        tp = self.tp.size
-        if self.cfg.n_kv_heads % tp:
+        if self.cfg.n_kv_heads % self.tp.size:
             return False
-        return tp == 1 or (all(sp[k][-1] == TP_AXIS
-                               for k in ("wq", "wk", "wv"))
-                           and sp["wo"][-2] == TP_AXIS)
+        return all(self._split(sp[k], -1) for k in ("wq", "wk", "wv")) \
+            and self._split(sp["wo"], -2)
 
-    def _mlp_tp(self, sp) -> bool:
-        return self.tp.size == 1 or (
-            all(sp[k][-1] == TP_AXIS for k in ("w_up", "w_gate") if k in sp)
-            and sp["w_down"][-2] == TP_AXIS)
+    def _mlp_tp(self, sp, names=("w_up", "w_gate", "w_down")) -> bool:
+        up, down = names[:2], names[2]
+        return all(self._split(sp[k], -1) for k in up if k in sp) \
+            and self._split(sp[down], -2)
+
+    def _moe_tp(self, sp):
+        experts = ("w_up", "w_gate", "w_down")
+        if self.cfg.moe.n_experts % self.tp.size == 0 and all(
+                self._split(sp[k], -3) for k in experts if k in sp):
+            return "ep"
+        return "hidden" if self._mlp_tp(sp) else None
+
+    def _ssm_tp(self, sp) -> bool:
+        s = self.cfg.ssm
+        heads = s.expand * self.cfg.d_model // s.head_dim
+        return heads % self.tp.size == 0 and self._split(sp["out_proj"], -2)
 
     # ------------------------------ use ------------------------------------
 
@@ -212,39 +331,57 @@ class Layout:
         """``x``'s slices gathered for use over every data axis ``spec``
         names and, with ``model``, over ``model`` too (see the module's
         docstring for the backward). ``tp_whole``: a leaf that each model
-        position uses whole on its own heads inside a tensor-parallel
-        region (qk-norm scales): its gradient is summed over ``model``
-        too."""
+        position uses on its own part of the work inside a
+        tensor-parallel region (qk-norm scales on its heads; Mamba's
+        ``in_proj``, of which it takes its heads' columns): its gradient
+        is summed over ``model`` too, by a reduce-scatter where the spec
+        splits it over ``model`` (and ``model`` gathers it)."""
         gathers = tuple((d, spec_axes(e)) for d, e in enumerate(spec)
                         if e is not None and (model or e != TP_AXIS))
         named = spec_axes(spec)
         sums = tuple(a for a in self.mesh.axis_names
                      if a not in named and (a in self.dp or tp_whole))
         return _GatherForUse.apply(x, self.mesh, gathers, sums,
-                                   self.coords.get(TP_AXIS, 0))
+                                   self.coords.get(TP_AXIS, 0),
+                                   model and tp_whole)
 
     def top(self, params: dict) -> dict:
-        """``params`` with every leaf but the blocks gathered for use."""
-        out = {k: map_specs(lambda s, x: self.use(x, s), self.specs[k], v)
+        """``params`` with every leaf but the blocks gathered for use (the
+        embedding and head over the data axes only with ``vocab_tp``)."""
+        split = ("embed", "lm_head") if self.vocab_tp else ()
+        out = {k: map_specs(lambda s, x: self.use(x, s, k not in split),
+                            self.specs[k], v)
                for k, v in params.items() if k != "blocks"}
         out["blocks"] = params["blocks"]
         return out
 
+    def _how(self, i: int, part: str, name: str) -> tuple:
+        """``(model, tp_whole)`` for ``use`` of leaf ``name`` of sub-tree
+        ``part`` at pattern position ``i``."""
+        if part == "attn" and self.attn_tp[i]:
+            return False, name not in TP_SPLIT
+        if part == "ffn" and self.mlp_tp[i]:
+            return False, False
+        if part == "ffn" and self.moe_tp[i]:
+            shared = name.startswith("sh_")
+            if name == "router" or (shared and not self._mlp_tp(
+                    self.specs["blocks"][i]["ffn"],
+                    ("sh_up", "sh_gate", "sh_down"))):
+                return True, False
+            return False, False
+        if part == "mamba" and self.ssm_tp[i]:
+            return name != "out_proj", name != "out_proj"
+        return True, False
+
     def block(self, views: list) -> list:
         """One block's views (a dict a pattern position, leading dim
         dropped) with each leaf gathered for use: over the data axes, and
-        over ``model`` where the position does not run tensor-parallel."""
-        out = []
-        for i, (p, sp) in enumerate(zip(views, self.specs["blocks"])):
-            q = {}
-            for k, v in p.items():
-                keep = (k == "attn" and self.attn_tp[i]) or \
-                    (k == "ffn" and self.mlp_tp[i])
-                q[k] = {name: self.use(x, sp[k][name][1:], not keep,
-                                       keep and name not in TP_SPLIT)
-                        for name, x in v.items()}
-            out.append(q)
-        return out
+        over ``model`` where the position does not use it split."""
+        return [{k: {name: self.use(x, sp[k][name][1:],
+                                    *self._how(i, k, name))
+                     for name, x in v.items()} for k, v in p.items()}
+                for i, (p, sp) in enumerate(zip(views,
+                                                self.specs["blocks"]))]
 
     # ---------------------------- reductions -------------------------------
 

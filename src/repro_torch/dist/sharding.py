@@ -45,7 +45,8 @@ from repro_torch.configs.base import ArchConfig
 __all__ = ["ShardingRules", "dp_axes", "param_specs", "batch_specs",
            "cache_specs", "spec", "spec_axes", "spec_leaves", "map_specs",
            "mesh_coords", "mesh_positions", "shard_slices", "shard_leaf",
-           "unshard_leaf", "shard_batch"]
+           "unshard_leaf", "shard_batch", "expert_range", "head_range",
+           "vocab_range"]
 
 TP_AXIS = "model"
 
@@ -374,3 +375,41 @@ def shard_batch(batch: dict, cfg: ArchConfig, mesh, coords: dict) -> dict:
                          f"over the data axes' {n} positions")
     return {k: v[shard_slices(np.shape(v), specs[k], mesh, coords)]
             for k, v in batch.items()}
+
+
+# --------------------- a model position's part of a layer --------------------
+
+def _model_part(n: int, mesh, coords: dict) -> tuple[int, int]:
+    """``[start, stop)`` of ``n`` items that the position at ``coords``
+    holds when they split over ``model`` (``ShardingRules._entry``'s
+    rule: the model axis has more than one position and divides ``n``),
+    else all ``n``: a model axis of one holds them all."""
+    tp = int(dict(mesh.shape).get(TP_AXIS, 1))
+    if tp == 1 or n % tp:
+        return 0, n
+    i = int(coords.get(TP_AXIS, 0))
+    return i * (n // tp), (i + 1) * (n // tp)
+
+
+def expert_range(cfg: ArchConfig, mesh, coords: dict) -> tuple[int, int]:
+    """The MoE experts the position at ``coords`` runs: its
+    ``n_experts / model`` under expert parallelism (``_MOE_EP``), all of
+    them where the count does not divide and the reference falls back to
+    splitting the expert hidden dim (``_MOE_HIDDEN_TP``)."""
+    return _model_part(cfg.moe.n_experts, mesh, coords)
+
+
+def head_range(cfg: ArchConfig, mesh, coords: dict) -> tuple[int, int]:
+    """The Mamba SSD heads the position at ``coords`` runs: its
+    ``heads / model`` (``out_proj``'s rows over ``model`` then fall on
+    head boundaries), all of them where the head count does not divide."""
+    s = cfg.ssm
+    return _model_part(s.expand * cfg.d_model // s.head_dim, mesh, coords)
+
+
+def vocab_range(cfg: ArchConfig, mesh, coords: dict) -> tuple[int, int]:
+    """The rows of the padded vocabulary (the embedding's rows, the
+    head's columns) that the position at ``coords`` holds: its
+    ``V_pad / model``, all of them where that does not divide."""
+    from repro_torch.models.model import padded_vocab
+    return _model_part(padded_vocab(cfg), mesh, coords)

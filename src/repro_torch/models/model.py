@@ -23,15 +23,20 @@ parameter tree holds this process's slices of a state laid out over a
 mesh of processes. The embedding, head and final norm are gathered for
 use once; each block's leaves are gathered for use one block at a time,
 inside the remat region (so a block's whole weights live only while it
-runs, and are gathered again for the backward), attention and the dense
-MLP tensor-parallel over ``model`` where their split keeps whole heads
-(``layers``); ``loss_fn`` takes the global masked mean (the sums of nll,
-lse^2 and the mask summed over the data axes) and MoE's aux loss the
-global batch's statistics. The reference's ``act_dp`` is accepted when
-it names the mesh's data axes (the batch is split that way already);
-``seq_shard`` (sequence parallelism) and ``unroll`` (``lax.scan``
-unrolling) raise ``NotImplementedError``, as ``act_dp`` does without a
-layout.
+runs, and are gathered again for the backward). Attention, the dense
+MLP, MoE's experts and Mamba's heads run tensor-parallel over ``model``
+where the layout's specs split them (``Layout``'s flags; ``layers``,
+``moe``, ``ssm``). With the vocabulary split (``Layout.vocab_tp``) each
+model position looks up the tokens of its vocabulary rows (zeros
+elsewhere, summed over ``model``), ``forward`` returns its columns of
+the logits only and ``loss_fn`` takes the log-sum-exp over the split
+(``TensorParallel.vocab_lse``). ``loss_fn`` takes the global masked
+mean (the sums of nll, lse^2 and the mask summed over the data axes)
+and MoE's aux loss the global batch's statistics. The reference's
+``act_dp`` is accepted when it names the mesh's data axes (the batch is
+split that way already); ``seq_shard`` (sequence parallelism) and
+``unroll`` (``lax.scan`` unrolling) raise ``NotImplementedError``, as
+``act_dp`` does without a layout.
 
 Parameters stay float32 by default; ``cast_params`` casts, once, the
 leaves the reference casts to the compute dtype at each use (embedding,
@@ -229,11 +234,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
 def _ffn(cfg: ArchConfig, spec: PositionSpec, p: dict, h: torch.Tensor,
          tp=None, dp=None):
     """The position's MLP or MoE on ln2(h): (y, aux). ``tp``: the MLP's
-    tensor parallelism; ``dp``: the layout whose data axes MoE's aux loss
-    sums over."""
+    or the experts' tensor parallelism; ``dp``: the layout whose data
+    axes MoE's aux loss sums over."""
     xn = L.apply_norm(p["ln2"], h)
     if spec.ffn == "moe":
-        return MOE.apply_moe(cfg, p["ffn"], xn, dp=dp)
+        return MOE.apply_moe(cfg, p["ffn"], xn, dp=dp, tp=tp)
     return L.apply_mlp(cfg, p["ffn"], xn, tp=tp), None
 
 
@@ -246,18 +251,20 @@ def _block_body(cfg: ArchConfig, specs, block_params: list[dict],
     if layout is not None:
         block_params = layout.block(block_params)
     for i, (spec, p) in enumerate(zip(specs, block_params)):
-        attn_tp = mlp_tp = None
+        mix_tp = ffn_tp = None
         if layout is not None:
-            attn_tp = layout.tp if layout.attn_tp[i] else None
-            mlp_tp = layout.tp if layout.mlp_tp[i] else None
+            mix_tp = layout.tp if (layout.attn_tp[i]
+                                   or layout.ssm_tp[i]) else None
+            ffn_tp = layout.tp if (layout.mlp_tp[i]
+                                   or layout.moe_tp[i]) else None
         xn = L.apply_norm(p["ln1"], h)
         if spec.kind == "A":
             h = h + L.attention_train(cfg, p["attn"], xn, positions,
-                                      block_kv=block_kv, tp=attn_tp)
+                                      block_kv=block_kv, tp=mix_tp)
         else:
-            h = h + SSM.mamba_train(cfg, p["mamba"], xn)
+            h = h + SSM.mamba_train(cfg, p["mamba"], xn, tp=mix_tp)
         if spec.ffn is not None:
-            y, a = _ffn(cfg, spec, p, h, tp=mlp_tp, dp=layout)
+            y, a = _ffn(cfg, spec, p, h, tp=ffn_tp, dp=layout)
             if a is not None:
                 aux = aux + a
             h = h + y
@@ -265,8 +272,20 @@ def _block_body(cfg: ArchConfig, specs, block_params: list[dict],
 
 
 def _embed(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
-           prefix_embeds: Optional[torch.Tensor], dtype) -> torch.Tensor:
-    h = params["embed"][tokens.long()].to(dtype)
+           prefix_embeds: Optional[torch.Tensor], dtype,
+           tp=None) -> torch.Tensor:
+    """The tokens' rows of the embedding (then the prefix). With ``tp``
+    ``embed`` holds this model position's part of the vocabulary rows:
+    it looks up the tokens there, zeros elsewhere, and the rows are summed
+    over ``model`` (one position adds each, exactly)."""
+    if tp is None:
+        h = params["embed"][tokens.long()].to(dtype)
+    else:
+        n = params["embed"].shape[0]
+        t = tokens.long() - tp.rank * n
+        mine = ((t >= 0) & (t < n))[..., None]
+        rows = params["embed"][torch.where(mine[..., 0], t, 0)].to(dtype)
+        h = tp.exit(torch.where(mine, rows, 0))
     if cfg.n_prefix:
         if prefix_embeds is None:
             raise ValueError(f"{cfg.name} needs prefix embeds")
@@ -274,9 +293,13 @@ def _embed(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     return h
 
 
-def _logits(cfg: ArchConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
-    """The head on final-normed h (tied: the embedding's transpose)."""
+def _logits(cfg: ArchConfig, params: dict, h: torch.Tensor,
+            tp=None) -> torch.Tensor:
+    """The head on final-normed h (tied: the embedding's transpose); with
+    ``tp`` this model position's vocabulary columns."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if tp is not None:
+        h = tp.enter(h)
     return h @ head.to(h.dtype)
 
 
@@ -288,7 +311,7 @@ def _check_knobs(unroll, act_dp, seq_shard, layout) -> None:
     if seq_shard:
         raise NotImplementedError(
             "seq_shard (sequence parallelism) is not ported yet; it is "
-            "queued after SSM tensor parallelism in ROADMAP.md")
+            "the next slice, ROADMAP.md queue 1 item 13")
     if act_dp is not None and (layout is None
                                or tuple(act_dp) != tuple(layout.dp)):
         raise NotImplementedError(
@@ -310,12 +333,15 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     consumed but not predicted). ``remat`` recomputes each pattern block
     in the backward pass instead of keeping its activations. ``layout``:
     ``params`` are this process's slices (see the module's docstring),
-    ``tokens`` its rows of the global batch."""
+    ``tokens`` its rows of the global batch; with ``layout.vocab_tp`` the
+    logits are this model position's ``vocab_padded / model`` columns."""
     _check_knobs(unroll, act_dp, seq_shard, layout)
     specs = pattern_specs(cfg)
+    vocab_tp = None
     if layout is not None:
         params = layout.top(params)
-    h = _embed(cfg, params, tokens, prefix_embeds, compute_dtype)
+        vocab_tp = layout.tp if layout.vocab_tp else None
+    h = _embed(cfg, params, tokens, prefix_embeds, compute_dtype, vocab_tp)
     positions = torch.arange(h.shape[1], device=h.device)[None]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     ckpt = remat and torch.is_grad_enabled()
@@ -331,7 +357,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     h = L.apply_norm(params["final_norm"], h)
     if cfg.n_prefix:
         h = h[:, cfg.n_prefix:]
-    return _logits(cfg, params, h), aux
+    return _logits(cfg, params, h, vocab_tp), aux
 
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict,
@@ -341,7 +367,8 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict,
             layout=None):
     """Next-token cross entropy + MoE aux + z-loss: (total, {"ce", "aux",
     "z"}). batch: tokens, labels (+ prefix_embeds for vlm/audio). labels
-    < 0 are masked. With ``layout`` the means are over the global batch:
+    < 0 and >= ``cfg.vocab`` are masked; the padded columns count in the
+    log-sum-exp. With ``layout`` the means are over the global batch:
     every position returns the same loss."""
     logits, aux = forward(cfg, params, batch["tokens"],
                           batch.get("prefix_embeds"), compute_dtype,
@@ -351,8 +378,11 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict,
     labels = batch["labels"].long()
     mask = (labels >= 0) & (labels < cfg.vocab)
     safe = torch.where(mask, labels, 0)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    if layout is not None and layout.vocab_tp:
+        lse, ll = layout.tp.vocab_lse(logits, safe)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (lse - ll) * mask
     if layout is None:
         nll_sum, z_sum = nll.sum(), ((lse * mask) ** 2).sum()

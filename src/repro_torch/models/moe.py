@@ -13,9 +13,22 @@ Both drop overflow tokens beyond per-expert capacity (capacity_factor).
 The router and its softmax run in float32, as the reference's do. In a
 sharded train step (``dp``, a ``dist.collectives.Layout``) the aux
 loss's expert statistics are the global batch's: their sums are summed
-over the data axes before the division. Expert tables are gathered whole
-for use (expert parallelism, an all-to-all over ``model``, is not
-ported).
+over the data axes before the division.
+
+Tensor parallelism over ``model`` (``tp``, the step's
+``TensorParallel``), as GSPMD partitions the reference's einsums: every
+model position holds the same tokens, routes them whole (the router and
+top-k run before the region, alike on every position, so the aux loss
+counts once) and passes them and their gates through ``tp.enter``.
+With the experts split (expert parallelism: ``w_up`` holds the
+position's ``n_experts / tp`` experts) it dispatches every token as one
+device does, so capacity and drops are the global ones, and runs only
+its own experts' slots (in ``sorted`` the other slots go to the dropped
+bucket); with the expert hidden dim split (the reference's fallback
+when the experts do not divide) it runs every expert on its columns.
+The combine's partial sums, and the shared experts' column/row-parallel
+ones, leave through ``tp.exit``. No all-to-all is needed while the
+tokens are not split over ``model``.
 """
 from __future__ import annotations
 
@@ -98,15 +111,19 @@ def _capacity(cfg: ArchConfig, s: int) -> int:
 
 
 def _moe_onehot(cfg: ArchConfig, p: dict, x: torch.Tensor, gate_vals,
-                idx) -> torch.Tensor:
-    """GShard dispatch-einsum implementation (group = sequence)."""
+                idx, e0: int = 0) -> torch.Tensor:
+    """GShard dispatch-einsum implementation (group = sequence), over the
+    experts ``w_up`` holds, the first of them expert ``e0``."""
     e = cfg.moe
     b, s, d = x.shape
+    n_e = p["w_up"].shape[-3]
     cap = _capacity(cfg, s)
-    oh = _one_hot(idx, e.n_experts, torch.float32)            # (B,S,K,E)
+    # a position's expert columns of the one-hot: each column's count of
+    # tokens is the one-device count
+    oh = _one_hot(idx - e0, n_e, torch.float32)               # (B,S,K,E)
     # position of each (token, k) within its expert, counted over the seq
-    pos = torch.cumsum(oh.reshape(b, s * e.top_k, e.n_experts), dim=1) - 1.0
-    pos = pos.reshape(b, s, e.top_k, e.n_experts)
+    pos = torch.cumsum(oh.reshape(b, s * e.top_k, n_e), dim=1) - 1.0
+    pos = pos.reshape(b, s, e.top_k, n_e)
     keep = pos < cap
     # pos is -1 where a (token, k) does not route to e and may pass cap:
     # both give a zero one-hot row, as in the reference
@@ -121,12 +138,14 @@ def _moe_onehot(cfg: ArchConfig, p: dict, x: torch.Tensor, gate_vals,
 
 
 def _moe_sorted(cfg: ArchConfig, p: dict, x: torch.Tensor, gate_vals,
-                idx) -> torch.Tensor:
+                idx, e0: int = 0) -> torch.Tensor:
     """AlphaSparse-style dispatch: sort tokens by expert, scatter into a
-    dense (E, C, d) capacity buffer, dense GEMMs, gather back."""
+    dense (E, C, d) capacity buffer, dense GEMMs, gather back; over the
+    experts ``w_up`` holds, the first of them expert ``e0``."""
     e = cfg.moe
     b, s, d = x.shape
     k = e.top_k
+    n_e = p["w_up"].shape[-3]
     cap = _capacity(cfg, s)
     flat_e = idx.reshape(b, s * k)                         # expert per slot
     # SORT operator. ``jnp.argsort`` is stable and the ranks below depend
@@ -136,9 +155,10 @@ def _moe_sorted(cfg: ArchConfig, p: dict, x: torch.Tensor, gate_vals,
     # rank within expert = position - start of that expert's run
     counts = _one_hot(sorted_e, e.n_experts, torch.int64).cumsum(1)
     rank = torch.gather(counts, 2, sorted_e[..., None])[..., 0] - 1
-    slot_sorted = sorted_e * cap + rank                    # (B, S*K)
-    dropped = rank >= cap
-    slot_sorted = torch.where(dropped, e.n_experts * cap, slot_sorted)
+    slot_sorted = (sorted_e - e0) * cap + rank             # (B, S*K)
+    # dropped: past capacity, or another position's expert
+    dropped = (rank >= cap) | (sorted_e < e0) | (sorted_e >= e0 + n_e)
+    slot_sorted = torch.where(dropped, n_e * cap, slot_sorted)
     # un-sort the slot assignment back to token order
     inv = torch.argsort(order, dim=1)
     slot = torch.gather(slot_sorted, 1, inv)               # (B, S*K)
@@ -146,13 +166,13 @@ def _moe_sorted(cfg: ArchConfig, p: dict, x: torch.Tensor, gate_vals,
     tok = torch.arange(s, device=x.device).repeat_interleave(k)
     tok = tok[None].expand(b, s * k)                       # token id
     batch_ix = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
-    buf = torch.zeros((b, e.n_experts * cap + 1, d), dtype=x.dtype,
+    buf = torch.zeros((b, n_e * cap + 1, d), dtype=x.dtype,
                       device=x.device)
     # kept slots are distinct, so each receives one token added to zero
     # (exact); only the dropped bucket, cut off below, takes several
     buf.index_put_((batch_ix, slot), x[batch_ix, tok], accumulate=True)
-    h = buf[:, :-1].reshape(b, e.n_experts, cap, d)
-    out = _expert_ffn(cfg, p, h).reshape(b, e.n_experts * cap, d)
+    h = buf[:, :-1].reshape(b, n_e, cap, d)
+    out = _expert_ffn(cfg, p, h).reshape(b, n_e * cap, d)
     out = torch.cat([out, torch.zeros((b, 1, d), dtype=x.dtype,
                                       device=x.device)], dim=1)
     y_tok = out[batch_ix, slot]                            # (B, S*K, d)
@@ -168,21 +188,41 @@ def _moe_sorted(cfg: ArchConfig, p: dict, x: torch.Tensor, gate_vals,
     return y
 
 
-def apply_moe(cfg: ArchConfig, p: dict, x: torch.Tensor, dp=None):
-    """x: (B,S,d) -> (y, aux_loss); ``dp``: the sharded step's layout."""
+def _shared(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The shared experts, a dense MLP (on the columns ``sh_up`` holds)."""
+    up = x @ p["sh_up"].to(x.dtype)
+    if cfg.mlp_kind == "swiglu":
+        h = F.silu(x @ p["sh_gate"].to(x.dtype)) * up
+    else:
+        h = gelu(up)
+    return h @ p["sh_down"].to(x.dtype)
+
+
+def apply_moe(cfg: ArchConfig, p: dict, x: torch.Tensor, dp=None,
+              tp=None):
+    """x: (B,S,d) -> (y, aux_loss); ``dp``: the sharded step's layout;
+    ``tp``: the experts are this model position's (see the module's
+    docstring)."""
     e = cfg.moe
     gate_vals, idx, aux = _router(cfg, p, x, dp)
+    xe, e0 = x, 0
+    if tp is not None:
+        xe, gate_vals = tp.enter(x), tp.enter(gate_vals)
+        n_e = p["w_up"].shape[-3]
+        e0 = 0 if n_e == e.n_experts else tp.rank * n_e
     if e.impl == "sorted":
-        y = _moe_sorted(cfg, p, x, gate_vals, idx)
+        y = _moe_sorted(cfg, p, xe, gate_vals, idx, e0)
     else:
-        y = _moe_onehot(cfg, p, x, gate_vals, idx)
-    if e.n_shared:
-        up = x @ p["sh_up"].to(x.dtype)
-        if cfg.mlp_kind == "swiglu":
-            h = F.silu(x @ p["sh_gate"].to(x.dtype)) * up
-        else:
-            h = gelu(up)
-        y = y + h @ p["sh_down"].to(x.dtype)
+        y = _moe_onehot(cfg, p, xe, gate_vals, idx, e0)
+    # the shared experts run in the region when their columns are split
+    inside = e.n_shared and (tp is None or p["sh_up"].shape[-1] * tp.size
+                             == e.d_expert * e.n_shared)
+    if inside:
+        y = y + _shared(cfg, p, xe)
+    if tp is not None:
+        y = tp.exit(y)
+    if e.n_shared and not inside:
+        y = y + _shared(cfg, p, x)
     return y, aux
 
 

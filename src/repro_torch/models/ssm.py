@@ -9,9 +9,16 @@ state.
 
 Shapes: d_in = expand*d_model, H = d_in/head_dim heads, P = head_dim,
 N = d_state, G = 1 (single B/C group). ``A_log``, ``dt_bias`` and
-``gate_norm`` are applied in float32, as the reference does. A sharded
-train step gathers the projections whole for use (SSM tensor
-parallelism is not ported).
+``gate_norm`` are applied in float32, as the reference does.
+
+Tensor parallelism over ``model`` (``mamba_train``'s ``tp``, the sharded
+step's ``TensorParallel``; ``out_proj`` then holds the rows of the
+position's ``heads / tp`` heads): the position takes from the whole
+``in_proj`` its heads' z, x and dt columns and all of B and C, which
+every head shares, convolves its x channels and all B/C channels, runs
+the SSD scan on its heads, and leaves through ``tp.exit`` after the
+row-parallel ``out_proj``. The gated RMSNorm averages over all of
+``d_in``: its sum of squares is summed over ``model`` (``tp.sum``).
 """
 from __future__ import annotations
 
@@ -76,13 +83,19 @@ def _conv_train(p: dict, xbc: torch.Tensor) -> torch.Tensor:
 
 def _segsum_decay(dA: torch.Tensor):
     """dA: (B, C, Q, H) -> lower-tri decay L: (B, C, H, Q, Q) and the
-    inclusive cumsum css: (B, C, Q, H)."""
+    inclusive cumsum css: (B, C, Q, H).
+
+    The exponent is masked before ``exp`` (-inf above the diagonal): the
+    reference's ``where(tri, exp(diff), 0)`` gives the same values, but
+    above the diagonal ``diff`` is positive and its ``exp`` overflows
+    once a chunk's decays are large (mamba2-1.3b at full width), and the
+    ``where``'s backward then multiplies that inf by 0: NaN gradients."""
     css = torch.cumsum(dA, dim=2)                      # inclusive
     cssh = css.movedim(-1, 2)                          # (B,C,H,Q)
     diff = cssh[..., :, None] - cssh[..., None, :]     # (B,C,H,Q,Q) l,s
     q = diff.shape[-1]
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dA.device))
-    return torch.where(tri, torch.exp(diff), 0.0), css
+    return torch.exp(torch.where(tri, diff, float("-inf"))), css
 
 
 def ssd_chunked(xdt: torch.Tensor, dA: torch.Tensor, B_: torch.Tensor,
@@ -131,20 +144,55 @@ def ssd_chunked(xdt: torch.Tensor, dA: torch.Tensor, B_: torch.Tensor,
 
 
 def _gated_out(p: dict, y: torch.Tensor, z: torch.Tensor,
-               dtype) -> torch.Tensor:
+               dtype, tp=None, d_in: int = 0) -> torch.Tensor:
     """Gated RMSNorm (mamba2's norm before the out-projection), in float32
-    with the float32 ``gate_norm``, then the out-projection."""
+    with the float32 ``gate_norm``, then the out-projection. With ``tp``,
+    ``y``/``z`` are the position's ``d_in / tp`` channels: the sum of
+    squares is summed over ``model`` and divided by ``d_in``."""
     g = y * F.silu(z)
-    var = (g.float() ** 2).mean(-1, keepdim=True)
+    if tp is None:
+        var = (g.float() ** 2).mean(-1, keepdim=True)
+    else:
+        var = tp.sum((g.float() ** 2).sum(-1, keepdim=True)) / d_in
     g = (g.float() * torch.rsqrt(var + 1e-6) * p["gate_norm"]).to(dtype)
     return g @ p["out_proj"].to(dtype)
 
 
-def mamba_train(cfg: ArchConfig, p: dict, x: torch.Tensor,
-                return_state: bool = False):
-    """x: (B,S,d) -> (B,S,d). Set return_state for prefill (conv and ssm
-    states)."""
+def _tp_part(cfg: ArchConfig, p: dict, rank: int) -> tuple:
+    """A tensor-parallel position's part of whole Mamba leaves (the heads
+    ``out_proj``'s rows hold, part ``rank``): ``(p, heads)``, ``p`` with
+    ``in_proj``'s columns z, x, B, C, dt and the conv's channels x, B, C
+    of those heads (B and C whole), their ``A_log``/``dt_bias``/``D``
+    and ``gate_norm``."""
     d_in, H, P, N, conv_ch = _dims(cfg)
+    dl = p["out_proj"].shape[0]
+    c0, h0, hl = rank * dl, rank * dl // P, dl // P
+    w, cw, cb = p["in_proj"], p["conv_w"], p["conv_b"]
+    q = dict(p)
+    q["in_proj"] = torch.cat([w[:, c0:c0 + dl],
+                              w[:, d_in + c0:d_in + c0 + dl],
+                              w[:, 2 * d_in:2 * d_in + 2 * N],
+                              w[:, 2 * d_in + 2 * N + h0:
+                                2 * d_in + 2 * N + h0 + hl]], dim=1)
+    q["conv_w"] = torch.cat([cw[c0:c0 + dl], cw[d_in:]])
+    q["conv_b"] = torch.cat([cb[c0:c0 + dl], cb[d_in:]])
+    for k in ("A_log", "dt_bias", "D"):
+        q[k] = p[k][h0:h0 + hl]
+    q["gate_norm"] = p["gate_norm"][c0:c0 + dl]
+    return q, hl
+
+
+def mamba_train(cfg: ArchConfig, p: dict, x: torch.Tensor,
+                return_state: bool = False, tp=None):
+    """x: (B,S,d) -> (B,S,d). Set return_state for prefill (conv and ssm
+    states). ``tp``: this model position's heads (see the module's
+    docstring), for training: it returns no state."""
+    d_in, H, P, N, conv_ch = _dims(cfg)
+    d_full = d_in
+    if tp is not None:
+        x = tp.enter(x)
+        p, H = _tp_part(cfg, p, tp.rank)
+        d_in, conv_ch = H * P, H * P + 2 * N
     proj = x @ p["in_proj"].to(x.dtype)
     z, xbc, dt_raw = (proj[..., :d_in], proj[..., d_in:d_in + conv_ch],
                       proj[..., d_in + conv_ch:])
@@ -160,7 +208,9 @@ def mamba_train(cfg: ArchConfig, p: dict, x: torch.Tensor,
     y, state = ssd_chunked(xdt, dA.float(), B_, C_, cfg.ssm.chunk)
     y = y + p["D"].to(x.dtype)[None, None, :, None] * xh
     y = y.reshape(*x.shape[:2], d_in)
-    out = _gated_out(p, y, z, x.dtype)
+    out = _gated_out(p, y, z, x.dtype, tp, d_full)
+    if tp is not None:
+        return tp.exit(out)
     if return_state:
         width = p["conv_w"].shape[1]
         conv_state = xbc[:, -(width - 1):, :]           # (B, W-1, ch)

@@ -22,6 +22,17 @@ Cases (dicts with a ``kind``):
 * ``knobs``: ``loss_fn`` on the first batch with ``act_dp`` the data
   axes (equal to the loss without it?) and which of ``act_dp=("model",)``,
   ``seq_shard=True`` and ``unroll=2`` raise ``NotImplementedError``.
+* ``split``: one ``loss_fn`` on the first batch with the expert FFN, the
+  SSD scan and the head wrapped to record, on this rank, the experts
+  and expert hidden columns each ``_expert_ffn`` runs, the heads each
+  ``ssd_chunked`` runs and the logits' last dim; and the ``Layout``'s
+  flags.
+* ``functions``: ``TensorParallel.vocab_lse`` (with a z-loss) and
+  ``TensorParallel.sum`` in float64 on this rank's part of the whole
+  ``logits``/``x``: values and gradients.
+
+A case's ``moe`` (a dict) replaces fields of the reduced config's
+``MoECfg``.
 """
 from __future__ import annotations
 
@@ -99,7 +110,6 @@ def _state_specs(pspecs, compression: bool) -> dict:
 
 def _case(case: dict, mesh) -> dict:
     from repro_torch.ckpt.checkpoint import CheckpointManager
-    from repro_torch.configs import get_config
     from repro_torch.dist.collectives import Layout
     from repro_torch.dist.sharding import (map_specs, param_specs,
                                            shard_batch, shard_leaf)
@@ -107,7 +117,9 @@ def _case(case: dict, mesh) -> dict:
     from repro_torch.train.compression import compress_decompress
     from repro_torch.train.step import (init_state, make_grad_fn,
                                         make_train_step)
-    cfg = get_config(case["arch"]).reduced()
+    if case["kind"] == "functions":
+        return _functions(case, mesh)
+    cfg = _reduced_config(case)
     cpu, coords = torch.device("cpu"), mesh.coords
     # a copy: the step updates the state in place
     shard = lambda sp, a: np.array(shard_leaf(a, sp, mesh, coords))  # noqa: E731
@@ -121,6 +133,8 @@ def _case(case: dict, mesh) -> dict:
         return {"deq": _np(deq), "err": _np(err)}
     if case["kind"] == "knobs":
         return _knobs(case, cfg, mesh, shard)
+    if case["kind"] == "split":
+        return _split(case, cfg, mesh, shard)
     tc = _train_config(case["tc"])
     pspecs = param_specs(cfg, mesh, case["params"])
     if case["kind"] == "restore":
@@ -146,6 +160,83 @@ def _case(case: dict, mesh) -> dict:
             len(case["batches"]) - 1, state, blocking=True,
             specs=_state_specs(pspecs, tc.compression.enabled))
     return {"metrics": metrics, "grads": _np(grads), "state": _np(state)}
+
+
+def _reduced_config(case: dict):
+    """``case``'s architecture reduced, with its ``moe`` fields."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(case["arch"]).reduced()
+    if case.get("moe"):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, **case["moe"]))
+    return cfg
+
+
+def _split(case, cfg, mesh, shard) -> dict:
+    from repro_torch.dist.collectives import Layout
+    from repro_torch.dist.sharding import map_specs, param_specs, \
+        shard_batch
+    from repro_torch.models import loss_fn
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.weights import params_from_numpy
+    pspecs = param_specs(cfg, mesh, case["params"])
+    layout = Layout(cfg, mesh, pspecs)
+    params = params_from_numpy(map_specs(shard, pspecs, case["params"]),
+                               torch.device("cpu"))
+    batch = {k: torch.from_numpy(v) for k, v in shard_batch(
+        case["batches"][0], cfg, mesh, mesh.coords).items()}
+    seen = {"experts": [], "columns": [], "heads": [], "vocab": []}
+    ffn, ssd, head = MOE._expert_ffn, SSM.ssd_chunked, M._logits
+
+    def ffn_rec(cfg_, p, h):
+        seen["experts"].append(h.shape[-3])
+        seen["columns"].append(p["w_up"].shape[-1])
+        return ffn(cfg_, p, h)
+
+    def ssd_rec(xdt, *a, **kw):
+        seen["heads"].append(xdt.shape[2])
+        return ssd(xdt, *a, **kw)
+
+    def head_rec(*a, **kw):
+        out = head(*a, **kw)
+        seen["vocab"].append(out.shape[-1])
+        return out
+
+    MOE._expert_ffn, SSM.ssd_chunked, M._logits = ffn_rec, ssd_rec, head_rec
+    try:
+        loss = loss_fn(cfg, params, batch, torch.float32,
+                       layout=layout)[0]
+    finally:
+        MOE._expert_ffn, SSM.ssd_chunked, M._logits = ffn, ssd, head
+    return {**seen, "loss": float(loss), "moe_tp": layout.moe_tp,
+            "ssm_tp": layout.ssm_tp, "attn_tp": layout.attn_tp,
+            "vocab_tp": layout.vocab_tp}
+
+
+def _functions(case, mesh) -> dict:
+    from repro_torch.dist.collectives import TensorParallel
+    tp = TensorParallel(mesh)
+    n = case["logits"].shape[-1] // tp.size
+    logits = torch.from_numpy(case["logits"][..., tp.rank * n:
+                                             (tp.rank + 1) * n].copy())
+    logits.requires_grad_(True)
+    labels = torch.from_numpy(case["labels"])
+    mask = (labels >= 0) & (labels < case["vocab"])
+    lse, ll = tp.vocab_lse(logits, torch.where(mask, labels, 0))
+    denom = mask.sum()
+    loss = ((lse - ll) * mask).sum() / denom \
+        + 1e-4 * ((lse * mask) ** 2).sum() / denom
+    g_logits, = torch.autograd.grad(loss, [logits])
+    x = torch.from_numpy(case["x"][tp.rank].copy()).requires_grad_(True)
+    y = tp.sum(x)
+    w = torch.from_numpy(case["w"][tp.rank])
+    g_x, = torch.autograd.grad((y * w).sum(), [x])
+    return {"lse": lse.detach().numpy(), "ll": ll.detach().numpy(),
+            "loss": float(loss), "g_logits": g_logits.numpy(),
+            "y": y.detach().numpy(), "g_x": g_x.numpy()}
 
 
 def _knobs(case, cfg, mesh, shard) -> dict:

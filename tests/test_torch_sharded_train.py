@@ -10,6 +10,19 @@ replicas agree) are held to the port's one-device step and to the
 reference's mesh-less jitted step, on the same weights (the reference's,
 ``params_from_numpy``) and the same global batches.
 
+The leaves that the specs split over ``model`` are used split: attention
+heads, dense MLP columns, MoE experts (or, where the expert count does
+not divide, the expert hidden dim), Mamba heads and the vocabulary of
+the embedding and head. The (1, 4) run holds each of those model splits
+to both steps (MoE in both dispatches, the hidden-dim fallback, Mamba, a
+tied and an untied vocabulary) and records on each rank how many
+experts, SSD heads and logit columns it ran, which matching numbers
+alone cannot tell from a duplicated step. A (1, 2) run checks the two
+autograd Functions of the split alone in float64 (the vocab-parallel
+log-sum-exp with a z-loss, the sum whose backward is a sum) against
+``torch.logsumexp`` and a plain sum on one process, within 1e-10 (only
+the order of float64 sums differs).
+
 Tolerances, each with its reason:
 * loss and grad_norm of every step: 1e-5 relative (only the order of
   float32 sums differs: a product's columns split over ``model``, the
@@ -34,7 +47,10 @@ Tolerances, each with its reason:
 * checkpoints: bit for bit.
 """
 import ast
+import dataclasses
+import hashlib
 import os
+import types
 import subprocess
 import sys
 from pathlib import Path
@@ -55,10 +71,12 @@ from repro.train import step as RSTEP
 
 import repro_torch.configs as TC
 from repro_torch.ckpt import CheckpointManager
-from repro_torch.dist.sharding import (map_specs, mesh_coords,
+from repro_torch.dist.sharding import (expert_range, head_range,
+                                       map_specs, mesh_coords,
                                        mesh_positions, param_specs,
                                        shard_batch, shard_leaf, shard_slices,
-                                       spec_leaves, unshard_leaf)
+                                       spec_leaves, unshard_leaf,
+                                       vocab_range)
 from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.train import DriverConfig, TrainDriver
 from repro_torch.models.weights import params_from_numpy
@@ -73,6 +91,8 @@ import _torch_ranks as RANKS  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 GRANITE = "granite-3-2b"
+DEEPSEEK, MAMBA, GMOE = ("deepseek-moe-16b", "mamba2-1.3b",
+                         "granite-moe-3b-a800m")
 LR = 3e-4
 OPT = dict(lr=LR, total_steps=10, warmup_steps=1)
 FP32 = dict(opt=OPT, compute_dtype="float32")
@@ -98,8 +118,21 @@ MOCKS = {"2x2": MockMesh({"data": 2, "model": 2}),
          "16x16": MockMesh({"data": 16, "model": 16})}
 
 
-def _ref_params(arch):
-    p = ref_init_params(RC.get_config(arch).reduced(), jax.random.PRNGKey(0))
+def _configs(arch, moe=None):
+    """The reference's and the port's reduced config of ``arch``, with
+    the ``MoECfg`` fields ``moe``."""
+    out = []
+    for reg in (RC, TC):
+        cfg = reg.get_config(arch).reduced()
+        if moe:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, **moe))
+        out.append(cfg)
+    return out
+
+
+def _ref_params(arch, moe=None):
+    p = ref_init_params(_configs(arch, moe)[0], jax.random.PRNGKey(0))
     return jax.tree.map(np.asarray, p)
 
 
@@ -270,17 +303,42 @@ def _run_one(name, granite, tmp_path_factory, extra=()):
     return {"ranks": res, "mesh": mesh}
 
 
+# the model splits on (1, 4): name -> (arch, MoECfg fields)
+SPLITS = {"moe_onehot": (DEEPSEEK, {}),
+          "moe_sorted": (DEEPSEEK, {"impl": "sorted"}),
+          # 6 experts do not divide over 4: the expert hidden dim does
+          "moe_hidden": (DEEPSEEK, {"n_experts": 6}),
+          "mamba": (MAMBA, {}),
+          "granite_moe": (GMOE, {})}               # a tied vocabulary
+
+
 @pytest.fixture(scope="module")
-def runs(granite, cases_2x2, ref_ckpt, tmp_path_factory):
+def cases_1x4(granite, tmp_path_factory):
+    """One (1, 4) spawn: granite's steps (case 0), each of ``SPLITS``'s
+    steps (cases 1-5) and its ``split`` record (cases 6-10)."""
+    b = _batches(RC.get_config(GRANITE).reduced())
+    params = {n: _ref_params(a, moe) for n, (a, moe) in SPLITS.items()}
+    steps = {n: _steps(a, params[n], b, moe=moe)
+             for n, (a, moe) in SPLITS.items()}
+    splits = {n: dict(kind="split", arch=a, moe=moe, params=params[n],
+                      batches=b[:1]) for n, (a, moe) in SPLITS.items()}
+    res = RANKS.run({"mesh": MESHES["1x4"], "cases": [
+        _steps(GRANITE, granite, b), *steps.values(), *splits.values()]},
+        4, tmp_path_factory.mktemp("r1x4"))
+    return {"ranks": res, "mesh": MESHES["1x4"], "steps": steps,
+            "splits": splits}
+
+
+@pytest.fixture(scope="module")
+def runs(granite, cases_2x2, cases_1x4, ref_ckpt, tmp_path_factory):
     restore = [dict(kind="restore", arch=GRANITE, params=granite, tc=FP32,
                     ckpt=str(d), step=2)
                for d in (cases_2x2["ckpt"], ref_ckpt[0])]
-    return {"2x2": {"ranks": [{"coords": r["coords"],
-                               "cases": r["cases"][:1]}
-                              for r in cases_2x2["ranks"]],
-                    "mesh": MESHES["2x2"]},
+    first = lambda run: {"ranks": [  # noqa: E731
+        {"coords": r["coords"], "cases": r["cases"][:1]}
+        for r in run["ranks"]], "mesh": run["mesh"]}
+    return {"2x2": first(cases_2x2), "1x4": first(cases_1x4),
             "4x1": _run_one("4x1", granite, tmp_path_factory, restore),
-            "1x4": _run_one("1x4", granite, tmp_path_factory),
             "2x1x2": _run_one("2x1x2", granite, tmp_path_factory)}
 
 
@@ -307,12 +365,30 @@ def _whole(run, i, part, params):
         dict(zip(coords, parts)), sp, m), specs, *trees)
 
 
-def _one_device(arch, params, batches, tc=FP32):
-    """The port's one-device step: (metrics, first gradients, state).
-    The step updates its state in place: it runs on a copy of
-    ``params``."""
+_MEMO = {}
+
+
+def _key(*parts, batches):
+    h = hashlib.sha1(repr(parts).encode())
+    for b in batches:
+        for k in sorted(b):
+            h.update(np.ascontiguousarray(b[k]).tobytes())
+    return h.hexdigest()
+
+
+def _one_device(arch, params, batches, tc=FP32, moe=None):
+    """The port's one-device step: (metrics, first gradients, state),
+    computed once a (config, weights' arch, batches). The step updates
+    its state in place: it runs on a copy of ``params``."""
+    key = _key("port", arch, moe, tc, batches=batches)
+    if key not in _MEMO:
+        _MEMO[key] = _one_device_run(arch, params, batches, tc, moe)
+    return _MEMO[key]
+
+
+def _one_device_run(arch, params, batches, tc, moe):
     params = jax.tree.map(np.array, params)
-    cfg = TC.get_config(arch).reduced()
+    cfg = _configs(arch, moe)[1]
     tcfg = RANKS._train_config(tc)
     p = params_from_numpy(params, CPU)
     (_, _), grads = make_grad_fn(cfg, tcfg)(p, {
@@ -332,19 +408,29 @@ def one_device(granite):
     return _one_device(GRANITE, granite, _batches(cfg))
 
 
+def _reference(arch, params, batches, moe=None):
+    """The reference's mesh-less jitted fp32 step: metrics and final
+    state, computed once a (config, batches)."""
+    key = _key("ref", arch, moe, batches=batches)
+    if key not in _MEMO:
+        rcfg = _configs(arch, moe)[0]
+        rtc = RSTEP.TrainConfig(opt=ROPT.AdamWConfig(**OPT),
+                                compute_dtype="float32")
+        st = RSTEP.init_state(rcfg, rtc, jax.tree.map(jnp.asarray, params))
+        step = jax.jit(RSTEP.make_train_step(rcfg, rtc))
+        mets = []
+        for b in batches:
+            st, m = step(st, b)
+            mets.append({k: float(v) for k, v in m.items()})
+        _MEMO[key] = mets, jax.tree.map(np.asarray, st)
+    return _MEMO[key]
+
+
 @pytest.fixture(scope="module")
 def reference(granite):
     """The reference's mesh-less jitted step: metrics and final state."""
-    rcfg = RC.get_config(GRANITE).reduced()
-    rtc = RSTEP.TrainConfig(opt=ROPT.AdamWConfig(**OPT),
-                            compute_dtype="float32")
-    st = RSTEP.init_state(rcfg, rtc, jax.tree.map(jnp.asarray, granite))
-    step = jax.jit(RSTEP.make_train_step(rcfg, rtc))
-    mets = []
-    for b in _batches(rcfg):
-        st, m = step(st, b)
-        mets.append({k: float(v) for k, v in m.items()})
-    return mets, jax.tree.map(np.asarray, st)
+    return _reference(GRANITE, granite,
+                      _batches(RC.get_config(GRANITE).reduced()))
 
 
 def _close_metrics(got, want, keys=("loss", "grad_norm"), rel=1e-5):
@@ -400,9 +486,10 @@ def _case(cases_2x2, name):
 @pytest.mark.parametrize("name", ["accum", "moe", "mamba", "masked"])
 def test_sharded_step_cases_match_one_device(name, cases_2x2):
     """grad_accum 2 (each rank splits its rows), one MoE and one Mamba
-    architecture (the aux loss over the global batch; expert tables and
-    projections gathered over ``model``), and a mask that empties data
-    position 0's rows (the global masked mean)."""
+    architecture (the aux loss over the global batch; two experts and
+    four SSD heads a model position, the vocabulary split; these two also
+    against the reference's step), and a mask that empties data position
+    0's rows (the global masked mean)."""
     run, i, case = _case(cases_2x2, name)
     mets, _, state = _one_device(case["arch"], case["params"],
                                  case["batches"], case["tc"])
@@ -410,10 +497,199 @@ def test_sharded_step_cases_match_one_device(name, cases_2x2):
     _close_metrics(got["metrics"], mets)
     if name in ("moe",):
         _close_metrics(got["metrics"], mets, keys=("aux", "ce", "z"))
-    _close_trees(_whole(run, i, ("state", "params"), case["params"]),
-                 state["params"])
+    params = _whole(run, i, ("state", "params"), case["params"])
+    _close_trees(params, state["params"])
+    if name in ("moe", "mamba"):
+        ref_mets, ref_state = _reference(case["arch"], case["params"],
+                                         case["batches"])
+        _close_metrics(got["metrics"], ref_mets)
+        _close_trees(params, ref_state["params"])
     if name == "masked":
         assert all(b["labels"][:2].max() < 0 for b in case["batches"])
+
+
+@pytest.mark.parametrize("name", sorted(SPLITS))
+def test_model_splits_on_1x4_match_one_device_and_reference(name,
+                                                            cases_1x4):
+    """Each model split on (1, 4) (one expert a position in both
+    dispatches, the hidden-dim fallback, two SSD heads a position, a
+    tied vocabulary split) against the port's one-device step and the
+    reference's: metrics of every step, the first gradients and the
+    parameters after three."""
+    arch, moe = SPLITS[name]
+    case = cases_1x4["steps"][name]
+    i = 1 + list(SPLITS).index(name)
+    run = {"ranks": cases_1x4["ranks"], "mesh": cases_1x4["mesh"],
+           "arch": arch}
+    got = run["ranks"][0]["cases"][i]
+    for r in run["ranks"]:
+        assert r["cases"][i]["metrics"] == got["metrics"]
+    mets, grads, state = _one_device(arch, case["params"], case["batches"],
+                                     moe=moe)
+    ref_mets, ref_state = _reference(arch, case["params"], case["batches"],
+                                     moe)
+    keys = ("loss", "grad_norm", "ce", "z") + (("aux",) if arch != MAMBA
+                                               else ())
+    _close_metrics(got["metrics"], mets, keys=keys)
+    _close_metrics(got["metrics"], ref_mets)
+    _close_trees(_whole(run, i, ("grads",), case["params"]), grads)
+    params = _whole(run, i, ("state", "params"), case["params"])
+    _close_trees(params, state["params"])
+    _close_trees(params, ref_state["params"])
+
+
+@pytest.mark.parametrize("name", sorted(SPLITS))
+def test_each_model_position_runs_its_part_of_the_work(name, cases_1x4):
+    """On (1, 4) each position's ``_expert_ffn`` runs E/4 experts (all E
+    on d_expert/4 columns in the fallback), its ``ssd_chunked`` H/4
+    heads and its head V_pad/4 logit columns; a whole-gather over
+    ``model`` would give E, H and V_pad."""
+    arch, moe = SPLITS[name]
+    cfg = _configs(arch, moe)[1]
+    n_layers = cfg.n_layers
+    i = 1 + len(SPLITS) + list(SPLITS).index(name)
+    for r in cases_1x4["ranks"]:
+        got = r["cases"][i]
+        assert got["vocab"] == [256 // 4] and got["vocab_tp"]
+        # 2 kv heads do not divide over 4: attention stays whole
+        assert not any(got["attn_tp"])
+        if cfg.moe is None:
+            assert got["experts"] == []
+        elif cfg.moe.n_experts % 4:
+            assert got["moe_tp"] == ["hidden"]
+            assert got["experts"] == [cfg.moe.n_experts] * n_layers
+            assert got["columns"] == [cfg.moe.d_expert // 4] * n_layers
+        else:
+            assert got["moe_tp"] == ["ep"]
+            assert got["experts"] == [cfg.moe.n_experts // 4] * n_layers
+            assert got["columns"] == [cfg.moe.d_expert] * n_layers
+        if cfg.ssm is None:
+            assert got["heads"] == []
+        else:
+            heads = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+            assert got["ssm_tp"] == [True]
+            assert got["heads"] == [heads // 4] * n_layers
+
+
+@pytest.fixture(scope="module")
+def functions_1x2(tmp_path_factory):
+    """The two Functions on a (1, 2) mesh of gloo ranks: 16 logit columns
+    (13 vocabulary, 3 padding), 8 a rank."""
+    rng = np.random.default_rng(7)
+    labels = rng.integers(0, 13, (2, 5))
+    labels[0, :2] = [7, 8]         # each side of the split boundary
+    labels[1, :2] = [-1, 14]       # masked: negative, and past the vocab
+    case = dict(kind="functions", vocab=13, labels=labels,
+                logits=3 * rng.standard_normal((2, 5, 16)),
+                x=rng.standard_normal((2, 3, 4)),
+                w=rng.standard_normal((2, 3, 4)))
+    res = RANKS.run({"mesh": dict(data=1, model=2), "cases": [case]}, 2,
+                    tmp_path_factory.mktemp("r1x2"))
+    return case, [r["cases"][0] for r in res]
+
+
+def test_vocab_parallel_lse_with_z_loss_in_float64(functions_1x2):
+    case, ranks = functions_1x2
+    logits = torch.from_numpy(case["logits"]).requires_grad_(True)
+    labels = torch.from_numpy(case["labels"])
+    mask = (labels >= 0) & (labels < case["vocab"])
+    lse = torch.logsumexp(logits, -1)
+    ll = torch.gather(logits, -1, torch.where(mask, labels, 0)[..., None])
+    ll = ll[..., 0]
+    denom = mask.sum()
+    loss = ((lse - ll) * mask).sum() / denom \
+        + 1e-4 * ((lse * mask) ** 2).sum() / denom
+    g, = torch.autograd.grad(loss, [logits])
+    got_g = np.concatenate([r["g_logits"] for r in ranks], -1)
+    for r in ranks:
+        assert np.abs(r["lse"] - lse.detach().numpy()).max() <= 1e-10
+        assert np.abs(r["ll"] - ll.detach().numpy()).max() <= 1e-10
+        assert abs(r["loss"] - loss.item()) <= 1e-10
+    assert np.abs(got_g - g.numpy()).max() <= 1e-10
+    # the label on each side of the boundary takes its -1 on its rank
+    assert got_g[0, 0, 7] < 0 and got_g[0, 1, 8] < 0
+    assert (got_g[1, :2] == 0).all()                # masked: no gradient
+
+
+def test_sum_whose_backward_is_a_sum_in_float64(functions_1x2):
+    case, ranks = functions_1x2
+    x = [torch.from_numpy(a).requires_grad_(True) for a in case["x"]]
+    y = x[0] + x[1]
+    w = torch.from_numpy(case["w"])
+    loss = sum((y * w[r]).sum() for r in range(2))
+    g = torch.autograd.grad(loss, x)
+    for r, got in enumerate(ranks):
+        assert np.abs(got["y"] - y.detach().numpy()).max() <= 1e-10
+        assert np.abs(got["g_x"] - g[r].numpy()).max() <= 1e-10
+
+
+def _shapes(cfg):
+    """Stand-ins (``.shape`` only) for the leaves whose split over
+    ``model`` the position ranges follow."""
+    leaf = lambda *s: types.SimpleNamespace(shape=s)  # noqa: E731
+    d, vp = cfg.d_model, int(np.ceil(cfg.vocab / 256) * 256)
+    tree = {"embed": leaf(vp, d), "blocks": [{}]}
+    if cfg.moe:
+        tree["blocks"][0]["ffn"] = {"w_up": leaf(
+            1, cfg.moe.n_experts, d, cfg.moe.d_expert)}
+    if cfg.ssm:
+        d_in = cfg.ssm.expand * d
+        tree["blocks"][0]["mamba"] = {"out_proj": leaf(1, d_in, d)}
+    return tree
+
+
+def _part(spec_, shape, dim, m, pos):
+    if spec_[dim] != "model":
+        return 0, shape[dim]
+    sl = shard_slices(shape, spec_, m, pos)[dim]
+    return sl.start, sl.stop
+
+
+@pytest.mark.parametrize("mesh", sorted(MOCKS))
+def test_position_ranges_follow_the_specs(mesh):
+    """``expert_range``, ``head_range`` and ``vocab_range`` give each
+    position the experts, heads and vocabulary rows its slices of
+    ``param_specs`` hold, and all of them in the fallbacks: an expert
+    count that does not divide (the hidden dim is split instead), a head
+    count that does not (reduced mamba's 8 heads on 16 x 16)."""
+    m = MOCKS[mesh]
+    tp = m.shape["model"]
+    cfgs = [TC.get_config(a) for a in (DEEPSEEK, MAMBA, GMOE)]
+    cfgs += [_configs(a, moe)[1] for a, moe in SPLITS.values()]
+    for cfg in cfgs:
+        tree = _shapes(cfg)
+        specs = param_specs(cfg, m, tree)
+        for pos in mesh_positions(m):
+            emb = specs["embed"]
+            assert vocab_range(cfg, m, pos) == _part(
+                emb, tree["embed"].shape, 0, m, pos)
+            if cfg.moe:
+                sp, sh = (specs["blocks"][0]["ffn"]["w_up"],
+                          tree["blocks"][0]["ffn"]["w_up"].shape)
+                assert expert_range(cfg, m, pos) == _part(sp, sh, 1, m, pos)
+                if cfg.moe.n_experts % tp:       # the hidden dim instead
+                    assert sp[1] is None and sp[3] == ("model" if cfg.moe
+                                                       .d_expert % tp == 0
+                                                       else None)
+            if cfg.ssm:
+                sp, sh = (specs["blocks"][0]["mamba"]["out_proj"],
+                          tree["blocks"][0]["mamba"]["out_proj"].shape)
+                heads = sh[1] // cfg.ssm.head_dim
+                rows = _part(sp, sh, 1, m, pos)
+                want = ((rows[0] // cfg.ssm.head_dim,
+                         rows[1] // cfg.ssm.head_dim)
+                        if heads % tp == 0 else (0, heads))
+                assert head_range(cfg, m, pos) == want
+    last = mesh_positions(m)[-1]
+    if mesh == "16x16":
+        assert expert_range(TC.get_config(GMOE), m, last) == (0, 40)
+        assert expert_range(TC.get_config(DEEPSEEK), m, last) == (60, 64)
+        assert head_range(TC.get_config(MAMBA), m, last) == (60, 64)
+        assert head_range(_configs(MAMBA)[1], m, last) == (0, 8)
+    if mesh == "3x2":
+        assert expert_range(_configs(DEEPSEEK, {"n_experts": 6})[1], m,
+                            last) == (3, 6)
+        assert vocab_range(TC.get_config(GMOE), m, last) == (24704, 49408)
 
 
 def test_sharded_compression_is_the_one_device_quantisation(cases_2x2):
