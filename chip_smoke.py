@@ -239,10 +239,14 @@ Phases, each printing its seconds:
    vocabulary) and mamba2-1.3b (its 64 SSD heads split, an untied head)
    at full width, depth 2, fp32, batch 8 x 128: the sharded step's first
    gradients and three steps against the one-device step on the same
-   weights and batches, within phase 14 (a)'s limits (a ``sharded_check
-   {...}`` line each, with the layout's splits); (b) granite-3-2b at its
+   weights and batches, within phase 14 (a)'s limits, each twice: as
+   is and with sequence parallelism (``seq_shard`` with ``act_dp`` the
+   data axes: the residual stream's sequence split over ``model``) (a
+   ``sharded_check {...}`` line each, with the layout's splits and
+   ``seq_shard``); (b) granite-3-2b at its
    full 40 layers (and on (n / 2, 2) and (1, n) the other two at their
-   full 32 and 48), bf16, remat, 4 x 512 tokens a data position: for
+   full 32 and 48; on (n / 2, 2) granite with ``seq_shard`` too, beside
+   the same mesh without it), bf16, remat, 4 x 512 tokens a data position: for
    granite the unsharded step on 4 x 512 and the sharded step in one
    process, each with a warm-up, 3
    timed steps split at the optimizer and one under ``torch.profiler``
@@ -4186,7 +4190,8 @@ def dryrun_train(train: dict) -> None:
             "flops_over_model_flops": ratio,
             "bytes_accessed": ca["bytes accessed"],
             "transcendentals": ca["transcendentals"],
-            "collectives_total_bytes": comp.collectives()["total_bytes"]}
+            "collectives_total_bytes": comp.collectives()["total_bytes"],
+            "collectives_basis": comp.collectives_basis}
     print("dryrun_train " + json.dumps(line))
     require(abs(predicted / peak - 1) <= DRYRUN_MEM_TOL,
             f"dry run of the train step: {predicted:.4g} bytes predicted, "
@@ -4353,6 +4358,8 @@ SHARDED_FULL_SEQ = 512
 GMOE = "granite-moe-3b-a800m"
 SHARDED_CHECK_ARCHS = (GRANITE, GMOE, MAMBA)
 SHARDED_SPLIT_ARCHS = (GMOE, MAMBA)
+# (b)'s ARCHS entry for an architecture with seq_shard on
+SEQ_MARK = "+seq"
 
 
 def card_line() -> str:
@@ -4367,13 +4374,15 @@ def sharded_meshes(n: int) -> list:
     """``((data, model), archs)``: the meshes of every visible card and
     the architectures (b) runs on each: (1, 1) on one card, granite;
     (n, 1) and, for n >= 4, (n / 2, 2) on n, granite, and on (n / 2, 2)
-    and (1, n) the two model splits too."""
+    and (1, n) the two model splits too; on (n / 2, 2) granite with
+    ``seq_shard`` too (``SEQ_MARK``)."""
     if n == 1:
         return [((1, 1), (GRANITE,))]
     if n < 4:
         return [((n, 1), (GRANITE,))]
     return [((n, 1), (GRANITE,)),
-            ((n // 2, 2), (GRANITE,) + SHARDED_SPLIT_ARCHS),
+            ((n // 2, 2), (GRANITE, GRANITE + SEQ_MARK)
+             + SHARDED_SPLIT_ARCHS),
             ((1, n), SHARDED_SPLIT_ARCHS)]
 
 
@@ -4391,12 +4400,22 @@ def on(dev, batch: dict) -> dict:
             for k, v in batch.items()}
 
 
-def sharded_check(mesh, arch: str = GRANITE) -> dict:
+def seq_config(tc, mesh, seq: bool):
+    """``tc`` with the residual stream's sequence split over ``model``
+    (``seq_shard`` with ``act_dp`` the mesh's data axes) when ``seq``."""
+    import dataclasses
+    from repro_torch.dist.sharding import dp_axes
+    return dataclasses.replace(tc, seq_shard=True, act_dp=dp_axes(mesh)) \
+        if seq else tc
+
+
+def sharded_check(mesh, arch: str = GRANITE, seq: bool = False) -> dict:
     """(a) ``arch`` at full width, depth 2, fp32, batch 8 x 128: the
     sharded step's first gradients and three steps (loss, grad_norm, the
     parameters after AdamW, gathered whole) against the one-device step
     on the same weights and global batches, within phase 14 (a)'s
-    limits; parameters within 2 lr a step."""
+    limits; parameters within 2 lr a step. ``seq``: the sharded step
+    with ``seq_shard`` (``seq_config``)."""
     import torch.distributed as dist
     from repro_torch.data import DataConfig, SyntheticTokenPipeline
     from repro_torch.dist.collectives import Layout, gather_leaf
@@ -4421,7 +4440,8 @@ def sharded_check(mesh, arch: str = GRANITE) -> dict:
     t0 = time.perf_counter()
     (l1, _), g1 = make_grad_fn(cfg, tc)(full, on(dev, batches[0]))
     layout = Layout(cfg, mesh, specs)
-    (ln, _), gn = make_grad_fn(cfg, tc, layout)(
+    tc_shd = seq_config(tc, mesh, seq)
+    (ln, _), gn = make_grad_fn(cfg, tc_shd, layout)(
         local, on(dev, shard_batch(batches[0], cfg, mesh, coords)))
     scale = max(float(g.abs().max()) for g in tree_leaves(g1))
     grads_err = max(float((gather_leaf(a, sp, mesh) - b).abs().max())
@@ -4431,7 +4451,7 @@ def sharded_check(mesh, arch: str = GRANITE) -> dict:
     one = init_state(cfg, tc, full)
     shd = init_state(cfg, tc, local)
     step_one = make_train_step(cfg, tc)
-    step_shd = make_train_step(cfg, tc, grad_specs=specs, mesh=mesh)
+    step_shd = make_train_step(cfg, tc_shd, grad_specs=specs, mesh=mesh)
     steps = []
     for b in batches:
         one, m1 = step_one(one, b)
@@ -4450,6 +4470,7 @@ def sharded_check(mesh, arch: str = GRANITE) -> dict:
            "splits": {k: getattr(layout, f"{k}_tp", None)
                       for k in ("attn", "mlp", "moe", "ssm", "vocab")},
            "mesh": list(mesh.sizes), "backend": dist.get_backend(),
+           "seq_shard": seq,
            "steps": len(batches), "seconds": time.perf_counter() - t0,
            "losses": [st["loss"][0] for st in steps],
            "grad_norms": [st["grad_norm"] for st in steps],
@@ -4479,8 +4500,8 @@ def sharded_check(mesh, arch: str = GRANITE) -> dict:
                    f"within {PARAMS_CLOSE}")
     if bad:
         print("sharded_check " + json.dumps(out), flush=True)
-    require(not bad, f"sharded_check {arch} on {list(mesh.sizes)}: "
-            + "; ".join(bad))
+    require(not bad, f"sharded_check {arch} on {list(mesh.sizes)} "
+            f"(seq_shard {seq}): " + "; ".join(bad))
     del one, shd, full, local, perr
     torch.cuda.empty_cache()
     return out
@@ -4547,7 +4568,10 @@ def sharded_full(mesh, arch: str = GRANITE) -> dict:
     (b)'s batch) first; then the sharded step on this rank's rows of the
     global batch, each with a warm-up, 3 timed steps (CUDA events) and
     one under the profiler; each rank's peak memory and state bytes (the
-    largest over the ranks)."""
+    largest over the ranks). ``arch`` ending in ``SEQ_MARK``: the
+    sharded step alone, with ``seq_shard`` (``seq_config``)."""
+    seq = arch.endswith(SEQ_MARK)
+    arch = arch.removesuffix(SEQ_MARK)
     import torch.distributed as dist
     from repro_torch.data import DataConfig, SyntheticTokenPipeline
     from repro_torch.dist.sharding import dp_axes, param_specs, shard_batch
@@ -4568,9 +4592,9 @@ def sharded_full(mesh, arch: str = GRANITE) -> dict:
     out = {"arch": arch, "n_layers": cfg.n_layers,
            "params": cfg.n_params(), "batch": [B, S],
            "mesh": list(mesh.sizes), "compute_dtype": "bfloat16",
-           "remat": True}
+           "remat": True, "seq_shard": seq}
     one = None
-    if arch == GRANITE:
+    if arch == GRANITE and not seq:
         torch.cuda.reset_peak_memory_stats()
         state = init_state(cfg, tc, init_params(cfg, 0, dev))
         state, one = full_step_line(
@@ -4589,7 +4613,8 @@ def sharded_full(mesh, arch: str = GRANITE) -> dict:
     state_bytes = sum(t.numel() * t.element_size()
                       for t in tree_leaves(state))
     state, shd = full_step_line(
-        make_train_step(cfg, tc, grad_specs=specs, mesh=mesh), state,
+        make_train_step(cfg, seq_config(tc, mesh, seq), grad_specs=specs,
+                        mesh=mesh), state,
         [on(dev, shard_batch(b, cfg, mesh, coords)) for b in glob])
     peak = torch.tensor([torch.cuda.max_memory_allocated(), state_bytes],
                         dtype=torch.float64, device=dev)
@@ -4617,6 +4642,7 @@ def wait_for_file(path: Path, timeout: float) -> None:
 def sharded_worker(argv: list) -> int:
     """One rank of phase 16 (started by torchrun): ``OUT DATA MODEL
     GATE ARCHS``; (a) for every architecture of ``SHARDED_CHECK_ARCHS``,
+    without ``seq_shard`` and with it,
     then, once the file ``GATE`` exists (the parent makes it when (c),
     which shares the card, has ended), (b) for each of ``ARCHS`` (comma
     separated); rank 0 writes the results to ``OUT`` as JSON."""
@@ -4631,7 +4657,8 @@ def sharded_worker(argv: list) -> int:
     dist.init_process_group("nccl")
     try:
         mesh = make_local_mesh(data, model)
-        res = {"check": [sharded_check(mesh, a)
+        res = {"check": [sharded_check(mesh, a, seq)
+                         for seq in (False, True)
                          for a in SHARDED_CHECK_ARCHS]}
         wait_for_file(Path(argv[3]), SHARDED_TIMEOUT_S)
         res["step"] = [sharded_full(mesh, a) for a in archs]

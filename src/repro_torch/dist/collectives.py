@@ -25,24 +25,53 @@ laid out by ``dist.sharding.param_specs``.
 * ``Layout.dp_sum`` sums the loss's parts over the data axes with
   ``exit``'s pair: every position then holds the global loss, whose
   gradient with respect to its own part is the identity.
+* Sequence parallelism (``SequenceParallel``, the step's ``seq_shard``):
+  between the sub-layers each model position holds its ``ceil(S' / m)``
+  rows of the residual stream (``S'`` the sequence with its prefix, ``m``
+  the model size; the last position's rows padded with zeros), and each
+  sub-layer gathers the whole sequence before it computes and scatters it
+  back after, by one of two pairs. In a split region (``TensorParallel``
+  with ``seq``) ``enter`` all-gathers the rows forward and
+  reduce-scatters the gradient backward (each position's column-parallel
+  products give a partial input gradient), and ``exit`` reduce-scatters
+  the row-parallel partial sums forward, in place of the all-reduce, and
+  all-gathers the gradient backward. Around a region whose leaves are
+  gathered whole over ``model`` (every position computes the same thing)
+  ``gather`` all-gathers forward and takes the position's own rows of the
+  gradient backward, and ``split`` keeps the position's own rows forward
+  and all-gathers the gradient backward: every position then holds the
+  whole upstream gradient, the whole-gathered leaves' gradients stay
+  equal over ``model``, and taking one stays exact. The pad rows are
+  dropped after every gather, so no sub-layer sees them, and take no
+  gradient. A leaf that runs on the rows (the norms' scales and biases)
+  has a partial gradient on each position: ``Layout`` sums it over
+  ``model`` (``tp_whole``).
 
 Gradients are summed in float32 whatever their dtype (a bfloat16
 gradient is cast back after the sum), so a bfloat16 leaf's gradient is
 rounded once, as on one device. No collective special-cases a group of
 one: on one device every collective is still issued, over groups of one
 process.
+
+``count_collectives`` records, while it is open, the kind, the group
+size and the bytes of the result of every collective issued here (the
+dry run counts a step's collectives with it).
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import math
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from .sharding import (TP_AXIS, dp_axes, map_specs, spec_axes,
                        spec_leaves)
 
-__all__ = ["Layout", "TensorParallel", "gather_leaf", "TP_SPLIT"]
+__all__ = ["Layout", "TensorParallel", "SequenceParallel", "gather_leaf",
+           "count_collectives", "TP_SPLIT"]
 
 # the leaves a tensor-parallel region splits over ``model`` (by columns:
 # wq, wk, wv, w_up, w_gate; by rows: wo, w_down)
@@ -53,6 +82,28 @@ def _size(mesh, axes) -> int:
     return math.prod(mesh.shape[a] for a in axes)
 
 
+_COUNTS = []     # the open count_collectives records, innermost last
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """A list that receives ``(kind, group size, bytes of the result)``
+    for every collective issued while the context is open, ``kind`` the
+    reference's name (``all-gather``, ``reduce-scatter``,
+    ``all-reduce``)."""
+    rec = []
+    _COUNTS.append(rec)
+    try:
+        yield rec
+    finally:
+        _COUNTS.remove(rec)
+
+
+def _count(kind: str, n: int, out: torch.Tensor) -> None:
+    for rec in _COUNTS:
+        rec.append((kind, n, out.numel() * out.element_size()))
+
+
 def _all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     """The ``n`` positions' ``x`` joined along ``dim`` in group order."""
     xm = x.movedim(dim, 0).contiguous()
@@ -60,6 +111,7 @@ def _all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     gather = getattr(dist, "all_gather_single", None) \
         or dist.all_gather_into_tensor
     gather(out, xm, group=group)
+    _count("all-gather", n, out)
     return out.movedim(0, dim)
 
 
@@ -72,6 +124,7 @@ def _reduce_scatter(x: torch.Tensor, dim: int, group,
     scatter = getattr(dist, "reduce_scatter_single", None) \
         or dist.reduce_scatter_tensor
     scatter(out, xm, group=group)
+    _count("reduce-scatter", n, out)
     return out.movedim(0, dim)
 
 
@@ -79,6 +132,8 @@ def _all_reduce(x: torch.Tensor, group,
                 op=dist.ReduceOp.SUM) -> torch.Tensor:
     y = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(y, op=op, group=group)
+    if _COUNTS:
+        _count("all-reduce", dist.get_world_size(group), y)
     return y
 
 
@@ -185,21 +240,154 @@ class _VocabLse(torch.autograd.Function):
         return g, None, None, None
 
 
+class _SeqGather(torch.autograd.Function):
+    """All-gather of the positions' rows along dim 1 forward. Backward:
+    the reduce-scatter of the gradient (``summed``: each position's
+    gradient is partial) or the position's own rows of it (each holds the
+    whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, rank, summed):
+        ctx.group, ctx.n, ctx.rank, ctx.summed = group, n, rank, summed
+        return _all_gather(x, 1, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_grad(g, ctx, ctx.summed), None, None, None, None
+
+
+class _SeqGatherTwice(torch.autograd.Function):
+    """One all-gather along dim 1, two outputs: the first takes
+    ``_SeqGather``'s own-rows backward, the second its reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, rank):
+        ctx.group, ctx.n, ctx.rank = group, n, rank
+        out = _all_gather(x, 1, group, n)
+        return out, out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g_own, g_sum):
+        return (_seq_grad(g_own, ctx, False) + _seq_grad(g_sum, ctx, True),
+                None, None, None)
+
+
+def _seq_grad(g: torch.Tensor, ctx, summed: bool) -> torch.Tensor:
+    if summed:
+        return _reduce_scatter(g, 1, ctx.group, ctx.n)
+    rows = g.shape[1] // ctx.n
+    return g.narrow(1, ctx.rank * rows, rows).contiguous()
+
+
+class _SeqScatter(torch.autograd.Function):
+    """Reduce-scatter along dim 1 forward, all-gather of the gradient
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return _reduce_scatter(x, 1, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, 1, ctx.group, ctx.n), None, None
+
+
+class _SeqSplit(torch.autograd.Function):
+    """The position's own rows (dim 1) forward, all-gather of the
+    gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, rank):
+        ctx.group, ctx.n = group, n
+        rows = x.shape[1] // n
+        return x.narrow(1, rank * rows, rows).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, 1, ctx.group, ctx.n), None, None, None
+
+
+class SequenceParallel:
+    """The residual stream's sequence split over the ``model`` axis of
+    ``mesh``: a sequence of ``length`` rows (``S'``, the prefix's
+    included), ``rows = ceil(length / size)`` of them on each model
+    position, the last position's padded with zeros. ``(B, length, D)``
+    and ``(B, rows, D)`` tensors (see the module's docstring for the two
+    pairs)."""
+
+    def __init__(self, mesh, length: int):
+        self.group = mesh.group(TP_AXIS)
+        self.size = mesh.shape[TP_AXIS]
+        self.rank = mesh.coords.get(TP_AXIS, 0)
+        self.length = length
+        self.rows = -(-length // self.size)
+
+    def _pad(self, x: torch.Tensor) -> torch.Tensor:
+        pad = self.rows * self.size - x.shape[1]
+        return F.pad(x, (0, 0, 0, pad)) if pad else x
+
+    def split(self, x: torch.Tensor) -> torch.Tensor:
+        """Whole ``x`` (the same on every position) -> this position's
+        rows; the gradient is all-gathered."""
+        return _SeqSplit.apply(self._pad(x), self.group, self.size,
+                               self.rank)
+
+    def scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """Each position's partial whole ``x`` -> this position's rows of
+        their sum (a reduce-scatter); the gradient is all-gathered."""
+        return _SeqScatter.apply(self._pad(x), self.group, self.size)
+
+    def gather(self, x: torch.Tensor, summed: bool = False) -> torch.Tensor:
+        """This position's rows -> the whole sequence, the pad rows
+        dropped. Backward: the position's own rows of the gradient, or
+        with ``summed`` the reduce-scatter of the positions' partial
+        gradients."""
+        out = _SeqGather.apply(x, self.group, self.size, self.rank, summed)
+        return out.narrow(1, 0, self.length)
+
+    def gather_twice(self, x: torch.Tensor) -> tuple:
+        """``(gather(x), gather(x, summed=True))`` from one all-gather."""
+        own, summed = _SeqGatherTwice.apply(x, self.group, self.size,
+                                            self.rank)
+        return own.narrow(1, 0, self.length), \
+            summed.narrow(1, 0, self.length)
+
+
 class TensorParallel:
     """Megatron's f/g pair over the ``model`` axis of ``mesh``: a
     column-parallel product takes ``enter(x)``, a row-parallel one's
     partial sums leave through ``exit``. ``rank`` is the position's
-    index on ``model``."""
+    index on ``model``. With ``seq`` (a ``SequenceParallel``, see
+    ``over``) ``enter`` gathers the sequence from the position's rows and
+    ``exit`` scatters it back."""
 
     def __init__(self, mesh):
         self.group = mesh.group(TP_AXIS)
         self.size = mesh.shape[TP_AXIS]
         self.rank = mesh.coords.get(TP_AXIS, 0)
+        self.seq = None
+
+    def over(self, seq: "SequenceParallel") -> "TensorParallel":
+        """This pair with the sequence split by ``seq``."""
+        tp = copy.copy(self)
+        tp.seq = seq
+        return tp
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
+        if self.seq is not None:
+            return self.seq.gather(x, summed=True)
+        return _Enter.apply(x, self.group)
+
+    def enter_whole(self, x: torch.Tensor) -> torch.Tensor:
+        """A tensor that every position holds whole (MoE's gates) enters:
+        identity forward, all-reduce backward, with ``seq`` too."""
         return _Enter.apply(x, self.group)
 
     def exit(self, x: torch.Tensor) -> torch.Tensor:
+        if self.seq is not None:
+            return self.seq.scatter(x)
         return _Exit.apply(x, self.group)
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
@@ -268,6 +456,11 @@ class Layout:
     * ``vocab_tp`` (once): the embedding's rows and the head's columns,
       when the specs split the padded vocabulary; the loss takes the
       log-sum-exp over the split.
+
+    With the sequence split (``seq``) the norms' leaves (``ln1``,
+    ``ln2``, ``final_norm``) run on the position's rows, and so do
+    shared experts that run outside MoE's region: their gradients are
+    summed over ``model`` (``tp_whole``).
 
     Where a split is not possible the position's leaves are gathered
     whole over ``model`` and the model positions compute the same thing:
@@ -345,40 +538,42 @@ class Layout:
                                    self.coords.get(TP_AXIS, 0),
                                    model and tp_whole)
 
-    def top(self, params: dict) -> dict:
+    def top(self, params: dict, seq: bool = False) -> dict:
         """``params`` with every leaf but the blocks gathered for use (the
-        embedding and head over the data axes only with ``vocab_tp``)."""
+        embedding and head over the data axes only with ``vocab_tp``;
+        ``final_norm`` summed over ``model`` with ``seq``)."""
         split = ("embed", "lm_head") if self.vocab_tp else ()
-        out = {k: map_specs(lambda s, x: self.use(x, s, k not in split),
-                            self.specs[k], v)
-               for k, v in params.items() if k != "blocks"}
+        out = {k: map_specs(lambda s, x: self.use(
+            x, s, k not in split, seq and k == "final_norm"),
+            self.specs[k], v) for k, v in params.items() if k != "blocks"}
         out["blocks"] = params["blocks"]
         return out
 
-    def _how(self, i: int, part: str, name: str) -> tuple:
+    def _how(self, i: int, part: str, name: str, seq: bool) -> tuple:
         """``(model, tp_whole)`` for ``use`` of leaf ``name`` of sub-tree
-        ``part`` at pattern position ``i``."""
+        ``part`` at pattern position ``i`` (``seq``: the sequence split)."""
+        if part in ("ln1", "ln2"):
+            return True, seq
         if part == "attn" and self.attn_tp[i]:
             return False, name not in TP_SPLIT
         if part == "ffn" and self.mlp_tp[i]:
             return False, False
         if part == "ffn" and self.moe_tp[i]:
-            shared = name.startswith("sh_")
-            if name == "router" or (shared and not self._mlp_tp(
+            if name.startswith("sh_") and not self._mlp_tp(
                     self.specs["blocks"][i]["ffn"],
-                    ("sh_up", "sh_gate", "sh_down"))):
-                return True, False
-            return False, False
+                    ("sh_up", "sh_gate", "sh_down")):
+                return True, seq           # outside the region
+            return name == "router", False
         if part == "mamba" and self.ssm_tp[i]:
             return name != "out_proj", name != "out_proj"
         return True, False
 
-    def block(self, views: list) -> list:
+    def block(self, views: list, seq: bool = False) -> list:
         """One block's views (a dict a pattern position, leading dim
         dropped) with each leaf gathered for use: over the data axes, and
         over ``model`` where the position does not use it split."""
         return [{k: {name: self.use(x, sp[k][name][1:],
-                                    *self._how(i, k, name))
+                                    *self._how(i, k, name, seq))
                      for name, x in v.items()} for k, v in p.items()}
                 for i, (p, sp) in enumerate(zip(views,
                                                 self.specs["blocks"]))]

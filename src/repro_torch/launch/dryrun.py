@@ -44,42 +44,50 @@ What each key means here, against the reference's XLA numbers:
   axis, and so are the parameter-shaped temporaries (gradients, the
   optimizer's): the record says so in ``temp_basis``.
   ``code_bytes`` is 0.
-* ``collectives``: the port has no SPMD partitioner and no HLO to read.
-  The schedule is derived from the same specs by this rule, with the
-  reference's five kinds, ``count`` and ``bytes`` per device, bytes of
-  the result as in the reference's HLO count:
+* ``collectives``: the port has no SPMD partitioner and no HLO to read;
+  the record's ``collectives_basis`` says where its counts come from.
 
-  - FSDP: each weight whose spec holds data axes is all-gathered over
-    them once a forward (at the dtype it is used in: the compute dtype
-    for projections and embeddings, float32 for the router), a result of
-    its bytes / its ``model`` shards; its float32 gradient is
-    reduce-scattered over those axes (a result of its per-device shard)
-    and all-reduced over the data axes that do not shard it (a
-    replicated leaf's gradient: over all of them).
-  - TP: one all-reduce of the activations (local batch x S x d_model at
-    the compute dtype) a forward after each sub-layer (mixer, FFN) whose
-    output projection (``wo``, ``out_proj``, ``w_down``, ``sh_down``)
-    has its input dim on ``model``, and one a backward, for the gradient
-    of the sub-layer's input.
-  - MoE: when the experts are sharded on ``model``, the dispatch buffer
-    (local batch x E x capacity x d_model at the compute dtype) takes an
-    all-to-all each way, forward and backward.
-  - A train step counts the forward terms, again under remat (the
-    recomputed forward gathers and reduces again), and the backward
-    terms; prefill and decode the forward terms only.
-  - Per-layer terms are counted once a pattern position, their bytes
-    times ``n_blocks`` (the reference's ``body_trip``), so ``count``
-    reads as the reference's count of ops in a scan body.
-    ``depth2_raw_bytes`` is 0. Left out: the small reductions of the loss
-    over a vocabulary split on ``model`` and the embedding lookup's.
+  - ``"issued"`` (train cells): the cell's sharded step
+    (``make_train_step(cfg, tc, grad_specs=specs, mesh=mesh)``, the one
+    a deployment runs, with ``tc``'s ``seq_shard`` and ``act_dp``) runs
+    once as rank 0 of a fake process group of the mesh's size
+    (``torch.testing._internal.distributed.fake_pg``), on fake tensors at
+    rank 0's local shapes, and every collective that
+    ``dist.collectives`` issues is counted
+    (``dist.collectives.count_collectives``) by the reference's kinds:
+    ``count`` the collectives issued, ``bytes`` the bytes of their
+    results, per device. A collective over a group of one process moves
+    nothing and is not counted (XLA removes it). The count refuses to
+    run where a process group is already initialised, and destroys its
+    own before it returns.
+  - ``"rule"`` (prefill and decode cells: the port has no sharded
+    serving step yet): derived from the specs, bytes of the result as in
+    the reference's HLO count. FSDP: each weight whose spec holds data
+    axes is all-gathered over them once a forward (at the dtype it is
+    used in: the compute dtype for projections and embeddings, float32
+    for the router), a result of its bytes / its ``model`` shards. TP:
+    one all-reduce of the activations (local batch x S x d_model at the
+    compute dtype) after each sub-layer (mixer, FFN) whose output
+    projection (``wo``, ``out_proj``, ``w_down``, ``sh_down``) has its
+    input dim on ``model``. MoE: when the experts are sharded on
+    ``model``, the dispatch buffer (local batch x E x capacity x d_model
+    at the compute dtype) takes an all-to-all each way. Per-layer terms
+    are counted once a pattern position, their bytes times ``n_blocks``
+    (the reference's ``body_trip``).
+
+  ``depth2_raw_bytes`` is 0. Where the reference's ``count`` is of ops
+  in the partitioned HLO (a scan body's once), an issued count is of
+  every call, once a block.
 
 ``launch/compat.py`` is not ported: ``normalize_cost_analysis`` only
 collapses jax's drift in the return shape of
 ``Compiled.cost_analysis()``, and here the counts are a dict from the
 start (so is ``SpmvPlan.cost_analysis``). The reference's ``--variant
-opt`` (its ``act_dp`` activation-sharding constraints) is not run:
-``models.forward`` accepts ``act_dp`` only in a sharded step on a mesh
-of processes, which the dry run does not build, so only ``base`` runs.
+opt`` (its ``act_dp`` activation-sharding constraints) is not a CLI
+variant here: ``lower_cell(..., train_cfg=TrainConfig(act_dp=...,
+seq_shard=...))`` counts a train cell's collectives with them; the
+one-device passes (costs, memory) run without them, which computes the
+same thing.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
@@ -106,8 +114,9 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import REGISTRY, cells_for, get_config
 from repro_torch.configs.base import ArchConfig, ShapeCell
+from repro_torch.dist.collectives import count_collectives
 from repro_torch.dist.sharding import (batch_specs, cache_specs, dp_axes,
-                                       param_specs, spec)
+                                       mesh_coords, param_specs, spec)
 from repro_torch.launch.mesh import Mesh, make_production_mesh
 from repro_torch.models import (cache_spec, cast_params, decode_step,
                                 init_params, n_blocks, pattern_specs,
@@ -118,7 +127,7 @@ from repro_torch.train.optimizer import adamw_init
 from repro_torch.train.step import TrainConfig, make_train_step
 
 __all__ = ["TensorSpec", "input_specs", "lower_cell", "run_cell",
-           "collective_stats", "main"]
+           "collective_stats", "issued_collectives", "main"]
 
 _COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                 "collective-permute")
@@ -290,14 +299,79 @@ def _has_model(sp: tuple, dim: int) -> bool:
     return len(sp) >= -dim and "model" in _axes(sp[dim])
 
 
+def _no_stats() -> dict:
+    return {k: {"count": 0, "bytes": 0} for k in _COLLECTIVES}
+
+
+def _totals(stats: dict) -> dict:
+    stats["total_bytes"] = sum(v["bytes"] for k, v in stats.items()
+                               if isinstance(v, dict))
+    stats["depth2_raw_bytes"] = 0
+    return stats
+
+
+def _rank0_mesh(mesh) -> Mesh:
+    """``mesh`` as a mesh of processes seen from rank 0 of a process group
+    of its size: rank 0's groups over each axis, over each run of two or
+    more data axes (those ``make_local_mesh`` makes) and the whole mesh."""
+    import torch.distributed as dist
+    axes = mesh.axis_names
+    dp = tuple(a for a in axes if a != "model")
+    groups = {}
+    for sub in [(a,) for a in axes] + [dp[-k:]
+                                       for k in range(2, len(dp) + 1)]:
+        ranks = [r for r in range(mesh.size)
+                 if all(c == 0 for a, c in mesh_coords(mesh, r).items()
+                        if a not in sub)]
+        groups[sub] = dist.new_group(ranks)
+    groups[axes] = dist.group.WORLD
+    return Mesh(axes, mesh.sizes, rank=0, device=torch.device("cpu"),
+                groups=groups)
+
+
+def issued_collectives(low: "Lowered") -> dict:
+    """The collectives the train cell's sharded step issues on one device
+    (rank 0) of its mesh, counted as it runs once in a fake process group
+    on fake tensors (see the module docstring)."""
+    import torch.distributed as dist
+    if low.cell.kind != "train":
+        raise ValueError(f"{low.cell.kind} cells have no sharded step")
+    if dist.is_available() and dist.is_initialized():
+        raise RuntimeError(
+            "the dry run counts a step's collectives in a fake process "
+            "group of its own, and a process group is already initialised "
+            "in this process: run the dry run outside it")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=low.mesh.size)
+    try:
+        mesh = _rank0_mesh(low.mesh)
+        specs = tree_map(lambda t: t.spec, low.params)
+        with FakeTensorMode():
+            state, batch = low._local_args()
+            step = make_train_step(low.cfg, low.tc, grad_specs=specs,
+                                   mesh=mesh)
+            with count_collectives() as issued:
+                step(state, batch)
+    finally:
+        dist.destroy_process_group()
+    stats = _no_stats()
+    for kind, n, nbytes in issued:
+        if n > 1:
+            stats[kind]["count"] += 1
+            stats[kind]["bytes"] += nbytes
+    return _totals(stats)
+
+
 def collective_stats(cfg: ArchConfig, cell: ShapeCell, mesh, params,
                      compute_dtype=torch.bfloat16,
                      remat: bool = True) -> dict:
     """The collectives a partitioned step of this cell would run, per
     device, by the rule in the module docstring (the reference's
-    ``collective_stats`` reads them from the partitioned HLO instead).
+    ``collective_stats`` reads them from the partitioned HLO instead):
+    the basis of prefill and decode cells, which have no sharded step.
     ``params`` is the tree of ``TensorSpec`` of ``_param_structs``."""
-    stats = {k: {"count": 0, "bytes": 0} for k in _COLLECTIVES}
+    stats = _no_stats()
 
     def add(kind, nbytes, times=1, trip=1):
         stats[kind]["count"] += times
@@ -352,10 +426,7 @@ def collective_stats(cfg: ArchConfig, cell: ShapeCell, mesh, params,
             buf = local_b * e.n_experts * _capacity(cfg, seq) * \
                 cfg.d_model * cbytes
             add("all-to-all", buf, times=2 * passes, trip=trip)
-    stats["total_bytes"] = sum(v["bytes"] for k, v in stats.items()
-                               if isinstance(v, dict))
-    stats["depth2_raw_bytes"] = 0
-    return stats
+    return _totals(stats)
 
 
 # ------------------------------- dry run ----------------------------------
@@ -412,9 +483,24 @@ class Lowered:
                             "caches": _fake_caches(ins["caches"], batch)}
         return params, {k: _fake(v, batch) for k, v in ins.items()}
 
+    def _local_args(self):
+        """Fake (state, batch) of a train step at rank 0's local shapes
+        (each leaf's slice under its spec, the batch's rows), inside a
+        FakeTensorMode."""
+        sizes = dict(self.mesh.shape)
+        params = tree_map(lambda t: torch.zeros(tuple(
+            d // math.prod(sizes[a] for a in _axes(e))
+            for d, e in zip(t.shape, t.spec)), dtype=t.dtype), self.params)
+        batch = self.cell.global_batch // self.batch_shards
+        return ({"params": params, "opt": adamw_init(params)},
+                {k: _fake(v, batch) for k, v in self.inputs.items()})
+
     def _call(self, state, ins):
-        """Run the cell's step once on ``_args``; returns its outputs."""
-        cfg, tc = self.cfg, self.tc
+        """Run the cell's step once on ``_args``; returns its outputs.
+        The one-device step runs without ``act_dp`` and ``seq_shard``
+        (which need a mesh of processes): it computes the same thing."""
+        cfg = self.cfg
+        tc = dataclasses.replace(self.tc, act_dp=None, seq_shard=False)
         dtype = _DTYPES[tc.compute_dtype]
         if self.cell.kind == "train":
             return make_train_step(cfg, tc)(state, ins)
@@ -516,11 +602,18 @@ class Compiled:
                 "alias_bytes": _tree_bytes(self.outputs["aliased"], mesh),
                 "code_bytes": 0}
 
+    @property
+    def collectives_basis(self) -> str:
+        return "issued" if self.lowered.cell.kind == "train" else "rule"
+
     def collectives(self) -> dict:
+        """Per device, by ``collectives_basis`` (the module docstring)."""
         low = self.lowered
+        if self.collectives_basis == "issued":
+            return issued_collectives(low)
         return collective_stats(low.cfg, low.cell, low.mesh, low.params,
-                                   _DTYPES[low.tc.compute_dtype],
-                                   remat=low.tc.remat)
+                                _DTYPES[low.tc.compute_dtype],
+                                remat=low.tc.remat)
 
 
 def lower_cell(cfg: ArchConfig, cell: ShapeCell, mesh,
@@ -567,6 +660,7 @@ def run_cell(cfg: ArchConfig, cell: ShapeCell, multi_pod: bool,
             "memory": compiled.memory_analysis(),
             "temp_basis": TEMP_BASIS,
             "collectives": compiled.collectives(),
+            "collectives_basis": compiled.collectives_basis,
         })
     except Exception as e:  # a failure here is a bug in the system
         rec.update({"ok": False, "error": f"{type(e).__name__}: {e}"})

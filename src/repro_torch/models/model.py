@@ -34,9 +34,25 @@ the logits only and ``loss_fn`` takes the log-sum-exp over the split
 mean (the sums of nll, lse^2 and the mask summed over the data axes)
 and MoE's aux loss the global batch's statistics. The reference's
 ``act_dp`` is accepted when it names the mesh's data axes (the batch is
-split that way already); ``seq_shard`` (sequence parallelism) and
-``unroll`` (``lax.scan`` unrolling) raise ``NotImplementedError``, as
-``act_dp`` does without a layout.
+split that way already); ``unroll`` (``lax.scan`` unrolling) raises
+``NotImplementedError``, as ``act_dp`` does without a layout.
+
+``seq_shard`` (sequence parallelism) keeps the reference's meaning: the
+residual stream's sequence is split over ``model`` only where
+``act_dp`` is given, that is with a layout and ``act_dp`` naming its
+data axes (``dist.collectives.SequenceParallel``). Each model position
+then holds ``ceil(S' / m)`` rows of the stream (``S'`` the sequence with
+its prefix); the norms and the residual adds run on them, and each
+sub-layer gathers the whole sequence before it computes and scatters it
+back after: a split region through ``TensorParallel.over(seq)``, a
+region whose leaves are gathered whole through the gather / split pair.
+MoE gathers the normed tokens, not an all-to-all of each position's
+own: capacity, drops and the router's aux loss are defined over a row's
+whole sequence. Its router takes the gather whose backward is the
+position's own rows (its gates' gradient is made whole by
+``enter_whole``), its experts the one whose backward is summed. Without
+``act_dp`` (or without a layout) ``seq_shard`` computes exactly what
+``seq_shard=False`` does, as in the reference.
 
 Parameters stay float32 by default; ``cast_params`` casts, once, the
 leaves the reference casts to the compute dtype at each use (embedding,
@@ -232,39 +248,56 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
 # ------------------------------ forward ------------------------------------
 
 def _ffn(cfg: ArchConfig, spec: PositionSpec, p: dict, h: torch.Tensor,
-         tp=None, dp=None):
+         tp=None, dp=None, seq=None):
     """The position's MLP or MoE on ln2(h): (y, aux). ``tp``: the MLP's
     or the experts' tensor parallelism; ``dp``: the layout whose data
-    axes MoE's aux loss sums over."""
+    axes MoE's aux loss sums over; ``seq``: ``h`` is this position's
+    rows of the sequence."""
     xn = L.apply_norm(p["ln2"], h)
     if spec.ffn == "moe":
-        return MOE.apply_moe(cfg, p["ffn"], xn, dp=dp, tp=tp)
-    return L.apply_mlp(cfg, p["ffn"], xn, tp=tp), None
+        return _region(seq, tp, lambda x, t: MOE.apply_moe(
+            cfg, p["ffn"], x, dp=dp, tp=t), xn)
+    return _region(seq, tp, lambda x, t: (L.apply_mlp(
+        cfg, p["ffn"], x, tp=t), None), xn)
+
+
+def _region(seq, tp, fn, x):
+    """``fn(x, tp) -> (y, aux)``, a sub-layer on the residual stream's
+    ``x``. With the sequence split (``seq``) a split region's ``tp``
+    gathers and scatters the sequence itself; a region whose leaves are
+    whole (``tp`` None) gathers it before and keeps its own rows after."""
+    if seq is None or tp is not None:
+        return fn(x, tp)
+    y, aux = fn(seq.gather(x), None)
+    return seq.split(y), aux
 
 
 def _block_body(cfg: ArchConfig, specs, block_params: list[dict],
                 h: torch.Tensor, positions: torch.Tensor, block_kv=None,
-                layout=None):
+                layout=None, seq=None):
     """One pattern block (train path). Returns (h, aux_loss). With
-    ``layout`` the block's slices are gathered for use here."""
+    ``layout`` the block's slices are gathered for use here; with
+    ``seq`` (a ``SequenceParallel``) ``h`` is this position's rows."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if layout is not None:
-        block_params = layout.block(block_params)
+        block_params = layout.block(block_params, seq is not None)
+        tp = layout.tp if seq is None else layout.tp.over(seq)
     for i, (spec, p) in enumerate(zip(specs, block_params)):
         mix_tp = ffn_tp = None
         if layout is not None:
-            mix_tp = layout.tp if (layout.attn_tp[i]
-                                   or layout.ssm_tp[i]) else None
-            ffn_tp = layout.tp if (layout.mlp_tp[i]
-                                   or layout.moe_tp[i]) else None
+            mix_tp = tp if (layout.attn_tp[i] or layout.ssm_tp[i]) else None
+            ffn_tp = tp if (layout.mlp_tp[i] or layout.moe_tp[i]) else None
         xn = L.apply_norm(p["ln1"], h)
         if spec.kind == "A":
-            h = h + L.attention_train(cfg, p["attn"], xn, positions,
-                                      block_kv=block_kv, tp=mix_tp)
+            y, _ = _region(seq, mix_tp, lambda x, t: (L.attention_train(
+                cfg, p["attn"], x, positions, block_kv=block_kv, tp=t),
+                None), xn)
         else:
-            h = h + SSM.mamba_train(cfg, p["mamba"], xn, tp=mix_tp)
+            y, _ = _region(seq, mix_tp, lambda x, t: (SSM.mamba_train(
+                cfg, p["mamba"], x, tp=t), None), xn)
+        h = h + y
         if spec.ffn is not None:
-            y, a = _ffn(cfg, spec, p, h, tp=ffn_tp, dp=layout)
+            y, a = _ffn(cfg, spec, p, h, tp=ffn_tp, dp=layout, seq=seq)
             if a is not None:
                 aux = aux + a
             h = h + y
@@ -273,24 +306,36 @@ def _block_body(cfg: ArchConfig, specs, block_params: list[dict],
 
 def _embed(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
            prefix_embeds: Optional[torch.Tensor], dtype,
-           tp=None) -> torch.Tensor:
+           tp=None, seq=None) -> torch.Tensor:
     """The tokens' rows of the embedding (then the prefix). With ``tp``
     ``embed`` holds this model position's part of the vocabulary rows:
     it looks up the tokens there, zeros elsewhere, and the rows are summed
-    over ``model`` (one position adds each, exactly)."""
+    over ``model`` (one position adds each, exactly). With ``seq`` the
+    result is this position's rows of the sequence: the sum is a
+    reduce-scatter (``tp.over(seq).exit``; model position 0 adds the
+    prefix), or without ``tp`` the whole lookup's own rows."""
+    if cfg.n_prefix and prefix_embeds is None:
+        raise ValueError(f"{cfg.name} needs prefix embeds")
     if tp is None:
         h = params["embed"][tokens.long()].to(dtype)
-    else:
-        n = params["embed"].shape[0]
-        t = tokens.long() - tp.rank * n
-        mine = ((t >= 0) & (t < n))[..., None]
-        rows = params["embed"][torch.where(mine[..., 0], t, 0)].to(dtype)
-        h = tp.exit(torch.where(mine, rows, 0))
+        if cfg.n_prefix:
+            h = torch.cat([prefix_embeds.to(dtype), h], dim=1)
+        return h if seq is None else seq.split(h)
+    n = params["embed"].shape[0]
+    t = tokens.long() - tp.rank * n
+    mine = ((t >= 0) & (t < n))[..., None]
+    rows = params["embed"][torch.where(mine[..., 0], t, 0)].to(dtype)
+    h = torch.where(mine, rows, 0)
+    if seq is None:
+        h = tp.exit(h)
+        if cfg.n_prefix:
+            h = torch.cat([prefix_embeds.to(dtype), h], dim=1)
+        return h
     if cfg.n_prefix:
-        if prefix_embeds is None:
-            raise ValueError(f"{cfg.name} needs prefix embeds")
-        h = torch.cat([prefix_embeds.to(dtype), h], dim=1)
-    return h
+        pre = prefix_embeds.to(dtype)
+        h = torch.cat([pre if tp.rank == 0 else torch.zeros_like(pre), h],
+                      dim=1)
+    return tp.over(seq).exit(h)
 
 
 def _logits(cfg: ArchConfig, params: dict, h: torch.Tensor,
@@ -303,15 +348,11 @@ def _logits(cfg: ArchConfig, params: dict, h: torch.Tensor,
     return h @ head.to(h.dtype)
 
 
-def _check_knobs(unroll, act_dp, seq_shard, layout) -> None:
+def _check_knobs(unroll, act_dp, layout) -> None:
     if unroll != 1:
         raise NotImplementedError(
             "unroll is the reference's lax.scan unrolling; the port loops "
             "over blocks: leave it at 1")
-    if seq_shard:
-        raise NotImplementedError(
-            "seq_shard (sequence parallelism) is not ported yet; it is "
-            "the next slice, ROADMAP.md queue 1 item 13")
     if act_dp is not None and (layout is None
                                or tuple(act_dp) != tuple(layout.dp)):
         raise NotImplementedError(
@@ -334,27 +375,37 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     in the backward pass instead of keeping its activations. ``layout``:
     ``params`` are this process's slices (see the module's docstring),
     ``tokens`` its rows of the global batch; with ``layout.vocab_tp`` the
-    logits are this model position's ``vocab_padded / model`` columns."""
-    _check_knobs(unroll, act_dp, seq_shard, layout)
+    logits are this model position's ``vocab_padded / model`` columns.
+    ``seq_shard`` with ``act_dp`` (and so a layout) splits the residual
+    stream's sequence over ``model`` (see the module's docstring)."""
+    _check_knobs(unroll, act_dp, layout)
     specs = pattern_specs(cfg)
-    vocab_tp = None
+    vocab_tp = seq = None
+    length = tokens.shape[1] + cfg.n_prefix
     if layout is not None:
-        params = layout.top(params)
+        if seq_shard and act_dp is not None:
+            from repro_torch.dist.collectives import SequenceParallel
+            seq = SequenceParallel(layout.mesh, length)
+        params = layout.top(params, seq is not None)
         vocab_tp = layout.tp if layout.vocab_tp else None
-    h = _embed(cfg, params, tokens, prefix_embeds, compute_dtype, vocab_tp)
-    positions = torch.arange(h.shape[1], device=h.device)[None]
+    h = _embed(cfg, params, tokens, prefix_embeds, compute_dtype, vocab_tp,
+               seq)
+    positions = torch.arange(length, device=h.device)[None]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     ckpt = remat and torch.is_grad_enabled()
     for block in block_views(params):
         if ckpt:
             h, a = torch.utils.checkpoint.checkpoint(
                 _block_body, cfg, specs, block, h, positions, block_kv,
-                layout, use_reentrant=False)
+                layout, seq, use_reentrant=False)
         else:
             h, a = _block_body(cfg, specs, block, h, positions, block_kv,
-                               layout)
+                               layout, seq)
         aux = aux + a
     h = L.apply_norm(params["final_norm"], h)
+    if seq is not None:        # the head's enter gathers the sequence
+        h = seq.gather(h, summed=vocab_tp is not None)
+        vocab_tp = None
     if cfg.n_prefix:
         h = h[:, cfg.n_prefix:]
     return _logits(cfg, params, h, vocab_tp), aux

@@ -29,6 +29,16 @@ when the experts do not divide) it runs every expert on its columns.
 The combine's partial sums, and the shared experts' column/row-parallel
 ones, leave through ``tp.exit``. No all-to-all is needed while the
 tokens are not split over ``model``.
+
+With the sequence split over ``model`` too (``tp.seq``, the step's
+``seq_shard``) ``x`` is the position's rows of the normed tokens, and
+one all-gather gives the whole sequence twice: the router's copy takes
+the position's own rows of its gradient (that gradient is whole on every
+position: the gates enter through ``tp.enter_whole``, the aux loss is
+the same everywhere), the experts' copy the sum of the positions'
+partial gradients. Gathering the tokens, not an all-to-all of each
+position's own, keeps capacity and drops those of the whole sequence.
+Shared experts outside the region run on the position's rows.
 """
 from __future__ import annotations
 
@@ -204,10 +214,15 @@ def apply_moe(cfg: ArchConfig, p: dict, x: torch.Tensor, dp=None,
     ``tp``: the experts are this model position's (see the module's
     docstring)."""
     e = cfg.moe
-    gate_vals, idx, aux = _router(cfg, p, x, dp)
-    xe, e0 = x, 0
+    xr = xe = x
+    if tp is not None and tp.seq is not None:
+        xr, xe = tp.seq.gather_twice(x)
+    gate_vals, idx, aux = _router(cfg, p, xr, dp)
+    e0 = 0
     if tp is not None:
-        xe, gate_vals = tp.enter(x), tp.enter(gate_vals)
+        if tp.seq is None:
+            xe = tp.enter(x)
+        gate_vals = tp.enter_whole(gate_vals)
         n_e = p["w_up"].shape[-3]
         e0 = 0 if n_e == e.n_experts else tp.rank * n_e
     if e.impl == "sorted":

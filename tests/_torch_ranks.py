@@ -20,8 +20,14 @@ Cases (dicts with a ``kind``):
 * ``restore``: the slices of the checkpoint ``step`` in ``ckpt``, laid
   out by ``arch``'s parameter specs (``tc`` as in ``steps``).
 * ``knobs``: ``loss_fn`` on the first batch with ``act_dp`` the data
-  axes (equal to the loss without it?) and which of ``act_dp=("model",)``,
+  axes (equal to the loss without it?), with ``seq_shard=True`` alone
+  (equal?) and with ``seq_shard=True`` and ``act_dp`` (its value, beside
+  the loss without either), and which of ``act_dp=("model",)``,
   ``seq_shard=True`` and ``unroll=2`` raise ``NotImplementedError``.
+* ``count``: one sharded step of ``arch`` (``tc`` as in ``steps``) on
+  the global batch ``batches[0]``, with ``dist.collectives``' three
+  primitives wrapped to record each call's kind, group size and bytes
+  of its result.
 * ``split``: one ``loss_fn`` on the first batch with the expert FFN, the
   SSD scan and the head wrapped to record, on this rank, the experts
   and expert hidden columns each ``_expert_ffn`` runs, the heads each
@@ -29,7 +35,14 @@ Cases (dicts with a ``kind``):
   flags.
 * ``functions``: ``TensorParallel.vocab_lse`` (with a z-loss) and
   ``TensorParallel.sum`` in float64 on this rank's part of the whole
-  ``logits``/``x``: values and gradients.
+  ``logits``/``x``: values and gradients; and ``SequenceParallel``'s
+  ``split``, ``scatter``, ``gather`` (both backwards) and
+  ``gather_twice`` in float64 on a sequence of ``sx``'s length:
+  outputs and input gradients.
+* ``moe_seq``: a split MoE layer (float64, the experts and shared
+  columns of this rank) on this rank's rows of ``x`` under sequence
+  parallelism: the output, aux loss and the gradients of ``x``'s rows,
+  the router and this rank's expert leaves.
 
 A case's ``moe`` (a dict) replaces fields of the reduced config's
 ``MoECfg``.
@@ -119,6 +132,8 @@ def _case(case: dict, mesh) -> dict:
                                         make_train_step)
     if case["kind"] == "functions":
         return _functions(case, mesh)
+    if case["kind"] == "moe_seq":
+        return _moe_seq(case, mesh)
     cfg = _reduced_config(case)
     cpu, coords = torch.device("cpu"), mesh.coords
     # a copy: the step updates the state in place
@@ -135,6 +150,8 @@ def _case(case: dict, mesh) -> dict:
         return _knobs(case, cfg, mesh, shard)
     if case["kind"] == "split":
         return _split(case, cfg, mesh, shard)
+    if case["kind"] == "count":
+        return _count(case, cfg, mesh, shard)
     tc = _train_config(case["tc"])
     pspecs = param_specs(cfg, mesh, case["params"])
     if case["kind"] == "restore":
@@ -236,7 +253,108 @@ def _functions(case, mesh) -> dict:
     g_x, = torch.autograd.grad((y * w).sum(), [x])
     return {"lse": lse.detach().numpy(), "ll": ll.detach().numpy(),
             "loss": float(loss), "g_logits": g_logits.numpy(),
-            "y": y.detach().numpy(), "g_x": g_x.numpy()}
+            "y": y.detach().numpy(), "g_x": g_x.numpy(),
+            **_seq_pairs(case, mesh)}
+
+
+def _seq_pairs(case, mesh) -> dict:
+    """Each ``SequenceParallel`` pair on this rank: ``sw[r]`` weighs its
+    rows, ``su`` (the same on every rank) and ``sv[r]`` the whole
+    sequence."""
+    from repro_torch.dist.collectives import SequenceParallel
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    seq = SequenceParallel(mesh, case["sx"].shape[1])
+    r, rows = seq.rank, seq.rows
+    pad = rows * seq.size - seq.length
+    own = np.pad(case["sx"], ((0, 0), (0, pad), (0, 0)))[
+        :, r * rows:(r + 1) * rows]
+    w, u, v = t(case["sw"][r]), t(case["su"]), t(case["sv"][r])
+    out = {}
+
+    def run(name, x, f, loss):
+        x = t(x).requires_grad_(True)
+        y = f(x)
+        g, = torch.autograd.grad(loss(y), [x])
+        out[name] = ([a.detach().numpy() for a in y]
+                     if isinstance(y, tuple) else y.detach().numpy(),
+                     g.numpy())
+
+    run("split", case["sx"], seq.split, lambda y: (y * w).sum())
+    run("scatter", case["sxp"][r], seq.scatter, lambda y: (y * w).sum())
+    run("gather", own, seq.gather, lambda y: (y * u).sum())
+    run("gather_summed", own, lambda x: seq.gather(x, summed=True),
+        lambda y: (y * v).sum())
+    run("gather_twice", own, seq.gather_twice,
+        lambda y: (y[0] * u).sum() + (y[1] * v).sum())
+    return {"seq": out}
+
+
+def _moe_seq(case, mesh) -> dict:
+    from repro_torch.dist.collectives import (SequenceParallel,
+                                              TensorParallel)
+    from repro_torch.models.moe import apply_moe
+    cfg = _reduced_config(case)
+    p = {k: torch.from_numpy(v) for k, v in case["p"].items()}
+    tp = TensorParallel(mesh)
+    seq = SequenceParallel(mesh, case["x"].shape[1])
+    r, n = tp.rank, tp.size
+    ne, fs = p["w_up"].shape[0] // n, p["sh_up"].shape[-1] // n
+    local = dict(p)
+    for k in ("w_up", "w_gate", "w_down"):
+        local[k] = p[k][r * ne:(r + 1) * ne]
+    for k in ("sh_up", "sh_gate"):
+        local[k] = p[k][:, r * fs:(r + 1) * fs]
+    local["sh_down"] = p["sh_down"][r * fs:(r + 1) * fs]
+    local = {k: v.clone().requires_grad_(True) for k, v in local.items()}
+    pad = seq.rows * n - seq.length
+    x = torch.from_numpy(np.pad(case["x"], ((0, 0), (0, pad), (0, 0)))[
+        :, r * seq.rows:(r + 1) * seq.rows].copy()).requires_grad_(True)
+    y, aux = apply_moe(cfg, local, x, tp=tp.over(seq))
+    loss = (y * torch.from_numpy(case["w"][r])).sum() + case["c"] * aux
+    names = ("router", "w_up", "w_gate", "w_down")
+    g = torch.autograd.grad(loss, [x] + [local[k] for k in names])
+    return {"y": y.detach().numpy(), "aux": float(aux),
+            "g_x": g[0].numpy(),
+            **{f"g_{k}": a.numpy() for k, a in zip(names, g[1:])}}
+
+
+def _count(case, cfg, mesh, shard) -> dict:
+    """One sharded step with the three primitives wrapped: the calls'
+    ``(kind, group size, bytes)``."""
+    import repro_torch.dist.collectives as C
+    from repro_torch.dist.sharding import map_specs, param_specs, \
+        shard_batch
+    from repro_torch.models.weights import params_from_numpy
+    from repro_torch.train.step import init_state, make_train_step
+    import torch.distributed as dist
+    tc = _train_config(case["tc"])
+    pspecs = param_specs(cfg, mesh, case["params"])
+    params = params_from_numpy(map_specs(shard, pspecs, case["params"]),
+                               torch.device("cpu"))
+    step = make_train_step(cfg, tc, grad_specs=pspecs, mesh=mesh)
+    calls = []
+    prims = {"all-gather": "_all_gather", "reduce-scatter":
+             "_reduce_scatter", "all-reduce": "_all_reduce"}
+    saved = {kind: getattr(C, name) for kind, name in prims.items()}
+
+    def wrap(kind, fn):
+        def call(x, *a, **kw):
+            out = fn(x, *a, **kw)
+            group = a[1] if kind != "all-reduce" else a[0]
+            calls.append((kind, dist.get_world_size(group),
+                          out.numel() * out.element_size()))
+            return out
+        return call
+
+    for kind, name in prims.items():
+        setattr(C, name, wrap(kind, saved[kind]))
+    try:
+        step(init_state(cfg, tc, params),
+             shard_batch(case["batches"][0], cfg, mesh, mesh.coords))
+    finally:
+        for kind, name in prims.items():
+            setattr(C, name, saved[kind])
+    return {"calls": calls}
 
 
 def _knobs(case, cfg, mesh, shard) -> dict:
@@ -261,8 +379,11 @@ def _knobs(case, cfg, mesh, shard) -> dict:
             loss(**kw)
         except NotImplementedError:
             raised.append(name)
-    return {"act_dp_equal": bool(loss(act_dp=("data",)) == loss()),
-            "raised": raised}
+    return {"act_dp_equal": bool(loss(act_dp=layout.dp) == loss()),
+            "seq_shard_equal": bool(loss(seq_shard=True) == loss()),
+            "seq_shard_act_dp": float(loss(seq_shard=True,
+                                           act_dp=layout.dp)),
+            "loss": float(loss()), "raised": raised}
 
 
 def main(rank: int, world: int, rdzv: str, jobf: str, out: str) -> None:

@@ -1,10 +1,15 @@
 """repro_torch.launch.dryrun: the port's input and parameter specs equal
 the reference's (``repro.launch.dryrun``, run in one subprocess on an
 8-device CPU mesh) for all ten reduced architectures x every cell on a
-(2, 2, 2) and a (4, 2) mesh; argument bytes and the collective schedule
-against hand counts; the FLOP count of a prefill against its closed
-form; a failing cell recorded, not raised; the CLI's records carry the
-reference's keys. The slow test holds argument bytes equal to the
+(2, 2, 2) and a (4, 2) mesh; argument bytes and the collectives a train
+step issues against hand counts; the FLOP count of a prefill against
+its closed form; a failing cell recorded, not raised; the CLI's records
+carry the reference's keys. A train cell's collectives (counted in a
+fake process group on fake tensors) equal, by kind, count and bytes,
+what one real sharded step issues on a (2, 2) mesh of gloo processes
+(``tests/_torch_ranks.py``), with and without ``seq_shard``; the count
+leaves no process group behind, refuses to run inside one and
+allocates nothing. The slow test holds argument bytes equal to the
 reference's compiled ``memory_analysis``."""
 import json
 import os
@@ -12,13 +17,21 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import REGISTRY, cells_for, get_config
 from repro_torch.configs.base import ShapeCell
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.mesh import Mesh
+from repro_torch.models import init_params
+from repro_torch.models.model import tree_map
+from repro_torch.train.step import TrainConfig
+
+sys.path.insert(0, str(Path(__file__).parent))
+import _torch_ranks as RANKS  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 MESHES = {"pod2x2x2": (("pod", "data", "model"), (2, 2, 2)),
@@ -123,71 +136,224 @@ def test_argument_bytes_hand_count():
     assert mem["code_bytes"] == 0 and mem["temp_bytes"] > 0
 
 
-# (arch) -> hand count on the (2, 2, 2) mesh of tiny_train (local batch 2
-# x 32 tokens x d_model 64 in bf16 = 8192 bytes of activations; remat:
-# the forward's gathers and all-reduces twice, then the backward's)
+# (arch) -> hand count of what the sharded train step issues, per device,
+# on the (2, 2, 2) mesh of tiny_train. FSDP gathers over (pod, data)
+# (groups of 4) at float32 (no cast_params_bf16); a leaf split on
+# ``model`` and used split keeps its model shard. Each of the 2 blocks
+# gathers its leaves twice (the forward and remat's recompute) and
+# reduce-scatters their float32 gradients once. Activations: local batch
+# 2 x 32 tokens x d_model 64 in bf16 = ACT bytes; remat's recompute stops
+# after the last tensor the backward needs (torch.utils.checkpoint's
+# early stop), so it does not re-issue a block's last exit. The loss: a
+# vocabulary split on ``model`` takes 3 all-reduces of (2, 32) float32
+# (max, sum of exponentials, target logit), its sums one of 3 float32
+# over the data axes, and the optimizer's global norm one of a float32
+# per leaf over the mesh.
 ACT = 2 * 32 * 64 * 2
+LSE = 3 * 2 * 32 * 4
 HAND = {
-    # AG of embed, wq, wk, wv, wo, w_up, w_down, w_gate in bf16 over the
-    # model shards, twice; RS of their fp32 grads' 1/8 shards; AR of the
-    # three norm scales' grads, and the attention and MLP all-reduces
+    # embed (128, 64) gathered over data; wq, wk, wv, wo, w_up, w_gate,
+    # w_down; all-reduces: the embedding's exit, each block's two exits
+    # and remat's attention exit, the head's enter and each block's two
+    # enters backward (12 activations), LSE, the data sum, the three norm
+    # scales' gradients (5 of (64,) float32) and 11 leaves' norms
     "granite-3-2b": {
-        "all-gather": (16, 2 * (256 * 64 + 2 * (2 * 64 * 64)
-                                + 2 * (2 * 64 * 32) + 3 * (2 * 64 * 128))),
-        "reduce-scatter": (8, 4 * (256 * 64 + 2 * (2 * 64 * 64)
-                                   + 2 * (2 * 64 * 32) + 3 * (2 * 64 * 128))
-                           // 8),
-        "all-reduce": (3 + 6, 4 * (64 + 2 * 64 + 2 * 64) + 6 * ACT * 2),
+        "all-gather": (1 + 2 * 2 * 7, 4 * (128 * 64 + 2 * 2 * (
+            64 * 32 + 2 * 64 * 16 + 32 * 64 + 3 * 64 * 64))),
+        "reduce-scatter": (1 + 2 * 7, 4 * (128 * 16 + 2 * (
+            16 * 32 + 2 * 16 * 16 + 32 * 16 + 3 * 16 * 64))),
+        "all-reduce": (12 + 3 + 1 + 5 + 1,
+                       12 * ACT + LSE + 12 + 5 * 64 * 4 + 11 * 4),
         "all-to-all": (0, 0)},
-    # + lm_head, router (fp32, replicated on model: 1/4 a device), 4
-    # experts of d_expert 32 split on model (EP), a shared expert; the
-    # dispatch buffer (2, 4 experts, capacity 20, 64) in bf16 twice a pass
+    # + lm_head; the router (64, 4) float32 gathered whole over data; 2 of
+    # the 4 experts (EP) and the shared expert's columns; all-reduces:
+    # also the aux loss's expert sums (8 float32 over data, forward and
+    # recompute), and backward the gates' (2, 32, 2) float32 enter; the
+    # MoE exit is a block's last; 16 leaves' norms
     "deepseek-moe-16b": {
-        "all-gather": (26, 2 * (2 * 256 * 64 + 2 * (2 * 64 * 64)
-                                + 2 * (2 * 64 * 32) + 2 * 64 * 4 * 4
-                                + 3 * (2 * 4 * 64 * 32)
-                                + 3 * (2 * 64 * 32))),
-        "reduce-scatter": (13, 4 * (2 * 256 * 64 + 2 * (2 * 64 * 64)
-                                    + 2 * (2 * 64 * 32)
-                                    + 3 * (2 * 4 * 64 * 32)
-                                    + 3 * (2 * 64 * 32)) // 8
-                           + 2 * 64 * 4 * 4 // 4),
-        "all-reduce": (3 + 6, 4 * (64 + 2 * 64 + 2 * 64) + 6 * ACT * 2),
-        "all-to-all": (6, 6 * (2 * 4 * 20 * 64 * 2) * 2)},
-    # one Mamba block (+ the reduced MLP): in_proj 64 x 296, out_proj
-    # 128 x 64; conv_w (160, 4) split on model only, so its grad is
-    # all-reduced; nine replicated leaves in all
+        "all-gather": (2 + 2 * 2 * 11, 4 * (2 * 128 * 64 + 2 * 2 * (
+            64 * 32 + 2 * 64 * 16 + 32 * 64 + 64 * 4 + 3 * 2 * 64 * 32
+            + 3 * 64 * 16))),
+        "reduce-scatter": (2 + 2 * 11, 4 * (2 * 128 * 16 + 2 * (
+            16 * 32 + 2 * 16 * 16 + 32 * 16 + 16 * 4 + 3 * 2 * 16 * 32
+            + 3 * 16 * 16))),
+        "all-reduce": (12 + 3 + 1 + 4 + 2 + 5 + 1,
+                       12 * ACT + LSE + 12 + 4 * 8 * 4 + 2 * 2 * 32 * 2 * 4
+                       + 5 * 64 * 4 + 16 * 4),
+        "all-to-all": (0, 0)},
+    # one Mamba block (+ the reduced MLP), both split: in_proj gathered
+    # over data and then whole over model (it is used in part, and its
+    # gradient summed over model: a reduce-scatter each way back),
+    # conv_w whole over model; the gated norm's sum of squares (2, 32, 1)
+    # float32 all-reduced forward, recompute and backward; the Mamba
+    # exit is needed by ln2 (recomputed), the MLP's is the block's last;
+    # backward all-reduces of conv_w over data (80, 4), of conv_b (160),
+    # A_log, dt_bias, D (8 each) and gate_norm (128) over the mesh;
+    # 16 leaves' norms
     "mamba2-1.3b": {
-        "all-gather": (14, 2 * (2 * 256 * 64 + 64 * 296 + 128 * 64
-                                + 3 * 64 * 128)),
-        "reduce-scatter": (7, 4 * (2 * 256 * 64 + 64 * 296 + 128 * 64
-                                   + 3 * 64 * 128) // 8),
-        "all-reduce": (9 + 6, 4 * (64 + 64 + 160 * 4 // 2 + 160 + 3 * 8
-                                   + 128 + 64) + 6 * ACT),
+        "all-gather": (2 + 2 * 7, 4 * (2 * 128 * 64 + 2 * (
+            64 * 148 + 64 * 296 + 160 * 4 + 64 * 64 + 3 * 64 * 64))),
+        "reduce-scatter": (2 + 7, 4 * (2 * 128 * 16 + 64 * 148 + 16 * 148
+                                       + 80 * 4 + 64 * 16 + 3 * 16 * 64)),
+        "all-reduce": (7 + 3 + 1 + 3 + 3 + 6 + 1,
+                       7 * ACT + LSE + 12 + 3 * 2 * 32 * 4
+                       + 3 * 64 * 4 + 4 * (80 * 4 + 160 + 3 * 8 + 128)
+                       + 16 * 4),
         "all-to-all": (0, 0)},
 }
+# granite with seq_shard (act_dp the data axes): the residual stream is
+# 16 of the 32 rows a model position (HALF = ACT / 2). Each split
+# region's enter all-gathers ACT and its exit reduce-scatters to HALF,
+# and backward the other way; the embedding's exit is a reduce-scatter,
+# the head's enter an all-gather; the norm scales' gradients are summed
+# over the whole mesh, and no activation is all-reduced
+HALF = ACT // 2
+HAND_SEQ = {
+    # + per block a forward's 2 enters (and remat's), the head's enter,
+    # each block's 2 exits backward and the embedding's exit backward
+    "all-gather": (1 + 2 * 2 * 9 + 1 + 4 + 1,
+                   HAND["granite-3-2b"]["all-gather"][1]
+                   + (2 * 2 * 2 + 1 + 4 + 1) * ACT),
+    # the embedding's exit, the 4 exits, the head's enter backward,
+    # remat's 2 attention exits, the 4 enters backward, the weights
+    "reduce-scatter": (1 + 4 + 1 + 2 + 4 + 1 + 2 * 7,
+                       (1 + 4 + 1 + 2 + 4) * HALF
+                       + HAND["granite-3-2b"]["reduce-scatter"][1]),
+    "all-reduce": (3 + 1 + 5 + 1, LSE + 12 + 5 * 64 * 4 + 11 * 4),
+    "all-to-all": (0, 0)}
+
+
+def _hand_check(got, hand):
+    for kind, (count, nbytes) in hand.items():
+        assert (got[kind]["count"], got[kind]["bytes"]) == (count, nbytes), \
+            kind
+    assert got["total_bytes"] == sum(b for _, b in hand.values())
+    assert got["collective-permute"] == {"count": 0, "bytes": 0}
+    assert got["depth2_raw_bytes"] == 0
 
 
 @pytest.mark.parametrize("arch", sorted(HAND))
 def test_collectives_hand_count(arch):
     comp = D.lower_cell(get_config(arch).reduced(), TINY_TRAIN,
                         _pod_mesh()).compile()
-    got = comp.collectives()
-    for kind, (count, nbytes) in HAND[arch].items():
-        assert (got[kind]["count"], got[kind]["bytes"]) == (count, nbytes), \
-            kind
-    assert got["total_bytes"] == sum(b for _, b in HAND[arch].values())
-    assert got["collective-permute"] == {"count": 0, "bytes": 0}
-    assert got["depth2_raw_bytes"] == 0
+    assert comp.collectives_basis == "issued"
+    _hand_check(comp.collectives(), HAND[arch])
+    assert not dist.is_initialized()
+
+
+def test_collectives_hand_count_seq_shard():
+    tc = TrainConfig(seq_shard=True, act_dp=("pod", "data"))
+    comp = D.lower_cell(get_config("granite-3-2b").reduced(), TINY_TRAIN,
+                        _pod_mesh(), tc).compile()
+    _hand_check(comp.collectives(), HAND_SEQ)
 
 
 def test_one_device_mesh_has_no_collectives():
-    """Axes of size 1 shard nothing: no collective on a (1, 1) mesh."""
+    """Axes of size 1 shard nothing: on a (1, 1) mesh the step issues its
+    collectives over groups of one process, which move nothing and are
+    not counted."""
     comp = D.lower_cell(get_config("deepseek-moe-16b").reduced(),
                         TINY_TRAIN, Mesh(("data", "model"), (1, 1))).compile()
     got = comp.collectives()
     assert got["total_bytes"] == 0
     assert all(got[k]["count"] == 0 for k in D._COLLECTIVES)
+
+
+# ---------------- the count against a real sharded step ---------------------
+
+COUNTS = [(a, seq) for a in ("granite-3-2b", "deepseek-moe-16b",
+                             "mamba2-1.3b") for seq in (False, True)]
+
+
+def _count_tc(seq: bool) -> dict:
+    return {"seq_shard": True, "act_dp": ("data",)} if seq else {}
+
+
+@pytest.fixture(scope="module")
+def issued_2x2(tmp_path_factory):
+    """One real sharded step of each ``COUNTS`` case on a (2, 2) mesh of
+    gloo processes (the default TrainConfig: bf16, remat), on the port's
+    own weights and tiny_train's global batch, with the three primitives
+    wrapped: rank 0's calls."""
+    rng = np.random.default_rng(0)
+    cases = []
+    for arch, seq in COUNTS:
+        cfg = get_config(arch).reduced()
+        params = tree_map(lambda t: t.numpy(), init_params(cfg, 0, "cpu"))
+        shape = (TINY_TRAIN.global_batch, TINY_TRAIN.seq_len)
+        batch = {k: rng.integers(0, cfg.vocab, shape).astype(np.int32)
+                 for k in ("tokens", "labels")}
+        cases.append(dict(kind="count", arch=arch, params=params,
+                          batches=[batch], tc=_count_tc(seq)))
+    res = RANKS.run({"mesh": dict(data=2, model=2), "cases": cases}, 4,
+                    tmp_path_factory.mktemp("count2x2"))
+    return {c: r["calls"] for c, r in zip(COUNTS, res[0]["cases"])}
+
+
+@pytest.mark.parametrize("arch,seq", COUNTS)
+def test_dry_run_counts_what_the_sharded_step_issues(arch, seq, issued_2x2):
+    """The dry run's fake-group count of a train cell on (2, 2) equals,
+    by kind, count and bytes, what the real step issued on gloo (over
+    groups of more than one process); no all-to-all."""
+    want = {k: {"count": 0, "bytes": 0} for k in D._COLLECTIVES}
+    for kind, n, nbytes in issued_2x2[(arch, seq)]:
+        if n > 1:
+            want[kind]["count"] += 1
+            want[kind]["bytes"] += nbytes
+    assert want["all-reduce"]["count"] > 0
+    tc = TrainConfig(**_count_tc(seq))
+    comp = D.lower_cell(get_config(arch).reduced(), TINY_TRAIN,
+                        Mesh(("data", "model"), (2, 2)), tc).compile()
+    got = comp.collectives()
+    assert {k: got[k] for k in D._COLLECTIVES} == want
+    assert got["all-to-all"] == {"count": 0, "bytes": 0}
+    assert not dist.is_initialized()
+
+
+def test_count_refuses_inside_a_process_group():
+    """The count makes a fake process group of its own: inside an
+    initialised one it refuses, and leaves that group as it was."""
+    low = D.lower_cell(get_config("granite-3-2b").reduced(), TINY_TRAIN,
+                       Mesh(("data", "model"), (1, 2)))
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="already initialised"):
+            D.issued_collectives(low)
+        assert dist.get_backend() == "gloo"
+    finally:
+        dist.destroy_process_group()
+    D.issued_collectives(low)
+    assert not dist.is_initialized()
+
+
+def test_count_allocates_nothing(tmp_path):
+    """Granite-3-2b's train_4k cell on the single pod counted in a fresh
+    process, without jax or the reference: on real tensors a device's
+    step would hold 40 block inputs of 16 x 4096 x 2048 bf16 (10.7 GB)
+    for its backward alone; the process stays under 2 GB."""
+    code = """
+import resource, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeCell
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_production_mesh
+low = D.lower_cell(get_config("granite-3-2b"),
+                   ShapeCell("train_4k", 4096, 256, "train"),
+                   make_production_mesh())
+got = D.issued_collectives(low)
+assert got["total_bytes"] > 0 and got["all-to-all"]["count"] == 0, got
+leaked = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not leaked, leaked
+print(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=tmp_path,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert int(out.stdout.split()[-1]) * 1024 < 2e9          # KiB
 
 
 def test_prefill_flops_closed_form():
@@ -269,6 +435,7 @@ def test_cli_writes_reference_records(tmp_path, capsys):
             "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
             "collective-permute", "total_bytes", "depth2_raw_bytes"}
         assert rec["temp_basis"] == D.TEMP_BASIS
+        assert rec["collectives_basis"] == "rule"      # a decode cell
         assert rec["flops"] * chips == rec["flops_global"]
 
 

@@ -354,9 +354,10 @@ def test_grad_accum_two_equals_mean_of_halves(granite_params):
         assert torch.equal(a, b)
 
 
-def _grads(cfg, params, batch, remat=True):
+def _grads(cfg, params, batch, remat=True, seq_shard=False):
     """loss_fn's float32 gradients, through the step's own grad_fn."""
-    tc = TrainConfig(compute_dtype="float32", remat=remat)
+    tc = TrainConfig(compute_dtype="float32", remat=remat,
+                     seq_shard=seq_shard)
     return make_grad_fn(cfg, tc)(params, batch)[1]
 
 
@@ -405,14 +406,23 @@ def test_remat_gives_the_same_gradients(arch):
 
 
 def test_knobs_without_meaning_on_one_card_raise():
+    """``unroll`` and ``act_dp`` raise without a mesh; ``seq_shard``
+    without ``act_dp`` changes nothing, as in the reference: the same
+    loss and gradients, bit for bit."""
     tcfg = TC.get_config(ARCH).reduced()
     from repro_torch.models.model import init_params
     p = init_params(tcfg, 0, CPU)
     batch = {k: torch.from_numpy(v) for k, v in _batch(tcfg).items()}
-    for kw in (dict(unroll=2), dict(act_dp=("data",)),
-               dict(seq_shard=True)):
+    for kw in (dict(unroll=2), dict(act_dp=("data",))):
         with pytest.raises(NotImplementedError):
             loss_fn(tcfg, p, batch, torch.float32, **kw)
+    on = _grads(tcfg, p, batch, remat=True, seq_shard=True)
+    off = _grads(tcfg, p, batch, remat=True)
+    for a, b in zip(tree_leaves(on), tree_leaves(off)):
+        assert torch.equal(a, b)
+    assert torch.equal(loss_fn(tcfg, p, batch, torch.float32,
+                               seq_shard=True)[0],
+                       loss_fn(tcfg, p, batch, torch.float32)[0])
     with pytest.raises(NotImplementedError):
         make_train_step(tcfg, TrainConfig(), grad_specs={})
 
