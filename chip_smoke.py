@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernel-report   # phases 1 and 3-8 only
+    python3 chip_smoke.py --kernel-report   # phases 1, 3-8 and 12 (a)
+    python3 chip_smoke.py --bits-dump DIR LABEL   # outputs to DIR/LABEL.pt
+    python3 chip_smoke.py --bits-compare DIR      # all dumps bit for bit
     python3 chip_smoke.py --bits-probe      # repeated calls' bits only
     python3 chip_smoke.py --fused-split     # what K6 / K11's flush costs
     python3 chip_smoke.py --sharded-only    # phase 16 alone, every card
@@ -158,16 +160,23 @@ Phases, each printing its seconds:
    float64 oracle (1e-4 x max|oracle|, the reference's dist tolerance) at
    B = 1 and 8, two calls and the saved-and-loaded plan bit-identical; one
    ``dist {...}`` line per mode with the shards' nnz, families, stacked
-   bytes and slots, launches per call, ``ms`` / ``device_ms`` at B = 1
-   and 8, beside phase 6's dense searched plan and cuSPARSE; (b)
+   bytes and slots, the folded operands' own bytes (``folded_bytes``),
+   launches per call (one family kernel and one combine a step: the
+   shards share the card, so the call runs once over the folded
+   operands), ``ms`` / ``device_ms`` at B = 1 and 8, beside phase 6's
+   dense searched plan and cuSPARSE; (b)
    ``dist_search`` of phase 4's power-law operand (row mode, nnz balance,
    4 s, 2 structures, 1 coarse sample a shard), and again with shard 0's
    search crashing (it must fall back), each held to the oracle at B = 1
    and 8 (``dist_search {...}`` lines); (c) ``sparsify_linear_sharded``
-   on the serving weight answering an (8, 4096) batch. The ordered
-   combine (``rowmap_combine``) is timed at shard 0's ELL step of the
-   first serving plan with an ELL family and joins the kernel report as
-   a thirteenth row;
+   on the serving weight answering an (8, 4096) batch. Every family
+   kernel and the combine are held to their plain versions on shard 0's
+   operands and on the folded ones. The ordered combine
+   (``rowmap_combine``) joins the kernel report with six rows: at shard
+   0's ELL step of the col-mode and the row-mode serving plans at B = 1
+   and 8, at all four col-mode shards' partials in one launch (the
+   folded shape), and at the unfused power-law plan's shape (phase 8's
+   ``dense_plans`` line);
 13. LLM serving (``repro_torch.models``, ``ModelExecutor``,
    ``ServingEngine``; seeded random weights, full widths, no kernel of
    its own): (a) qwen3-8b at depth 2, fp32: ``decode_step`` over 16
@@ -271,9 +280,14 @@ session) and, before its last lines and on a failure, kills and reaps
 every process still below it (a ``processes {...}`` line names those it
 found). The last two lines are the kernel report (the
 twelve kernels and the combine) and ``{"ok": true, "device": {...}}``.
-``--kernel-report`` runs phases 1 and 3-8 alone and prints the twelve
-rows: copied into a checkout of another commit, it times that commit's
-kernels on the same card (the A/B recipe of the verify notes);
+``--kernel-report`` runs phases 1, 3-8 and phase 12 (a) alone and
+prints the twelve rows and the combine's: copied into a checkout of
+another commit, it times that commit's kernels on the same card (the A/B
+recipe of the verify notes; there a call may also launch once a shard);
+``--bits-dump DIR LABEL`` writes the outputs of the sharded, searched and
+unfused plans to ``DIR/LABEL.pt`` (the plans made once under
+``DIR/plans`` and loaded by every later run, in either checkout) and
+``--bits-compare DIR`` holds every dump there to the first, bit for bit;
 ``--bits-probe`` counts, in the same way, the calls of the seg kernels
 and plans whose bits differ from the first call's, and ``--fused-split``
 times the fused seg steps (K6, K11) against their unfused kernels and
@@ -431,6 +445,34 @@ def device_ms(fn, reps: int = 20, warmup: int = 3,
         b.synchronize()
         if ahead:
             times.append(a.elapsed_time(b))
+        else:
+            cycles *= 2
+    return statistics.median(times)
+
+
+def host_ms(fn, calls: int = 200, reps: int = 5) -> float:
+    """Median host time, in ms, to enqueue one call of ``fn`` (its Python
+    and its checks, not the card's work): ``calls`` calls back to back
+    while a sleep kernel keeps the card busy, so that none waits for the
+    card. A sample counts only if the sleep outlasted the calls;
+    otherwise the sleep is doubled."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    cycles, times = 1 << 24, []
+    while len(times) < reps:
+        require(cycles < 1 << 36, "host_ms: the card never stayed busy")
+        torch.cuda._sleep(cycles)
+        slept = torch.cuda.Event()
+        slept.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t = time.perf_counter() - t0
+        ahead = not slept.query()
+        torch.cuda.synchronize()
+        if ahead:
+            times.append(t / calls * 1e3)
         else:
             cycles *= 2
     return statistics.median(times)
@@ -1791,15 +1833,15 @@ def searched_seg_line(plan, xd, n_rows, launches, csr) -> None:
     print(f"{SEARCHED_K11} {json.dumps(line)}")
 
 
-def dense_plans_line(plans, seg, xp, n_p: int, launches: int) -> None:
+def dense_plans_line(plans, seg, xp, n_p: int, launches: int) -> dict:
     """Where dense plans run their rowmap combines: the call time of each
     plan in ``plans`` (name -> (plan, x at B = 1, x at B = 8)) as a caller
     sees it and on the card; and the combine alone at the unfused seg_scan
-    plan's shape (its rowmap, its K3 partials on the power-law ``xp``)
-    against its plain version, with ``index_add_`` on the same partials
-    beside it, and ``launches``, the combine's launches on the compile and
-    serving paths: a ``dense_plans {...}`` line."""
-    from repro_torch.kernels import ops, ref
+    plan's shape (its rowmap, its K3 partials on the power-law ``xp``),
+    with ``launches``, the combine's launches on the compile and serving
+    paths: a ``dense_plans {...}`` line; returns the combine's kernels-line
+    row at that shape (``combine_entry``)."""
+    from repro_torch.kernels import ops
     out = {}
     for name, (plan, x1, x8) in plans.items():
         for b, x in ((1, x1), (8, x8)):
@@ -1810,27 +1852,15 @@ def dense_plans_line(plans, seg, xp, n_p: int, launches: int) -> None:
     rm = prog.fmt[f"{step['key']}_rowmap"]
     flat = ops.seg_spmv(o["vals"], o["cols"], o["local"], o["end"],
                         xp, step["seg_rows"], mode="seg_scan").reshape(-1)
-    perm, off = ops.combine_order(rm, n_p)
-    y = torch.zeros(n_p, device=flat.device)
-    err = check_kernel("combine (dense)", ops.rowmap_combine(
-        y.clone(), flat, perm, off), ref.rowmap_combine_ref(
-        y.clone(), flat, perm, off))
-    idx = torch.where(rm.reshape(-1) >= 0, rm.reshape(-1).long(), n_p)
-    y_lib = torch.zeros(n_p + 1, device=flat.device)
-    byt = nbytes(flat, perm, off) + 2 * n_p * 4
-    out["combine"] = {
-        "shape": [n_p, int(perm.numel())], "max_abs_err": err,
-        "launches": launches,
-        "ms": cuda_ms(lambda: ops.rowmap_combine(y, flat, perm, off)),
-        "device_ms": device_ms(lambda: ops.rowmap_combine(y, flat, perm,
-                                                          off)),
-        "plain_ms": cuda_ms(lambda: ref.rowmap_combine_ref(y, flat, perm,
-                                                           off), reps=5),
-        "bound_ms": byt / HBM_BYTES_PER_S * 1e3, "bytes": byt,
-        "index_add_ms": cuda_ms(lambda: y_lib.index_add_(0, idx, flat)),
-        "index_add_device_ms": device_ms(
-            lambda: y_lib.index_add_(0, idx, flat))}
+    order = ops.combine_order(rm, n_p)
+    row = combine_entry("dense B=1", flat, order, rm, launches,
+                        "powerlaw (SEG_SCAN_RED unfused plan)")
+    out["combine"] = {k: row[k] for k in (
+        "shape", "max_abs_err", "launches", "ms", "device_ms", "plain_ms",
+        "bound_ms", "bytes", "library_ms", "library_device_ms",
+        "max_run")}
     print("dense_plans " + json.dumps(out))
+    return row
 
 
 # -------------------------------- phase 9 ---------------------------------
@@ -2658,65 +2688,110 @@ def family_kernel(step: dict, batched: bool) -> str:
     return "K10a" if batched else "K3"
 
 
+def package_folds() -> bool:
+    """Whether the package under test runs the shards that share a card
+    in one pass (``fold_operands``); a package before that (the parent in
+    an A/B) runs them once a shard, and is held to that."""
+    from repro_torch.dist import spmv
+    return hasattr(spmv, "fold_operands")
+
+
 def check_launches(label: str, call, steps: list, n_shards: int,
-                   batched: bool) -> dict:
+                   batched: bool, shared: bool) -> dict:
     """One call's launches, which must be one family kernel and one
-    combine a step and shard, and nothing else."""
-    want = {}
-    for st in steps:
-        k = family_kernel(st, batched)
-        want[k] = want.get(k, 0) + n_shards
-        want["combine"] = want.get("combine", 0) + n_shards
+    combine a step where the shards share a card (``shared``, the folded
+    call, in a package that folds), one a step and shard where they do
+    not, and nothing else."""
+    def want(per: int) -> dict:
+        out = {}
+        for st in steps:
+            k = family_kernel(st, batched)
+            out[k] = out.get(k, 0) + per
+            out["combine"] = out.get("combine", 0) + per
+        return out
+    need = want(1 if shared and package_folds() else n_shards)
     got = launches_of(call)
-    require(got == want, f"{label}: a call launched {got}, not {want}")
+    require(got == need, f"{label}: a call launched {got}, not {need}")
     return got
 
 
 def check_shard_kernels(label: str, prog, x1, x8) -> None:
-    """Shard 0's operands of every step of a sharded plan or program,
-    through the wrapper the step dispatches to and the ordered combine,
-    held against their plain versions on the same tensors at B = 1 and
-    8 (the sharded shapes: (T', 8, 8) ELL chunks, seg tiles with unsorted
-    rows or all padding)."""
-    from repro_torch.kernels import ops, ref
-    op0 = prog.operands[0]
-    fmt, n_shards = op0.fmt, len(prog.operands)
+    """Shard 0's operands of every step of a sharded plan or program, and
+    the folded set where the shards share the card (every shard's tiles
+    at once, the whole padded x), through the wrapper the step dispatches
+    to and the ordered combine, held against their plain versions on the
+    same tensors at B = 1 and 8 (the sharded shapes: (T', 8, 8) ELL
+    chunks, seg tiles with unsorted rows or all padding)."""
+    ops_ = prog.operands
+    n_shards = len(ops_)
+    folded = getattr(ops_, "folded", None)
+    require(folded is not None or not package_folds(),
+            f"{label}: the shards share the card and fold nothing")
+    n_out = prog.band_rows if prog.mode == "row" else prog.n_rows
+    sets = [("shard 0", ops_[0], False)]
+    if folded is not None:
+        sets.append(("folded", folded, True))
     for x in (x1, x8):
         if prog.mode == "col":
             width = -(-prog.n_cols // n_shards)
-            x = x[:width]                    # shard 0's slice of x
-        x = x.contiguous()
-        b = x.shape[1] if x.ndim == 2 else 1
-        for st in prog.steps:
-            key = st["key"]
-            require(st["cols"]["mode"] == "array", f"{key}: cols by model")
-            vals, cols = fmt[f"{key}_vals"], fmt[st["cols"]["key"]]
-            if st["kind"] == "ell":
-                got = (ops.ell_spmm if b > 1 else ops.ell_spmv)(vals, cols, x)
-                want = (ref.ell_spmm_ref if b > 1 else ref.ell_spmv_ref)(
-                    vals, cols, x)
-                rm_key = st["combine"]["key"]
-            else:
-                pk = "seg_scan" if st["reduce"] == "gmem_atom" else \
-                    st["reduce"]
-                args = (vals, cols, fmt.get(f"{key}_local"),
-                        fmt.get(f"{key}_end"), x, st["seg_rows"])
-                got = (ops.seg_spmm if b > 1 else ops.seg_spmv)(*args,
-                                                                mode=pk)
-                want = (ref.seg_spmm_ref if b > 1 else ref.seg_spmv_ref)(
-                    *args, mode=pk)
-                rm_key = f"{key}_rowmap"
-            tag = f"{label} shard 0 {family_kernel(st, b > 1)} " \
-                f"{tuple(vals.shape)} {vals.dtype} B={b}"
-            check_kernel(tag, got, want)
-            flat = got.reshape((-1,) + tuple(x.shape[1:])).contiguous()
-            y0 = torch.zeros((op0.order[rm_key][1].numel() - 1,)
-                             + tuple(x.shape[1:]), device=flat.device)
-            check_kernel(f"{tag} combine",
-                         ops.rowmap_combine(y0.clone(), flat,
-                                            *op0.order[rm_key]),
-                         ref.rowmap_combine_ref(y0.clone(), flat,
-                                                *op0.order[rm_key]))
+            pad = width * n_shards - prog.n_cols
+            whole = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        for tag, op, is_folded in sets:
+            xs = x
+            if prog.mode == "col":           # shard 0's slice, or all of it
+                xs = whole if is_folded else x[:width]
+            shard_steps(f"{label} {tag}", prog.steps, op, xs.contiguous(),
+                        n_shards * n_out if is_folded else n_out)
+
+
+def step_partials(st: dict, fmt: dict, x, plain: bool = False) -> tuple:
+    """A sharded family step's partials on ``fmt`` through the wrapper it
+    dispatches to (or, with ``plain``, its plain version), and the fmt key
+    of its rowmap."""
+    from repro_torch.kernels import ops, ref
+    key = st["key"]
+    require(st["cols"]["mode"] == "array", f"{key}: cols by model")
+    vals, cols = fmt[f"{key}_vals"], fmt[st["cols"]["key"]]
+    b = x.ndim == 2
+    if st["kind"] == "ell":
+        fn = ((ref.ell_spmm_ref if b else ref.ell_spmv_ref) if plain
+              else (ops.ell_spmm if b else ops.ell_spmv))
+        return fn(vals, cols, x), st["combine"]["key"]
+    pk = "seg_scan" if st["reduce"] == "gmem_atom" else st["reduce"]
+    fn = ((ref.seg_spmm_ref if b else ref.seg_spmv_ref) if plain
+          else (ops.seg_spmm if b else ops.seg_spmv))
+    return (fn(vals, cols, fmt.get(f"{key}_local"), fmt.get(f"{key}_end"),
+               x, st["seg_rows"], mode=pk), f"{key}_rowmap")
+
+
+def shard_order(op, key: str, n_out: int):
+    """The combine order of rowmap ``key`` on operands ``op``: the one
+    placed with them, or, for a shard's view beside a folded set (which
+    holds the orders), made here."""
+    from repro_torch.kernels import ops
+    return op.order[key] if key in op.order else ops.combine_order(
+        op.fmt[key], n_out)
+
+
+def shard_steps(label: str, steps: list, op, x, n_out: int) -> None:
+    """Every step of ``steps`` on the operands ``op`` (fmt, order), whose
+    output has ``n_out`` rows: the family kernel and the combine against
+    their plain versions."""
+    from repro_torch.kernels import ref
+    b = x.shape[1] if x.ndim == 2 else 1
+    for st in steps:
+        got, rm_key = step_partials(st, op.fmt, x)
+        want, _ = step_partials(st, op.fmt, x, plain=True)
+        vals = op.fmt[f"{st['key']}_vals"]
+        tag = f"{label} {family_kernel(st, b > 1)} " \
+            f"{tuple(vals.shape)} {vals.dtype} B={b}"
+        check_kernel(tag, got, want)
+        flat = got.reshape((-1,) + tuple(x.shape[1:])).contiguous()
+        order = shard_order(op, rm_key, n_out)
+        y0 = torch.zeros((order[1].numel() - 1,) + tuple(x.shape[1:]),
+                         device=flat.device)
+        check_kernel(f"{tag} combine", combine_call(y0.clone(), flat, order),
+                     ref.rowmap_combine_ref(y0.clone(), flat, *order))
 
 
 def timed_pair(fn, x1, x8) -> dict:
@@ -2726,11 +2801,25 @@ def timed_pair(fn, x1, x8) -> dict:
             "device_ms_b8": device_ms(lambda: fn(x8))}
 
 
-def serving_sharded(W, mode, mesh, xs, oracles, dense, csr, designer):
+def apart_mesh():
+    """``DIST_SHARDS`` shards on the one card under two device names
+    (``cuda`` and ``cuda:0`` compare unequal): a mesh whose shards do
+    not share a device, on which a plan runs once a shard, as it does
+    where the shards sit on several cards."""
+    from repro_torch.dist.mesh import DataMesh
+    return DataMesh(tuple(torch.device("cuda", 0) if i % 2 else
+                          torch.device("cuda") for i in range(DIST_SHARDS)))
+
+
+def serving_sharded(W, mode, mesh, xs, oracles, beside, designer):
     """(a) The serving matrix on ``DIST_SHARDS`` shards of the card in
     ``mode``: held to the oracle at B = 1 and 8, bit-identical across two
-    calls and a save/load, and one ``dist {...}`` line with the dense
-    plan's and cuSPARSE's times beside its own."""
+    calls and a save/load, and one ``dist {...}`` line with ``beside``
+    (the dense plan's and cuSPARSE's times, taken once for both modes)
+    next to its own. The saved plan is also loaded onto
+    :func:`apart_mesh`, which runs it once a shard: held to the oracle,
+    to the same bits, and to a family kernel and a combine a step and
+    shard (``per_shard`` in the line)."""
     import repro_torch
     label = f"compile serving sharded {mode} (default_shard_graph)"
     plan = timed(label, designer, repro_torch.compile, W,
@@ -2746,33 +2835,52 @@ def serving_sharded(W, mode, mesh, xs, oracles, dense, csr, designer):
         loaded = repro_torch.load_plan(path, mesh=mesh)
         same = all(torch.equal(f(x), y) for f in (plan, loaded)
                    for x, y in zip(xs, ys))
+        apart = repro_torch.load_plan(path, mesh=apart_mesh())
+        ys_apart = [apart(x) for x in xs]
     require(same, f"sharded {mode}: repeat calls or the loaded plan are "
             "not bit-identical")
+    require(getattr(apart.operands, "folded", None) is None,
+            f"sharded {mode}: shards on two devices were folded")
+    for x, y, o in zip(xs, ys_apart, oracles):
+        check_dist(f"sharded {mode} per shard "
+                   f"B={x.shape[1] if x.ndim == 2 else 1}", y, o)
+    require(all(torch.equal(a, y) for a, y in zip(ys_apart, ys)),
+            f"sharded {mode}: the per-shard run and the folded call differ")
     on = W.rows if mode == "row" else W.cols
     slots = sum(plan.stacks[f"{st['key']}_vals"].numel()
                 for st in plan.steps)
     n_shards = plan.n_shards
+    ops_ = plan.operands
+    shared = mesh.shared_device is not None
     line = {"mode": mode, "n_shards": n_shards,
             "families": [st["report"] for st in plan.steps],
             "shard_nnz": [int(((on >= a) & (on < b)).sum())
                           for a, b in plan.bounds],
             "per_device_format_bytes": plan.per_device_format_bytes,
             "replicated_format_bytes": plan.replicated_format_bytes,
-            "combine_order_bytes": sum(op.order_bytes
-                                       for op in plan.operands),
+            "combine_order_bytes": (
+                ops_.order_bytes if hasattr(ops_, "order_bytes")
+                else sum(op.order_bytes for op in ops_)),
+            "folded_bytes": getattr(ops_, "folded_bytes", None),
             "stacked_slots_over_nnz": slots / W.nnz,
             "launches_b1": check_launches(f"sharded {mode} B=1",
                                           lambda: plan(xs[0]), plan.steps,
-                                          n_shards, False),
+                                          n_shards, False, shared),
             "launches_b8": check_launches(f"sharded {mode} B=8",
                                           lambda: plan(xs[1]), plan.steps,
-                                          n_shards, True),
+                                          n_shards, True, shared),
             "compile_s": designer[label], "max_abs_err": errs,
             "bit_identical": same}
     line.update(timed_pair(plan, *xs))
-    line.update({f"dense_{k}": v for k, v in timed_pair(dense, *xs).items()})
-    line.update({f"cusparse_{k}": v for k, v in
-                 timed_pair(lambda x: csr @ x, *xs).items()})
+    line["per_shard"] = {
+        "launches_b1": check_launches(f"sharded {mode} per shard B=1",
+                                      lambda: apart(xs[0]), plan.steps,
+                                      n_shards, False, False),
+        "launches_b8": check_launches(f"sharded {mode} per shard B=8",
+                                      lambda: apart(xs[1]), plan.steps,
+                                      n_shards, True, False),
+        "bit_identical": True, **timed_pair(apart, *xs)}
+    line.update(beside)
     print(f"dist {json.dumps(line)}")
     return plan
 
@@ -2785,49 +2893,59 @@ def segment_sum(y, flat, perm, off):
     return y
 
 
-def combine_row(plans, x1, launches: int) -> dict:
-    """The kernels-line row of the ordered combine: at shard 0's ELL step
-    of the first serving plan that has one (col mode, where the shards'
-    rows are regular), B = 1, against its plain version, with
-    ``index_add_`` (in whatever order the atomics take) as the yardstick,
-    and beside it ``segment_sum``, the same order in PyTorch calls."""
-    from repro_torch.kernels import ops, ref
-    plan = next((p for p in plans
-                 if p.steps and p.steps[0]["kind"] == "ell"), None)
-    require(plan is not None, "no sharded serving plan has an ELL family")
-    op0, st = plan.operands[0], plan.steps[0]
-    key = st["combine"]["key"]
-    perm, off = op0.order[key]
-    width = -(-plan.n_cols // plan.n_shards) if plan.mode == "col" else None
-    x0 = x1[:width].contiguous()
-    flat = ops.ell_spmv(op0.fmt[f"{st['key']}_vals"],
-                        op0.fmt[f"{st['key']}_cols"], x0).reshape(-1)
+def combine_call(y, flat, order):
+    """The ordered combine on ``order``: whole where the package checks an
+    order once, where it is built (``CombineOrder``), else as its two
+    tensors (a package before that)."""
+    from repro_torch.kernels import combine, ops
+    if isinstance(order, getattr(combine, "CombineOrder", ())):
+        return ops.rowmap_combine(y, flat, order)
+    return ops.rowmap_combine(y, flat, *order)
+
+
+def combine_entry(label: str, flat, order, rowmap, launches: int,
+                  matrix: str) -> dict:
+    """A kernels-line row of the ordered combine on the partials ``flat``
+    ((N,) or (N, B)) in ``order`` (its ``rowmap``'s): against its plain
+    version; ``ms`` as a caller sees it, ``host_ms`` its host side alone
+    and ``device_ms`` on the card;
+    its bound (the partials with a row and their perm entries, offsets,
+    and the rows with a run read and written once, over 3.35 TB/s; one
+    add a partial over the fp32 rate); ``index_add_`` on the same
+    partials (in whatever order the atomics take) as the library call,
+    and ``segment_sum``, the same order in PyTorch calls, beside it."""
+    from repro_torch.kernels import ref
+    perm, off = order
     n = off.numel() - 1
-    got = ops.rowmap_combine(torch.zeros(n, device=flat.device), flat, perm,
-                             off)
-    want = ref.rowmap_combine_ref(torch.zeros(n, device=flat.device), flat,
-                                  perm, off)
-    err = check_kernel(f"combine {COMBINE[0]} n_rows={n} "
-                       f"partials={perm.numel()}", got, want)
-    seg = [segment_sum(torch.zeros(n, device=flat.device), flat, perm, off)
-           for _ in range(3)]
-    check_kernel("combine segment_sum", seg[0], want)
+    rhs = tuple(flat.shape[1:])
+    b = rhs[0] if rhs else 1
+    y0 = torch.zeros((n,) + rhs, device=flat.device)
+    got = combine_call(y0.clone(), flat, order)
+    want = ref.rowmap_combine_ref(y0.clone(), flat, perm, off)
+    err = check_kernel(f"combine {label} n_rows={n} partials={perm.numel()}"
+                       f" B={b}", got, want)
+    seg = [segment_sum(y0.clone(), flat, perm, off) for _ in range(3)]
+    check_kernel(f"combine {label} segment_sum", seg[0], want)
     seg_stable = all(torch.equal(t, seg[0]) for t in seg)
-    rm = op0.fmt[key].reshape(-1).long()
+    rm = rowmap.reshape(-1).long()
     idx = torch.where(rm >= 0, rm, n)
-    y, y_lib = torch.zeros_like(got), torch.zeros(n + 1, device=flat.device)
-    ms = cuda_ms(lambda: ops.rowmap_combine(y, flat, perm, off))
-    dev_ms = device_ms(lambda: ops.rowmap_combine(y, flat, perm, off))
+    y, y_lib = y0.clone(), torch.zeros((n + 1,) + rhs, device=flat.device)
+    ms = cuda_ms(lambda: combine_call(y, flat, order))
+    dev_ms = device_ms(lambda: combine_call(y, flat, order))
     plain_ms = cuda_ms(lambda: ref.rowmap_combine_ref(y, flat, perm, off),
                        reps=5)
     lib_ms = cuda_ms(lambda: y_lib.index_add_(0, idx, flat))
     lib_dev = device_ms(lambda: y_lib.index_add_(0, idx, flat))
     seg_ms = cuda_ms(lambda: segment_sum(y, flat, perm, off))
     seg_dev = device_ms(lambda: segment_sum(y, flat, perm, off))
-    byt = nbytes(flat, perm, off) + 2 * got.numel() * 4
+    runs = off[1:] - off[:-1]
+    used = int((runs > 0).sum())
+    byt = (perm.numel() * (4 + 4 * b) + nbytes(off) + 2 * used * b * 4)
     b_ms = byt / HBM_BYTES_PER_S * 1e3
-    f_ms = perm.numel() / FP32_FLOPS_PER_S * 1e3
-    row = {"name": COMBINE[0], "route": "cuda", "source": COMBINE[1],
+    f_ms = perm.numel() * b / FP32_FLOPS_PER_S * 1e3
+    row = {"name": COMBINE[0] if label == COMBINE_FIRST
+           else f"{COMBINE[0]}[{label}]",
+           "route": "cuda", "source": COMBINE[1],
            "replaces": COMBINE[2], "launches": launches,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": max(b_ms, f_ms),
@@ -2835,14 +2953,80 @@ def combine_row(plans, x1, launches: int) -> dict:
            "library_ms": lib_ms, "device_ms": dev_ms,
            "library_device_ms": lib_dev, "segment_sum_ms": seg_ms,
            "segment_sum_device_ms": seg_dev,
-           "segment_sum_bit_stable": seg_stable, "shape": [n, perm.numel()],
-           "matrix": f"serving ({plan.mode}-mode shard 0)", "bytes": byt}
-    print(f"  combine: {ms:.4f} ms ({dev_ms:.4f} on the card), bound "
-          f"{max(b_ms, f_ms):.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
-          f"{lib_ms:.4f} ms ({lib_dev:.4f}), segment_sum {seg_ms:.4f} ms "
-          f"({seg_dev:.4f}, bits repeat: {seg_stable}), launches "
-          f"{launches}")
+           "segment_sum_bit_stable": seg_stable,
+           "shape": [n, int(perm.numel()), b], "rows_with_a_run": used,
+           "max_run": int(runs.max()) if n else 0,
+           "host_ms": host_ms(lambda: combine_call(y, flat, order)),
+           "matrix": matrix,
+           "bytes": byt, "one_element_add_device_ms": one_element_ms()}
+    print(f"  combine {label}: {ms:.4f} ms ({dev_ms:.4f} on the card, "
+          f"{row['host_ms']:.4f} to enqueue), "
+          f"bound {max(b_ms, f_ms):.4f} ms, plain {plain_ms:.4f} ms, "
+          f"index_add_ {lib_ms:.4f} ms ({lib_dev:.4f}), segment_sum "
+          f"{seg_ms:.4f} ms ({seg_dev:.4f}, bits repeat: {seg_stable}), "
+          f"launches {launches}")
     return row
+
+
+COMBINE_FIRST = "col shard 0 B=1"        # the row PRs 19-26 reported
+
+
+@functools.lru_cache(maxsize=1)
+def one_element_ms() -> float:
+    """``device_ms`` of a one-element ``add_``: the least a launch takes
+    on this card, beside which the combine's small shapes are read."""
+    t = torch.zeros(1, device="cuda")
+    return device_ms(lambda: t.add_(1))
+
+
+def shifted_rowmaps(rm: torch.Tensor, n_out: int) -> torch.Tensor:
+    """A (n, T', R) rowmap stack as one (n T', R) rowmap whose shard i
+    adds into rows [i n_out, (i + 1) n_out): the folded call's rowmap,
+    built here so that a package without the fold is timed on it too."""
+    n = rm.shape[0]
+    shift = torch.arange(n, device=rm.device).reshape(
+        (n,) + (1,) * (rm.ndim - 1)) * n_out
+    out = torch.where(rm >= 0, rm.long() + shift, -1)
+    return out.reshape((-1,) + tuple(rm.shape[2:]))
+
+
+def combine_rows(plans, xs, launches: int) -> list:
+    """The kernels-line rows of the ordered combine at the sharded shapes:
+    shard 0's first family step of the col-mode and the row-mode serving
+    plans at B = 1 and 8, and all four col-mode shards' partials of that
+    step in one launch (the folded call's shape), B = 1."""
+    from repro_torch.kernels import ops
+    rows = []
+    by_mode = {p.mode: p for p in plans}
+    for mode in ("col", "row"):
+        plan = by_mode[mode]
+        st, op0 = plan.steps[0], plan.operands[0]
+        width = -(-plan.n_cols // plan.n_shards)
+        for x in xs:
+            b = x.shape[1] if x.ndim == 2 else 1
+            x0 = (x[:width] if mode == "col" else x).contiguous()
+            flat, key = step_partials(st, op0.fmt, x0)
+            flat = flat.reshape((-1,) + tuple(x.shape[1:]))
+            n_out = plan.band_rows if mode == "row" else plan.n_rows
+            rows.append(combine_entry(
+                f"{mode} shard 0 B={b}" if mode == "row" or b > 1
+                else COMBINE_FIRST, flat, shard_order(op0, key, n_out),
+                op0.fmt[key],
+                launches, f"serving ({mode}-mode shard 0, "
+                f"{family_kernel(st, b > 1)} family)"))
+    plan = by_mode["col"]
+    st = plan.steps[0]
+    n, width = plan.n_shards, -(-plan.n_cols // plan.n_shards)
+    x = torch.cat([xs[0], xs[0].new_zeros(n * width - plan.n_cols)])
+    parts = [step_partials(st, op.fmt, x[i * width:(i + 1) * width])
+             for i, op in enumerate(plan.operands)]
+    flat = torch.cat([p.reshape(-1) for p, _ in parts])
+    rm = shifted_rowmaps(plan.stacks[parts[0][1]], plan.n_rows)
+    rows.append(combine_entry("folded col B=1", flat,
+                              ops.combine_order(rm, n * plan.n_rows), rm,
+                              launches, f"serving (col mode, {n} shards "
+                              "in one launch)"))
+    return rows
 
 
 def searched_shards(P, xp, oracle_p, mesh, designer) -> list:
@@ -2877,7 +3061,8 @@ def searched_shards(P, xp, oracle_p, mesh, designer) -> list:
                 check_dist(f"dist_search ({tag}) B=8", prog(x8), o8)]
         calls = [check_launches(f"dist_search ({tag}) B={b}",
                                 lambda x=x: prog(x), prog.steps,
-                                len(prog.operands), b > 1)
+                                len(prog.operands), b > 1,
+                                mesh.shared_device is not None)
                  for b, x in ((1, xp), (8, x8))]
         if hook:
             require(res.failed_shards() == [0]
@@ -2927,14 +3112,18 @@ def sharded_layer(W, mesh, designer) -> None:
     Y = layer(X)
     require(Y.is_cuda and tuple(Y.shape) == (8, 12288), "bad layer output")
     check_launches("sparsify_linear_sharded B=8", lambda: layer(X),
-                   layer.program.steps, layer.program.n_shards, True)
+                   layer.program.steps, layer.program.n_shards, True,
+                   mesh.shared_device is not None)
     check_dist("sparsify_linear_sharded (8, 4096) batch", Y.T,
                oracle_cols(W, X.cpu().numpy().T))
 
 
-def dist_phase(W, P, xp, oracle_p, x8, oracle8, dense, designer) -> dict:
+def dist_phase(W, P, xp, oracle_p, x8, oracle8, dense, designer,
+               report: bool = False) -> list:
     """Phase 12: sharded SpMV on one card (``repro_torch.dist``); returns
-    the ordered combine's kernels-line row."""
+    the ordered combine's kernels-line rows at the sharded shapes. With
+    ``report`` (``--kernel-report``) only (a), the serving plans, and the
+    combine rows."""
     from repro_torch.dist import make_data_mesh
     from repro_torch.kernels import ops
     done = phase("12 sharded SpMV (4 shards on one card)")
@@ -2945,10 +3134,15 @@ def dist_phase(W, P, xp, oracle_p, x8, oracle8, dense, designer) -> dict:
     csr = csr_on_device(W)
     reset_launch_counts()                    # phase 12 starts here
     ops.rowmap_combine.launches = 0
-    plans = [serving_sharded(W, mode, mesh, xs, oracles, dense, csr,
-                             designer) for mode in ("row", "col")]
-    progs, xp8 = searched_shards(P, xp, oracle_p, mesh, designer)
-    sharded_layer(W, mesh, designer)
+    beside = {f"dense_{k}": v for k, v in timed_pair(dense, *xs).items()}
+    beside.update({f"cusparse_{k}": v for k, v in
+                   timed_pair(lambda x: csr @ x, *xs).items()})
+    plans = [serving_sharded(W, mode, mesh, xs, oracles, beside, designer)
+             for mode in ("row", "col")]
+    progs, xp8 = ([], None) if report else searched_shards(
+        P, xp, oracle_p, mesh, designer)
+    if not report:
+        sharded_layer(W, mesh, designer)
     torch.cuda.synchronize()
     launches = dist_launches()               # ... and ends here
     want = {family_kernel(st, b) for p in plans + progs for st in p.steps
@@ -2960,11 +3154,11 @@ def dist_phase(W, P, xp, oracle_p, x8, oracle8, dense, designer) -> dict:
         check_shard_kernels(f"serving {p.mode}", p, *xs)
     for p, tag in zip(progs, ("searched", "shard 0 crashed")):
         check_shard_kernels(f"powerlaw {tag}", p, xp, xp8)
-    row = combine_row(plans, xs[0], launches["combine"])
+    rows = combine_rows(plans, xs, launches["combine"])
     del csr
     torch.cuda.empty_cache()
     done()
-    return row
+    return rows
 
 
 # -------------------------------- phase 13 --------------------------------
@@ -3533,6 +3727,134 @@ def bits_probe() -> None:
         count(f"{mode} unfused plan B=8", lambda: unfused(x8))
     print("bits_probe " + json.dumps({"calls": BITS_CALLS,
                                       "differing_calls": out}))
+
+
+# ------------------------------- --bits-dump -------------------------------
+
+# x of every --bits-dump output: (n_cols,) and (n_cols, 8) from these seeds
+BITS_DUMP_SEEDS = {1: 31, 8: 32}
+
+
+def bits_dump(out_dir: Path, label: str) -> None:
+    """Writes ``out_dir/label.pt`` (``torch.save``): the outputs, at B = 1
+    and 8 from fixed seeds (each call's ``device_ms`` on the
+    ``bits_dump`` line), of the plans whose sums go through the ordered
+    combine: phase 12's sharded serving plans (row and col, 4 shards of
+    the card), both ``dist_search`` programs (searched, and shard 0
+    crashing), phase 4's unfused power-law plans and phase 6's searched
+    serving plan. Each plan is made, saved under ``out_dir/plans`` and
+    loaded the first time, and loaded from there every later time, so two
+    checkouts (this script copied into a parent's) run the same plans:
+    a search's winner depends on timing. Uses only sharded plans and
+    ``api._plan_from_program``, which older packages have too."""
+    import warnings
+    import repro_torch
+    from repro_torch.api import ShardedSpmvPlan, _plan_from_program
+    from repro_torch.core.graph import run_graph
+    from repro_torch.core.kernel_builder import build_program
+    from repro_torch.core.matrices import powerlaw_matrix
+    from repro_torch.dist import make_data_mesh
+    from repro_torch.dist.search import (ShardedSearchConfig, dist_search,
+                                         shard_fault_hook)
+    plans_dir = out_dir / "plans"
+    plans_dir.mkdir(parents=True, exist_ok=True)
+    mesh = make_data_mesh(DIST_SHARDS, device="cuda:0")
+    designer, mats = {}, {}
+
+    def matrix(name):
+        if name not in mats:
+            mats[name] = (serving_matrix(designer) if name == "serving" else
+                          powerlaw_matrix(2 ** 20, 2 ** 20, 8.0, 1.5,
+                                          seed=0))
+        return mats[name]
+
+    def load(name, make, sharded):
+        path = plans_dir / f"{name}.plan.npz"
+        if not path.is_file():
+            make().save(path)
+        return repro_torch.load_plan(path, mesh=mesh if sharded else None)
+
+    def crash(shard):
+        if shard.index == 0:
+            raise RuntimeError("injected shard crash")
+
+    def searched(hook):
+        cfg = ShardedSearchConfig(
+            mode="row", balance="nnz",
+            search=repro_torch.SearchConfig(**DIST_SEARCH))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            with shard_fault_hook(hook) if hook else \
+                    contextlib.nullcontext():
+                res = dist_search(matrix("powerlaw"), mesh, cfg)
+        return ShardedSpmvPlan.from_program(
+            res.program, repro_torch.Target(mesh=mesh, partition="row"),
+            search_result=res)
+
+    def unfused(red):
+        g = chain(("COMPRESS", {}), ("LANE_NNZ_BLOCK", {"chunk": 2048}),
+                  (red, {}))
+        prog = build_program(run_graph(matrix("powerlaw"), g), "cuda",
+                             fuse_combine=False)
+        return _plan_from_program(prog, None, repro_torch.Target())
+
+    def serving_searched():
+        cfg = repro_torch.SearchConfig(
+            max_seconds=SEARCH_SECONDS["serving"], max_structures=2,
+            coarse_samples=2, fine_eval_budget=0, use_cost_model=False,
+            timing_repeats=3, seed=0)
+        return repro_torch.compile(matrix("serving"), repro_torch.Target(
+            batch_size=SERVE_B), budget=cfg)
+
+    cases = {f"sharded {mode}": ("serving", lambda mode=mode:
+                                 repro_torch.compile(
+                                     matrix("serving"), repro_torch.Target(
+                                         mesh=mesh, partition=mode)), True)
+             for mode in ("row", "col")}
+    cases["dist_search searched"] = ("powerlaw", lambda: searched(None),
+                                     True)
+    cases["dist_search shard 0 crashes"] = ("powerlaw",
+                                            lambda: searched(crash), True)
+    for red in ("SEG_SCAN_RED", "ONEHOT_MXU_RED", "GMEM_ATOM_RED"):
+        cases[f"powerlaw {red} unfused"] = ("powerlaw",
+                                            lambda red=red: unfused(red),
+                                            False)
+    cases["serving searched"] = ("serving", serving_searched, False)
+    out, card = {}, {}
+    for name, (m, make, sharded) in cases.items():
+        plan = load(name.replace(" ", "_"), make, sharded)
+        for b, seed in BITS_DUMP_SEEDS.items():
+            rng = np.random.default_rng(seed)
+            x = torch.from_numpy(rng.standard_normal(
+                (plan.n_cols,) if b == 1 else (plan.n_cols, b)).astype(
+                np.float32)).cuda()
+            out[f"{name} B={b}"] = plan(x).cpu()
+            card[f"{name} B={b}"] = device_ms(lambda: plan(x))
+        del plan
+        torch.cuda.empty_cache()
+    torch.save(out, out_dir / f"{label}.pt")
+    print("bits_dump " + json.dumps({"label": label, "outputs": sorted(out),
+                                     "host_seconds": designer,
+                                     "device_ms": card}))
+
+
+def bits_compare(out_dir: Path) -> None:
+    """Every ``out_dir/*.pt`` of ``--bits-dump`` against the first (by
+    name): each output ``torch.equal``; a ``bits_compare {...}`` line,
+    and a failure on any output that differs."""
+    files = sorted(out_dir.glob("*.pt"))
+    require(len(files) >= 2, f"fewer than two dumps in {out_dir}")
+    first = torch.load(files[0])
+    differ = {}
+    for f in files[1:]:
+        other = torch.load(f)
+        require(sorted(other) == sorted(first), f"{f.name}: other outputs")
+        differ[f.name] = sorted(k for k in first
+                                if not torch.equal(first[k], other[k]))
+    print("bits_compare " + json.dumps({"against": files[0].name,
+                                        "outputs": len(first),
+                                        "differing": differ}))
+    require(not any(differ.values()), f"outputs differ: {differ}")
 
 
 SPLIT_ROUNDS = 3
@@ -4772,9 +5094,12 @@ def main(argv: list) -> int:
               if re.fullmatch(r"[0-9]+x[0-9]+", a)]
     if argv and not kernel_report and argv not in (
             ["--bits-probe"], ["--fused-split"]) and not (
-            argv[0] == "--sharded-only" and len(meshes) == len(argv) - 1):
+            argv[0] == "--sharded-only" and len(meshes) == len(argv) - 1
+    ) and not (argv[0] == "--bits-dump" and len(argv) == 3) and not (
+            argv[0] == "--bits-compare" and len(argv) == 2):
         print(f"usage: {sys.argv[0]} [--kernel-report | --bits-probe | "
-              "--fused-split | --sharded-only [DATAxMODEL ...]]",
+              "--fused-split | --sharded-only [DATAxMODEL ...] | "
+              "--bits-dump DIR LABEL | --bits-compare DIR]",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
@@ -4798,6 +5123,13 @@ def finish(rows: list, t_start: float) -> None:
 def run(argv: list, kernel_report: bool) -> int:
     if argv == ["--bits-probe"]:
         bits_probe()
+        return 0
+    if argv[:1] == ["--bits-dump"]:
+        device_phase()
+        bits_dump(Path(argv[1]).resolve(), argv[2])
+        return 0
+    if argv[:1] == ["--bits-compare"]:
+        bits_compare(Path(argv[1]).resolve())
         return 0
     if argv == ["--fused-split"]:
         device_phase()
@@ -4887,7 +5219,7 @@ def run(argv: list, kernel_report: bool) -> int:
     searched_seg_line(searched, xd, W.n_rows, serve_launches, csr_w)
     xp8 = torch.from_numpy(np.random.default_rng(2).standard_normal(
         (P.n_cols, 8)).astype(np.float32)).cuda()
-    dense_plans_line({
+    dense_row = dense_plans_line({
         **{f"powerlaw {red} unfused": (seg[f"{red} unfused"], xp, xp8)
            for red in ("SEG_SCAN_RED", "ONEHOT_MXU_RED", "GMEM_ATOM_RED")},
         "serving searched": (searched, xd[:, 0].contiguous(), xd)},
@@ -4897,7 +5229,9 @@ def run(argv: list, kernel_report: bool) -> int:
     del progs, csr_w
     torch.cuda.empty_cache()
     if kernel_report:
-        finish(rows, t_start)
+        rows += dist_phase(W, P, xp, oracle_p, x8, oracle8, searched,
+                           designer, report=True)
+        finish(rows + [dense_row], t_start)
         return 0
 
     x1 = xd[:, 0].contiguous()
@@ -4909,8 +5243,8 @@ def run(argv: list, kernel_report: bool) -> int:
     dyn_phase(W, P, seg["SEG_SCAN_RED fused"], designer)
     corpus_phase({"banded searched": (searched_b, xb),
                   f"serving searched B={SERVE_B}": (searched, xd)})
-    rows.append(dist_phase(W, P, xp, oracle_p, x8, oracle8, searched,
-                           designer))
+    rows += dist_phase(W, P, xp, oracle_p, x8, oracle8, searched, designer)
+    rows.append(dense_row)
     dev = torch.device("cuda", torch.cuda.current_device())
     llm = llm_phase(dev)
     train = train_phase(dev)

@@ -505,7 +505,8 @@ class ShardedSpmvPlan:
         mesh = self._mesh()
         if self.operands is None:
             self.operands = place_operands(self.stacks, self.steps, mesh,
-                                           self._n_out())
+                                           self._n_out(), self.mode,
+                                           self.n_cols)
         fn = _sharded_fn(self.steps_json, self.mode, self._n_out(), mesh,
                          self.target.axis_name, self.target.backend)
         return stacked_call(fn, self.operands, x, self.mode, self.n_cols,

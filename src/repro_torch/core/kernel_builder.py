@@ -413,11 +413,12 @@ def _add_rows(y, flat, order):
     """y[rm[i]] += flat[i] for every rm[i] >= 0 of the step's rowmap rm
     (the scatter combine); ``flat`` is (N,) or (N, B). The partials go
     through
-    ``kernels.combine.rowmap_combine`` in the rowmap's ``order``
-    (``perm``, ``offsets`` of ``kernels.combine.combine_order``), so a
-    row's partials are added in one order on every call."""
+    ``kernels.combine.rowmap_combine`` in the rowmap's ``order`` (the
+    ``CombineOrder`` of ``kernels.combine.combine_order``, checked when it
+    was built), so a row's partials are added in one order on every
+    call."""
     from repro_torch.kernels import ops as kops
-    kops.rowmap_combine(y, flat.contiguous(), *order)
+    kops.rowmap_combine(y, flat.contiguous(), order)
 
 
 def _run_ell_step(step: dict, fmt: dict, x, y, n_rows: int,

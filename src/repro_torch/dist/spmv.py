@@ -14,16 +14,20 @@ group per (reduce kind, S, L)), padded to the family's largest tile count
 and stacked with a leading shard axis. Shard i's operands are slice i of
 every stack, on ``mesh.devices[i]``; tiles of families a shard lacks are
 padding (val 0, rowmap -1) that add nothing. The body is
-``core.kernel_builder.build_kernel`` on a synthetic spec, run once per
-shard: on the ``cuda`` backend it launches the ported kernels (K1/K7 for
-the ELL family, K3/K4/K10 for seg) and adds the tile partials into y
-through ``kernels.combine.rowmap_combine`` in an order fixed when the
-operands are placed, so a call's bits never change from call to call.
+``core.kernel_builder.build_kernel`` on a synthetic spec: on the ``cuda``
+backend it launches the ported kernels (K1/K7 for the ELL family,
+K3/K4/K10 for seg) and adds the tile partials into y through
+``kernels.combine.rowmap_combine`` in an order fixed when the operands
+are placed, so a call's bits never change from call to call.
 
 Where the reference runs the shards in one ``shard_map`` over devices, the
-port runs them one after another from one process, each on its shard's
-device; with all shards on one card, as on a one-card machine, the
-launches queue on one stream.
+port runs the body once per shard, each on its shard's device. Where all
+shards share one device, as on a one-card machine (and the tests' CPU
+mesh), it runs the body once over the folded operands
+(:func:`fold_operands`): every stack viewed as one longer tile axis, shard
+i's rowmap moved to rows [i n_out, (i + 1) n_out) of one output, so a
+call launches one family kernel and one combine a step, and each shard's
+sums are the ones its own run would give, bit for bit.
 
 Two partition modes:
 
@@ -43,7 +47,8 @@ and the stacks are bit-identical to the reference's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence
+from collections.abc import Sequence
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -57,8 +62,8 @@ from repro_torch.design.registry import OpSpec
 
 __all__ = ["RowShard", "partition_matrix", "ShardedSpmvProgram",
            "build_sharded_spmv", "shard_map_spmv", "default_shard_graph",
-           "pack_operand_format", "ShardOperands", "place_operands",
-           "psum"]
+           "pack_operand_format", "ShardOperands", "MeshOperands",
+           "place_operands", "fold_operands", "psum"]
 
 
 def _axis_size(mesh, axis_name: str) -> int:
@@ -385,7 +390,8 @@ def place_stacks(stacks: dict, mesh) -> dict:
 class ShardOperands:
     """One shard's operands: ``fmt``, slice i of every stack on the
     shard's device, and ``order``, each family rowmap's fixed combine
-    order (``kernels.combine.combine_order``) by its fmt key."""
+    order (``kernels.combine.combine_order``) by its fmt key. The folded
+    set (:func:`fold_operands`) has the same two fields over all shards."""
 
     fmt: dict
     order: dict
@@ -396,18 +402,108 @@ class ShardOperands:
                    for pair in self.order.values() for t in pair)
 
 
-def place_operands(stacks: dict, steps: list, mesh, n_out: int
-                   ) -> list[ShardOperands]:
-    """Each shard's operands on ``mesh.devices[i]`` (slices are views where
-    the stack lies there), with the combine orders fixed here once."""
+@dataclasses.dataclass(eq=False)
+class MeshOperands(Sequence):
+    """A sharded program's operands on its mesh: ``shards[i]`` for shard
+    i (indexing and iterating give these), and, where every shard sits on
+    one device, ``folded``: the operands of one run of the body over all
+    shards' tiles (:func:`fold_operands`), else None."""
+
+    shards: list
+    folded: Optional[ShardOperands] = None
+    # bytes the folded set holds beside the stacks: its shifted rowmaps,
+    # stored rows and (col mode) columns
+    folded_bytes: int = 0
+
+    def __getitem__(self, i):
+        return self.shards[i]
+
+    def __len__(self) -> int:
+        return len(self.shards)
+
+    @property
+    def order_bytes(self) -> int:
+        return sum(op.order_bytes for op in self.shards) + (
+            0 if self.folded is None else self.folded.order_bytes)
+
+
+def _shifted(stack: torch.Tensor, step_of: int, only_valid: bool,
+             dtype: torch.dtype) -> torch.Tensor:
+    """A (n, T', ...) index stack as (n T', ...) with shard i's entries
+    moved by ``i * step_of`` (only those >= 0 where ``only_valid``)."""
+    n = stack.shape[0]
+    shift = (torch.arange(n, device=stack.device, dtype=torch.int64)
+             * step_of).reshape((n,) + (1,) * (stack.ndim - 1))
+    wide = stack.long()
+    out = wide + shift
+    if only_valid:
+        out = torch.where(wide >= 0, out, wide)
+    return out.to(dtype).reshape((-1,) + tuple(stack.shape[2:]))
+
+
+def fold_operands(stacks: dict, steps: list, n_out: int, mode: str,
+                  width: int) -> ShardOperands:
+    """The operands of one run of the body over all n shards at once, on
+    the stacks' device: every stack (n, T', ...) viewed as (n T', ...),
+    tiles of shard i first; shard i's rowmap entries >= 0 and stored rows
+    (``{key}_rows``, the torch backend's gmem_atom stream) moved by
+    ``i * n_out``, so its partials land in rows [i n_out, (i + 1) n_out)
+    of an (n n_out[, B]) output, in the same order as its own run; in col
+    mode shard i's columns moved by ``i * width`` into the padded x, int16
+    kept while ``n * width`` fits it. The shifted arrays are copies; the
+    rest are views of the stacks."""
     from repro_torch.kernels.combine import combine_order
-    operands = []
+    if mode == "col" and width <= 0:
+        raise ValueError(f"col mode needs a slice width, got {width}")
+    if not stacks:
+        return ShardOperands({}, {})
+    n = next(iter(stacks.values())).shape[0]
+    if n * max(n_out, 1) > 2 ** 31 - 1:
+        raise ValueError(f"{n} shards of {n_out} output rows do not fit "
+                         "int32 row indices")
+    rowmaps = {_rowmap_key(st) for st in steps}
+    rows = {f"{st['key']}_rows" for st in steps}
+    cols = {st["cols"]["key"] for st in steps} if mode == "col" else set()
+    fmt = {}
+    for k, v in stacks.items():
+        if k in rowmaps or k in rows:
+            fmt[k] = _shifted(v, n_out, k in rowmaps, torch.int32)
+        elif k in cols:
+            narrow = v.dtype == torch.int16 and n * width <= 32767
+            fmt[k] = _shifted(v, width, False,
+                              torch.int16 if narrow else torch.int32)
+        else:
+            fmt[k] = v.reshape((-1,) + tuple(v.shape[2:]))
+    order = {k: combine_order(fmt[k], n * n_out) for k in rowmaps}
+    return ShardOperands(fmt, order)
+
+
+def place_operands(stacks: dict, steps: list, mesh, n_out: int,
+                   mode: str, n_cols: int) -> MeshOperands:
+    """Each shard's operands on ``mesh.devices[i]`` (slices are views where
+    the stack lies there). Where the shards sit on several devices, each
+    gets its combine orders, fixed here once; where they share one, the
+    shards' views come without orders and the folded set, which runs
+    them all in one pass (:func:`fold_operands`; ``n_cols`` sets col
+    mode's slice width), holds the orders."""
+    from repro_torch.kernels.combine import combine_order
+    shared = mesh.shared_device is not None
+    shards = []
     for i, dev in enumerate(mesh.devices):
         fmt = {k: v[i].to(dev) for k, v in stacks.items()}
-        order = {key: combine_order(fmt[key], n_out)
-                 for key in map(_rowmap_key, steps)}
-        operands.append(ShardOperands(fmt, order))
-    return operands
+        order = {} if shared else {key: combine_order(fmt[key], n_out)
+                                   for key in map(_rowmap_key, steps)}
+        shards.append(ShardOperands(fmt, order))
+    if not shared:
+        return MeshOperands(shards)
+    n = len(mesh.devices)
+    placed = {k: v.to(mesh.shared_device) for k, v in stacks.items()}
+    folded = fold_operands(placed, steps, n_out, mode, -(-n_cols // n))
+    copies = sum(t.numel() * t.element_size()
+                 for k, t in folded.fmt.items()
+                 if t.untyped_storage().data_ptr()
+                 != placed[k].untyped_storage().data_ptr())
+    return MeshOperands(shards, folded, copies)
 
 
 def psum(partials: Sequence[torch.Tensor], device) -> torch.Tensor:
@@ -522,18 +618,35 @@ class ShardedSpmvProgram:
 
 def make_stacked_fn(steps: list, mode: str, n_out: int, mesh,
                     axis_name: str, backend: str = "cuda") -> Callable:
-    """``fn(operands, x)``: the body (``build_kernel`` on the synthetic
-    family spec) once per shard, on the shard's device. Row mode returns
-    the per-shard bands; col mode gives shard i its slice of the padded x
-    and returns :func:`psum` of the partials."""
+    """``fn(operands, x)`` over :class:`MeshOperands`. Where the shards
+    share one device, the body (``build_kernel`` on the synthetic family
+    spec) runs once over the folded operands: one family kernel and one
+    combine a step for all shards, into an (n n_out[, B]) output viewed as
+    (n, n_out[, B]). Else it runs once per shard, on the shard's device,
+    shard i taking its slice of the padded x in col mode. Row mode
+    returns the per-shard bands; col mode :func:`psum` of the partials.
+    Each shard's partials get the same adds in the same order either
+    way, so the two give the same bits."""
     _axis_size(mesh, axis_name)
+    devices = mesh.devices
+    n = len(devices)
+    if mesh.shared_device is not None:
+        run = build_kernel({"version": SPEC_VERSION, "n_rows": n * n_out,
+                            "steps": steps}, backend=backend)
+
+        def fn(operands, x):
+            folded = operands.folded
+            y = run(folded.fmt, x, folded.order)
+            parts = y.view((n, n_out) + tuple(x.shape[1:]))
+            return psum(parts, devices[0]) if mode == "col" else parts
+
+        return fn
     run = build_kernel({"version": SPEC_VERSION, "n_rows": n_out,
                         "steps": steps}, backend=backend)
-    devices = mesh.devices
 
     def fn(operands, x):
         if mode == "col":
-            width = x.shape[0] // len(devices)
+            width = x.shape[0] // n
             return psum([run(op.fmt, x[i * width:(i + 1) * width].to(dev),
                              op.order)
                          for i, (op, dev) in enumerate(zip(operands,
@@ -578,7 +691,7 @@ def build_sharded_spmv(shards: Sequence[RowShard],
                               axis_name=axis_name, steps=steps,
                               stacks=stacks, band_rows=R, backend=backend,
                               operands=place_operands(stacks, steps, mesh,
-                                                      n_out),
+                                                      n_out, mode, n_cols),
                               _fn=fn)
 
 

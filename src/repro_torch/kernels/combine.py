@@ -32,8 +32,8 @@ from . import build
 from .ell_spmv import _stream
 from .ref import rowmap_combine_ref
 
-__all__ = ["combine_order", "rowmap_combine", "FusedRows", "fused_rows",
-           "SLOT_BASE", "CELL_COLS"]
+__all__ = ["CombineOrder", "combine_order", "rowmap_combine", "FusedRows",
+           "fused_rows", "SLOT_BASE", "CELL_COLS"]
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
@@ -41,17 +41,44 @@ _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load_library("rowmap_combine")
     if lib.rowmap_combine.argtypes is None:
-        lib.rowmap_combine.argtypes = [_P, _P, _P, _P, _P, _L, _I, _P]
+        lib.rowmap_combine.argtypes = [_P, _P, _P, _P, _L, _I, _P]
         lib.rowmap_combine.restype = _I
     return lib
 
 
-def combine_order(rowmap: torch.Tensor, n_rows: int
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(perm, offsets)`` of a rowmap: the flat indices of its entries
-    ``>= 0`` sorted by row, stably (a row's partials keep their flat
-    order), as int32, and each row's run in them, as int64 offsets of
-    length ``n_rows + 1``. Computed on the rowmap's device."""
+class CombineOrder(tuple):
+    """A rowmap's fixed combine order, ``(perm, offsets)``, checked once:
+    ``perm`` int32 and ``offsets`` int64 of length ``n_rows + 1``, both
+    contiguous on one device."""
+
+    def __new__(cls, perm: torch.Tensor, offsets: torch.Tensor):
+        if perm.dtype != torch.int32 or offsets.dtype != torch.int64:
+            raise TypeError("perm must be int32 and offsets int64")
+        if perm.ndim != 1 or offsets.ndim != 1 or offsets.numel() < 1:
+            raise ValueError("perm and offsets must be 1-D, offsets "
+                             "non-empty")
+        if offsets.device != perm.device or not (perm.is_contiguous()
+                                                 and offsets.is_contiguous()):
+            raise ValueError("perm and offsets must be contiguous on one "
+                             "device")
+        self = super().__new__(cls, (perm, offsets))
+        self.n_rows = offsets.numel() - 1
+        return self
+
+    @property
+    def perm(self) -> torch.Tensor:
+        return self[0]
+
+    @property
+    def offsets(self) -> torch.Tensor:
+        return self[1]
+
+
+def combine_order(rowmap: torch.Tensor, n_rows: int) -> CombineOrder:
+    """The :class:`CombineOrder` of a rowmap: the flat indices of its
+    entries ``>= 0`` sorted by row, stably (a row's partials keep their
+    flat order), as int32, and each row's run in them, as int64 offsets
+    of length ``n_rows + 1``. Computed on the rowmap's device."""
     flat = rowmap.reshape(-1).long()
     valid = torch.nonzero(flat >= 0).reshape(-1)
     rows = flat[valid]
@@ -61,34 +88,37 @@ def combine_order(rowmap: torch.Tensor, n_rows: int
     order = torch.sort(rows, stable=True).indices
     offsets = torch.zeros(n_rows + 1, dtype=torch.int64, device=flat.device)
     offsets[1:] = torch.cumsum(torch.bincount(rows, minlength=n_rows), 0)
-    return valid[order].to(torch.int32), offsets
+    return CombineOrder(valid[order].to(torch.int32), offsets)
 
 
-def rowmap_combine(y, flat, perm, offsets) -> torch.Tensor:
+def rowmap_combine(y, flat, perm, offsets=None) -> torch.Tensor:
     """Add each row's partials of ``flat`` ((N,) or (N, B) fp32) into
-    ``y`` ((n_rows,) or (n_rows, B) fp32) in ``perm`` order and return
-    ``y``."""
+    ``y`` ((n_rows,) or (n_rows, B) fp32) in the order's perm order and
+    return ``y``. The order is a :class:`CombineOrder` (``perm`` alone,
+    checked when it was built) or the bare ``perm, offsets`` tensors,
+    checked on every call."""
+    order = perm if offsets is None else CombineOrder(perm, offsets)
+    if not isinstance(order, CombineOrder):
+        raise TypeError("give a CombineOrder, or perm and offsets")
     if not y.is_cuda:
-        return rowmap_combine_ref(y, flat, perm, offsets)
-    n_rows = y.shape[0]
-    B = 1 if y.ndim == 1 else y.shape[1]
+        return rowmap_combine_ref(y, flat, *order)
     if (y.dtype != torch.float32 or flat.dtype != torch.float32
-            or flat.shape[1:] != y.shape[1:]):
+            or flat.shape[1:] != y.shape[1:] or y.ndim > 2):
         raise ValueError(f"y {tuple(y.shape)} and flat {tuple(flat.shape)} "
                          "must be fp32 with the same columns")
-    if perm.dtype != torch.int32 or offsets.dtype != torch.int64:
-        raise TypeError("perm must be int32 and offsets int64")
-    if offsets.shape != (n_rows + 1,):
-        raise ValueError(f"offsets must have {n_rows + 1} entries")
-    for name, t in (("flat", flat), ("perm", perm), ("offsets", offsets)):
-        if t.device != y.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {y.device}")
-    if not y.is_contiguous():
-        raise ValueError("y must be contiguous")
+    if y.shape[0] != order.n_rows:
+        raise ValueError(f"the order has {order.n_rows} rows, y "
+                         f"{y.shape[0]}")
+    if flat.device != y.device or order.perm.device != y.device:
+        raise ValueError(f"flat and the order must lie on {y.device}")
+    if not (y.is_contiguous() and flat.is_contiguous()):
+        raise ValueError("y and flat must be contiguous")
     lib = _lib()
     build.check(lib, lib.rowmap_combine(
-        y.data_ptr(), flat.data_ptr(), perm.data_ptr(), offsets.data_ptr(),
-        0, n_rows, B, _stream(y)), "rowmap_combine")
+        y.data_ptr(), flat.data_ptr(), order.perm.data_ptr(),
+        order.offsets.data_ptr(), order.n_rows,
+        1 if y.ndim == 1 else y.shape[1], _stream(y)),
+        "rowmap_combine")
     rowmap_combine.launches += 1
     return y
 

@@ -681,6 +681,170 @@ def test_rowmap_combine_matches_plain_and_repeats_bit_for_bit(dev):
                            perm)
 
 
+# run lengths of the combine's cases, one row each, and one run of 20,000
+RUN_LENGTHS = (0, 1, 2, 31, 32, 33, 41, 1000, 0, 20000, 3, 0)
+
+
+def _in_order(y0, flat, perm, off):
+    """The combine as an explicit loop on the CPU: each row's partials
+    added into it one after another, in perm order, in float32."""
+    y, f = y0.numpy().copy(), flat.numpy()
+    p, o = perm.numpy(), off.numpy()
+    for r in range(len(o) - 1):
+        for j in range(o[r], o[r + 1]):
+            y[r] = y[r] + f[p[j]]
+    return torch.from_numpy(y)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("b", [1, 3, 4, 8, 17, 40])
+def test_rowmap_combine_adds_each_run_in_perm_order(dev, b, aligned):
+    """The combine, at every run length of RUN_LENGTHS (the partials of
+    each row shuffled among the others', some partials with no row), into
+    a y prefilled with non-zero values, and flat on or off its 16-byte
+    alignment, bit for bit an in-order float32 loop on the CPU: through
+    the wrapper, the bare ``perm, offsets`` form and the C entry, and with
+    the same runs behind 70,000 empty rows, which give the card enough
+    rows for one thread a row (rowmap_combine_thread) where the few rows
+    get a group of lanes a row."""
+    from repro_torch.kernels import combine
+    rng = np.random.default_rng(b)
+    rm = np.concatenate([np.full(n, r, np.int32)
+                         for r, n in enumerate(RUN_LENGTHS)]
+                        + [np.full(50, -1, np.int32)])
+    rm = torch.from_numpy(rng.permutation(rm))
+    n_rows, n = len(RUN_LENGTHS), rm.numel()
+    rhs = () if b == 1 else (b,)
+    store = torch.from_numpy(rng.standard_normal(n * b + 1).astype(
+        np.float32))
+    flat = (store[:-1] if aligned else store[1:]).reshape((n,) + rhs)
+    y0 = torch.from_numpy(rng.standard_normal((n_rows,) + rhs).astype(
+        np.float32))
+    order = combine.combine_order(rm, n_rows)
+    assert int((order.offsets[1:] - order.offsets[:-1]).max()) == 20000
+    want = _in_order(y0, flat, *order)
+    store_d = store.to(dev)
+    flat_d = (store_d[:-1] if aligned else store_d[1:]).reshape((n,) + rhs)
+    assert (flat_d.data_ptr() % 16 == 0) == aligned
+    order_d = combine.combine_order(rm.to(dev), n_rows)
+    before = ops.rowmap_combine.launches
+    got = ops.rowmap_combine(y0.to(dev), flat_d, order_d)
+    assert ops.rowmap_combine.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    bare = ops.rowmap_combine(y0.to(dev), flat_d, *order_d)
+    assert torch.equal(bare.cpu(), want)
+    lib = combine._lib()
+    y = y0.to(dev)
+    assert lib.rowmap_combine(
+        y.data_ptr(), flat_d.data_ptr(), order_d.perm.data_ptr(),
+        order_d.offsets.data_ptr(), n_rows, b, combine._stream(y)) == 0
+    assert torch.equal(y.cpu(), want)
+    many = 70000                         # empty rows after the runs
+    off = torch.cat([order_d.offsets, order_d.offsets[-1:].expand(many)])
+    y_many = torch.cat([y0, torch.from_numpy(rng.standard_normal(
+        (many,) + rhs).astype(np.float32))])
+    got = ops.rowmap_combine(y_many.to(dev), flat_d,
+                             combine.CombineOrder(order_d.perm,
+                                                  off.contiguous()))
+    assert torch.equal(got.cpu()[:n_rows], want)
+    assert torch.equal(got.cpu()[n_rows:], y_many[n_rows:])
+
+
+def test_rowmap_combine_refuses_what_does_not_match_its_order(dev):
+    from repro_torch.kernels import combine
+    order = combine.combine_order(torch.tensor([2, 0, 2], device=dev), 3)
+    flat = torch.ones(3, device=dev)
+    with pytest.raises(ValueError, match="rows"):
+        ops.rowmap_combine(torch.zeros(4, device=dev), flat, order)
+    with pytest.raises(ValueError, match="columns"):
+        ops.rowmap_combine(torch.zeros(3, 2, device=dev), flat, order)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rowmap_combine(torch.zeros(3, 2, device=dev)[:, 0], flat, order)
+    with pytest.raises(TypeError, match="int32"):
+        ops.rowmap_combine(torch.zeros(3, device=dev), flat,
+                           order.perm.long(), order.offsets)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["row", "col"])
+def test_folded_sharded_call_equals_the_per_shard_loop(dev, mode, dtype):
+    """A 4-shard plan on cuda:0 (every shard on one card) runs one family
+    kernel and one combine a step, over the folded operands, and gives
+    bit for bit what one ``build_kernel`` run a shard over its stack
+    slice (its own combine orders), then the bands or the shard-order
+    sum, give on the card at B = 1 and 8; so does a plan whose shards
+    each have another family (all-padding tiles on the others). The same
+    plan on a mesh whose shards name the card two ways (``cuda`` and
+    ``cuda:0`` compare unequal) runs ``make_stacked_fn`` once a shard,
+    a family kernel and a combine a step and shard, with the same bits."""
+    import itertools
+    from repro_torch.core.kernel_builder import (SPEC_VERSION, build_kernel,
+                                                 combine_orders)
+    from repro_torch.dist import make_data_mesh
+    from repro_torch.dist.mesh import DataMesh
+    from repro_torch.dist.spmv import build_sharded_spmv, shard_map_spmv
+    seg = lambda red: OperatorGraph.chain(
+        OpSpec.make("COMPRESS"),
+        OpSpec.make("LANE_NNZ_BLOCK", chunk=128, lanes=8), OpSpec.make(red))
+    graphs = itertools.cycle([
+        OperatorGraph.chain(OpSpec.make("COMPRESS"),
+                            OpSpec.make("TILE_ROW_BLOCK", rows=16),
+                            OpSpec.make("LANE_ROW_BLOCK"),
+                            OpSpec.make("LANE_TOTAL_RED")),
+        seg("SEG_SCAN_RED"), seg("ONEHOT_MXU_RED"), seg("GMEM_ATOM_RED")])
+    m = tm.powerlaw_matrix(3000, 2800, 6.0, 1.2, seed=3)
+    mesh = make_data_mesh(4, device="cuda:0")
+    apart = DataMesh(tuple(torch.device("cuda", 0) if i % 2 else
+                           torch.device("cuda") for i in range(4)))
+    progs = [shard_map_spmv(m, mesh, mode=mode, storage_dtype=dtype),
+             shard_map_spmv(m, mesh, mode=mode, storage_dtype=dtype,
+                            graph_for=lambda sub: next(graphs))]
+    for prog in progs:
+        per_shard = build_sharded_spmv(prog.shards, prog.programs, apart)
+        assert per_shard.operands.folded is None
+        n = len(prog.shards)
+        n_out = prog.band_rows if mode == "row" else prog.n_rows
+        spec = {"version": SPEC_VERSION, "n_rows": n_out,
+                "steps": prog.steps}
+        run = build_kernel(spec, backend="cuda")
+        width = -(-m.n_cols // n)
+        for b in (1, 8):
+            x = torch.from_numpy(np.random.default_rng(b).standard_normal(
+                (width * n,) if b == 1 else (width * n, b)).astype(
+                np.float32)).to(dev)
+            x[m.n_cols:] = 0
+            outs = []
+            for i in range(n):
+                fmt = {k: v[i] for k, v in prog.stacks.items()}
+                xi = x[i * width:(i + 1) * width] if mode == "col" else \
+                    x[:m.n_cols]
+                outs.append(run(fmt, xi.contiguous(),
+                                combine_orders(spec, fmt, "cuda")))
+            if mode == "row":
+                want = torch.cat([o[:s.size]
+                                  for o, s in zip(outs, prog.shards)])
+            else:
+                want = outs[0].clone()
+                for o in outs[1:]:
+                    want += o
+            counts = ops.launch_counts()
+            got = prog(x[:m.n_cols])
+            after = ops.launch_counts()
+            launched = {k: after[k] - counts[k] for k in after
+                        if after[k] != counts[k]}
+            assert launched["rowmap_combine"] == len(prog.steps)
+            assert sum(launched.values()) == 2 * len(prog.steps)
+            assert torch.equal(got, want), (b, len(prog.steps))
+            counts = ops.launch_counts()
+            apart_y = per_shard(x[:m.n_cols])
+            after = ops.launch_counts()
+            assert after["rowmap_combine"] - counts["rowmap_combine"] == \
+                n * len(prog.steps)
+            assert sum(after.values()) - sum(counts.values()) == \
+                2 * n * len(prog.steps)
+            assert torch.equal(apart_y, want), (b, len(prog.steps))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mode", ["row", "col"])
 def test_sharded_plan_on_the_card(dev, mode, dtype, tmp_path):
@@ -720,7 +884,8 @@ def test_sharded_families_on_padding_tiles_on_the_card(dev):
     to the oracle at B = 1 and 8."""
     import itertools
     from repro_torch.dist import make_data_mesh
-    from repro_torch.dist.spmv import shard_map_spmv
+    from repro_torch.dist.mesh import DataMesh
+    from repro_torch.dist.spmv import build_sharded_spmv, shard_map_spmv
     seg = lambda red: OperatorGraph.chain(
         OpSpec.make("COMPRESS"),
         OpSpec.make("LANE_NNZ_BLOCK", chunk=128, lanes=8), OpSpec.make(red))
