@@ -134,10 +134,9 @@ Phases, each printing its seconds:
    over (``pruning step`` and ``pruning {...}`` lines); (c) one update
    of phase 4's fused seg_scan plan (K6) on the powerlaw matrix (a ``dyn_seg_update {...}`` line);
 11. fleet compilation (``repro_torch.corpus``, every compile on the cuda
-   backend): (a) ``run_sweep(isolate="process")`` over the first three
-   entries of ``synthetic_corpus("medium")`` (banded, uniform and
-   power-law at n = 1024) and two real-size entries
-   (banded n = 2^20, powerlaw n = 2^20; 9.4 M and 7.85 M nnz) under
+   backend): (a) ``run_sweep(isolate="process")`` over the first entry
+   of ``synthetic_corpus("medium")`` (banded at n = 1024) and one
+   real-size entry (powerlaw n = 2^20, 7.85 M nnz) under
    the reference test's coarse budget, one ``corpus_sweep {...}`` line per
    entry; no child may rebuild a kernel library; (b) the same sweep with ``resume=True``,
    which must compile nothing; (c) ``train_from_store`` -> ``CorpusModel``
@@ -239,8 +238,9 @@ Phases, each printing its seconds:
    own check line (oracle errors, the loaded plan bit-identical, the
    loss decreasing) and has launched every kernel its plans dispatch to,
    by the children's launch counters (an ``examples {...}`` line);
-16. sharded training (``repro_torch.dist.collectives``, the step with
-   ``grad_specs`` on a mesh of processes; no kernel of its own): torchrun
+16. sharded training and serving (``repro_torch.dist.collectives``, the
+   step with ``grad_specs`` on a mesh of processes; no kernel of its
+   own): torchrun
    starts this script's ``--sharded-worker`` mode, one process a card,
    NCCL, on a mesh of every visible card ((1, 1) on one card; (n, 1) and,
    for n >= 4, (n / 2, 2) and (1, n) on n): (a) granite-3-2b,
@@ -265,8 +265,27 @@ Phases, each printing its seconds:
    (c) ``python -m repro_torch.launch.train`` under torchrun on (n, 1),
    reduced, with a failure injected, beside the first (a) (the first
    (b) waits for it to end): one restart, a finite loss (a
-   ``sharded_cli {...}`` line). Each line carries the card's name and
-   power limit.
+   ``sharded_cli {...}`` line); then the sharded serving step
+   (``prefill`` and ``decode_step`` with ``layout=``, the caches laid
+   out by ``cache_specs``): (a') qwen3-8b, granite-moe-3b-a800m,
+   deepseek-moe-16b, mamba2-1.3b and granite-3-2b with a 16-token
+   window, at full width, depth 2, fp32: a prefill of 8 x 24 tokens and
+   4 decode steps (one scalar position, then per-row positions with a
+   subset of the rows live) against the one-device calls, every rank's
+   logits and every cache leaf gathered whole within phase 13 (a)'s
+   2e-3 rule (a ``sharded_serve_check {...}`` line each); (b') qwen3-8b
+   at full depth, bf16, 8 rows a data position: a 32-token prompt and
+   32 greedy decode steps, the one-device calls on the global batch
+   first in the same process, then the sharded ones: step ms as seen,
+   the card's busy ms and idle share (one profiled step), collectives a
+   step, peak memory, tok/s, the byte bound, and the share of greedy
+   tokens equal to the one device's; on one card (every split of size
+   one) the prefill logits and every greedy token must equal the one
+   device's, elsewhere the prefill logits must lie within 2e-2 x max
+   |logit| of the float32 one-device prefill's, or twice the bf16 one
+   device's distance from them, and a prefill with a planted fault
+   must miss that limit (a ``sharded_serve {...}`` line). Each line
+   carries the card's name and power limit.
 
 Phases 3-4 and phases 6-7 are the two paths: the launch counters are set
 to 0 before each and read after it, and each of its kernels must have
@@ -2319,7 +2338,7 @@ def dyn_phase(W, P, seg_prog, designer) -> None:
 # also the budget of the holdout's anneal and learned compiles
 SWEEP_SECONDS = 4.0
 PORTFOLIO_DEADLINE_S = 2.0
-SWEEP_MEDIUM = 3         # entries of synthetic_corpus("medium") swept
+SWEEP_MEDIUM = 1         # entries of synthetic_corpus("medium") swept
 
 
 def corpus_entry(family: str, seed: int, **params):
@@ -2331,14 +2350,15 @@ def corpus_entry(family: str, seed: int, **params):
 
 
 def real_size_entries() -> list:
-    """Sweep entries at a size users call real: above the 50 MB L2
-    (banded, 9.4 M nnz) and phase 4's power-law operand (7.85 M nnz).
-    The HYB-friendly entry (n = 2^19, 10,922 rows of 512, 8.7 M nnz) is
-    left out for time: its search timed one candidate, a tiled ELL whose
-    tiles pad to their 512-slot rows, in 102 s of the H100 machine's host
-    time (PERF.md §6)."""
-    return [corpus_entry("banded", 0, n=2 ** 20, bandwidth=4),
-            corpus_entry("powerlaw", 0, n=2 ** 20, avg_row=8.0, alpha=1.5)]
+    """Sweep entries at a size users call real: phase 4's power-law
+    operand (7.85 M nnz, above the 50 MB L2). Left out for time: the
+    banded n = 2^20 entry (9.4 M nnz; its search took 13-15 s of the
+    H100 machine's host time, besides its child's start), and the
+    HYB-friendly entry (n = 2^19, 10,922 rows of 512, 8.7 M nnz), whose
+    search timed one candidate, a tiled ELL whose tiles pad to their
+    512-slot rows, in 102 s of the H100 machine's host time (PERF.md
+    §6)."""
+    return [corpus_entry("powerlaw", 0, n=2 ** 20, avg_row=8.0, alpha=1.5)]
 
 
 def per_width_ell_layout(b):
@@ -2446,9 +2466,10 @@ def sweep_phase(store_dir: Path, cfg) -> None:
     from repro_torch.corpus import (default_model_path, load_records,
                                     synthetic_corpus, train_from_store)
     from repro_torch.corpus.sweep import RECORDS_FILENAME
-    # the first three families at their smaller size: an isolated child
-    # takes about 10 s to start whatever its entry, which bought the
-    # other entries little at the run's time limit
+    # the first family at its smaller size and one real-size entry: an
+    # isolated child takes several seconds to start whatever its entry,
+    # which bought the other entries little at the run's time limit (the
+    # sharded serving step of phase 16 took the time of those dropped)
     sets = {"medium": synthetic_corpus("medium")[:SWEEP_MEDIUM],
             "real": real_size_entries()}
     store = repro_torch.PlanStore(store_dir)
@@ -4841,11 +4862,18 @@ def span_ms(spans: list) -> float:
 
 
 def profiled_step(step, state, batch, step_ms: float):
-    """One more step under ``torch.profiler``: ``(state, {...})``, the
+    """One more step under ``torch.profiler``: ``(state, {...})``
+    (``profiled_call``'s)."""
+    out, prof = profiled_call(lambda: step(state, batch), step_ms)
+    return out[0], prof
+
+
+def profiled_call(fn, step_ms: float):
+    """``fn()`` once under ``torch.profiler``: ``(its result, {...})``, the
     card's busy time outside NCCL's kernels (the union of the other
     kernels' and copies' spans; an NCCL kernel also spins while it waits
     for the other ranks) and the idle share of ``step_ms`` (an
-    unprofiled step's time) that leaves, the NCCL kernels' time, the
+    unprofiled call's time) that leaves, the NCCL kernels' time, the
     host time and the collectives issued (None where the profiler saw
     no device activity)."""
     from torch.autograd import DeviceType
@@ -4853,7 +4881,7 @@ def profiled_step(step, state, batch, step_ms: float):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        state, _ = step(state, batch)
+        out = fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     nccl = [(e.time_range.start, e.time_range.end) for e in dev
@@ -4862,7 +4890,7 @@ def profiled_step(step, state, batch, step_ms: float):
              if "nccl" not in e.name.lower()]
     busy_ms = span_ms(other) if dev else None
     ka = prof.key_averages()
-    return state, {
+    return out, {
         "device_busy_ms": busy_ms, "nccl_kernel_ms": span_ms(nccl),
         "idle_share": None if busy_ms is None else 1 - busy_ms / step_ms,
         "host_ms": sum(e.self_cpu_time_total for e in ka) / 1e3,
@@ -4954,6 +4982,306 @@ def sharded_full(mesh, arch: str = GRANITE) -> dict:
     return out
 
 
+# (a') the sharded serving step's checks: (arch, sliding window) at full
+# width, depth 2, fp32 (granite with a window below the prompt: the ring
+# buffer); global rows, prompt tokens, cache slots; the rows live at each
+# decode step (None: all; the first step at one scalar position)
+SERVE_CHECK_ARCHS = ((QWEN, None), (GMOE, None), (DEEPSEEK, None),
+                     (MAMBA, None), (GRANITE, 16))
+SERVE_CHECK_SHAPE = (8, 24, 32)
+SERVE_LIVE = (None, (0, 2, 3, 5, 6), (1, 3, 4, 7), None)
+# (b') qwen3-8b at full depth, bf16: rows a data position, prompt tokens,
+# greedy decode steps; the prefill logits' limit, x max |logit| (bf16)
+SERVE_FULL = (8, 32, 32)
+SERVE_TOL = 2e-2
+
+
+def rule_2e3(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """``within_2e3``'s rule, quietly: ``(max abs err, worst excess)``."""
+    g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+    require(g.shape == w.shape and np.isfinite(g).all(),
+            "bad shape or non-finite values")
+    err = np.abs(g - w)
+    return float(err.max()), float((err - (LLM_TOL + LLM_TOL
+                                           * np.abs(w))).max())
+
+
+def my_rows(cfg, mesh, n: int) -> torch.Tensor:
+    """The indices of this rank's rows of a global batch of ``n``."""
+    from repro_torch.dist.sharding import shard_serve
+    return torch.from_numpy(shard_serve(
+        {"token": np.arange(n)[:, None]}, cfg, mesh, mesh.coords)[
+            "token"][:, 0])
+
+
+def sharded_serve_check(mesh, arch: str, window) -> dict:
+    """(a') ``arch`` at full width, depth 2, fp32 (``window``: its sliding
+    window): the sharded ``prefill`` of ``SERVE_CHECK_SHAPE``'s prompt and
+    ``len(SERVE_LIVE)`` decode steps (a scalar position, then each row's
+    own depth with ``SERVE_LIVE``'s rows live) against the one-device
+    calls on the same weights: every rank's logits (its rows, the whole
+    vocabulary) and every cache leaf gathered whole (``cache_specs``)
+    within phase 13 (a)'s 2e-3 rule."""
+    import torch.distributed as dist
+    from repro_torch.dist.collectives import Layout, gather_leaf
+    from repro_torch.dist.sharding import (cache_specs, param_specs,
+                                           shard_serve)
+    from repro_torch.models import (cache_spec, decode_step, fill_caches,
+                                    init_params, prefill)
+    cfg = llm_cfg(arch, n_layers=2)
+    if window:
+        cfg = dataclasses.replace(cfg, window=window)
+    dev, f32 = mesh.device, torch.float32
+    B, S, S_c = SERVE_CHECK_SHAPE
+    rng = np.random.default_rng(17)
+    prompt = rng.integers(0, cfg.vocab, (B, S)).astype(np.int64)
+    depth, steps = np.full(B, S), []
+    for t, live in enumerate(SERVE_LIVE):
+        steps.append({"token": rng.integers(0, cfg.vocab, (B, 1)),
+                      "pos": np.int64(S) if t == 0 else depth.copy(),
+                      "rows": None if live is None else np.array(live)})
+        depth = depth + (np.isin(np.arange(B), live) if live else 1)
+    t0 = time.perf_counter()
+    full = init_params(cfg, 0, dev)
+    specs = param_specs(cfg, mesh, full)
+    layout = Layout(cfg, mesh, specs)
+    local = state_slices(mesh, specs, full)
+    mine = my_rows(cfg, mesh, B).to(dev)
+    cuda = lambda a: None if a is None else torch.as_tensor(  # noqa: E731
+        a).to(dev)
+    errs = {"logits": [], "caches": []}
+
+    def check(kind, got, want):
+        err, excess = rule_2e3(got, want)
+        errs[kind].append(err)
+        require(excess <= 0, f"sharded_serve_check {arch} on "
+                f"{list(mesh.sizes)}: {kind} outside the 2e-3 rule "
+                f"(excess {excess:.3e})")
+
+    def check_caches(got, want):
+        for sp, g, w in zip(cache_specs(cfg, mesh, want), got, want):
+            for k in w:
+                check("caches", gather_leaf(g[k], sp[k], mesh), w[k])
+
+    with torch.no_grad():
+        lg1, pre1 = prefill(cfg, full, cuda(prompt), None, f32)
+        ins = shard_serve({"tokens": prompt}, cfg, mesh, mesh.coords)
+        lgn, pren = prefill(cfg, local, cuda(ins["tokens"]), None, f32,
+                            layout=layout)
+        check("logits", lgn, lg1[mine])
+        check_caches(pren, pre1)
+        c1 = cache_spec(cfg, B, S_c, f32, dev)
+        cn = cache_spec(cfg, B, S_c, f32, dev, layout=layout)
+        fill_caches(c1, pre1)
+        fill_caches(cn, pren)
+        for st in steps:
+            l1, _ = decode_step(cfg, full, cuda(st["token"]),
+                                cuda(st["pos"]), c1, f32,
+                                rows=cuda(st["rows"]))
+            own = {k: cuda(v) for k, v in shard_serve(
+                st, cfg, mesh, mesh.coords).items()}
+            ln, _ = decode_step(cfg, local, own["token"], own["pos"], cn,
+                                f32, rows=own["rows"], layout=layout)
+            check("logits", ln, l1[mine])
+        check_caches(cn, c1)
+    torch.cuda.synchronize()
+    out = {"arch": arch, "n_layers": cfg.n_layers, "window": window,
+           "mesh": list(mesh.sizes), "backend": dist.get_backend(),
+           "shape": [B, S, S_c], "decode_steps": len(steps),
+           "splits": {k: getattr(layout, f"{k}_tp")
+                      for k in ("attn", "mlp", "moe", "ssm", "vocab")},
+           "conv_part": layout.conv_part,
+           "logits_max_abs_err": max(errs["logits"]),
+           "caches_max_abs_err": max(errs["caches"]),
+           "caches_compared": len(errs["caches"]),
+           "rule": "|got - one device| <= 2e-3 + 2e-3 |one device|",
+           "seconds": time.perf_counter() - t0}
+    del full, local, c1, cn, pre1, pren
+    torch.cuda.empty_cache()
+    return out
+
+
+def timed_decode(fn, tok, n: int) -> tuple:
+    """``n`` greedy steps ``tok = argmax(fn(tok))``, each timed on the
+    host clock between synchronisations: ``(ms of each, the tokens of
+    each step (rows, n))``."""
+    times, toks = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok = fn(tok).argmax(-1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        toks.append(tok)
+    return times, torch.cat(toks, 1)
+
+
+@contextlib.contextmanager
+def planted_fault(tp):
+    """A wrong sharded call: while open, ``tp.exit`` on model position 1
+    returns the position's own partial sum. It still issues the
+    all-reduce, so every rank issues what the right call does (a rank
+    that skipped it would leave the others waiting)."""
+    real = tp.exit
+    tp.exit = lambda x: (lambda y: x if tp.rank == 1 else y)(real(x))
+    try:
+        yield
+    finally:
+        del tp.exit
+
+
+def sharded_serve(mesh) -> dict:
+    """(b') qwen3-8b at full width and depth, bf16: ``SERVE_FULL``'s rows
+    a data position prefill a prompt and decode greedily, the sharded
+    serving step beside the one-device calls on the global batch in this
+    process, on the same weights. Per step as the caller sees it (host
+    clock between synchronisations), the card's busy time outside NCCL
+    and the idle share (one profiled step), the collectives issued, each
+    rank's peak memory (the largest over the ranks), tokens/s of the
+    global batch, and the byte bound (the rank's weight and cache bytes
+    over the HBM rate). On a mesh of one card every split is of size
+    one: the prefill logits and every greedy token must equal the
+    one-device run's. Elsewhere the prefill logits are reported beside
+    the one-device bf16 prefill's (``prefill_within_tol``: within
+    ``SERVE_TOL`` x max |logit| of them) and must lie within ``SERVE_TOL``
+    x max |logit| of the float32 one-device prefill's, or within twice
+    the one device's own distance from them; where ``model`` splits, a
+    prefill with a planted fault (``planted_fault``) must miss that
+    limit. The share of greedy tokens equal to the one-device run's."""
+    import torch.distributed as dist
+    from repro_torch.dist.collectives import Layout, count_collectives
+    from repro_torch.dist.sharding import dp_axes, param_specs, shard_serve
+    from repro_torch.models import (cache_spec, cast_params, decode_step,
+                                    fill_caches, init_params, prefill)
+    from repro_torch.models.model import block_views
+    cfg = llm_cfg(QWEN)
+    dev, bf16 = mesh.device, torch.bfloat16
+    n_dp = int(np.prod([mesh.shape[a] for a in dp_axes(mesh)]))
+    rows, S, T = SERVE_FULL
+    B, S_c = rows * n_dp, S + T + 2
+    prompt = np.random.default_rng(21).integers(0, cfg.vocab, (B, S))
+    full = init_params(cfg, 0, dev)
+    with torch.no_grad():        # the float32 logits both bf16 runs near
+        lg32 = prefill(cfg, full, torch.from_numpy(prompt).to(dev), None,
+                       torch.float32)[0]
+    full = cast_params(full, bf16)
+    torch.cuda.empty_cache()
+    specs = param_specs(cfg, mesh, full)
+    layout = Layout(cfg, mesh, specs)
+    local = state_slices(mesh, specs, full)
+    mine = my_rows(cfg, mesh, B).to(dev)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": "bfloat16",
+           "mesh": list(mesh.sizes), "global_rows": B, "prompt": S,
+           "decode_steps": T, "splits": {
+               k: getattr(layout, f"{k}_tp")
+               for k in ("attn", "mlp", "moe", "ssm", "vocab")}}
+    with torch.no_grad():
+        # the one-device calls on the global batch
+        torch.cuda.reset_peak_memory_stats()
+        lg1, pre1 = prefill(cfg, full, torch.from_numpy(prompt).to(dev),
+                            None, bf16)
+        c1 = cache_spec(cfg, B, S_c, bf16, dev)
+        fill_caches(c1, pre1)
+        del pre1
+        views, depth = block_views(full), [S]
+
+        def one(tok):
+            lg, _ = decode_step(cfg, full, tok, torch.tensor(depth[0]), c1,
+                                bf16, views=views)
+            depth[0] += 1
+            return lg
+        times1, toks1 = timed_decode(one, lg1.argmax(-1), T)
+        one_ms = statistics.median(times1)
+        _, prof1 = profiled_call(lambda: one(toks1[:, -1:]), one_ms)
+        out["one_device"] = {"step_ms": one_ms, "tok_per_s": B / one_ms
+                             * 1e3, "peak_memory_gb":
+                             torch.cuda.max_memory_allocated() / 1e9,
+                             **prof1}
+        # on (1, 1) the slices are the weights themselves
+        del c1, full, views
+        torch.cuda.empty_cache()
+        # the sharded serving step on this rank's rows
+        torch.cuda.reset_peak_memory_stats()
+        ins = shard_serve({"tokens": prompt}, cfg, mesh, mesh.coords)
+        t0 = time.perf_counter()
+        lgn, pren = prefill(cfg, local, torch.from_numpy(
+            ins["tokens"]).to(dev), None, bf16, layout=layout)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        want, exact = lg1[mine], lg32[mine]
+        scale, scale32 = float(want.abs().max()), float(exact.abs().max())
+        pre_err = float((lgn - want).abs().max())
+        pre_equal = bool(torch.equal(lgn, want))
+        one32 = float((want - exact).abs().max())
+        shd32 = float((lgn - exact).abs().max())
+        fault32 = None
+        if layout.tp.size > 1:
+            with planted_fault(layout.tp):
+                bad = prefill(cfg, local, torch.from_numpy(
+                    ins["tokens"]).to(dev), None, bf16, layout=layout)[0]
+            fault32 = float((bad - exact).abs().max())
+            del bad
+        cn = cache_spec(cfg, B, S_c, bf16, dev, layout=layout)
+        fill_caches(cn, pren)
+        del pren
+        views_n, depth = block_views(local), [S]
+
+        def shd(tok):
+            lg, _ = decode_step(cfg, local, tok, torch.tensor(depth[0]), cn,
+                                bf16, views=views_n, layout=layout)
+            depth[0] += 1
+            return lg
+        times, toks = timed_decode(shd, lgn.argmax(-1), T)
+        step_ms = statistics.median(times)
+        with count_collectives() as issued:
+            shd(toks[:, -1:])
+        _, prof = profiled_call(lambda: shd(toks[:, -1:]), step_ms)
+    wb, cb = tree_bytes(local), tree_bytes(cn)
+    peak = torch.tensor([torch.cuda.max_memory_allocated()],
+                        dtype=torch.float64, device=dev)
+    dist.all_reduce(peak, op=dist.ReduceOp.MAX)
+    same = float((toks == toks1[mine]).double().mean())
+    limit = max(SERVE_TOL * scale32, 2 * one32)
+    out.update(
+        prefill_ms=prefill_ms, prefill_max_abs_err=pre_err,
+        prefill_bit_equal=pre_equal, prefill_tol=SERVE_TOL * scale,
+        prefill_within_tol=pre_err <= SERVE_TOL * scale,
+        one_device_vs_fp32=one32, sharded_vs_fp32=shd32,
+        fp32_tol=SERVE_TOL * scale32, fp32_limit=limit,
+        planted_fault_vs_fp32=fault32,
+        step_ms=step_ms, step_ms_all=times,
+        tok_per_s=B / step_ms * 1e3, **prof,
+        collectives_per_step=len(issued),
+        collectives_over_several=sum(n > 1 for _, n, _ in issued),
+        collective_bytes_per_step=sum(b for _, n, b in issued if n > 1),
+        peak_memory_gb=float(peak[0]) / 1e9, weight_bytes_per_rank=wb,
+        cache_bytes_per_rank=cb,
+        bound_ms=(wb + cb) / HBM_BYTES_PER_S * 1e3,
+        greedy_tokens_equal_share=same)
+    if all(n == 1 for n in mesh.sizes):
+        ok = pre_equal and same == 1.0
+        why = (f"prefill bit-equal {pre_equal}, {same:.3f} of the greedy "
+               "tokens equal to the one device's on a mesh of one card")
+    else:
+        # bf16 sums in another order move a 36-layer model's logits by
+        # about bf16's own error: the sharded prefill is held to the
+        # float32 logits, within SERVE_TOL of their max or twice the one
+        # device's bf16 error, and a planted fault must miss that limit
+        ok = bool(np.isfinite(shd32)) and shd32 <= limit and (
+            fault32 is None or fault32 > limit)
+        why = (f"prefill logits {shd32:.3e} from the float32 ones, the "
+               f"planted fault's {fault32}, limit {limit:.3e} (the one "
+               f"device's bf16: {one32:.3e}; {SERVE_TOL} x max "
+               f"{scale32:.3e})")
+    if not ok:
+        print("sharded_serve " + json.dumps({
+            k: v for k, v in out.items() if k != "step_ms_all"}))
+    require(ok, f"sharded_serve on {list(mesh.sizes)}: {why}")
+    del local, cn
+    torch.cuda.empty_cache()
+    return out
+
+
 def wait_for_file(path: Path, timeout: float) -> None:
     deadline = time.perf_counter() + timeout
     while not path.exists():
@@ -4967,7 +5295,9 @@ def sharded_worker(argv: list) -> int:
     without ``seq_shard`` and with it,
     then, once the file ``GATE`` exists (the parent makes it when (c),
     which shares the card, has ended), (b) for each of ``ARCHS`` (comma
-    separated); rank 0 writes the results to ``OUT`` as JSON."""
+    separated), then the serving step's (a') for each of
+    ``SERVE_CHECK_ARCHS`` and (b'); rank 0 writes the results to ``OUT``
+    as JSON."""
     import os
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_local_mesh
@@ -4984,6 +5314,11 @@ def sharded_worker(argv: list) -> int:
                          for a in SHARDED_CHECK_ARCHS]}
         wait_for_file(Path(argv[3]), SHARDED_TIMEOUT_S)
         res["step"] = [sharded_full(mesh, a) for a in archs]
+        t0 = time.perf_counter()
+        res["serve_check"] = [sharded_serve_check(mesh, a, w)
+                              for a, w in SERVE_CHECK_ARCHS]
+        res["serve"] = sharded_serve(mesh)
+        res["serve_seconds"] = time.perf_counter() - t0
         if mesh.rank == 0:
             out.write_text(json.dumps(res))
     finally:
@@ -5025,10 +5360,11 @@ def sharded_cli_result(child: tuple, n: int) -> dict:
 
 
 def sharded_phase(train, only=None) -> None:
-    """Phase 16: the sharded train step on a mesh of every visible card,
-    one process a card (torchrun, NCCL), beside phase 14 (b)'s unsharded
-    step (``train``; None with ``--sharded-only``); ``only``: the
-    ``(data, model)`` meshes to run, of ``sharded_meshes``'s."""
+    """Phase 16: the sharded train step and the sharded serving step on a
+    mesh of every visible card, one process a card (torchrun, NCCL),
+    beside phase 14 (b)'s unsharded step (``train``; None with
+    ``--sharded-only``); ``only``: the ``(data, model)`` meshes to run, of
+    ``sharded_meshes``'s."""
     train = train or {"step_ms": None, "peak_memory_gb": None,
                       "step_peak_gb": None}
     done = phase("16 sharded training")
@@ -5073,6 +5409,12 @@ def sharded_phase(train, only=None) -> None:
                     "phase14_peak_memory_gb": train["peak_memory_gb"],
                     "phase14_step_peak_gb": train["step_peak_gb"],
                     "card": card}))
+            for check in res["serve_check"]:
+                print("sharded_serve_check " + json.dumps({**check,
+                                                           "card": card}))
+            print("sharded_serve " + json.dumps({
+                **res["serve"], "serve_seconds": res["serve_seconds"],
+                "card": card}))
         print("sharded_cli " + json.dumps({**cli_line, "card": card}))
     done()
 

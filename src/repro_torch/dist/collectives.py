@@ -53,6 +53,16 @@ rounded once, as on one device. No collective special-cases a group of
 one: on one device every collective is still issued, over groups of one
 process.
 
+Serving (``models.prefill`` / ``decode_step`` with a layout, under
+``torch.no_grad()``) uses the same ``Layout``: its gathers and
+Megatron's pair run forward only, and one more collective takes no
+gradient: ``TensorParallel.gather`` joins the positions' parts of a
+tensor along a dim (the logits' vocabulary columns, the conv state's
+channels). ``Layout.conv_part`` says which channels of Mamba's conv
+cache a model position holds (``dist.sharding.cache_specs`` cuts them
+into contiguous chunks, as ``conv_w`` is cut, which do not fall on the
+position's heads) and ``Layout.conv_whole`` gathers them.
+
 ``count_collectives`` records, while it is open, the kind, the group
 size and the bytes of the result of every collective issued here (the
 dry run counts a step's collectives with it).
@@ -67,8 +77,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from .sharding import (TP_AXIS, dp_axes, map_specs, spec_axes,
-                       spec_leaves)
+from .sharding import (TP_AXIS, conv_part, dp_axes, map_specs,
+                       spec_axes, spec_leaves)
 
 __all__ = ["Layout", "TensorParallel", "SequenceParallel", "gather_leaf",
            "count_collectives", "TP_SPLIT"]
@@ -146,7 +156,9 @@ class _GatherForUse(torch.autograd.Function):
             return x.view_as(x)
         for dim, axes in gathers:
             x = _all_gather(x, dim, mesh.group(axes), _size(mesh, axes))
-        return x
+        # laid out as the whole leaf: a gather along a later dim is a
+        # transposed view, and a product reads it with other kernels
+        return x.contiguous()
 
     @staticmethod
     def backward(ctx, g):
@@ -394,6 +406,11 @@ class TensorParallel:
         """``x`` summed over ``model``, its gradient summed too."""
         return _Sum.apply(x, self.group)
 
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The positions' parts of ``x`` joined along ``dim`` in rank
+        order, on every position (an all-gather; no gradient: serving)."""
+        return _all_gather(x, dim, self.group, self.size)
+
     def vocab_lse(self, logits: torch.Tensor, labels: torch.Tensor):
         """``(lse, target logit)`` of logits whose last dim is this
         position's part of the vocabulary (part ``rank`` of ``size``
@@ -456,6 +473,16 @@ class Layout:
     * ``vocab_tp`` (once): the embedding's rows and the head's columns,
       when the specs split the padded vocabulary; the loss takes the
       log-sum-exp over the split.
+    * ``conv_part`` (serving): ``(lo, hi)``, the channels of Mamba's
+      conv cache ``(nb, B, W-1, ch)`` that this position holds where
+      ``cache_specs`` cuts them into chunks over ``model``, None where
+      it holds all of them (``dist.sharding.conv_part``);
+      ``conv_whole`` puts a block's chunks together. The KV and SSM
+      caches need no flag:
+      ``cache_specs`` splits their heads over ``model`` exactly where
+      ``attn_tp`` and ``ssm_tp`` split the weights (``n_kv_heads`` and the
+      SSM head count divide), and replicates them where each position
+      computes every head.
 
     With the sequence split (``seq``) the norms' leaves (``ln1``,
     ``ln2``, ``final_norm``) run on the position's rows, and so do
@@ -490,6 +517,20 @@ class Layout:
             self.ssm_tp.append("mamba" in sp and self._ssm_tp(sp["mamba"]))
         self.vocab_tp = self._split(specs["embed"], 0) and (
             "lm_head" not in specs or self._split(specs["lm_head"], -1))
+        self.conv_part = conv_part(cfg, mesh, self.coords)
+
+    def conv_whole(self, conv: torch.Tensor) -> torch.Tensor:
+        """A block's conv cache ``(B, W-1, ·)`` over all its channels:
+        this position's chunk (``conv_part``) all-gathered over
+        ``model``, or the cache itself where it is whole."""
+        if self.conv_part is None:
+            return conv
+        lo, hi = self.conv_part
+        if conv.shape[-1] != hi - lo:
+            raise ValueError(f"a conv cache of {conv.shape[-1]} channels "
+                             f"where the layout holds {hi - lo}: allocate "
+                             "the caches with cache_spec(..., layout=)")
+        return self.tp.gather(conv, -1)
 
     def _split(self, spec, dim: int) -> bool:
         return self.tp.size == 1 or spec[dim] == TP_AXIS

@@ -45,8 +45,8 @@ from repro_torch.configs.base import ArchConfig
 __all__ = ["ShardingRules", "dp_axes", "param_specs", "batch_specs",
            "cache_specs", "spec", "spec_axes", "spec_leaves", "map_specs",
            "mesh_coords", "mesh_positions", "shard_slices", "shard_leaf",
-           "unshard_leaf", "shard_batch", "expert_range", "head_range",
-           "vocab_range"]
+           "unshard_leaf", "shard_batch", "shard_serve", "conv_part",
+           "expert_range", "head_range", "vocab_range"]
 
 TP_AXIS = "model"
 
@@ -254,6 +254,23 @@ def cache_specs(cfg: ArchConfig, mesh, caches):
     return _map_with_path(spec_one, caches)
 
 
+def conv_part(cfg: ArchConfig, mesh, coords: dict):
+    """``(lo, hi)``: the channels of Mamba's conv cache ``(nb, B, W-1,
+    ch)`` that the position at ``coords`` holds, where ``cache_specs``
+    cuts them into contiguous chunks over ``model`` (as ``conv_w`` is
+    cut); None where it holds every channel (no split, or no Mamba)."""
+    if cfg.ssm is None:
+        return None
+    from repro_torch.models.ssm import _dims
+    shape = (1, 1, 1, _dims(cfg)[4])
+    sp = cache_specs(cfg, mesh, {"conv": np.broadcast_to(np.int8(0),
+                                                         shape)})["conv"]
+    if sp[3] is None:
+        return None
+    sl = shard_slices(shape, sp, mesh, coords)[3]
+    return sl.start, sl.stop
+
+
 # ------------------------- slices of a sharded leaf -------------------------
 
 def spec_axes(entry) -> tuple:
@@ -375,6 +392,29 @@ def shard_batch(batch: dict, cfg: ArchConfig, mesh, coords: dict) -> dict:
                          f"over the data axes' {n} positions")
     return {k: v[shard_slices(np.shape(v), specs[k], mesh, coords)]
             for k, v in batch.items()}
+
+
+def shard_serve(inputs: dict, cfg: ArchConfig, mesh, coords: dict) -> dict:
+    """A serving call's global inputs -> those of the position at
+    ``coords``: the rows (``batch_specs``' split of the batch, the rule
+    ``cache_specs`` applies to the caches' batch dim) of ``tokens`` /
+    ``token`` (and ``prefix_embeds``) and of a per-row ``pos``; a scalar
+    ``pos`` as it is; ``rows`` (global row indices) those in the
+    position's range, as its own indices. A batch that does not split
+    over every data axis is replicated over the others: serving sums
+    nothing over the batch."""
+    key = "tokens" if "tokens" in inputs else "token"
+    gb = int(np.shape(inputs[key])[0])
+    sl = shard_slices((gb,), batch_specs(cfg, mesh, gb)["tokens"][:1], mesh,
+                      coords)[0]
+    out = {}
+    for k, v in inputs.items():
+        if k == "rows" and v is not None:
+            v = v[(v >= sl.start) & (v < sl.stop)] - sl.start
+        elif k not in ("pos", "rows") or np.ndim(v) == 1:
+            v = v[sl]
+        out[k] = v
+    return out
 
 
 # --------------------- a model position's part of a layer --------------------

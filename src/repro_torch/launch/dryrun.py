@@ -44,36 +44,41 @@ What each key means here, against the reference's XLA numbers:
   axis, and so are the parameter-shaped temporaries (gradients, the
   optimizer's): the record says so in ``temp_basis``.
   ``code_bytes`` is 0.
-* ``collectives``: the port has no SPMD partitioner and no HLO to read;
-  the record's ``collectives_basis`` says where its counts come from.
+* ``collectives``: the port has no SPMD partitioner and no HLO to read:
+  every cell's ``collectives_basis`` is ``"issued"``. The cell's
+  sharded call runs once as rank 0 of a fake process group of the
+  mesh's size (``torch.testing._internal.distributed.fake_pg``), on fake
+  tensors at rank 0's local shapes (each leaf's slice under its spec:
+  the parameters by ``param_specs``, the batch's rows, a decode cell's
+  caches by ``cache_specs``), and every collective that
+  ``dist.collectives`` issues is counted
+  (``dist.collectives.count_collectives``) by the reference's kinds:
+  ``count`` the collectives issued, ``bytes`` the bytes of their
+  results, per device. The call is the one a deployment runs: a train
+  cell's ``make_train_step(cfg, tc, grad_specs=specs, mesh=mesh)`` with
+  ``tc``'s ``seq_shard`` and ``act_dp``; a prefill or decode cell's
+  ``prefill`` / ``decode_step`` with ``layout=`` (the sharded serving
+  step, under ``torch.no_grad()``). A collective over a group of one
+  process moves nothing and is not counted (XLA removes it). The count
+  refuses to run where a process group is already initialised, and
+  destroys its own before it returns.
 
-  - ``"issued"`` (train cells): the cell's sharded step
-    (``make_train_step(cfg, tc, grad_specs=specs, mesh=mesh)``, the one
-    a deployment runs, with ``tc``'s ``seq_shard`` and ``act_dp``) runs
-    once as rank 0 of a fake process group of the mesh's size
-    (``torch.testing._internal.distributed.fake_pg``), on fake tensors at
-    rank 0's local shapes, and every collective that
-    ``dist.collectives`` issues is counted
-    (``dist.collectives.count_collectives``) by the reference's kinds:
-    ``count`` the collectives issued, ``bytes`` the bytes of their
-    results, per device. A collective over a group of one process moves
-    nothing and is not counted (XLA removes it). The count refuses to
-    run where a process group is already initialised, and destroys its
-    own before it returns.
-  - ``"rule"`` (prefill and decode cells: the port has no sharded
-    serving step yet): derived from the specs, bytes of the result as in
-    the reference's HLO count. FSDP: each weight whose spec holds data
-    axes is all-gathered over them once a forward (at the dtype it is
-    used in: the compute dtype for projections and embeddings, float32
-    for the router), a result of its bytes / its ``model`` shards. TP:
-    one all-reduce of the activations (local batch x S x d_model at the
-    compute dtype) after each sub-layer (mixer, FFN) whose output
-    projection (``wo``, ``out_proj``, ``w_down``, ``sh_down``) has its
-    input dim on ``model``. MoE: when the experts are sharded on
-    ``model``, the dispatch buffer (local batch x E x capacity x d_model
-    at the compute dtype) takes an all-to-all each way. Per-layer terms
-    are counted once a pattern position, their bytes times ``n_blocks``
-    (the reference's ``body_trip``).
+  ``collective_stats`` keeps the rule the prefill and decode cells were
+  counted by before the port had a sharded serving step: derived from
+  the specs, bytes of the result as in the reference's HLO count. FSDP:
+  each weight whose spec holds data axes is all-gathered over them once
+  a forward (at the dtype it is used in: the compute dtype for
+  projections and embeddings, float32 for the router), a result of its
+  bytes / its ``model`` shards. TP: one all-reduce of the activations
+  (local batch x S x d_model at the compute dtype) after each sub-layer
+  (mixer, FFN) whose output projection (``wo``, ``out_proj``,
+  ``w_down``, ``sh_down``) has its input dim on ``model``. MoE: when the
+  experts are sharded on ``model``, the dispatch buffer (local batch x E
+  x capacity x d_model at the compute dtype) takes an all-to-all each
+  way. Per-layer terms are counted once a pattern position, their bytes
+  times ``n_blocks`` (the reference's ``body_trip``). No record uses it
+  now: it is a hand count, which the tests hold the issued counts to
+  where the two count the same thing.
 
   ``depth2_raw_bytes`` is 0. Where the reference's ``count`` is of ops
   in the partitioned HLO (a scan body's once), an issued count is of
@@ -114,7 +119,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import REGISTRY, cells_for, get_config
 from repro_torch.configs.base import ArchConfig, ShapeCell
-from repro_torch.dist.collectives import count_collectives
+from repro_torch.dist.collectives import Layout, count_collectives
 from repro_torch.dist.sharding import (batch_specs, cache_specs, dp_axes,
                                        mesh_coords, param_specs, spec)
 from repro_torch.launch.mesh import Mesh, make_production_mesh
@@ -330,12 +335,11 @@ def _rank0_mesh(mesh) -> Mesh:
 
 
 def issued_collectives(low: "Lowered") -> dict:
-    """The collectives the train cell's sharded step issues on one device
-    (rank 0) of its mesh, counted as it runs once in a fake process group
-    on fake tensors (see the module docstring)."""
+    """The collectives the cell's sharded call (a train step, a prefill or
+    a decode step) issues on one device (rank 0) of its mesh, counted as
+    it runs once in a fake process group on fake tensors (see the module
+    docstring)."""
     import torch.distributed as dist
-    if low.cell.kind != "train":
-        raise ValueError(f"{low.cell.kind} cells have no sharded step")
     if dist.is_available() and dist.is_initialized():
         raise RuntimeError(
             "the dry run counts a step's collectives in a fake process "
@@ -348,11 +352,16 @@ def issued_collectives(low: "Lowered") -> dict:
         mesh = _rank0_mesh(low.mesh)
         specs = tree_map(lambda t: t.spec, low.params)
         with FakeTensorMode():
-            state, batch = low._local_args()
-            step = make_train_step(low.cfg, low.tc, grad_specs=specs,
-                                   mesh=mesh)
-            with count_collectives() as issued:
-                step(state, batch)
+            state, ins = low._local_args()
+            if low.cell.kind == "train":
+                step = make_train_step(low.cfg, low.tc, grad_specs=specs,
+                                       mesh=mesh)
+                with count_collectives() as issued:
+                    step(state, ins)
+            else:
+                layout = Layout(low.cfg, mesh, specs)
+                with torch.no_grad(), count_collectives() as issued:
+                    low._call(state, ins, layout)
     finally:
         dist.destroy_process_group()
     stats = _no_stats()
@@ -368,9 +377,9 @@ def collective_stats(cfg: ArchConfig, cell: ShapeCell, mesh, params,
                      remat: bool = True) -> dict:
     """The collectives a partitioned step of this cell would run, per
     device, by the rule in the module docstring (the reference's
-    ``collective_stats`` reads them from the partitioned HLO instead):
-    the basis of prefill and decode cells, which have no sharded step.
-    ``params`` is the tree of ``TensorSpec`` of ``_param_structs``."""
+    ``collective_stats`` reads them from the partitioned HLO instead): a
+    hand count beside the issued one. ``params`` is the tree of
+    ``TensorSpec`` of ``_param_structs``."""
     stats = _no_stats()
 
     def add(kind, nbytes, times=1, trip=1):
@@ -484,21 +493,25 @@ class Lowered:
         return params, {k: _fake(v, batch) for k, v in ins.items()}
 
     def _local_args(self):
-        """Fake (state, batch) of a train step at rank 0's local shapes
-        (each leaf's slice under its spec, the batch's rows), inside a
-        FakeTensorMode."""
+        """Fake (state, inputs) at rank 0's local shapes (each leaf's
+        slice under its spec: the parameters, the batch's rows, a decode
+        cell's caches), inside a FakeTensorMode; a train step's state is
+        ``{"params", "opt"}``."""
         sizes = dict(self.mesh.shape)
-        params = tree_map(lambda t: torch.zeros(tuple(
+        local = lambda t: torch.zeros(tuple(  # noqa: E731
             d // math.prod(sizes[a] for a in _axes(e))
-            for d, e in zip(t.shape, t.spec)), dtype=t.dtype), self.params)
-        batch = self.cell.global_batch // self.batch_shards
-        return ({"params": params, "opt": adamw_init(params)},
-                {k: _fake(v, batch) for k, v in self.inputs.items()})
+            for d, e in zip(t.shape, t.spec)), dtype=t.dtype)
+        params = tree_map(local, self.params)
+        ins = tree_map(local, self.inputs)
+        if self.cell.kind == "train":
+            return {"params": params, "opt": adamw_init(params)}, ins
+        return params, ins
 
-    def _call(self, state, ins):
+    def _call(self, state, ins, layout=None):
         """Run the cell's step once on ``_args``; returns its outputs.
         The one-device step runs without ``act_dp`` and ``seq_shard``
-        (which need a mesh of processes): it computes the same thing."""
+        (which need a mesh of processes): it computes the same thing.
+        ``layout``: a serving cell's sharded call, on ``_local_args``."""
         cfg = self.cfg
         tc = dataclasses.replace(self.tc, act_dp=None, seq_shard=False)
         dtype = _DTYPES[tc.compute_dtype]
@@ -507,9 +520,9 @@ class Lowered:
         if self.cell.kind == "prefill":
             return prefill(cfg, state, ins["tokens"],
                            ins.get("prefix_embeds"), dtype,
-                           block_kv=tc.block_kv)
+                           block_kv=tc.block_kv, layout=layout)
         return decode_step(cfg, state, ins["token"], ins["pos"],
-                           ins["caches"], dtype)
+                           ins["caches"], dtype, layout=layout)
 
     def compile(self) -> "Compiled":
         """The counted pass at global shapes, then the memory pass at the
@@ -602,18 +615,12 @@ class Compiled:
                 "alias_bytes": _tree_bytes(self.outputs["aliased"], mesh),
                 "code_bytes": 0}
 
-    @property
-    def collectives_basis(self) -> str:
-        return "issued" if self.lowered.cell.kind == "train" else "rule"
+    collectives_basis = "issued"
 
     def collectives(self) -> dict:
-        """Per device, by ``collectives_basis`` (the module docstring)."""
-        low = self.lowered
-        if self.collectives_basis == "issued":
-            return issued_collectives(low)
-        return collective_stats(low.cfg, low.cell, low.mesh, low.params,
-                                _DTYPES[low.tc.compute_dtype],
-                                remat=low.tc.remat)
+        """Per device, as the cell's sharded call issues them (the module
+        docstring)."""
+        return issued_collectives(self.lowered)
 
 
 def lower_cell(cfg: ArchConfig, cell: ShapeCell, mesh,

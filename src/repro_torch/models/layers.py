@@ -23,6 +23,10 @@ its FFN columns; the input enters through ``tp.enter`` and the
 row-parallel partial sums leave through ``tp.exit``. Where a split would
 cut a head (2 kv heads on ``model=4``, or granite's 8 on the production
 ``model=16``) the caller gathers the weights whole and passes no ``tp``.
+``attention_decode`` takes ``tp`` the same way (the sharded serving
+step): its caches are then the position's KV-head slice
+(``dist.sharding.cache_specs`` splits them where the weights split), and
+it writes its own heads' entries only.
 """
 from __future__ import annotations
 
@@ -214,9 +218,10 @@ def _gqa_blockwise(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
 
 def attention_train(cfg: ArchConfig, p: dict, x: torch.Tensor,
                     positions: torch.Tensor, block_kv: Optional[int] = None,
-                    tp=None) -> torch.Tensor:
+                    tp=None, return_kv: bool = False):
     """Causal self-attention over x (B, S, D); with ``tp`` the position's
-    heads, their output summed over ``model``."""
+    heads, their output summed over ``model``. Set return_kv for prefill:
+    ``(out, k, v)``, the k and v of the heads it ran."""
     if tp is not None:
         x = tp.enter(x)
     q, k, v = _qkv(cfg, p, x, positions)
@@ -228,12 +233,13 @@ def attention_train(cfg: ArchConfig, p: dict, x: torch.Tensor,
         mask = mask.expand((x.shape[0],) + mask.shape[1:])
         out = _gqa_scores_softmax_v(cfg, q, k, v, mask)
     out = out @ p["wo"].to(x.dtype)
-    return out if tp is None else tp.exit(out)
+    out = out if tp is None else tp.exit(out)
+    return (out, k, v) if return_kv else out
 
 
 def attention_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, pos,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     rows: Optional[torch.Tensor] = None):
+                     rows: Optional[torch.Tensor] = None, tp=None):
     """One-token decode. x: (B,1,D); pos: a scalar (all rows at the same
     position) or (B,) per-slot positions (continuous batching: each batch
     row advances at its own cache depth); caches: (B, S_c, KV, hd). With a
@@ -246,8 +252,11 @@ def attention_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, pos,
     the written rows end with the same values, and a row left out keeps
     its cache as the reference's ``live`` commit does. Its own attention
     output then reads its old entry at the slot, which the reference's
-    would not; the caller discards those rows. Returns
-    (out, k_cache, v_cache)."""
+    would not; the caller discards those rows. With ``tp`` the caches
+    hold the position's ``n_kv_heads / tp`` heads and the output of its
+    heads is summed over ``model``. Returns (out, k_cache, v_cache)."""
+    if tp is not None:
+        x = tp.enter(x)
     b = x.shape[0]
     s_c = k_cache.shape[1]
     pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
@@ -273,7 +282,8 @@ def attention_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, pos,
     mask = torch.where(valid, zero, NEG_INF)[:, None, None, :]
     out = _gqa_scores_softmax_v(cfg, q, k_cache.to(x.dtype),
                                 v_cache.to(x.dtype), mask)
-    return out @ p["wo"].to(x.dtype), k_cache, v_cache
+    out = out @ p["wo"].to(x.dtype)
+    return (out if tp is None else tp.exit(out)), k_cache, v_cache
 
 
 # --------------------------------- MLP --------------------------------------

@@ -54,6 +54,21 @@ position's own rows (its gates' gradient is made whole by
 ``act_dp`` (or without a layout) ``seq_shard`` computes exactly what
 ``seq_shard=False`` does, as in the reference.
 
+Sharded serving: ``prefill`` and ``decode_step`` take the same
+``layout`` (and the reference's ``act_dp``, accepted where it names the
+layout's data axes). ``params`` are this process's slices by
+``param_specs``; ``tokens``, ``token``, ``pos`` (a scalar, or a
+per-row vector) and ``rows`` are its rows of the global batch
+(``dist.sharding.shard_serve``); the caches are its slices by
+``cache_specs`` (``cache_spec(..., layout=)`` allocates only those).
+Leaves are gathered for use as in ``forward``, the same blocks run
+tensor-parallel (attention on its KV-head slice of the cache, Mamba on
+its SSM heads, the conv cache gathered over ``model`` where it is cut
+into chunks: ``ssm``'s docstring), MoE routes every token whole on
+every position, and the logits come back whole: where the vocabulary is
+split they are all-gathered over ``model``. Both calls need a process
+group: a ``Layout`` refuses a mesh without one.
+
 Parameters stay float32 by default; ``cast_params`` casts, once, the
 leaves the reference casts to the compute dtype at each use (embedding,
 head and projections) and keeps norm scales, ``q_norm``/``k_norm``, the
@@ -78,8 +93,8 @@ from . import ssm as SSM
 
 __all__ = ["VOCAB_PAD", "PositionSpec", "padded_vocab", "pattern_specs",
            "n_blocks", "init_params", "cast_params", "forward", "loss_fn",
-           "cache_spec", "decode_step", "prefill", "resolve_device",
-           "CausalLM"]
+           "cache_spec", "fill_caches", "decode_step", "prefill",
+           "resolve_device", "CausalLM"]
 
 VOCAB_PAD = 256  # pad embedding tables so vocab shards evenly (MaxText-style)
 
@@ -272,6 +287,15 @@ def _region(seq, tp, fn, x):
     return seq.split(y), aux
 
 
+def _tps(layout, i: int, tp) -> tuple:
+    """``(mixer tp, ffn tp)`` of pattern position ``i``: ``tp`` where the
+    layout splits that sub-layer over ``model``, else None."""
+    if layout is None:
+        return None, None
+    return (tp if (layout.attn_tp[i] or layout.ssm_tp[i]) else None,
+            tp if (layout.mlp_tp[i] or layout.moe_tp[i]) else None)
+
+
 def _block_body(cfg: ArchConfig, specs, block_params: list[dict],
                 h: torch.Tensor, positions: torch.Tensor, block_kv=None,
                 layout=None, seq=None):
@@ -279,14 +303,12 @@ def _block_body(cfg: ArchConfig, specs, block_params: list[dict],
     ``layout`` the block's slices are gathered for use here; with
     ``seq`` (a ``SequenceParallel``) ``h`` is this position's rows."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    tp = None
     if layout is not None:
         block_params = layout.block(block_params, seq is not None)
         tp = layout.tp if seq is None else layout.tp.over(seq)
     for i, (spec, p) in enumerate(zip(specs, block_params)):
-        mix_tp = ffn_tp = None
-        if layout is not None:
-            mix_tp = tp if (layout.attn_tp[i] or layout.ssm_tp[i]) else None
-            ffn_tp = tp if (layout.mlp_tp[i] or layout.moe_tp[i]) else None
+        mix_tp, ffn_tp = _tps(layout, i, tp)
         xn = L.apply_norm(p["ln1"], h)
         if spec.kind == "A":
             y, _ = _region(seq, mix_tp, lambda x, t: (L.attention_train(
@@ -304,6 +326,20 @@ def _block_body(cfg: ArchConfig, specs, block_params: list[dict],
     return h, aux
 
 
+def _lookup(params: dict, tokens: torch.Tensor, dtype,
+            tp=None) -> torch.Tensor:
+    """The tokens' rows of the embedding; with ``tp`` those of this model
+    position's vocabulary rows, zeros elsewhere (the caller sums them
+    over ``model``)."""
+    if tp is None:
+        return params["embed"][tokens.long()].to(dtype)
+    n = params["embed"].shape[0]
+    t = tokens.long() - tp.rank * n
+    mine = ((t >= 0) & (t < n))[..., None]
+    rows = params["embed"][torch.where(mine[..., 0], t, 0)].to(dtype)
+    return torch.where(mine, rows, 0)
+
+
 def _embed(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
            prefix_embeds: Optional[torch.Tensor], dtype,
            tp=None, seq=None) -> torch.Tensor:
@@ -316,16 +352,11 @@ def _embed(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     prefix), or without ``tp`` the whole lookup's own rows."""
     if cfg.n_prefix and prefix_embeds is None:
         raise ValueError(f"{cfg.name} needs prefix embeds")
+    h = _lookup(params, tokens, dtype, tp)
     if tp is None:
-        h = params["embed"][tokens.long()].to(dtype)
         if cfg.n_prefix:
             h = torch.cat([prefix_embeds.to(dtype), h], dim=1)
         return h if seq is None else seq.split(h)
-    n = params["embed"].shape[0]
-    t = tokens.long() - tp.rank * n
-    mine = ((t >= 0) & (t < n))[..., None]
-    rows = params["embed"][torch.where(mine[..., 0], t, 0)].to(dtype)
-    h = torch.where(mine, rows, 0)
     if seq is None:
         h = tp.exit(h)
         if cfg.n_prefix:
@@ -346,6 +377,15 @@ def _logits(cfg: ArchConfig, params: dict, h: torch.Tensor,
     if tp is not None:
         h = tp.enter(h)
     return h @ head.to(h.dtype)
+
+
+def _whole_logits(cfg: ArchConfig, params: dict, h: torch.Tensor,
+                  tp=None) -> torch.Tensor:
+    """Serving's float32 logits over the whole padded vocabulary: with
+    ``tp`` (the vocabulary split) the positions' columns all-gathered
+    over ``model``."""
+    logits = _logits(cfg, params, h, tp).float()
+    return logits if tp is None else tp.gather(logits, -1)
 
 
 def _check_knobs(unroll, act_dp, layout) -> None:
@@ -454,10 +494,23 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict,
 # --------------------------- prefill / decode -------------------------------
 
 def cache_spec(cfg: ArchConfig, batch: int, s_cache: int,
-               dtype=torch.bfloat16, device=None) -> list[dict]:
+               dtype=torch.bfloat16, device=None, *,
+               layout=None) -> list[dict]:
     """Zero-initialised caches (one entry per pattern position), each
-    leaf (n_blocks, batch, ...)."""
+    leaf (n_blocks, batch, ...). With ``layout`` (a
+    ``dist.collectives.Layout``; ``batch`` the global batch) only this
+    process's slices of them, laid out by ``dist.sharding.cache_specs``
+    on the global shapes."""
     dev = resolve_device(device)
+    if layout is not None:
+        from repro_torch.dist.sharding import (cache_specs, map_specs,
+                                               shard_slices)
+        mesh, coords = layout.mesh, layout.coords
+        whole = cache_spec(cfg, batch, s_cache, dtype, "meta")
+        return map_specs(lambda sp, t: torch.zeros(
+            [sl.stop - sl.start for sl in shard_slices(t.shape, sp, mesh,
+                                                        coords)],
+            dtype=dtype, device=dev), cache_specs(cfg, mesh, whole), whole)
     nb = n_blocks(cfg)
     caches = []
     for spec in pattern_specs(cfg):
@@ -478,6 +531,18 @@ def cache_spec(cfg: ArchConfig, batch: int, s_cache: int,
     return caches
 
 
+def fill_caches(caches: list[dict], prefilled: list[dict]) -> None:
+    """A prefill's caches (``prefill``'s second result) into the first
+    slots of larger ones (``cache_spec``'s), in place: the attention
+    entries of the prompt's positions, the whole conv and ssm states."""
+    for c, p in zip(caches, prefilled):
+        for k in c:
+            if k in ("k", "v"):
+                c[k][:, :, :p[k].shape[2]] = p[k]
+            else:
+                c[k].copy_(p[k])
+
+
 def _commit(dst: torch.Tensor, new: torch.Tensor,
             rows: Optional[torch.Tensor]) -> None:
     if rows is None:
@@ -486,9 +551,20 @@ def _commit(dst: torch.Tensor, new: torch.Tensor,
         dst[rows] = new[rows].to(dst.dtype)
 
 
+def _serving(cfg: ArchConfig, params: dict, act_dp, layout) -> tuple:
+    """``(params, vocab tp, tp)`` of a serving call: with ``layout`` the
+    leaves outside the blocks gathered for use."""
+    _check_knobs(1, act_dp, layout)
+    if layout is None:
+        return params, None, None
+    return (layout.top(params), layout.tp if layout.vocab_tp else None,
+            layout.tp)
+
+
 def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor, pos,
                 caches: list[dict], compute_dtype=torch.bfloat16,
-                rows: Optional[torch.Tensor] = None, views=None):
+                rows: Optional[torch.Tensor] = None, views=None, *,
+                act_dp: Optional[tuple] = None, layout=None):
     """One-token decode. token: (B, 1); pos: current position
     (prefix-inclusive), a scalar when every row is at the same depth, or
     a (B,) vector of per-slot positions (continuous batching: rows that
@@ -501,55 +577,69 @@ def decode_step(cfg: ArchConfig, params: dict, token: torch.Tensor, pos,
     executor's ``live`` commit; the other rows' logits are then not the
     reference's and are for the caller to discard. ``views`` are
     ``block_views(params)``, made once by a caller that decodes many
-    steps."""
+    steps. ``layout``: the sharded serving step (the module's
+    docstring); every input is this process's part, and the logits are
+    its rows over the whole vocabulary."""
     specs = pattern_specs(cfg)
-    h = params["embed"][token.long()].to(compute_dtype)
+    params, vocab_tp, tp = _serving(cfg, params, act_dp, layout)
+    h = _lookup(params, token, compute_dtype, vocab_tp)
+    if vocab_tp is not None:
+        h = vocab_tp.exit(h)
     for b, block in enumerate(views or block_views(params)):
+        if layout is not None:
+            block = layout.block(block)
         for i, (spec, p) in enumerate(zip(specs, block)):
+            mix_tp, ffn_tp = _tps(layout, i, tp)
             c = caches[i]
             xn = L.apply_norm(p["ln1"], h)
             if spec.kind == "A":
                 out, _, _ = L.attention_decode(cfg, p["attn"], xn, pos,
-                                               c["k"][b], c["v"][b], rows)
+                                               c["k"][b], c["v"][b], rows,
+                                               tp=mix_tp)
             else:
+                conv = c["conv"][b]
                 out, conv, ssm_st = SSM.mamba_decode(
-                    cfg, p["mamba"], xn, c["conv"][b], c["ssm"][b])
+                    cfg, p["mamba"], xn,
+                    conv if layout is None else layout.conv_whole(conv),
+                    c["ssm"][b], tp=mix_tp,
+                    conv_part=None if layout is None else layout.conv_part)
                 _commit(c["conv"][b], conv, rows)
                 _commit(c["ssm"][b], ssm_st, rows)
             h = h + out
             if spec.ffn is not None:
-                h = h + _ffn(cfg, spec, p, h)[0]
+                h = h + _ffn(cfg, spec, p, h, tp=ffn_tp)[0]
     h = L.apply_norm(params["final_norm"], h)
-    return _logits(cfg, params, h).float(), caches
+    return _whole_logits(cfg, params, h, vocab_tp), caches
 
 
 def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None,
-            compute_dtype=torch.bfloat16, block_kv: Optional[int] = None):
+            compute_dtype=torch.bfloat16, block_kv: Optional[int] = None,
+            *, act_dp: Optional[tuple] = None, layout=None):
     """Full-sequence prefill producing the last position's logits and
     populated caches. Attention caches hold the processed sequence
     (window-truncated, in ring-buffer order, with a sliding window); mamba
-    positions hold the final conv/ssm states."""
+    positions hold the final conv/ssm states. ``layout``: the sharded
+    serving step (the module's docstring); the caches are this process's
+    slices by ``cache_specs``."""
     specs = pattern_specs(cfg)
-    h = _embed(cfg, params, tokens, prefix_embeds, compute_dtype)
+    params, vocab_tp, tp = _serving(cfg, params, act_dp, layout)
+    h = _embed(cfg, params, tokens, prefix_embeds, compute_dtype, vocab_tp)
     s_total = h.shape[1]
     positions = torch.arange(s_total, device=h.device)[None]
     per_block = []
     for block in block_views(params):
+        if layout is not None:
+            block = layout.block(block)
         cache_out = []
-        for spec, p in zip(specs, block):
+        for i, (spec, p) in enumerate(zip(specs, block)):
+            mix_tp, ffn_tp = _tps(layout, i, tp)
             xn = L.apply_norm(p["ln1"], h)
             if spec.kind == "A":
-                q, k, v = L._qkv(cfg, p["attn"], xn, positions)
-                if block_kv is not None and s_total % block_kv == 0 \
-                        and s_total > block_kv:
-                    out = L._gqa_blockwise(cfg, q, k, v, block_kv, cfg.window)
-                else:
-                    mask = L.causal_mask(s_total, window=cfg.window,
-                                         device=h.device)
-                    mask = mask.expand((h.shape[0],) + mask.shape[1:])
-                    out = L._gqa_scores_softmax_v(cfg, q, k, v, mask)
-                h = h + out @ p["attn"]["wo"].to(h.dtype)
+                out, k, v = L.attention_train(cfg, p["attn"], xn, positions,
+                                              block_kv, mix_tp,
+                                              return_kv=True)
+                h = h + out
                 if cfg.window and s_total > cfg.window:
                     # ring-buffer layout: slot j holds position p, p%W == j
                     w = cfg.window
@@ -559,19 +649,19 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
                 cache_out.append({"k": k.to(compute_dtype),
                                   "v": v.to(compute_dtype)})
             else:
-                out, (conv, ssm_st) = SSM.mamba_train(cfg, p["mamba"], xn,
-                                                      return_state=True)
+                out, (conv, ssm_st) = SSM.mamba_train(
+                    cfg, p["mamba"], xn, return_state=True, tp=mix_tp,
+                    conv_part=None if layout is None else layout.conv_part)
                 h = h + out
                 cache_out.append({"conv": conv.to(compute_dtype),
                                   "ssm": ssm_st.to(compute_dtype)})
             if spec.ffn is not None:
-                h = h + _ffn(cfg, spec, p, h)[0]
+                h = h + _ffn(cfg, spec, p, h, tp=ffn_tp)[0]
         per_block.append(cache_out)
     caches = [{key: torch.stack([blk[i][key] for blk in per_block])
                for key in per_block[0][i]} for i in range(len(specs))]
     h = L.apply_norm(params["final_norm"], h)
-    logits = _logits(cfg, params, h[:, -1:]).float()
-    return logits, caches
+    return _whole_logits(cfg, params, h[:, -1:], vocab_tp), caches
 
 
 # ------------------------------ the module ---------------------------------

@@ -19,6 +19,19 @@ every head shares, convolves its x channels and all B/C channels, runs
 the SSD scan on its heads, and leaves through ``tp.exit`` after the
 row-parallel ``out_proj``. The gated RMSNorm averages over all of
 ``d_in``: its sum of squares is summed over ``model`` (``tp.sum``).
+
+Serving (prefill's ``mamba_train(return_state=True)`` and
+``mamba_decode``) takes the same ``tp``: the SSM state is the position's
+heads. The conv cache keeps the reference's layout, which
+``dist.sharding.cache_specs`` cuts into contiguous chunks of channels
+over ``model`` (``Layout.conv_part``): a chunk is neither the
+position's heads' x channels nor B and C. So decode takes the whole conv
+state (the caller all-gathers its chunks: ``(B, W-1, ch)``, small),
+convolves the channels its heads need, and returns ``conv_part``'s
+chunk of the new state: the old chunk shifted by one and, for the new
+row, the chunk's columns of the whole ``in_proj`` (which the position
+holds whole) applied to the token. Prefill's conv state is the same
+columns applied to the last ``W - 1`` tokens.
 """
 from __future__ import annotations
 
@@ -182,13 +195,22 @@ def _tp_part(cfg: ArchConfig, p: dict, rank: int) -> tuple:
     return q, hl
 
 
+def _conv_rows(p: dict, x: torch.Tensor, d_in: int, part) -> torch.Tensor:
+    """Channels ``part`` of the conv input x @ in_proj[:, xBC] for the
+    rows of ``x``, from the whole ``in_proj``."""
+    lo, hi = part
+    return x @ p["in_proj"][:, d_in + lo:d_in + hi].to(x.dtype)
+
+
 def mamba_train(cfg: ArchConfig, p: dict, x: torch.Tensor,
-                return_state: bool = False, tp=None):
+                return_state: bool = False, tp=None, conv_part=None):
     """x: (B,S,d) -> (B,S,d). Set return_state for prefill (conv and ssm
-    states). ``tp``: this model position's heads (see the module's
-    docstring), for training: it returns no state."""
+    states; ``conv_part`` ``(lo, hi)``: the conv state's channels to
+    return, all by default). ``tp``: this model position's heads (see the
+    module's docstring); its ssm state is theirs."""
     d_in, H, P, N, conv_ch = _dims(cfg)
-    d_full = d_in
+    d_full, whole = d_in, p
+    lo, hi = conv_part or (0, conv_ch)
     if tp is not None:
         x = tp.enter(x)
         p, H = _tp_part(cfg, p, tp.rank)
@@ -210,28 +232,51 @@ def mamba_train(cfg: ArchConfig, p: dict, x: torch.Tensor,
     y = y.reshape(*x.shape[:2], d_in)
     out = _gated_out(p, y, z, x.dtype, tp, d_full)
     if tp is not None:
-        return tp.exit(out)
-    if return_state:
-        width = p["conv_w"].shape[1]
-        conv_state = xbc[:, -(width - 1):, :]           # (B, W-1, ch)
-        return out, (conv_state, state)
-    return out
+        out = tp.exit(out)
+    if not return_state:
+        return out
+    width = p["conv_w"].shape[1]
+    if tp is None:
+        conv_state = xbc[:, -(width - 1):, lo:hi]       # (B, W-1, ch)
+    else:
+        conv_state = _conv_rows(whole, x[:, -(width - 1):], d_full,
+                                (lo, hi))
+    return out, (conv_state, state)
 
 
 def mamba_decode(cfg: ArchConfig, p: dict, x: torch.Tensor,
-                 conv_state: torch.Tensor, ssm_state: torch.Tensor):
-    """One-token decode. x: (B,1,d); conv_state: (B, W-1, ch);
-    ssm_state: (B,H,P,N). Returns (out, conv_state, ssm_state), new
-    tensors: the caller commits them (``model.decode_step``)."""
+                 conv_state: torch.Tensor, ssm_state: torch.Tensor,
+                 tp=None, conv_part=None):
+    """One-token decode. x: (B,1,d); conv_state: the whole (B, W-1, ch);
+    ssm_state: (B,H,P,N), with ``tp`` the position's heads' (see the
+    module's docstring). Returns (out, conv_state, ssm_state), new
+    tensors: the caller commits them (``model.decode_step``); the conv
+    state's channels ``conv_part`` ``(lo, hi)`` (all by default)."""
     d_in, H, P, N, conv_ch = _dims(cfg)
+    d_full, whole = d_in, p
+    lo, hi = conv_part or (0, conv_ch)
+    state = conv_state
+    if tp is not None:
+        x = tp.enter(x)
+        p, H = _tp_part(cfg, p, tp.rank)
+        c0 = tp.rank * H * P
+        d_in, conv_ch = H * P, H * P + 2 * N
+        # the conv channels of the position's heads: its x, all of B, C
+        state = torch.cat([conv_state[..., c0:c0 + d_in],
+                           conv_state[..., d_full:]], -1)
     proj = x[:, 0] @ p["in_proj"].to(x.dtype)          # (B, proj_out)
     z, xbc, dt_raw = (proj[..., :d_in], proj[..., d_in:d_in + conv_ch],
                       proj[..., d_in + conv_ch:])
     w = p["conv_w"].to(x.dtype)                         # (ch, W)
-    full = torch.cat([conv_state.to(x.dtype), xbc[:, None]], 1)
+    full = torch.cat([state.to(x.dtype), xbc[:, None]], 1)
     conv_out = F.silu(torch.einsum("bwc,cw->bc", full, w)
                       + p["conv_b"].to(x.dtype))
-    new_conv_state = full[:, 1:]
+    if tp is None:
+        new_conv_state = full[:, 1:, lo:hi]
+    else:
+        new_conv_state = torch.cat([
+            conv_state[:, 1:, lo:hi].to(x.dtype),
+            _conv_rows(whole, x[:, 0], d_full, (lo, hi))[:, None]], 1)
     xs, B_, C_ = (conv_out[..., :d_in], conv_out[..., d_in:d_in + N],
                   conv_out[..., d_in + N:])
     dt = F.softplus(dt_raw.float() + p["dt_bias"])     # (B,H)
@@ -244,5 +289,7 @@ def mamba_decode(cfg: ArchConfig, p: dict, x: torch.Tensor,
     y = torch.einsum("bhpn,bn->bhp", new_state.to(x.dtype), C_)
     y = y + p["D"].to(x.dtype)[None, :, None] * xh
     y = y.reshape(-1, d_in)
-    out = _gated_out(p, y, z, x.dtype)[:, None]
+    out = _gated_out(p, y, z, x.dtype, tp, d_full)[:, None]
+    if tp is not None:
+        out = tp.exit(out)
     return out, new_conv_state, new_state

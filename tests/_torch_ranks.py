@@ -44,8 +44,23 @@ Cases (dicts with a ``kind``):
   parallelism: the output, aux loss and the gradients of ``x``'s rows,
   the router and this rank's expert leaves.
 
+* ``serve``: the sharded serving step (tests/test_torch_sharded_serve.py)
+  of ``arch`` from the numpy ``params``: ``prefill`` of the global
+  ``prompt`` on this rank's rows, its caches copied into the first slots
+  of ``cache_spec(..., layout=)``'s slices (``s_cache`` slots), then the
+  decode ``steps`` (each ``token``, ``pos``, ``rows`` global, the rank's
+  part by ``shard_serve``); returns the logits of each call (this rank's
+  rows, the whole vocabulary), the prefill's and the final caches (its
+  slices), its cache bytes, the ``Layout``'s flags, whether a prefill
+  with ``act_dp`` the data axes gave the same logits and which of
+  ``act_dp=("model",)`` on prefill and on decode raised
+  ``NotImplementedError``. ``dtype``: the compute and cache dtype
+  (float32 by default). With ``count`` the calls run with
+  ``dist.collectives``' primitives wrapped, as in ``count``, and return
+  the prefill's and the first decode's calls instead.
+
 A case's ``moe`` (a dict) replaces fields of the reduced config's
-``MoECfg``.
+``MoECfg``; a ``window`` sets the config's sliding window.
 """
 from __future__ import annotations
 
@@ -152,6 +167,8 @@ def _case(case: dict, mesh) -> dict:
         return _split(case, cfg, mesh, shard)
     if case["kind"] == "count":
         return _count(case, cfg, mesh, shard)
+    if case["kind"] == "serve":
+        return _serve(case, cfg, mesh, shard)
     tc = _train_config(case["tc"])
     pspecs = param_specs(cfg, mesh, case["params"])
     if case["kind"] == "restore":
@@ -187,6 +204,8 @@ def _reduced_config(case: dict):
     if case.get("moe"):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, **case["moe"]))
+    if case.get("window"):
+        cfg = dataclasses.replace(cfg, window=case["window"])
     return cfg
 
 
@@ -318,42 +337,121 @@ def _moe_seq(case, mesh) -> dict:
             **{f"g_{k}": a.numpy() for k, a in zip(names, g[1:])}}
 
 
+def _serve(case, cfg, mesh, shard) -> dict:
+    from repro_torch.dist.collectives import Layout
+    from repro_torch.dist.sharding import map_specs, param_specs, \
+        shard_serve
+    from repro_torch.models import (cache_spec, decode_step, fill_caches,
+                                    prefill)
+    from repro_torch.models.weights import params_from_numpy
+    cpu = torch.device("cpu")
+    # the compute and cache dtype
+    f32 = getattr(torch, case.get("dtype", "float32"))
+    pspecs = param_specs(cfg, mesh, case["params"])
+    layout = Layout(cfg, mesh, pspecs)
+    params = params_from_numpy(map_specs(shard, pspecs, case["params"]),
+                               cpu)
+    t = lambda a: None if a is None else torch.as_tensor(a)  # noqa: E731
+    mine = lambda ins: {k: t(v) for k, v in shard_serve(  # noqa: E731
+        ins, cfg, mesh, mesh.coords).items()}
+    tokens = mine({"tokens": case["prompt"]})["tokens"]
+    B = case["prompt"].shape[0]
+    out = {"layout": {"attn_tp": layout.attn_tp, "ssm_tp": layout.ssm_tp,
+                      "moe_tp": layout.moe_tp, "vocab_tp": layout.vocab_tp,
+                      "conv_part": layout.conv_part}}
+    calls = []
+    with torch.no_grad(), _wrapped(calls if case.get("count") else None):
+        logits, pre = prefill(cfg, params, tokens, None, f32, layout=layout)
+        n_pre = len(calls)
+        caches = cache_spec(cfg, B, case["s_cache"], f32, cpu,
+                            layout=layout)
+        fill_caches(caches, pre)
+        steps = []
+        for st in case["steps"]:
+            ins = mine(st)
+            lg, _ = decode_step(cfg, params, ins["token"], ins["pos"],
+                                caches, f32, rows=ins["rows"],
+                                layout=layout)
+            steps.append(lg.float().numpy())
+            if case.get("count"):
+                return {"prefill": calls[:n_pre], "decode": calls[n_pre:]}
+        same = prefill(cfg, params, tokens, None, f32, act_dp=layout.dp,
+                       layout=layout)[0]
+        raised = []
+        for name, call in (
+                ("prefill", lambda: prefill(cfg, params, tokens, None, f32,
+                                            act_dp=("model",),
+                                            layout=layout)),
+                ("decode", lambda: decode_step(
+                    cfg, params, tokens[:, :1], 0, caches, f32,
+                    act_dp=("model",), layout=layout))):
+            try:
+                call()
+            except NotImplementedError:
+                raised.append(name)
+    return {**out, "prefill": logits.numpy(), "prefill_caches": _np(pre),
+            "steps": steps, "caches": _np(caches),
+            "cache_bytes": sum(x.numel() * x.element_size()
+                               for c in caches for x in c.values()),
+            "act_dp_equal": bool(torch.equal(same, logits)),
+            "raised": raised}
+
+
+class _wrapped:
+    """While open, ``dist.collectives``' three primitives append each
+    call's ``(kind, group size, bytes of the result)`` to ``calls``
+    (nothing is wrapped where ``calls`` is None)."""
+
+    PRIMS = {"all-gather": "_all_gather", "reduce-scatter":
+             "_reduce_scatter", "all-reduce": "_all_reduce"}
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __enter__(self):
+        import repro_torch.dist.collectives as C
+        import torch.distributed as dist
+        if self.calls is None:
+            return self
+        self.saved = {k: getattr(C, n) for k, n in self.PRIMS.items()}
+
+        def wrap(kind, fn):
+            def call(x, *a, **kw):
+                out = fn(x, *a, **kw)
+                group = a[1] if kind != "all-reduce" else a[0]
+                self.calls.append((kind, dist.get_world_size(group),
+                                   out.numel() * out.element_size()))
+                return out
+            return call
+
+        for kind, name in self.PRIMS.items():
+            setattr(C, name, wrap(kind, self.saved[kind]))
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.dist.collectives as C
+        if self.calls is not None:
+            for kind, name in self.PRIMS.items():
+                setattr(C, name, self.saved[kind])
+        return False
+
+
 def _count(case, cfg, mesh, shard) -> dict:
     """One sharded step with the three primitives wrapped: the calls'
     ``(kind, group size, bytes)``."""
-    import repro_torch.dist.collectives as C
     from repro_torch.dist.sharding import map_specs, param_specs, \
         shard_batch
     from repro_torch.models.weights import params_from_numpy
     from repro_torch.train.step import init_state, make_train_step
-    import torch.distributed as dist
     tc = _train_config(case["tc"])
     pspecs = param_specs(cfg, mesh, case["params"])
     params = params_from_numpy(map_specs(shard, pspecs, case["params"]),
                                torch.device("cpu"))
     step = make_train_step(cfg, tc, grad_specs=pspecs, mesh=mesh)
     calls = []
-    prims = {"all-gather": "_all_gather", "reduce-scatter":
-             "_reduce_scatter", "all-reduce": "_all_reduce"}
-    saved = {kind: getattr(C, name) for kind, name in prims.items()}
-
-    def wrap(kind, fn):
-        def call(x, *a, **kw):
-            out = fn(x, *a, **kw)
-            group = a[1] if kind != "all-reduce" else a[0]
-            calls.append((kind, dist.get_world_size(group),
-                          out.numel() * out.element_size()))
-            return out
-        return call
-
-    for kind, name in prims.items():
-        setattr(C, name, wrap(kind, saved[kind]))
-    try:
+    with _wrapped(calls):
         step(init_state(cfg, tc, params),
              shard_batch(case["batches"][0], cfg, mesh, mesh.coords))
-    finally:
-        for kind, name in prims.items():
-            setattr(C, name, saved[kind])
     return {"calls": calls}
 
 

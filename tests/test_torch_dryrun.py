@@ -7,10 +7,13 @@ its closed form; a failing cell recorded, not raised; the CLI's records
 carry the reference's keys. A train cell's collectives (counted in a
 fake process group on fake tensors) equal, by kind, count and bytes,
 what one real sharded step issues on a (2, 2) mesh of gloo processes
-(``tests/_torch_ranks.py``), with and without ``seq_shard``; the count
-leaves no process group behind, refuses to run inside one and
-allocates nothing. The slow test holds argument bytes equal to the
-reference's compiled ``memory_analysis``."""
+(``tests/_torch_ranks.py``), with and without ``seq_shard``, and so
+do a prefill and a decode cell's (the sharded serving step); on a mesh
+whose model axis is one position a serving cell's all-gathers equal the
+rule's hand count (``collective_stats``); the count leaves no process
+group behind, refuses to run inside one and allocates nothing. The slow
+test holds argument bytes equal to the reference's compiled
+``memory_analysis``."""
 import json
 import os
 import subprocess
@@ -310,6 +313,81 @@ def test_dry_run_counts_what_the_sharded_step_issues(arch, seq, issued_2x2):
     assert not dist.is_initialized()
 
 
+SERVE_COUNTS = [(a, k) for a in ("granite-3-2b", "deepseek-moe-16b",
+                                  "mamba2-1.3b", "qwen3-8b")
+                for k in ("prefill", "decode")]
+TINY = {"prefill": ShapeCell("tiny_prefill", 32, 8, "prefill"),
+        "decode": ShapeCell("tiny_decode", 32, 8, "decode")}
+
+
+@pytest.fixture(scope="module")
+def issued_serve_2x2(tmp_path_factory):
+    """One real sharded prefill (tiny_prefill's 8 x 32 prompt) and one
+    decode step (tiny_decode's 8 rows at one position, caches of 32
+    slots) of each architecture on a (2, 2) mesh of gloo processes, in
+    bfloat16 as the dry run's default, on the port's own weights, with
+    the three primitives wrapped: rank 0's calls of each."""
+    rng = np.random.default_rng(1)
+    archs = sorted({a for a, _ in SERVE_COUNTS})
+    cases = []
+    for arch in archs:
+        cfg = get_config(arch).reduced()
+        params = tree_map(lambda t: t.numpy(), init_params(cfg, 0, "cpu"))
+        cell = TINY["prefill"]
+        prompt = rng.integers(0, cfg.vocab, (cell.global_batch,
+                                             cell.seq_len)).astype(np.int32)
+        step = {"token": prompt[:, :1], "pos": np.int64(cell.seq_len - 1),
+                "rows": None}
+        cases.append(dict(kind="serve", arch=arch, params=params,
+                          prompt=prompt, steps=[step],
+                          s_cache=TINY["decode"].seq_len, dtype="bfloat16",
+                          count=True))
+    res = RANKS.run({"mesh": dict(data=2, model=2), "cases": cases}, 4,
+                    tmp_path_factory.mktemp("serve2x2"))
+    return {(a, k): r[k] for a, r in zip(archs, res[0]["cases"])
+            for k in ("prefill", "decode")}
+
+
+@pytest.mark.parametrize("arch,kind", SERVE_COUNTS)
+def test_dry_run_counts_what_the_sharded_serving_step_issues(
+        arch, kind, issued_serve_2x2):
+    """The dry run's fake-group count of a prefill or decode cell on
+    (2, 2) equals, by kind, count and bytes, what the sharded serving
+    call issued on gloo (over groups of more than one process)."""
+    want = {k: {"count": 0, "bytes": 0} for k in D._COLLECTIVES}
+    for k, n, nbytes in issued_serve_2x2[(arch, kind)]:
+        if n > 1:
+            want[k]["count"] += 1
+            want[k]["bytes"] += nbytes
+    assert want["all-gather"]["count"] > 0
+    comp = D.lower_cell(get_config(arch).reduced(), TINY[kind],
+                        Mesh(("data", "model"), (2, 2))).compile()
+    assert comp.collectives_basis == "issued"
+    got = comp.collectives()
+    assert {k: got[k] for k in D._COLLECTIVES} == want
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("kind", sorted(TINY))
+def test_serving_gathers_equal_the_rule(kind):
+    """On (4, 1), with the weights in bfloat16 as a serving engine holds
+    them, every collective a serving call issues over more than one
+    process is an FSDP all-gather, and their bytes are the rule's: each
+    data-sharded weight gathered once (a stacked leaf once a block, so
+    the rule's one count of it is ``n_blocks`` of the issued ones)."""
+    cfg = get_config("granite-3-2b").reduced()
+    mesh = Mesh(("data", "model"), (4, 1))
+    low = D.lower_cell(cfg, TINY[kind], mesh, param_dtype=torch.bfloat16)
+    got = low.compile().collectives()
+    rule = D.collective_stats(cfg, TINY[kind], mesh, low.params)
+    assert got["all-gather"]["bytes"] == rule["all-gather"]["bytes"] > 0
+    nb = D.n_blocks(cfg)
+    stacked = rule["all-gather"]["count"] - 1       # all but the embedding
+    assert got["all-gather"]["count"] == 1 + nb * stacked
+    for k in ("all-reduce", "reduce-scatter", "all-to-all"):
+        assert got[k] == rule[k] == {"count": 0, "bytes": 0}
+
+
 def test_count_refuses_inside_a_process_group():
     """The count makes a fake process group of its own: inside an
     initialised one it refuses, and leaves that group as it was."""
@@ -435,7 +513,7 @@ def test_cli_writes_reference_records(tmp_path, capsys):
             "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
             "collective-permute", "total_bytes", "depth2_raw_bytes"}
         assert rec["temp_basis"] == D.TEMP_BASIS
-        assert rec["collectives_basis"] == "rule"      # a decode cell
+        assert rec["collectives_basis"] == "issued"    # a decode cell
         assert rec["flops"] * chips == rec["flops_global"]
 
 
