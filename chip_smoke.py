@@ -48,8 +48,9 @@ Phases, each printing its seconds:
    random rows of 20 nonzeros padded with zero slots to W in {20, 24, 32,
    40, 64, 200, 400}, and three of 300 padded to W in {300, 304, 400,
    512}, each launched among 1, 128 and 65,536 rows: K1 and K5 give a row
-   one and the same bits, and so do K7 and K9 at B = 8 (a ``row_sums
-   {...}`` line);
+   one and the same bits, and so do K7 and K9 at B = 8, and the grouped K1
+   and K7 with the row's bucket between two others (a ``row_sums {...}``
+   line);
 3. a searched compile of ``banded_matrix(2**21, 4)`` (18.87 M nnz) on the
    default Target (a 10 s budget), checked against the float64 oracle,
    plus a save/load round trip;
@@ -95,13 +96,23 @@ Phases, each printing its seconds:
 7. fixed-graph compiles on the same matrix that force every SpMM kernel
    at B = 8 (ELL scatter K7, grid_acc K8, fused K9 at tiles_per_step 1
    and 8 and bf16; seg_scan, onehot and gmem_atom, unfused K10a/K10b and
-   fused K11), each checked against the oracle;
+   fused K11), each checked against the oracle; the ELL scatter plan's
+   26 width buckets run as one grouped K7 launch and one combine, and
+   with a 1-D x (also checked) as one grouped K1 launch and one combine;
 8. SpMM kernel report at the phase-7 operands, as phase 5, with the
    cuSPARSE SpMM yardstick ``torch.sparse_csr_tensor @ X``, X (n_cols, 8).
-   The K7 row adds the host time of one wrapper call (``host_us_per_call``:
-   the 26 calls of the ELL plan on the host clock, before any
-   synchronise, over 26) and the device time of one single-tile launch
-   (``one_tile_ms``). When the searched B = 8 plan of phase 6 is a seg
+   The K7 row times the grouped launch over the ELL plan's 26 buckets
+   and adds the 26 per-bucket launches (``per_bucket_ms``,
+   ``per_bucket_device_ms``), the host time of one wrapper call
+   (``host_us_per_call``: the 26 per-bucket calls on the host clock,
+   before any synchronise, over 26; ``grouped_host_us_per_call``), the
+   device time of one single-tile launch (``one_tile_ms``), and the plan
+   call (``plan_ms``, ``plan_device_ms``, ``plan_launches``) beside its
+   per-step loop (``per_step_*``, held to the same bits). A ``K1[grouped]
+   {...}`` line does the same for the plan with a 1-D x (the grouped K1
+   beside cuSPARSE SpMV), and its row follows the twelve on the kernels
+   line. In a package without grouped launches (the parent in an A/B)
+   both time the per-bucket launches. When the searched B = 8 plan of phase 6 is a seg
    plan, its fused seg step is timed with K11 at its own chunk and
    tiles_per_step and printed on a line of its own (``K11[searched]
    {...}``, with the cuSPARSE SpMM times), outside the twelve rows; K11
@@ -888,7 +899,8 @@ ROW_SUM_ROWS = (1, 128, 65536)
 def row_sum_bits(n: int, widths, seed: int) -> dict:
     """One random row of n nonzeros, padded with zero slots to each W and
     launched among 1, 128 and 65,536 rows of random others: each of K1,
-    K5, K7 and K9 (B = 8)'s set of results for it."""
+    K5, K7 and K9 (B = 8)'s set of results for it, the grouped K1 and K7
+    (its bucket between two others) adding to K1's and K7's."""
     from repro_torch.kernels import ops, ref
     dev = torch.device("cuda")
     n_cols = 5000
@@ -917,6 +929,18 @@ def row_sum_bits(n: int, widths, seed: int) -> dict:
             got["K7"].add(tuple(ops.ell_spmm(vals, cols, x8)[at, 0].tolist()))
             got["K9"].add(tuple(ops.ell_spmm_fused(vals, cols, x8,
                                                    n_rows=rows)[at].tolist()))
+            if grouped_wrappers():
+                # buckets of 3 x 40 and 5 x 33 slots on either side
+                side = [(torch.randn(s, generator=gen, device=dev),
+                         torch.randint(0, n_cols, s, generator=gen,
+                                       device=dev, dtype=torch.int32))
+                        for s in ((3, 1, 40), (5, 1, 33))]
+                group = ops.TileGroup(
+                    [side[0][0], vals, side[1][0]],
+                    [side[0][1], cols, side[1][1]])
+                got["K1"].add(ops.ell_spmv_grouped(group, x)[3 + at].item())
+                got["K7"].add(tuple(
+                    ops.ell_spmm_grouped(group, x8)[3 + at].tolist()))
     check_kernel(f"K1 row of {n} (seed {seed}) against its plain version",
                  torch.tensor([next(iter(got["K1"]))]),
                  ref.ell_spmv_ref(row_v[None, None], row_c[None, None],
@@ -1416,15 +1440,32 @@ def local_cols_line(kid, row, run, plain, byt, probes, v, n_cols,
     print(f"{kid}[local_cols] {json.dumps(line)}")
 
 
+def grouped_wrappers() -> tuple:
+    """The grouped K1 and K7 wrappers (``ell_spmv_grouped``,
+    ``ell_spmm_grouped``), or () in a package without them (the parent in
+    an A/B, which runs a plan's buckets one launch each)."""
+    from repro_torch.kernels import ops
+    if not hasattr(ops, "ell_spmm_grouped"):
+        return ()
+    return ops.ell_spmv_grouped, ops.ell_spmm_grouped
+
+
+def grouped_launches() -> dict:
+    """The grouped K1 and K7 launches so far (counted under K1 and K7)."""
+    return {f"{k}[grouped]": fn.launches
+            for k, fn in zip(("K1", "K7"), grouped_wrappers())}
+
+
 def launch_counts() -> dict:
     from repro_torch.kernels import ops
-    return {"K1": ops.ell_spmv.launches,
+    g = grouped_launches()
+    return {"K1": ops.ell_spmv.launches + g.get("K1[grouped]", 0),
             "K2": ops.ell_spmv_direct.launches,
             "K3": ops.seg_spmv.launches["seg_scan"],
             "K4": ops.seg_spmv.launches["onehot_mxu"],
             "K5": ops.ell_spmv_fused.launches,
             "K6": ops.seg_spmv_fused.launches,
-            "K7": ops.ell_spmm.launches,
+            "K7": ops.ell_spmm.launches + g.get("K7[grouped]", 0),
             "K8": ops.ell_spmm_direct.launches,
             "K9": ops.ell_spmm_fused.launches,
             "K10a": ops.seg_spmm.launches["seg_scan"],
@@ -1436,7 +1477,7 @@ def reset_launch_counts() -> None:
     from repro_torch.kernels import ops
     for fn in (ops.ell_spmv, ops.ell_spmv_direct, ops.ell_spmv_fused,
                ops.seg_spmv_fused, ops.ell_spmm, ops.ell_spmm_direct,
-               ops.ell_spmm_fused, ops.seg_spmm_fused):
+               ops.ell_spmm_fused, ops.seg_spmm_fused, *grouped_wrappers()):
         fn.launches = 0
     for fn in (ops.seg_spmv, ops.seg_spmm):
         fn.launches = {m: 0 for m in fn.launches}
@@ -1596,6 +1637,9 @@ def spmm_fixed_phase(W, swap_in, x8, oracle8, designer):
         y = prog(xd if "bf16" not in name else xd.to(torch.bfloat16))
         check_oracle(f"serving {name} ({len(prog.spec['steps'])} steps)", y,
                      oracle8, prog.spec["storage_dtype"])
+    # ... and the scatter plan with a 1-D x (K1 over its buckets)
+    check_oracle("serving K7 scatter, 1-D x", progs["K7 scatter"](
+        xd[:, 0].contiguous()), oracle8[:, 0], "float32")
     torch.cuda.synchronize()
     done()
     return progs, xd
@@ -1607,7 +1651,9 @@ def spmm_cases(progs, xd, n_rows):
     """For K7-K11: the spec steps of a phase-7 plan that dispatch to the
     kernel, as (run, plain, bytes, flops, shape) over all of them (an ELL
     plan has one step per tile-width bucket). ``run(vals_list)`` launches
-    the kernel once per step; the fused kernels add into ``out``."""
+    the kernel once per step, K7 once for all its steps (the grouped
+    launch, where the package has it: its per-bucket launches are
+    ``per_bucket``); the fused kernels add into ``out``."""
     from repro_torch.kernels import ops, ref
     B = xd.shape[1]
     x_bytes = nbytes(xd)
@@ -1649,11 +1695,21 @@ def spmm_cases(progs, xd, n_rows):
         cols = [o["cols"] for _, o in steps]
         rows = sum(v.shape[0] * v.shape[1] for v in vals)
         out_bytes = (8 if kid == "K9" else 4) * rows * B
-        return {"vals": vals, "cols": cols,
-                "run": lambda vs, cs, out=None: launch(fused_kern, kern, vs,
-                                                       cs, out),
-                "plain": lambda vs, cs: launch(fused_plain, plain, vs, cs,
-                                               None),
+        run = lambda vs, cs, out=None: launch(fused_kern, kern, vs, cs, out)
+        plain_run = lambda vs, cs: launch(fused_plain, plain, vs, cs, None)
+        extra = {}
+        if kid == "K7":
+            # the plan runs its buckets as one grouped launch (where the
+            # package has it); the per-bucket launches are timed beside
+            extra = {"prog": prog, "per_bucket": run}
+            if grouped_wrappers():
+                group = ops.TileGroup(vals, cols)
+                run = lambda vs, cs, out=None: ops.ell_spmm_grouped(
+                    group if vs is vals else ops.TileGroup(vs, cs), xd)
+                plain_run = lambda vs, cs: ref.ell_spmm_grouped_ref(vs, cs,
+                                                                    xd)
+        return {"vals": vals, "cols": cols, "run": run, "plain": plain_run,
+                **extra,
                 "bytes": lambda vs, cs: nbytes(*vs, *cs) + x_bytes
                 + out_bytes,
                 "flops": 2 * sum(v.numel() for v in vals) * B,
@@ -1710,25 +1766,115 @@ def spmm_cases(progs, xd, n_rows):
             "K11": segk("SEG_SCAN_RED fused", "K11", "seg_scan")}
 
 
-def k7_host_and_one_tile(vals, cols, xd, reps: int = 10) -> dict:
-    """The K7 wrapper's host time per call (the plan's calls on the host
-    clock before any synchronise, over their number; median of ``reps``)
-    and one single-tile launch on the card alone."""
-    from repro_torch.kernels import ops
+def host_us(calls, reps: int = 10) -> float:
+    """The host time of ``calls`` (a list of thunks) on the host clock
+    before any synchronise, over their number, in us; median of
+    ``reps``."""
     per_call = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for v, c in zip(vals, cols):
-            ops.ell_spmm(v, c, xd)
-        per_call.append((time.perf_counter() - t0) / len(vals) * 1e6)
+        for call in calls:
+            call()
+        per_call.append((time.perf_counter() - t0) / len(calls) * 1e6)
     torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
+def k7_host_and_one_tile(vals, cols, xd) -> dict:
+    """The K7 wrapper's host time per call (the plan's per-bucket calls,
+    and the grouped call where the package has it) and one single-tile
+    launch on the card alone."""
+    from repro_torch.kernels import ops
+    out = {"host_us_per_call": host_us([
+        lambda v=v, c=c: ops.ell_spmm(v, c, xd) for v, c in zip(vals, cols)]),
+        "host_calls": len(vals)}
+    if grouped_wrappers():
+        group = ops.TileGroup(vals, cols)
+        out["grouped_host_us_per_call"] = host_us(
+            [lambda: ops.ell_spmm_grouped(group, xd)])
     i = min(range(len(vals)), key=lambda k: vals[k].shape[0])
     require(vals[i].shape[0] == 1, "the ELL plan has no single-tile step")
-    one = device_ms(lambda: ops.ell_spmm(vals[i], cols[i], xd))
-    return {"host_us_per_call": statistics.median(per_call),
-            "host_calls": len(vals), "one_tile_ms": one,
-            "one_tile_shape": list(vals[i].shape)}
+    out["one_tile_ms"] = device_ms(lambda: ops.ell_spmm(vals[i], cols[i], xd))
+    out["one_tile_shape"] = list(vals[i].shape)
+    return out
+
+
+def plan_calls(prog, x) -> dict:
+    """A plan's call as a caller sees it and on the card, and its
+    launches a call (kernel and combine), beside the per-step loop of the
+    same program (one launch and one combine a step); in a package
+    without grouped launches the call is that loop."""
+    out = {"plan_ms": cuda_ms(lambda: prog(x)),
+           "plan_device_ms": device_ms(lambda: prog(x)),
+           "plan_launches": launches_of(lambda: prog(x))}
+    if grouped_wrappers():
+        from repro_torch.core.kernel_builder import ELL_GROUPS
+        order = {k: v for k, v in prog.order.items() if k != ELL_GROUPS}
+        loop = lambda: prog.fn(prog.fmt, x, order)
+        require(torch.equal(prog(x), loop()),
+                "the grouped plan call differs from the per-step loop")
+        out.update(per_step_ms=cuda_ms(loop),
+                   per_step_device_ms=device_ms(loop),
+                   per_step_launches=launches_of(loop))
+    return out
+
+
+def k1_grouped_line(prog, x1, csr, launches: int) -> dict:
+    """K1 on the phase-7 ELL scatter plan with a 1-D x: its buckets (all
+    wider than 32 slots) in one grouped launch (where the package has it,
+    else their per-bucket launches), held to the plain version in fp32
+    and bf16/int16, timed beside the per-bucket launches, the plan call
+    beside the per-step loop, and cuSPARSE SpMV (``csr @ x``); a ``K1
+    [grouped] {...}`` line, and its row for the kernels line."""
+    from repro_torch.kernels import ops, ref
+    steps = [st for st in prog.spec["steps"] if st["kind"] == "ell"]
+    vals = [prog.fmt[f"{st['key']}_vals"] for st in steps]
+    cols = [_operands(prog, st)["cols"] for st in steps]
+    require(min(v.shape[2] for v in vals) > 32,
+            "a bucket of the serving plan is 32 slots wide or less")
+    per_bucket = lambda vs, cs: torch.cat([ops.ell_spmv(v, c, x1).reshape(-1)
+                                           for v, c in zip(vs, cs)])
+    run = per_bucket
+    plain = lambda vs, cs: torch.cat([ref.ell_spmv_ref(v, c, x1).reshape(-1)
+                                      for v, c in zip(vs, cs)])
+    if grouped_wrappers():
+        group = ops.TileGroup(vals, cols)
+        run = lambda vs, cs: ops.ell_spmv_grouped(
+            group if vs is vals else ops.TileGroup(vs, cs), x1)
+        plain = lambda vs, cs: ref.ell_spmv_grouped_ref(vs, cs, x1)
+    err = check_kernel("K1[grouped] fp32", run(vals, cols),
+                       plain(vals, cols))
+    v16 = [v.to(torch.bfloat16) for v in vals]
+    c16 = [c.to(torch.int16) for c in cols]
+    check_kernel("K1[grouped] bf16/int16", run(v16, c16), plain(v16, c16))
+    require(torch.equal(run(vals, cols), per_bucket(vals, cols)),
+            "K1[grouped]: a row differs from its bucket's own launch")
+    rows = sum(v.shape[0] * v.shape[1] for v in vals)
+    byt = nbytes(*vals, *cols, x1) + 4 * rows
+    b_ms = byt / HBM_BYTES_PER_S * 1e3
+    f_ms = 2 * sum(v.numel() for v in vals) / FP32_FLOPS_PER_S * 1e3
+    line = {"name": "K1[grouped] ell_spmv_grouped", "route": "cuda",
+            "source": KERNELS["K1"][1], "replaces": KERNELS["K1"][2],
+            "launches": launches, "max_abs_err": err,
+            "ms": cuda_ms(lambda: run(vals, cols)),
+            "device_ms": device_ms(lambda: run(vals, cols)),
+            "plain_ms": cuda_ms(lambda: plain(vals, cols), reps=5),
+            "bound_ms": max(b_ms, f_ms),
+            "bound_by": "bytes" if b_ms >= f_ms else "operations",
+            "library_ms": cuda_ms(lambda: csr @ x1),
+            "library_device_ms": device_ms(lambda: csr @ x1),
+            "per_bucket_ms": cuda_ms(lambda: per_bucket(vals, cols)),
+            "per_bucket_device_ms": device_ms(
+                lambda: per_bucket(vals, cols)),
+            "grouped": bool(grouped_wrappers()),
+            "shape": f"{len(vals)} steps, T={sum(v.shape[0] for v in vals)}"
+                     f", R={vals[0].shape[1]}, W={min(v.shape[2] for v in vals)}"
+                     f"-{max(v.shape[2] for v in vals)}",
+            "matrix": "qwen3_8b_ffn_up_pruned_0.08", "B": 1, "bytes": byt,
+            **plan_calls(prog, x1)}
+    print(f"K1[grouped] {json.dumps(line)}")
+    return line
 
 
 def spmm_report_phase(cases, launches, csr, xd, n_rows):
@@ -1769,16 +1915,25 @@ def spmm_report_phase(cases, launches, csr, xd, n_rows):
                      "B": int(xd.shape[1]), "bytes": byt, **shared})
         if kid == "K7":
             rows[-1].update(k7_host_and_one_tile(vs, cs, xd))
+            rows[-1].update(
+                grouped=bool(grouped_wrappers()),
+                per_bucket_ms=cuda_ms(lambda: case["per_bucket"](vs, cs)),
+                per_bucket_device_ms=device_ms(
+                    lambda: case["per_bucket"](vs, cs)),
+                **plan_calls(case["prog"], xd))
         print(f"  {kid}: {ms:.4f} ms ({dev_ms:.4f} on the card), bound "
               f"{max(b_ms, f_ms):.4f} ms ({100 * max(b_ms, f_ms) / ms:.1f}% "
               f"of bound), plain {plain_ms:.4f} ms, library {library:.4f} "
               f"ms ({library_dev:.4f}), launches {launches[kid]}")
         if kid == "K7":
-            print(f"  K7 host per wrapper call "
-                  f"{rows[-1]['host_us_per_call']:.1f} us over "
-                  f"{len(vs)} calls; one tile "
-                  f"{tuple(rows[-1]['one_tile_shape'])} "
-                  f"{rows[-1]['one_tile_ms']:.4f} ms on the card")
+            r = rows[-1]
+            print(f"  K7 host per wrapper call {r['host_us_per_call']:.1f} "
+                  f"us over {len(vs)} calls; one tile "
+                  f"{tuple(r['one_tile_shape'])} {r['one_tile_ms']:.4f} ms "
+                  f"on the card; per bucket {r['per_bucket_ms']:.4f} ms "
+                  f"({r['per_bucket_device_ms']:.4f}); plan call "
+                  f"{r['plan_ms']:.4f} ms ({r['plan_device_ms']:.4f}), "
+                  f"launches {r['plan_launches']}")
     torch.cuda.synchronize()
     done()
     return rows
@@ -3762,8 +3917,10 @@ def bits_dump(out_dir: Path, label: str) -> None:
     ``bits_dump`` line), of the plans whose sums go through the ordered
     combine: phase 12's sharded serving plans (row and col, 4 shards of
     the card), both ``dist_search`` programs (searched, and shard 0
-    crashing), phase 4's unfused power-law plans and phase 6's searched
-    serving plan. Each plan is made, saved under ``out_dir/plans`` and
+    crashing), phase 4's unfused power-law plans, phase 6's searched
+    serving plan and phase 7's ELL plan of 26 width buckets, scatter and
+    with its single-tile buckets fused. Each plan is made, saved under
+    ``out_dir/plans`` and
     loaded the first time, and loaded from there every later time, so two
     checkouts (this script copied into a parent's) run the same plans:
     a search's winner depends on timing. Uses only sharded plans and
@@ -3819,6 +3976,16 @@ def bits_dump(out_dir: Path, label: str) -> None:
                              fuse_combine=False)
         return _plan_from_program(prog, None, repro_torch.Target())
 
+    def serving_ell(fuse):
+        """Phase 7's ELL plan of the serving matrix: 26 width buckets,
+        scatter (``fuse``: its single-tile buckets fused)."""
+        g = chain(("COMPRESS", {}), ("TILE_ROW_BLOCK", {"rows": 128}),
+                  ("LANE_ROW_BLOCK", {}), ("LANE_TOTAL_RED", {}))
+        prog = build_program(run_graph(matrix("serving"), g), "cuda",
+                             fuse_combine=fuse)
+        return _plan_from_program(prog, None, repro_torch.Target(
+            batch_size=SERVE_B))
+
     def serving_searched():
         cfg = repro_torch.SearchConfig(
             max_seconds=SEARCH_SECONDS["serving"], max_structures=2,
@@ -3841,6 +4008,10 @@ def bits_dump(out_dir: Path, label: str) -> None:
                                             lambda red=red: unfused(red),
                                             False)
     cases["serving searched"] = ("serving", serving_searched, False)
+    cases["serving ELL scatter"] = ("serving", lambda: serving_ell(False),
+                                    False)
+    cases["serving ELL fused"] = ("serving", lambda: serving_ell(True),
+                                  False)
     out, card = {}, {}
     for name, (m, make, sharded) in cases.items():
         plan = load(name.replace(" ", "_"), make, sharded)
@@ -5547,12 +5718,13 @@ def run(argv: list, kernel_report: bool) -> int:
         torch.cuda.synchronize()
         serve_launches = launch_counts()     # ... and ends here
         serve_combines = ops.rowmap_combine.launches
+        serve_grouped = grouped_launches()
     print(f"  serving-path launches: {serve_launches}, rowmap_combine "
-          f"{serve_combines}")
+          f"{serve_combines}, grouped {serve_grouped}")
     require(all(serve_launches[k] > 0 for k in SPMM_KERNELS)
-            and serve_combines > 0,
+            and serve_combines > 0 and all(serve_grouped.values()),
             f"a kernel of the serving path never launched: {serve_launches},"
-            f" rowmap_combine {serve_combines}")
+            f" rowmap_combine {serve_combines}, grouped {serve_grouped}")
     launches.update({k: serve_launches[k] for k in SPMM_KERNELS})
     print("designer " + json.dumps({"host_seconds": designer}))
     csr_w = csr_on_device(W)
@@ -5568,6 +5740,8 @@ def run(argv: list, kernel_report: bool) -> int:
         seg, xp, P.n_rows, combines + serve_combines)
     del xp8
     require(len(rows) == len(KERNELS), "the report misses a kernel")
+    rows.append(k1_grouped_line(progs["K7 scatter"], xd[:, 0].contiguous(),
+                                csr_w, serve_grouped.get("K1[grouped]", 0)))
     del progs, csr_w
     torch.cuda.empty_cache()
     if kernel_report:

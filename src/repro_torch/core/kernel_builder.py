@@ -36,6 +36,15 @@ shared rows add their partials in an order fixed once per program
 (:func:`combine_orders`, derived from the descriptors and never saved), so
 two calls of a program, or of a saved-and-loaded plan, give the same bits.
 
+Grouped ELL steps (cuda backend): the ELL steps that scatter their
+partials (K7, or K1 with a 1-D x on buckets wider than 32 slots) are a
+block's width buckets, often many small ones. :func:`combine_orders` also
+gathers them into :class:`StepGroup` s once per program, and a call runs
+each group as one grouped launch over all its buckets and one ordered
+combine over their rowmaps concatenated in step order: the same row sums
+and the same chain of adds into each row as the per-step loop, bit for
+bit (see :func:`ell_groups` for where a group must end).
+
 Mixed-precision storage: ``storage_dtype="bfloat16"`` stores vals as bf16
 (and explicit cols arrays as int16 when ``n_cols`` fits), recorded per
 step under ``"store"``; kernels upcast in registers and accumulate fp32.
@@ -56,7 +65,8 @@ __all__ = ["SpmvProgram", "build_program", "build_spmv", "plan_format",
            "build_kernel",
            "register_layout_planner", "resolve_device", "run_spec_step",
            "step_reads", "spec_kernels", "materialize_cols", "combine_orders",
-           "SPEC_VERSION", "BACKENDS"]
+           "ell_groups", "StepGroup", "ELL_GROUPS", "SPEC_VERSION",
+           "BACKENDS"]
 
 SPEC_VERSION = 2
 
@@ -380,8 +390,11 @@ def combine_orders(spec: dict, fmt: dict, backend: str) -> dict:
     that a step scatters through on ``backend``, its ``(perm, offsets)``
     (``kernels.combine.combine_order``); for each fused seg step on the
     cuda backend, its ``FusedRows`` (``kernels.combine.fused_rows``)
-    under ``{key}_r0``. Derived from the descriptors (rowmaps, r0,
-    seg_end, local_row) on their device; never saved."""
+    under ``{key}_r0``; on the cuda backend, the program's grouped ELL
+    steps under ``ELL_GROUPS`` (:func:`ell_groups`, where any group
+    forms; without that key a call runs every step by itself). Derived
+    from the descriptors (rowmaps, r0, seg_end, local_row) on their
+    device; never saved."""
     from repro_torch.kernels.combine import combine_order, fused_rows
     n_rows = spec["n_rows"]
     out = {}
@@ -406,6 +419,174 @@ def combine_orders(spec: dict, fmt: dict, backend: str) -> dict:
         else:
             rk = f"{key}_rowmap"
             out[rk] = combine_order(fmt[rk], n_rows)
+    if backend == "cuda":
+        groups = ell_groups(spec, fmt)
+        if groups:
+            out[ELL_GROUPS] = groups
+    return out
+
+
+# the key of combine_orders' result that holds a program's grouped ELL
+# steps (never a fmt key: those end in _vals, _cols, _rowmap, ...)
+ELL_GROUPS = "ell_groups"
+# K1 runs buckets up to this width through its slab kernel, one launch a
+# bucket (kSlabRows in kernels/csrc/ell_spmv.cu)
+_SLAB_WIDTH = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class StepGroup:
+    """ELL steps of a program that run as one grouped launch
+    (``kernels.ops.ell_spmv_grouped`` / ``ell_spmm_grouped`` over
+    ``tiles``) and one ordered combine (``order``). ``steps`` are their
+    indices in the spec, ``keys`` each one's fmt keys of vals and of
+    array-mode cols (None where the cols are a column model, materialised
+    in ``tiles`` once). ``order`` is the ``CombineOrder`` of their rowmaps
+    concatenated in step order, an affine step's rows ``b0 + i`` for
+    ``i < nv``: the order sorts stably by row, so each row gets its
+    partials step after step, as the per-step combines add them."""
+
+    steps: tuple
+    keys: tuple
+    tiles: object                 # kernels.ell_spmv.TileGroup
+    order: object                 # kernels.combine.CombineOrder
+
+    def tiles_for(self, fmt: dict):
+        """The group's tiles where ``fmt`` holds the tensors they were
+        built from, else a new ``TileGroup`` of fmt's tensors (a call with
+        a format of the same spec but other tensors)."""
+        same = all(fmt[vk] is v and (ck is None or fmt[ck] is c)
+                   for (vk, ck), v, c in zip(self.keys, self.tiles.vals,
+                                             self.tiles.cols))
+        if same:
+            return self.tiles
+        from repro_torch.kernels.ell_spmv import TileGroup
+        return TileGroup([fmt[vk] for vk, _ in self.keys],
+                         [c if ck is None else fmt[ck]
+                          for (_, ck), c in zip(self.keys, self.tiles.cols)])
+
+
+def _groupable(step: dict, fmt: dict, ndim: int) -> bool:
+    """Whether a step launches K7 (2-D x) or K1 on buckets wider than the
+    slab kernel's (1-D x) and then scatters its partials: an ELL step
+    that is neither fused nor direct."""
+    if step["kind"] != "ell":
+        return False
+    comb = step["combine"]
+    if comb["mode"] == "affine" and (step.get("fused") or comb["direct"]):
+        return False
+    vals = fmt[f"{step['key']}_vals"]
+    return vals.numel() > 0 and (ndim == 2 or vals.shape[2] > _SLAB_WIDTH)
+
+
+def _step_rows(step: dict, fmt: dict, n_rows: int) -> torch.Tensor:
+    """The rows a cuda step adds into, as an (n_rows,) bool mask; a fused
+    step's every row that its kernel writes (an ELL tile's padding rows
+    too)."""
+    key = step["key"]
+    vals = fmt[f"{key}_vals"]
+    mask = torch.zeros(n_rows, dtype=torch.bool, device=vals.device)
+    if step["kind"] == "ell" and step["combine"]["mode"] == "affine":
+        comb = step["combine"]
+        n = vals.shape[0] * vals.shape[1] if step.get("fused") else comb["nv"]
+        mask[comb["b0"]:min(comb["b0"] + n, n_rows)] = True
+        return mask
+    if step["kind"] == "ell":
+        rows = fmt[step["combine"]["key"]]
+    elif step.get("fused") and f"{key}_r0" in fmt:
+        rows = (fmt[f"{key}_r0"].long()[:, None]
+                + torch.arange(step["seg_rows"], device=vals.device))
+    else:
+        rows = fmt[f"{key}_rowmap"]
+    rows = rows.reshape(-1).long()
+    mask[rows[(rows >= 0) & (rows < n_rows)]] = True
+    return mask
+
+
+def _group_members(steps: list, fmt: dict, ndim: int, rows) -> list:
+    """The run order of a program's steps for an x of ``ndim``
+    dimensions: step indices, and lists of two or more indices that run
+    as one group. Groupable steps of one vals and one cols dtype join the
+    open group, which runs where it closes. Moving its members' adds
+    there keeps every row's chain of adds as long as no step in between
+    adds into a row of an earlier member: such a step closes the group
+    before it, and so does a groupable step of other dtypes. ``rows(i)``
+    is step i's row mask."""
+    order, members = [], []
+    kind, touched, seen = None, None, 0
+
+    def close():
+        order.extend([list(members)] if len(members) > 1 else members)
+        members.clear()
+
+    for i, st in enumerate(steps):
+        if _groupable(st, fmt, ndim):
+            cols = fmt.get(st["cols"].get("key"))
+            this = (fmt[f"{st['key']}_vals"].dtype,
+                    torch.int32 if cols is None else cols.dtype)
+            if members and this != kind:
+                close()
+            if not members:
+                kind, touched, seen = this, None, 0
+            members.append(i)
+            continue
+        if members:
+            for j in members[seen:]:
+                touched = rows(j) if touched is None else touched | rows(j)
+            seen = len(members)
+            if bool((touched & rows(i)).any()):
+                close()
+        order.append(i)
+    close()
+    return order
+
+
+def _step_group(idx: list, steps: list, fmt: dict, n_rows: int) -> StepGroup:
+    """The :class:`StepGroup` of steps ``idx`` (in step order)."""
+    from repro_torch.kernels.combine import combine_order
+    from repro_torch.kernels.ell_spmv import TileGroup
+    vals, cols, keys, rowmaps = [], [], [], []
+    for i in idx:
+        st = steps[i]
+        v = fmt[f"{st['key']}_vals"]
+        cspec, comb = st["cols"], st["combine"]
+        ck = cspec["key"] if cspec["mode"] == "array" else None
+        vals.append(v)
+        cols.append(_step_cols(st, fmt, v.device))
+        keys.append((f"{st['key']}_vals", ck))
+        if comb["mode"] == "rowmap":
+            rowmaps.append(fmt[comb["key"]].reshape(-1).long())
+        else:
+            at = torch.arange(v.shape[0] * v.shape[1], device=v.device)
+            rowmaps.append(torch.where(at < comb["nv"], comb["b0"] + at, -1))
+    return StepGroup(tuple(idx), tuple(keys), TileGroup(vals, cols),
+                     combine_order(torch.cat(rowmaps), n_rows))
+
+
+def ell_groups(spec: dict, fmt: dict) -> dict:
+    """A cuda program's grouped ELL steps: for an x of 1 and of 2
+    dimensions where any group forms, the run order of its steps, a tuple
+    of step indices and :class:`StepGroup` s (:func:`_group_members`
+    says where a group ends). One build serves both where the members
+    agree (no bucket is 32 slots wide or less)."""
+    steps, n_rows = spec["steps"], spec["n_rows"]
+    masks = {}
+
+    def rows(i):
+        if i not in masks:
+            masks[i] = _step_rows(steps[i], fmt, n_rows)
+        return masks[i]
+
+    out, built = {}, {}
+    for ndim in (1, 2):
+        members = _group_members(steps, fmt, ndim, rows)
+        if not any(isinstance(m, list) for m in members):
+            continue
+        for m in members:
+            if isinstance(m, list) and tuple(m) not in built:
+                built[tuple(m)] = _step_group(m, steps, fmt, n_rows)
+        out[ndim] = tuple(built[tuple(m)] if isinstance(m, list) else m
+                          for m in members)
     return out
 
 
@@ -496,6 +677,15 @@ def _run_seg_step(step: dict, fmt: dict, x, y, n_rows: int,
     return y
 
 
+def _run_group(group: StepGroup, fmt: dict, x, y):
+    """One :class:`StepGroup` into y in place: the grouped K7 (2-D x) or
+    K1 over its buckets, then one ordered combine of the slab."""
+    from repro_torch.kernels import ops as kops
+    op = kops.ell_spmm_grouped if x.ndim == 2 else kops.ell_spmv_grouped
+    kops.rowmap_combine(y, op(group.tiles_for(fmt), x), group.order)
+    return y
+
+
 def run_spec_step(step: dict, fmt: dict, x, y, n_rows: int,
                   backend: str, tiles_per_step: int, order: dict):
     """Accumulate one spec step's contribution into y in place and return
@@ -565,7 +755,10 @@ def build_kernel(spec: dict, backend: str = "cuda") -> Callable:
     ``(n_cols, B)``, and returns a fresh fp32 ``(n_rows,)`` or
     ``(n_rows, B)`` tensor; the steps accumulate into it in place.
     ``order`` is :func:`combine_orders` of the program: the fixed order
-    of its combines (:func:`run_spec_step`)."""
+    of its combines (:func:`run_spec_step`) and, on the cuda backend, its
+    grouped ELL steps (``ELL_GROUPS``), which then run in their run order
+    for x's dimensions; without them every step runs by itself, in spec
+    order, to the same bits."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (cuda | torch)")
     n_rows = spec["n_rows"]
@@ -578,9 +771,13 @@ def build_kernel(spec: dict, backend: str = "cuda") -> Callable:
                              f"shape {tuple(x.shape)}")
         y = torch.zeros((n_rows,) + tuple(x.shape[1:]), dtype=torch.float32,
                         device=x.device)
-        for step in steps:
-            y = run_spec_step(step, fmt, x, y, n_rows, backend,
-                              tiles_per_step, order)
+        groups = (order or {}).get(ELL_GROUPS) if backend == "cuda" else None
+        for item in (groups or {}).get(x.ndim, range(len(steps))):
+            if isinstance(item, StepGroup):
+                y = _run_group(item, fmt, x, y)
+            else:
+                y = run_spec_step(steps[item], fmt, x, y, n_rows, backend,
+                                  tiles_per_step, order)
         return y
 
     return run

@@ -6,8 +6,11 @@ Each kernel family has: the CUDA C++ sources (``csrc/ell_spmv.cu`` and
 ``build.py`` with nvcc and loaded with ctypes), Python wrappers
 (``ell_spmv.py``, ``seg_spmv.py``, re-exported by ``ops.py``) and plain
 PyTorch versions (``ref.py``); ``csrc/rowmap_combine.cu`` (``combine.py``)
-is the ordered combine of the sharded plans. Submodules import lazily; nothing is built
-until a kernel first runs on a GPU tensor.
+is the ordered combine of the plans. The grouped K1 and K7
+(``ell_spmv.py``: ``TileGroup``, ``ell_spmv_grouped``,
+``ell_spmm_grouped``) run all of a plan's ELL width buckets in one launch.
+Submodules import lazily; nothing is built until a kernel first runs on
+a GPU tensor.
 """
 
 __all__ = ["build", "combine", "ell_spmv", "ops", "ref", "seg_spmv"]

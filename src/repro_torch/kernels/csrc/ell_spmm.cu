@@ -67,7 +67,8 @@ ell_spmm_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
   const long long t1 = min(t0 + tiles_per_block, T);
   spmm::split_rows<kUnroll, CPL>(vals, cols, x, n_cols, B, bc, W, wpr,
                                  t0 * R, t1 * R,
-                                 spmm::RowSink{out, B, fused, row0, n_rows});
+                                 spmm::RowSink{out, B, fused, row0, n_rows},
+                                 blockIdx.y, gridDim.y);
 }
 
 // One launch at CPL columns per lane (see the entry point below).
@@ -104,4 +105,19 @@ extern "C" int ell_spmm(const void* vals, int vals_bf16, const void* cols,
       vals, vals_bf16, cols, cols_i16, x, x_bf16, n_cols, B, bc, out, T, R, W,
       fused, row0, n_rows, tiles_per_block, wpr, grid, (cudaStream_t)stream);
   return (int)cudaGetLastError();
+}
+
+// The grouped K7: n buckets (spmm::BucketIn) in one launch, each bucket's
+// (T*R, B) sums at its out_row of the slab out; four columns a lane on the
+// same condition as ell_spmm, so every row keeps ell_spmm's bits.
+extern "C" int ell_spmm_grouped(const spmm::BucketIn* buckets, int n,
+                                int vals_bf16, int cols_i16, const void* x,
+                                int x_bf16, int n_cols, int B, float* out,
+                                void* stream) {
+  const size_t x_align = x_bf16 ? 8 : 16;
+  const bool four = B % 4 == 0 && (uintptr_t)x % x_align == 0;
+  return (four ? spmm::launch_grouped<kUnroll, 4>
+               : spmm::launch_grouped<kUnroll, 1>)(
+      buckets, n, vals_bf16, cols_i16, x, x_bf16, n_cols, B, out,
+      (cudaStream_t)stream);
 }

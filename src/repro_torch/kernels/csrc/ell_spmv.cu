@@ -153,7 +153,7 @@ ell_rows_wide_kernel(const V* __restrict__ vals, const C* __restrict__ cols,
                      long long n_tile_rows, int W, int wpr,
                      spmm::RowSink sink) {
   spmm::split_rows<kWideUnroll, 1>(vals, cols, x, n_cols, 1, 1, W, wpr, 0,
-                                   n_tile_rows, sink);
+                                   n_tile_rows, sink, blockIdx.y, gridDim.y);
 }
 
 // Launch the row sums of n_tile_rows rows of W slots into sink.
@@ -205,4 +205,18 @@ extern "C" int ell_fused(const void* vals, int vals_bf16, const void* cols,
   return launch_rows(vals, vals_bf16, cols, cols_i16, x, x_bf16, n_cols,
                      T * R, W, spmm::RowSink{y, 1, 1, row0, n_rows},
                      (cudaStream_t)stream);
+}
+
+// The grouped K1 for rows wider than kSlabRows: n buckets (spmm::BucketIn)
+// in one launch of ell_rows_wide_kernel's body, each bucket's T*R sums at
+// its out_row of the slab out. A bucket of W <= kSlabRows would get the
+// same bits here, one warp a row; plans launch those on their own, through
+// ell_rows' slab kernel (core/kernel_builder.py).
+extern "C" int ell_rows_grouped(const spmm::BucketIn* buckets, int n,
+                                int vals_bf16, int cols_i16, const void* x,
+                                int x_bf16, int n_cols, float* out,
+                                void* stream) {
+  return spmm::launch_grouped<kWideUnroll, 1>(
+      buckets, n, vals_bf16, cols_i16, x, x_bf16, n_cols, 1, out,
+      (cudaStream_t)stream);
 }

@@ -1,7 +1,8 @@
 // Shared helpers of the multi-RHS (SpMM) kernels K7-K11, and of the 1-RHS
 // ELL kernels K1/K2/K5: their ell_rows_wide_kernel (rows wider than 32
 // slots) runs split_rows with B = 1, and both their kernels store through
-// RowSink.
+// RowSink. The grouped K7 and K1 (ell_spmm_grouped, ell_rows_grouped) run
+// split_rows over many buckets in one launch (grouped_rows_kernel, below).
 //
 // x is row-major (n_cols, B): one gathered row x[col] is B contiguous
 // values. A warp works on one output row (ELL) or one segment (the seg
@@ -205,25 +206,27 @@ struct RowSink {
   }
 };
 
-// Rows [r_begin, r_end) of this grid column, kWarps / wpr rows per block
-// and pass, the passes strided over the grid's y axis; bc lanes per group,
-// each owning CPL columns, so a column chunk is bc * CPL columns. Every
-// row of a launch has W slots, so every thread of the block runs the same
-// passes, column chunks and slot chunks, and the __syncthreads are
-// reached by all of them.
+// Rows [r_begin, r_end), kWarps / wpr rows per block and pass, the passes
+// strided over n_blk blocks, of which this block is blk (the grid's y axis
+// in K7-K9 and K1/K2/K5, a bucket's share of the grid in the grouped
+// launch below); bc lanes per group, each owning CPL columns, so a column
+// chunk is bc * CPL columns. Every row of a block has W slots, so every
+// thread of the block runs the same passes, column chunks and slot chunks,
+// and the __syncthreads are reached by all of them.
 template <int U, int CPL, typename V, typename C, typename X>
 __device__ __forceinline__ void split_rows(
     const V* __restrict__ vals, const C* __restrict__ cols,
     const X* __restrict__ x, int n_cols, int B, int bc, long long W, int wpr,
-    long long r_begin, long long r_end, RowSink sink) {
+    long long r_begin, long long r_end, RowSink sink, long long blk,
+    long long n_blk) {
   __shared__ float part[kWarps][32 * CPL];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane / bc, j = lane % bc, groups = 32 / bc;
   const int rows_per_pass = kWarps / wpr, sub = warp % wpr;
   const long long Q = (long long)groups * U;  // slots of a chunk
   const long long n_chunks = (W + Q - 1) / Q;
-  for (long long r = r_begin + (long long)blockIdx.y * rows_per_pass;
-       r < r_end; r += (long long)gridDim.y * rows_per_pass) {
+  for (long long r = r_begin + blk * rows_per_pass; r < r_end;
+       r += n_blk * rows_per_pass) {
     const long long row = r + warp / wpr;
     const bool live = row < r_end;
     const long long base = row * W, end = live ? base + W : base;
@@ -262,6 +265,102 @@ __device__ __forceinline__ void split_rows(
       }
     }
   }
+}
+
+// ---- Grouped launches (K7, and K1's rows wider than 32, over buckets) ----
+//
+// A plan's ELL scatter steps are its width buckets: the serving matrix's
+// ELL plan has 26 of 1-5 tiles (128-640 rows) each. Launched one by one,
+// a bucket cannot fill the card's 132 SMs whatever wpr does inside it,
+// and each launch costs its wrapper call on the host. A grouped launch
+// runs every bucket of a group in one grid: the host lays the buckets'
+// blocks end to end (block0, n_blk), a block finds its bucket by a binary
+// search over block0 and runs split_rows on that bucket's rows, writing
+// its sums at the bucket's rows of one (sum T*R, B) output slab (out_row).
+// The descriptors travel by value in the kernel's parameter block
+// (__grid_constant__, read in place), kMaxGroup at a time: a table in
+// device memory would go stale once a plan's tensors are replaced (an
+// in-place update uploads new ones), and the host builds the parameters
+// anew at each launch from the pointers it is handed. split_rows fixes a
+// row's sum whatever wpr and the launch, so each row keeps the bits of
+// its bucket's own launch, and wpr is picked from the group's rows.
+constexpr int kMaxGroup = 64;
+
+// One bucket as the host hands it over (BucketIn of kernels/ell_spmv.py)
+struct BucketIn {
+  const void* vals;    // (T, R, W) tiles
+  const void* cols;
+  long long out_row;   // its first row in the output slab
+  long long rows;      // T * R
+  long long W;
+};
+
+struct Bucket {
+  const void* vals;
+  const void* cols;
+  long long out_row;
+  int rows, W, wpr;
+  int block0, n_blk;   // its blocks in the grid
+};
+
+struct Group {
+  Bucket b[kMaxGroup];
+  int n;
+};
+
+template <int U, int CPL, typename V, typename C, typename X>
+__global__ void __launch_bounds__(kThreads)
+grouped_rows_kernel(const __grid_constant__ Group g, const X* __restrict__ x,
+                    int n_cols, int B, int bc, float* __restrict__ out) {
+  const int bid = (int)blockIdx.x;
+  int lo = 0, hi = g.n - 1;  // the last bucket whose blocks start <= bid
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (g.b[mid].block0 <= bid) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  const Bucket& k = g.b[lo];
+  split_rows<U, CPL>(static_cast<const V*>(k.vals),
+                     static_cast<const C*>(k.cols), x, n_cols, B, bc, k.W,
+                     k.wpr, 0, k.rows, RowSink{out + k.out_row * B, B, 0, 0, 0},
+                     bid - k.block0, k.n_blk);
+}
+
+// One grouped launch of n <= kMaxGroup buckets at CPL columns a lane: each
+// bucket's wpr from the group's rows (warps_per_row), its blocks one pass
+// of kWarps / wpr rows each (at most 65535, as item_grid).
+template <int U, int CPL>
+int launch_grouped(const BucketIn* in, int n, int vals_bf16, int cols_i16,
+                   const void* x, int x_bf16, int n_cols, int B, float* out,
+                   cudaStream_t s) {
+  if (n < 1 || n > kMaxGroup || B < 1) return (int)cudaErrorInvalidValue;
+  const int bc = col_chunk(B / CPL);
+  long long total = 0;
+  for (int i = 0; i < n; ++i) total += in[i].rows;
+  Group g;
+  g.n = n;
+  long long blocks = 0;
+  for (int i = 0; i < n; ++i) {
+    if (in[i].rows < 1 || in[i].rows > INT32_MAX || in[i].W < 1 ||
+        in[i].W > INT32_MAX || in[i].out_row < 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const int wpr = warps_per_row(total, in[i].W, 32 / bc, U);
+    const long long per = kWarps / wpr;
+    long long nb = (in[i].rows + per - 1) / per;
+    if (nb > 65535) nb = 65535;  // the passes then stride over the rest
+    g.b[i] = Bucket{in[i].vals, in[i].cols, in[i].out_row, (int)in[i].rows,
+                    (int)in[i].W, wpr, (int)blocks, (int)nb};
+    blocks += nb;
+  }
+  SPMV_DISPATCH(vals_bf16, cols_i16, x_bf16,
+                grouped_rows_kernel<U, CPL, V, C, X>
+                <<<(unsigned)blocks, kThreads, 0, s>>>(
+                    g, (const X*)x, n_cols, B, bc, out));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace spmm

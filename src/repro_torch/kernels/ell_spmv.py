@@ -1,6 +1,8 @@
 """ELL row-dot kernels: SpMV K1, K2, K5 (wrappers over
 ``csrc/ell_spmv.cu``) and multi-RHS SpMM K7, K8, K9 (over
-``csrc/ell_spmm.cu``).
+``csrc/ell_spmm.cu``), and the grouped K1 and K7 (``ell_spmv_grouped``,
+``ell_spmm_grouped``), which run many width buckets (a
+:class:`TileGroup`) in one launch.
 
 Each wrapper runs its plain PyTorch version (``ref.py``) when the tensors
 lie on the CPU, and launches its CUDA kernel when they lie on a GPU; it
@@ -17,19 +19,37 @@ the two sources.
 from __future__ import annotations
 
 import ctypes
+import itertools
 
 import torch
 
 from . import build
-from .ref import (ell_spmm_direct_ref, ell_spmm_fused_ref, ell_spmm_ref,
-                  ell_spmv_direct_ref, ell_spmv_fused_ref, ell_spmv_ref)
+from .ref import (ell_spmm_direct_ref, ell_spmm_fused_ref,
+                  ell_spmm_grouped_ref, ell_spmm_ref, ell_spmv_direct_ref,
+                  ell_spmv_fused_ref, ell_spmv_grouped_ref, ell_spmv_ref)
 
 __all__ = ["ell_spmv", "ell_spmv_direct", "ell_spmv_fused", "ell_spmm",
-           "ell_spmm_direct", "ell_spmm_fused"]
+           "ell_spmm_direct", "ell_spmm_fused", "ell_spmv_grouped",
+           "ell_spmm_grouped", "TileGroup", "GROUP_MAX"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _VALS = (torch.float32, torch.bfloat16)
 _COLS = (torch.int32, torch.int16)
+
+
+# the buckets one grouped launch takes (kMaxGroup in csrc/spmm.cuh); a
+# larger group runs as several launches into the same slab
+GROUP_MAX = 64
+
+
+class _Bucket(ctypes.Structure):
+    """One bucket of a grouped launch (``BucketIn`` in csrc/spmm.cuh)."""
+
+    _fields_ = [("vals", _P), ("cols", _P), ("out_row", _L), ("rows", _L),
+                ("W", _L)]
+
+
+_BUCKETS = ctypes.POINTER(_Bucket)
 
 
 def _lib() -> ctypes.CDLL:
@@ -38,7 +58,10 @@ def _lib() -> ctypes.CDLL:
         lib.ell_rows.argtypes = [_P, _I, _P, _I, _P, _I, _I, _P, _L, _I, _P]
         lib.ell_fused.argtypes = [_P, _I, _P, _I, _P, _I, _I, _P, _L, _I, _I,
                                   _L, _L, _I, _P]
+        lib.ell_rows_grouped.argtypes = [_BUCKETS, _I, _I, _I, _P, _I, _I,
+                                         _P, _P]
         lib.ell_rows.restype = lib.ell_fused.restype = _I
+        lib.ell_rows_grouped.restype = _I
     return lib
 
 
@@ -47,7 +70,9 @@ def _spmm_lib() -> ctypes.CDLL:
     if lib.ell_spmm.argtypes is None:
         lib.ell_spmm.argtypes = [_P, _I, _P, _I, _P, _I, _I, _I, _P, _L, _I,
                                  _I, _I, _L, _L, _I, _P]
-        lib.ell_spmm.restype = _I
+        lib.ell_spmm_grouped.argtypes = [_BUCKETS, _I, _I, _I, _P, _I, _I,
+                                         _I, _P, _P]
+        lib.ell_spmm.restype = lib.ell_spmm_grouped.restype = _I
     return lib
 
 
@@ -210,9 +235,112 @@ def ell_spmm_fused(vals, cols, x, *, n_rows: int, row0: int = 0,
     return out
 
 
+# ------------------------ grouped launches (K1, K7) ------------------------
+
+class TileGroup:
+    """The width buckets of one grouped K1 or K7 launch: each bucket's
+    (T, R, W) ``vals`` and ``cols``, all of one vals and one cols dtype on
+    one device, checked once. Bucket i's T*R row sums go to rows
+    ``offsets[i]`` .. ``offsets[i + 1]`` of the launch's (``n_rows``[, B])
+    output slab. On a GPU the group also holds ``chunks``, each launch's
+    descriptors (``GROUP_MAX`` buckets a launch), built once, so that a
+    grouped call costs one ctypes call a launch; the group holds the
+    tensors, so the descriptors' pointers stay valid while it lives."""
+
+    def __init__(self, vals, cols):
+        vals, cols = tuple(vals), tuple(cols)
+        if not vals or len(vals) != len(cols):
+            raise ValueError(f"a group needs buckets, and cols for each: "
+                             f"{len(vals)} vals, {len(cols)} cols")
+        v0, c0 = vals[0], cols[0]
+        for v, c in zip(vals, cols):
+            if v.ndim != 3 or c.shape != v.shape or not v.numel():
+                raise ValueError(f"vals/cols must be equal non-empty 3-D "
+                                 f"shapes, got {tuple(v.shape)} / "
+                                 f"{tuple(c.shape)}")
+            if v.dtype not in _VALS or c.dtype not in _COLS:
+                raise TypeError(f"vals must be float32 or bfloat16 and cols "
+                                f"int32 or int16, got {v.dtype} / {c.dtype}")
+            if v.dtype != v0.dtype or c.dtype != c0.dtype:
+                raise TypeError("every bucket of a group must have one vals "
+                                "and one cols dtype")
+            if v.device != v0.device or c.device != v0.device:
+                raise ValueError("every bucket of a group must lie on one "
+                                 "device")
+            if not (v.is_contiguous() and c.is_contiguous()):
+                raise ValueError("vals and cols must be contiguous")
+        self.vals, self.cols = vals, cols
+        rows = [v.shape[0] * v.shape[1] for v in vals]
+        self.offsets = tuple(itertools.accumulate(rows, initial=0))
+        self.n_rows = self.offsets[-1]
+        self.device = v0.device
+        self.types = (int(v0.dtype == torch.bfloat16),
+                      int(c0.dtype == torch.int16))
+        self.chunks = ()
+        if v0.is_cuda:
+            self.chunks = tuple(
+                ((_Bucket * len(part))(*[
+                    _Bucket(vals[i].data_ptr(), cols[i].data_ptr(),
+                            self.offsets[i], rows[i], vals[i].shape[2])
+                    for i in part]), len(part))
+                for part in (range(lo, min(lo + GROUP_MAX, len(vals)))
+                             for lo in range(0, len(vals), GROUP_MAX)))
+
+
+def _grouped_out(group: TileGroup, x, x_ndim: int) -> torch.Tensor:
+    """Check x against a grouped launch and allocate its output slab."""
+    if x.ndim != x_ndim or (x_ndim == 2 and x.shape[1] < 1):
+        want = "1-D (n_cols,)" if x_ndim == 1 else "2-D (n_cols, B), B >= 1"
+        raise ValueError(f"x must be {want}, got shape {tuple(x.shape)}")
+    if x.dtype not in _VALS:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.device != group.device or not x.is_contiguous():
+        raise ValueError(f"x must be contiguous on {group.device}")
+    return torch.empty((group.n_rows,) + tuple(x.shape[1:]),
+                       dtype=torch.float32, device=x.device)
+
+
+def ell_spmv_grouped(group: TileGroup, x) -> torch.Tensor:
+    """The grouped K1: every bucket of ``group`` in one launch (one per
+    ``GROUP_MAX`` buckets), x (n_cols,) -> the (``group.n_rows``,) fp32
+    slab of their row partials, bucket after bucket; each row the bits of
+    its bucket's own ``ell_spmv`` for buckets wider than 32 slots (the
+    slab kernel's buckets also agree: csrc/spmm.cuh, split_rows)."""
+    if group.device.type != "cuda":
+        return ell_spmv_grouped_ref(group.vals, group.cols, x)
+    out = _grouped_out(group, x, 1)
+    lib, stream = _lib(), _stream(x)
+    for arr, n in group.chunks:
+        build.check(lib, lib.ell_rows_grouped(
+            arr, n, *group.types, x.data_ptr(), int(x.dtype == torch.bfloat16),
+            x.shape[0], out.data_ptr(), stream), "ell_rows_grouped")
+        ell_spmv_grouped.launches += 1
+    return out
+
+
+def ell_spmm_grouped(group: TileGroup, x) -> torch.Tensor:
+    """The grouped K7: every bucket of ``group`` in one launch (one per
+    ``GROUP_MAX`` buckets), x (n_cols, B) -> the (``group.n_rows``, B)
+    fp32 slab of their row partials, bucket after bucket, each row the
+    bits of its bucket's own ``ell_spmm``."""
+    if group.device.type != "cuda":
+        return ell_spmm_grouped_ref(group.vals, group.cols, x)
+    out = _grouped_out(group, x, 2)
+    lib, stream = _spmm_lib(), _stream(x)
+    for arr, n in group.chunks:
+        build.check(lib, lib.ell_spmm_grouped(
+            arr, n, *group.types, x.data_ptr(), int(x.dtype == torch.bfloat16),
+            x.shape[0], x.shape[1], out.data_ptr(), stream),
+            "ell_spmm_grouped")
+        ell_spmm_grouped.launches += 1
+    return out
+
+
 ell_spmv.launches = 0
 ell_spmv_direct.launches = 0
 ell_spmv_fused.launches = 0
 ell_spmm.launches = 0
 ell_spmm_direct.launches = 0
 ell_spmm_fused.launches = 0
+ell_spmv_grouped.launches = 0
+ell_spmm_grouped.launches = 0

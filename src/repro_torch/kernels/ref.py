@@ -15,9 +15,10 @@ from __future__ import annotations
 import torch
 
 __all__ = ["ell_spmv_ref", "ell_spmv_direct_ref", "ell_spmv_fused_ref",
-           "seg_spmv_ref", "seg_spmv_fused_ref", "ell_spmm_ref",
-           "ell_spmm_direct_ref", "ell_spmm_fused_ref", "seg_spmm_ref",
-           "seg_spmm_fused_ref", "rowmap_combine_ref", "SEG_MODES"]
+           "ell_spmv_grouped_ref", "seg_spmv_ref", "seg_spmv_fused_ref",
+           "ell_spmm_ref", "ell_spmm_direct_ref", "ell_spmm_fused_ref",
+           "ell_spmm_grouped_ref", "seg_spmm_ref", "seg_spmm_fused_ref",
+           "rowmap_combine_ref", "SEG_MODES"]
 
 SEG_MODES = ("seg_scan", "onehot_mxu")
 
@@ -64,6 +65,14 @@ def ell_spmv_fused_ref(vals, cols, x, *, n_rows: int, row0: int = 0,
     if hi > row0:
         out[row0:hi] += flat[:hi - row0]
     return out
+
+
+def ell_spmv_grouped_ref(vals, cols, x) -> torch.Tensor:
+    """The grouped K1: buckets ``vals[i]``, ``cols[i]`` (T_i, R_i, W_i)
+    -> the (sum T_i R_i,) fp32 slab of their K1 partials, flat, bucket
+    after bucket."""
+    return torch.cat([ell_spmv_ref(v, c, x).reshape(-1)
+                      for v, c in zip(vals, cols)])
 
 
 def _scan_partials(cs, seg_end) -> torch.Tensor:
@@ -144,6 +153,14 @@ def ell_spmm_direct_ref(vals, cols, x) -> torch.Tensor:
     """K8. K7's sums as the (T*R, B) slab of contiguous output rows."""
     out = ell_spmm_ref(vals, cols, x)
     return out.reshape(-1, out.shape[-1])
+
+
+def ell_spmm_grouped_ref(vals, cols, x) -> torch.Tensor:
+    """The grouped K7: buckets ``vals[i]``, ``cols[i]`` (T_i, R_i, W_i),
+    x (n_cols, B) -> the (sum T_i R_i, B) fp32 slab of their K7 partials,
+    bucket after bucket."""
+    return torch.cat([ell_spmm_ref(v, c, x).reshape(-1, x.shape[1])
+                      for v, c in zip(vals, cols)])
 
 
 def ell_spmm_fused_ref(vals, cols, x, *, n_rows: int, row0: int = 0,

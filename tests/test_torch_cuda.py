@@ -648,8 +648,9 @@ def _smoke():
 def test_row_sums_do_not_depend_on_width_or_launch(dev):
     """A row padded with zero slots to each W and launched among 1, 128
     and 65,536 rows of random others: K1 and K5 give it the same bits
-    everywhere, as do K7 and K9 at B = 8 (several random rows: a short
-    row's sums in two orders agree by chance about one time in three);
+    everywhere, as do K7 and K9 at B = 8, and the grouped K1 and K7 with
+    its bucket between two others (several random rows: a short row's
+    sums in two orders agree by chance about one time in three);
     ``row_sum_bits`` holds K1's sum to its plain version."""
     smoke = _smoke()
     for n, widths, seeds in smoke.ROW_SUM_CASES:
@@ -658,6 +659,151 @@ def test_row_sums_do_not_depend_on_width_or_launch(dev):
             distinct = {k: len(v) for k, v in got.items()}
             assert all(v == 1 for v in distinct.values()), (n, seed, distinct)
             assert got["K1"] == got["K5"] and got["K7"] == got["K9"]
+
+
+# (T, R, W) buckets of a grouped launch: K1's slab widths (<= 32) and
+# split-row widths, a serving tile, a bucket of one row
+GROUP_SHAPES = [(1, 128, 397), (3, 16, 33), (2, 24, 9), (1, 5, 1000),
+                (4, 128, 40), (1, 1, 64), (7, 8, 32)]
+
+
+def _group_case(rng, shapes, n_cols, vd, cd):
+    vals = [torch.from_numpy(rng.standard_normal(s)).to(vd) for s in shapes]
+    cols = [torch.from_numpy(rng.integers(0, n_cols, s)).to(cd)
+            for s in shapes]
+    return vals, cols
+
+
+@pytest.mark.parametrize("b", [1, 3, 8, 17])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("vd,cd,xd", STORAGE)
+def test_grouped_kernels_match_plain_and_the_per_bucket_kernels(
+        dev, b, aligned, vd, cd, xd):
+    """The grouped K1 (a 1-D x) and K7 over buckets of several widths:
+    within the tolerance of their plain versions, and each row the bits of
+    its bucket's own K1 / K7 launch (x one element off its alignment too,
+    where K7 takes one column a lane); columns out of range add 0, as in
+    the per-bucket kernels."""
+    rng = np.random.default_rng(b + 10 * aligned)
+    n_cols = 3000
+    vals, cols = _group_case(rng, GROUP_SHAPES, n_cols, vd, cd)
+    cols[1][0, 3, :5] = -1
+    cols[4][2, 7, 3] = n_cols
+    x = torch.from_numpy(rng.standard_normal(
+        (n_cols,) if b == 1 else (n_cols, b))).to(xd)
+    flat = torch.empty(x.numel() + (0 if aligned else 1), dtype=xd,
+                       device=dev)
+    flat[flat.numel() - x.numel():] = x.reshape(-1).to(dev)
+    xs = flat[flat.numel() - x.numel():].view(x.shape)
+    gv, gc = [v.to(dev) for v in vals], [c.to(dev) for c in cols]
+    group = ops.TileGroup(gv, gc)
+    if b == 1:
+        got = ops.ell_spmv_grouped(group, xs)
+        per = torch.cat([ops.ell_spmv(v, c, xs).reshape(-1)
+                         for v, c in zip(gv, gc)])
+    else:
+        got = ops.ell_spmm_grouped(group, xs)
+        per = torch.cat([ops.ell_spmm(v, c, xs).reshape(-1, b)
+                         for v, c in zip(gv, gc)])
+    assert torch.equal(got, per)
+    keep = [c.clamp(0, n_cols - 1) for c in cols]
+    zero = [torch.where((c >= 0) & (c < n_cols), v.float(), 0.0).to(vd)
+            for v, c in zip(vals, cols)]
+    plain = (ref.ell_spmv_grouped_ref(zero, keep, x) if b == 1
+             else ref.ell_spmm_grouped_ref(zero, keep, x))
+    _close(got, plain)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_grouped_launch_splits_past_group_max(dev, b):
+    """A group of more buckets than a launch's parameters hold runs as
+    several launches into one slab, each row with its bucket's bits."""
+    rng = np.random.default_rng(b)
+    n_cols = 500
+    shapes = [(1 + i % 3, 8, 33 + i) for i in range(ops.GROUP_MAX + 6)]
+    vals, cols = _group_case(rng, shapes, n_cols, torch.float32,
+                             torch.int32)
+    x = torch.from_numpy(rng.standard_normal(
+        (n_cols,) if b == 1 else (n_cols, b)).astype(np.float32)).to(dev)
+    gv, gc = [v.to(dev) for v in vals], [c.to(dev) for c in cols]
+    group = ops.TileGroup(gv, gc)
+    assert len(group.chunks) == 2
+    op, one = ((ops.ell_spmv_grouped, ops.ell_spmv) if b == 1
+               else (ops.ell_spmm_grouped, ops.ell_spmm))
+    before = ops.launch_counts()
+    got = op(group, x)
+    kid = "K1" if b == 1 else "K7"
+    assert ops.launch_counts()[kid] == before[kid] + 2
+    per = torch.cat([one(v, c, x).reshape((-1,) + tuple(got.shape[1:]))
+                     for v, c in zip(gv, gc)])
+    assert torch.equal(got, per)
+
+
+def _bucketed(n_buckets, base, tile_rows=16, n_cols=3000, seed=0):
+    """Row tiles of ``n_buckets`` widths base, base + 1, ..., 1-3 tiles
+    each, shuffled: an ELL plan of one width bucket per width."""
+    rng = np.random.default_rng(seed)
+    widths = [base + i for i in range(n_buckets) for _ in range(1 + i % 3)]
+    rng.shuffle(widths)
+    rows, cols = [], []
+    for t, w in enumerate(widths):
+        for r in range(tile_rows):
+            n = w if r == 0 else int(rng.integers(1, w + 1))
+            rows.append(np.full(n, t * tile_rows + r, np.int32))
+            cols.append(rng.choice(n_cols, n, replace=False).astype(np.int32))
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    return tm.SparseMatrix(len(widths) * tile_rows, n_cols, rows, cols,
+                           rng.standard_normal(rows.size).astype(
+                               np.float32)).canonical()
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("base", [25, 33])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_plan_call_equals_the_per_step_call(dev, b, base, fused,
+                                                    dtype):
+    """An ELL plan of 26 width buckets (25-50 slots: K1's slab buckets
+    among them, or 33-58) on the card: the grouped call gives the
+    per-step loop's bits, launching one grouped kernel and one combine
+    for the scatter buckets (with a 1-D x, K1's slab buckets one launch
+    each), and the oracle's answer within the search tolerance."""
+    from repro_torch.core.graph import run_graph
+    from repro_torch.core.kernel_builder import ELL_GROUPS, build_program
+    m = _bucketed(26, base, seed=base)
+    graph = OperatorGraph.chain(OpSpec.make("COMPRESS"),
+                                OpSpec.make("TILE_ROW_BLOCK", rows=16),
+                                OpSpec.make("LANE_ROW_BLOCK"),
+                                OpSpec.make("LANE_TOTAL_RED"))
+    prog = build_program(run_graph(m, graph), "cuda", fuse_combine=fused,
+                         storage_dtype=dtype)
+    steps = prog.spec["steps"]
+    assert len(steps) == 26
+    per_step = {k: v for k, v in prog.order.items() if k != ELL_GROUPS}
+    rng = np.random.default_rng(b)
+    x = torch.from_numpy(rng.standard_normal(
+        (m.n_cols,) if b == 1 else (m.n_cols, b)).astype(np.float32)).to(dev)
+    before = ops.launch_counts()
+    y = prog(x)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in ops.launch_counts().items()
+           if v != before[k]}
+    fused_n = sum(bool(st.get("fused")) for st in steps)
+    alone = [st for st in steps if b == 1 and not st.get("fused")
+             and prog.fmt[f"{st['key']}_vals"].shape[2] <= 32]
+    scatter = sum(st["combine"]["mode"] == "rowmap" for st in alone)
+    kid, fid = ("K1", "K5") if b == 1 else ("K7", "K9")
+    want = {kid: 1 + len(alone), "rowmap_combine": 1 + scatter}
+    if fused_n:
+        want[fid] = fused_n
+    assert got == want
+    assert torch.equal(y, prog.fn(prog.fmt, x, per_step))
+    oracle = (m.spmv_dense_oracle(x.cpu().numpy()) if b == 1
+              else m.spmm_dense_oracle(x.cpu().numpy()))
+    tol = 1e-3 if dtype == "float32" else 2e-2
+    assert np.abs(y.cpu().numpy() - oracle).max() <= (
+        tol * np.abs(oracle).max() + 1e-5)
 
 
 def test_rowmap_combine_matches_plain_and_repeats_bit_for_bit(dev):
