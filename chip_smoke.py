@@ -240,10 +240,13 @@ Phases, each printing its seconds:
    bf16 prediction within 25 % of phase 13 (b)'s peak while serving (a
    ``dryrun_decode {...}`` line); (c) ``python -m
    repro_torch.launch.dryrun --arch all --shape train_4k --mesh
-   single`` in a child, that cell of every architecture on the
-   reference's 16 x 16 pod description, 0 failed (a ``dryrun_sweep
-   {...}`` line): it needs no card, so it runs beside phases 4 and 4b
-   (nothing timed there) and is read after phase 4b; (d) the five
+   single`` with ``--variant base`` and with ``--variant opt`` (rank
+   0's own sharded call with ``act_dp``) in two children at once, that
+   cell of every architecture on the reference's 16 x 16 pod
+   description, 0 failed each, the opt sweep's largest argument +
+   temporary bytes (a ``dryrun_sweep {...}`` line each): they need no
+   card, so they run beside phases 4 and 4b (nothing timed there) and
+   are read after phase 4b; (d) the five
    examples on the card in children, at once and beside (a)-(b): each
    returns 0, passes its
    own check line (oracle errors, the loaded plan bit-identical, the
@@ -271,7 +274,9 @@ Phases, each printing its seconds:
    process, each with a warm-up, 3
    timed steps split at the optimizer and one under ``torch.profiler``
    (the card's busy time, its idle share of the step, host time,
-   collectives), each rank's peak memory and state bytes, beside phase
+   collectives), each rank's peak memory (the float32 model that every
+   rank builds whole at init included), the steps' own peak from the
+   state in place on (``step_peak_gb``) and state bytes, beside phase
    14 (b)'s unsharded step (a ``sharded_step {...}`` line each);
    (c) ``python -m repro_torch.launch.train`` under torchrun on (n, 1),
    reduced, with a failure injected, beside the first (a) (the first
@@ -295,7 +300,15 @@ Phases, each printing its seconds:
    device's, elsewhere the prefill logits must lie within 2e-2 x max
    |logit| of the float32 one-device prefill's, or twice the bf16 one
    device's distance from them, and a prefill with a planted fault
-   must miss that limit (a ``sharded_serve {...}`` line). Each line
+   must miss that limit (a ``sharded_serve {...}`` line). Then, once
+   every child has ended, in this process: the dry run's ``opt`` record
+   (``lower_cell(..., optimized=True)``, rank 0's sharded call on fake
+   tensors) of each step (b) ran, on its ``(data, model)`` mesh
+   description, its argument + temporary bytes within 25 % of that
+   step's ``step_peak_gb`` (the caching allocator's blocks; NCCL's own
+   buffers are outside it) and its argument bytes less the batch within
+   1 % of the state a rank holds (a ``dryrun_opt {...}`` line each, with
+   the collectives by kind beside the profiled step's count). Each line
    carries the card's name and power limit.
 
 Phases 3-4 and phases 6-7 are the two paths: the launch counters are set
@@ -4511,11 +4524,12 @@ DRYRUN_FLOPS_RATIO = (1.2, 1.3)
 # (c): the single-pod sweep's cells and its worker processes (all 32
 # cells took 139 s beside (d) on the H100 machine, and the run's total
 # neared its 1200 s: the train and decode cells here, 20 cells, which
-# took 108 s with 4 workers; 6 of the machine's 8 cores once the
-# examples (d) have ended; the whole sweep's time is in PERF.md)
-# the train cell of every architecture (decode is (b)'s cell in-process)
+# took 108 s with 4 workers; the whole sweep's time is in PERF.md)
+# the train cell of every architecture (decode is (b)'s cell in-process),
+# in both variants at once, base and opt, in two children of 7 workers
+# in all (the base sweep took 95.6 s with 6 alone)
 DRYRUN_SHAPES = "train_4k"
-DRYRUN_JOBS = 6
+DRYRUN_JOBS = {"base": 4, "opt": 3}
 DRYRUN_TIMEOUT_S = 420
 # (d): each example at a short budget, and the check its own line must pass
 EXAMPLE_TIMEOUT_S = 300
@@ -4750,60 +4764,80 @@ def dryrun_decode(serve: dict) -> None:
 
 
 def start_dryrun_sweep() -> tuple:
-    """(c) the single-pod dry-run sweep in a child: ``(child, its
-    output directory)``. It needs no card and times nothing of the port,
-    so the full run starts it beside phases 4 and 4b, which compile and
-    check bits but time nothing, and reads it before phase 5."""
+    """(c) the single-pod dry-run sweeps, ``--variant base`` and
+    ``--variant opt``, in two children at once: ``({variant: child},
+    their output directory)``. They need no card and time nothing of the
+    port, so the full run starts them beside phases 4 and 4b, which
+    compile and check bits but time nothing, and reads them before phase
+    5."""
     scratch = ROOT / "results"               # listed in .gitignore
     scratch.mkdir(exist_ok=True)
     work = tempfile.TemporaryDirectory(dir=scratch)
     out = Path(work.name)
-    child = start_child(["-m", "repro_torch.launch.dryrun", "--arch",
-                         "all", "--shape", DRYRUN_SHAPES, "--mesh",
-                         "single", "--jobs", str(DRYRUN_JOBS), "--out",
-                         str(out / "dryrun")], out / "dryrun.log")
-    return child, work
+    children = {v: start_child(
+        ["-m", "repro_torch.launch.dryrun", "--arch", "all", "--shape",
+         DRYRUN_SHAPES, "--mesh", "single", "--variant", v, "--jobs",
+         str(jobs), "--out", str(out / v)], out / f"{v}.log")
+        for v, jobs in DRYRUN_JOBS.items()}
+    return children, work
 
 
 def dryrun_sweep_phase(sweep: tuple) -> None:
-    """Phase 15 (c), read before phase 5: the wait for the sweep beside
-    phases 4 and 4b, then its line."""
-    done = phase("15c dry-run sweep (started before phase 4)")
-    child, work = sweep
+    """Phase 15 (c), read before phase 5: the wait for the sweeps beside
+    phases 4 and 4b, then their lines."""
+    done = phase("15c dry-run sweeps (started before phase 4)")
+    children, work = sweep
     t0 = time.perf_counter()
     try:
-        dryrun_sweep_result(child, Path(work.name) / "dryrun")
+        dryrun_sweep_result(children, Path(work.name))
     finally:
         work.cleanup()
-    print(f"  waited {time.perf_counter() - t0:.1f} s for the sweep after "
+    print(f"  waited {time.perf_counter() - t0:.1f} s for the sweeps after "
           "phase 4b")
     done()
 
 
-def dryrun_sweep_result(child: tuple, out_dir: Path) -> None:
-    """(c) the single-pod sweep's child: 0 failed, one record a cell."""
+def dryrun_sweep_result(children: dict, out_dir: Path) -> None:
+    """(c) each sweep's child: 0 failed, one record a cell, of its
+    variant; an opt record's costs and temporaries from rank 0's sharded
+    call (a ``dryrun_sweep {...}`` line each)."""
     from repro_torch.configs import REGISTRY, cells_for
-    rc, secs, out = wait_children({"sweep": child},
-                                  DRYRUN_TIMEOUT_S)["sweep"]
+    from repro_torch.launch.dryrun import RANK0_BASIS
+    ends = wait_children(children, DRYRUN_TIMEOUT_S)
     want = sum(1 for cfg in REGISTRY.values() for c in cells_for(cfg)
                if DRYRUN_SHAPES == "all"
                or c.name in DRYRUN_SHAPES.split(","))
-    summary = re.search(r"dry-run complete: (\d+) ok, (\d+) failed", out)
-    recs = [json.loads(p.read_text()) for p in sorted(out_dir.glob("*.json"))]
-    line = {"mesh": "pod16x16", "shapes": DRYRUN_SHAPES,
-            "jobs": DRYRUN_JOBS, "returncode": rc, "seconds": secs,
-            "cells": want, "records": len(recs),
-            "ok": int(summary.group(1)) if summary else None,
-            "failed": int(summary.group(2)) if summary else None,
-            "cell_wall_s_sum": sum(r["wall_s"] for r in recs),
-            "largest_argument_bytes": max(
-                (r["memory"]["argument_bytes"], r["arch"], r["shape"])
-                for r in recs if r["ok"]) if recs else None}
-    print("dryrun_sweep " + json.dumps(line))
-    if rc != 0:
-        print(out[-3000:])
-    require(rc == 0 and line["failed"] == 0 and line["ok"] == want
-            and len(recs) == want, f"dry-run sweep: {line}")
+    bad = []
+    for v, (rc, secs, out) in ends.items():
+        summary = re.search(r"dry-run complete: (\d+) ok, (\d+) failed",
+                            out)
+        recs = [json.loads(p.read_text())
+                for p in sorted((out_dir / v).glob("*.json"))]
+        ok = [r for r in recs if r["ok"]]
+        line = {"mesh": "pod16x16", "shapes": DRYRUN_SHAPES, "variant": v,
+                "jobs": DRYRUN_JOBS[v], "returncode": rc, "seconds": secs,
+                "cells": want, "records": len(recs),
+                "ok": int(summary.group(1)) if summary else None,
+                "failed": int(summary.group(2)) if summary else None,
+                "cell_wall_s_sum": sum(r["wall_s"] for r in recs),
+                "largest_argument_bytes": max(
+                    (r["memory"]["argument_bytes"], r["arch"], r["shape"])
+                    for r in ok) if ok else None,
+                "largest_argument_plus_temp_bytes": max(
+                    (r["memory"]["argument_bytes"]
+                     + r["memory"]["temp_bytes"], r["arch"], r["shape"])
+                    for r in ok) if ok else None}
+        print("dryrun_sweep " + json.dumps(line))
+        if rc != 0:
+            print(out[-3000:])
+        if not (rc == 0 and line["failed"] == 0 and line["ok"] == want
+                and len(recs) == want
+                and all(r["variant"] == v for r in recs)
+                and (v == "base" or all(
+                    r["cost_basis"] == r["temp_basis"] == RANK0_BASIS
+                    and "flops_global" not in r for r in ok))):
+            bad.append(line)
+    require(not bad, f"dry-run sweep: {bad}")
 
 
 def start_examples(work: Path) -> dict:
@@ -5082,31 +5116,41 @@ def full_step_line(step, state, batches) -> tuple:
                    "losses": [float(met["loss"])] + losses, **prof}
 
 
+def full_train_config():
+    """(b)'s ``TrainConfig``: bf16 compute, remat, phase 14 (b)'s AdamW."""
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainConfig
+    return TrainConfig(opt=AdamWConfig(lr=3e-4, warmup_steps=2,
+                                       total_steps=100),
+                       compute_dtype="bfloat16", remat=True)
+
+
 def sharded_full(mesh, arch: str = GRANITE) -> dict:
     """(b) ``arch`` at full width and depth, bf16 compute, remat, 4 x 512
     tokens a data position (the global batch 4 x 512 on one card): for
     granite, in this process the unsharded step on 4 rows (phase 14
     (b)'s batch) first; then the sharded step on this rank's rows of the
     global batch, each with a warm-up, 3 timed steps (CUDA events) and
-    one under the profiler; each rank's peak memory and state bytes (the
-    largest over the ranks). ``arch`` ending in ``SEQ_MARK``: the
-    sharded step alone, with ``seq_shard`` (``seq_config``)."""
+    one under the profiler; each rank's peak memory (the whole part's,
+    the float32 model that ``init_params`` builds on every rank
+    included), the steps' own peak (``step_peak_gb``: from the state
+    and batches in place to the end of the profiled step) and state
+    bytes, each the largest over the ranks. ``arch`` ending in
+    ``SEQ_MARK``: the sharded step alone, with ``seq_shard``
+    (``seq_config``)."""
     seq = arch.endswith(SEQ_MARK)
     arch = arch.removesuffix(SEQ_MARK)
     import torch.distributed as dist
     from repro_torch.data import DataConfig, SyntheticTokenPipeline
     from repro_torch.dist.sharding import dp_axes, param_specs, shard_batch
     from repro_torch.models import init_params
-    from repro_torch.train.optimizer import AdamWConfig, tree_leaves
-    from repro_torch.train.step import TrainConfig, init_state, \
-        make_train_step
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.step import init_state, make_train_step
     cfg = llm_cfg(arch)
     dev, coords = mesh.device, mesh.coords
     n_dp = int(np.prod([mesh.shape[a] for a in dp_axes(mesh)]))
     B, S = 4 * n_dp, SHARDED_FULL_SEQ
-    tc = TrainConfig(opt=AdamWConfig(lr=3e-4, warmup_steps=2,
-                                     total_steps=100),
-                     compute_dtype="bfloat16", remat=True)
+    tc = full_train_config()
     pipe = SyntheticTokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=S,
                                              global_batch=B, seed=0))
     glob = [pipe.batch_at(s) for s in range(5)]
@@ -5133,22 +5177,26 @@ def sharded_full(mesh, arch: str = GRANITE) -> dict:
     state = init_state(cfg, tc, params)
     state_bytes = sum(t.numel() * t.element_size()
                       for t in tree_leaves(state))
+    batches = [on(dev, shard_batch(b, cfg, mesh, coords)) for b in glob]
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()     # the steps' own peak
     state, shd = full_step_line(
         make_train_step(cfg, seq_config(tc, mesh, seq), grad_specs=specs,
-                        mesh=mesh), state,
-        [on(dev, shard_batch(b, cfg, mesh, coords)) for b in glob])
-    peak = torch.tensor([torch.cuda.max_memory_allocated(), state_bytes],
+                        mesh=mesh), state, batches)
+    step_peak = torch.cuda.max_memory_allocated()
+    peak = torch.tensor([max(init_peak, step_peak), step_peak, state_bytes],
                         dtype=torch.float64, device=dev)
     dist.all_reduce(peak, op=dist.ReduceOp.MAX)
     out.update(shd, tokens_per_s=B * S / (shd["step_ms"] / 1e3),
                model_tflops_per_s=model_flops(cfg, B, S)
                / (shd["step_ms"] / 1e3) / 1e12,
                peak_memory_gb=float(peak[0]) / 1e9,
-               state_bytes_per_rank=int(peak[1]),
+               step_peak_gb=float(peak[1]) / 1e9,
+               state_bytes_per_rank=int(peak[2]),
                unsharded_same_process=one)
     require(all(np.isfinite(shd["losses"] + (one or shd)["losses"])),
             "sharded_step: a non-finite loss")
-    del state, params
+    del state, params, batches
     torch.cuda.empty_cache()
     return out
 
@@ -5530,12 +5578,77 @@ def sharded_cli_result(child: tuple, n: int) -> dict:
     return {"returncode": rc, "seconds": secs, "mesh": [n, 1], **res}
 
 
+# (ii): the state a rank holds against the opt record's argument bytes
+# less its batch (both exact: the specs divide every leaf)
+DRYRUN_STATE_TOL = 0.01
+
+
+def dryrun_opt(runs: list, card: str) -> None:
+    """(ii) for each step (b) ran, ``((data, model), its sharded_step
+    dict)``: ``lower_cell(..., optimized=True)`` of the same step (its
+    architecture at full depth, the global batch, (b)'s ``TrainConfig``
+    with its ``seq_shard``) on a ``(data, model)`` mesh description, in
+    this process, with no process group: rank 0's sharded call counted on
+    fake tensors. Its argument + temporary bytes against the largest
+    step peak of a rank (the caching allocator's blocks; NCCL's own
+    buffers are not in it), its argument bytes less the batch against
+    the state a rank holds, its collectives beside the profiled step's
+    (a ``dryrun_opt {...}`` line each)."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import Mesh
+    done = phase("16 (ii) the dry run's opt records against (b)")
+    for (data, model), step in runs:
+        mesh = Mesh(("data", "model"), (data, model))
+        B, S = step["batch"]
+        tc = seq_config(full_train_config(), mesh, step["seq_shard"])
+        low = lower_cell(llm_cfg(step["arch"]), ShapeCell("smoke_train", S,
+                                                          B, "train"),
+                         mesh, tc, optimized=True)
+        comp = low.compile()
+        mem, coll = comp.memory_analysis(), comp.collectives()
+        predicted = mem["argument_bytes"] + mem["temp_bytes"]
+        measured = step["step_peak_gb"] * 1e9
+        batch = sum(t.shard_bytes(mesh) for t in low.inputs.values())
+        line = {"arch": step["arch"], "mesh": [data, model],
+                "seq_shard": step["seq_shard"], "cell": [B, S, "train"],
+                "argument_bytes": mem["argument_bytes"],
+                "temp_bytes": mem["temp_bytes"],
+                "predicted_bytes": predicted,
+                "measured_step_peak_bytes": measured,
+                "predicted_over_step_peak": predicted / measured,
+                "measured_peak_bytes": step["peak_memory_gb"] * 1e9,
+                "state_bytes_per_rank": step["state_bytes_per_rank"],
+                "argument_bytes_less_batch": mem["argument_bytes"] - batch,
+                "collectives": {k: v["count"] for k, v in coll.items()
+                                if isinstance(v, dict)},
+                "collectives_bytes": coll["total_bytes"],
+                "profiled_collectives": step["collectives"],
+                "cost_basis": comp.cost_basis,
+                "temp_basis": comp.temp_basis,
+                "flops": comp.cost_analysis()["flops"],
+                "lower_s": low.lower_s, "compile_s": comp.compile_s,
+                "card": card}
+        print("dryrun_opt " + json.dumps(line), flush=True)
+        require(abs(predicted / measured - 1) <= DRYRUN_MEM_TOL,
+                f"dry run opt of {step['arch']} on {[data, model]}: "
+                f"{predicted:.4g} bytes predicted, {measured:.4g} measured "
+                "at the step's peak")
+        require(abs(line["argument_bytes_less_batch"]
+                    / step["state_bytes_per_rank"] - 1) <= DRYRUN_STATE_TOL,
+                f"dry run opt of {step['arch']} on {[data, model]}: "
+                f"{line['argument_bytes_less_batch']} argument bytes less "
+                f"the batch, {step['state_bytes_per_rank']} held")
+    done()
+
+
 def sharded_phase(train, only=None) -> None:
     """Phase 16: the sharded train step and the sharded serving step on a
     mesh of every visible card, one process a card (torchrun, NCCL),
     beside phase 14 (b)'s unsharded step (``train``; None with
     ``--sharded-only``); ``only``: the ``(data, model)`` meshes to run, of
-    ``sharded_meshes``'s."""
+    ``sharded_meshes``'s. Then the dry run's opt records of (b)'s steps
+    against them (``dryrun_opt``)."""
     train = train or {"step_ms": None, "peak_memory_gb": None,
                       "step_peak_gb": None}
     done = phase("16 sharded training")
@@ -5550,6 +5663,7 @@ def sharded_phase(train, only=None) -> None:
         meshes = [(m, a) for m, a in sharded_meshes(n)
                   if only is None or m in only]
         require(meshes, f"no mesh of {only} on {n} cards")
+        runs = []
         for i, ((data, model), archs) in enumerate(meshes):
             out = work / f"sharded_{data}x{model}.json"
             gate = work / f"gate_{data}x{model}"
@@ -5573,6 +5687,7 @@ def sharded_phase(train, only=None) -> None:
             for check in res["check"]:
                 print("sharded_check " + json.dumps({**check,
                                                      "card": card}))
+            runs += [((data, model), step) for step in res["step"]]
             for step in res["step"]:
                 print("sharded_step " + json.dumps({
                     **step, "child_s": secs,
@@ -5588,6 +5703,7 @@ def sharded_phase(train, only=None) -> None:
                 "card": card}))
         print("sharded_cli " + json.dumps({**cli_line, "card": card}))
     done()
+    dryrun_opt(runs, card)
 
 
 def main(argv: list) -> int:

@@ -16,19 +16,23 @@ What each key means here, against the reference's XLA numbers:
 
 * ``lower_s``: the seconds to build the fake state and inputs;
   ``compile_s``: the seconds of the counted pass; ``memory_s``: of the
-  memory pass.
+  memory pass (0 in an ``opt`` record, whose one pass counts both).
 * ``flops``, ``bytes_accessed``, ``transcendentals``: counted in the one
   pass at global shapes and divided by the mesh's device count, the
-  share of a perfectly partitioned program; ``flops_global`` is the
-  undivided count. ``flops`` is ``torch.utils.flop_counter``'s count,
-  which covers matmul-like ops only (mm, bmm, addmm, convolution,
-  attention), where XLA's also counts elementwise work. Bytes accessed
-  are, over every aten op that is not a view, the bytes of its tensor
-  inputs and outputs (XLA's "bytes accessed" in spirit: no fusion, so
-  more). Transcendentals are the elements of the inputs of exp, log,
-  tanh, sigmoid, rsqrt, sin, cos, erf and of the ops that compute one of
-  them per element (softmax, log-softmax, logsumexp, silu, gelu,
-  softplus, and the backward ops of silu and gelu).
+  share of a perfectly partitioned program (``cost_basis``:
+  ``COST_BASIS``); ``flops_global`` is the undivided count. ``flops`` is
+  ``torch.utils.flop_counter``'s count, which covers matmul-like ops
+  only (mm, bmm, addmm, convolution, attention), where XLA's also counts
+  elementwise work. Bytes accessed are, over every aten op that is not
+  a view, the bytes of its tensor inputs and outputs (XLA's "bytes
+  accessed" in spirit: no fusion, so more), where an op that reads only
+  its inputs' shapes (``new_empty``, ``zeros_like``) counts its outputs
+  alone; collectives and ``prim`` ops (a ``.device`` query) count
+  nothing. Transcendentals are the
+  elements of the inputs of exp, log, tanh, sigmoid, rsqrt, sin, cos,
+  erf and of the ops that compute one of them per element (softmax,
+  log-softmax, logsumexp, silu, gelu, softplus, and the backward ops of
+  silu and gelu).
 * ``memory``: ``argument_bytes`` is, per device, the sum over the state
   and input leaves of bytes / the product of the sizes of the mesh axes
   in the leaf's spec (``dist.sharding``'s ``param_specs``,
@@ -39,11 +43,10 @@ What each key means here, against the reference's XLA numbers:
   caches: the port updates both in place). ``temp_bytes`` is the peak of
   live fake-tensor bytes beyond the arguments in a second fake pass at
   the **per-device batch** (global batch / batch shards). That pass runs
-  the one-device step (the sharded step, ``dist.collectives``, needs a
-  process group), so in it the activations are whole over the ``model``
-  axis, and so are the parameter-shaped temporaries (gradients, the
-  optimizer's): the record says so in ``temp_basis``.
-  ``code_bytes`` is 0.
+  the one-device step, so in it the activations are whole over the
+  ``model`` axis, and so are the parameter-shaped temporaries
+  (gradients, the optimizer's): the record says so in ``temp_basis``
+  (``TEMP_BASIS``). ``code_bytes`` is 0.
 * ``collectives``: the port has no SPMD partitioner and no HLO to read:
   every cell's ``collectives_basis`` is ``"issued"``. The cell's
   sharded call runs once as rank 0 of a fake process group of the
@@ -59,9 +62,9 @@ What each key means here, against the reference's XLA numbers:
   ``tc``'s ``seq_shard`` and ``act_dp``; a prefill or decode cell's
   ``prefill`` / ``decode_step`` with ``layout=`` (the sharded serving
   step, under ``torch.no_grad()``). A collective over a group of one
-  process moves nothing and is not counted (XLA removes it). The count
+  process moves nothing and is not counted (XLA removes it). The pass
   refuses to run where a process group is already initialised, and
-  destroys its own before it returns.
+  destroys its own before it returns (``sharded_pass``).
 
   ``collective_stats`` keeps the rule the prefill and decode cells were
   counted by before the port had a sharded serving step: derived from
@@ -84,24 +87,42 @@ What each key means here, against the reference's XLA numbers:
   in the partitioned HLO (a scan body's once), an issued count is of
   every call, once a block.
 
+The ``opt`` variant (``--variant opt``, ``lower_cell(...,
+optimized=True)``, records ``<arch>.<shape>.<mesh>.opt.json`` with
+``"variant": "opt"``) is the reference's lowering with ``act_dp =
+dp_axes(mesh)``, the activations anchored to the data axes, whose XLA
+costs and memory are per device of the partitioned program. Here its
+counterpart is **rank 0's own sharded call** with ``act_dp`` (the train
+step's ``TrainConfig(act_dp=...)``, ``seq_shard`` as the ``TrainConfig``
+says; ``prefill`` / ``decode_step`` with ``act_dp=layout.dp``), the call
+the collectives are counted on: one pass of it counts the collectives,
+``flops``, ``bytes_accessed`` and ``transcendentals`` as rank 0's own
+counts (``cost_basis``: ``RANK0_BASIS``) and ``temp_bytes`` as the peak
+of live bytes beyond rank 0's local arguments (its gathered leaves,
+activations and their saved tensors, gradients, the optimizer's
+temporaries; the donated state's in-place updates are not new bytes;
+``temp_basis``: ``RANK0_BASIS``). ``argument_bytes + temp_bytes`` then
+says whether a cell fits one device of its mesh, the model-split cells
+included. ``argument_bytes``, ``output_bytes`` and ``alias_bytes`` stay
+exact from the specs, as in ``base``, and an ``opt`` record has no
+``flops_global``: what a rank computes is not the global count over the
+device count where work is repeated (MoE routing, gathered logits).
+
 ``launch/compat.py`` is not ported: ``normalize_cost_analysis`` only
 collapses jax's drift in the return shape of
 ``Compiled.cost_analysis()``, and here the counts are a dict from the
-start (so is ``SpmvPlan.cost_analysis``). The reference's ``--variant
-opt`` (its ``act_dp`` activation-sharding constraints) is not a CLI
-variant here: ``lower_cell(..., train_cfg=TrainConfig(act_dp=...,
-seq_shard=...))`` counts a train cell's collectives with them; the
-one-device passes (costs, memory) run without them, which computes the
-same thing.
+start (so is ``SpmvPlan.cost_analysis``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
-      --shape all --mesh both --out results/dryrun_torch [--jobs 4]
+      --shape all --mesh both --out results/dryrun_torch [--jobs 4] \\
+      [--variant opt]
 """
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
@@ -126,17 +147,20 @@ from repro_torch.launch.mesh import Mesh, make_production_mesh
 from repro_torch.models import (cache_spec, cast_params, decode_step,
                                 init_params, n_blocks, pattern_specs,
                                 prefill)
-from repro_torch.models.model import CAST_LEAVES, tree_map
+from repro_torch.models.model import CAST_LEAVES, padded_vocab, tree_map
 from repro_torch.models.moe import _capacity
 from repro_torch.train.optimizer import adamw_init
 from repro_torch.train.step import TrainConfig, make_train_step
 
 __all__ = ["TensorSpec", "input_specs", "lower_cell", "run_cell",
-           "collective_stats", "issued_collectives", "main"]
+           "collective_stats", "issued_collectives", "sharded_pass",
+           "main"]
 
 _COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                 "collective-permute")
 TEMP_BASIS = "per-device batch, model axis unsplit"
+COST_BASIS = "global count / devices"
+RANK0_BASIS = "rank 0's sharded call"
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -227,6 +251,11 @@ _TRANSCENDENTAL = frozenset({
     _aten.cos, _aten.erf, _aten._softmax, _aten._log_softmax,
     _aten.logsumexp, _aten.silu, _aten.gelu, _aten.softplus,
     _aten.silu_backward, _aten.gelu_backward})
+# ops that read no more of their tensor inputs than shape, dtype, device
+_SHAPE_ONLY = frozenset({
+    _aten.new_empty, _aten.new_empty_strided, _aten.new_zeros,
+    _aten.new_ones, _aten.new_full, _aten.empty_like, _aten.zeros_like,
+    _aten.ones_like, _aten.full_like})
 
 
 def _tensors(tree) -> list:
@@ -238,8 +267,10 @@ def _bytes(t: torch.Tensor) -> int:
 
 
 class _CostMode(TorchDispatchMode):
-    """Bytes of every non-view aten op's tensor inputs and outputs, and
-    the elements that transcendental ops take."""
+    """Bytes of every non-view aten op's tensor inputs and outputs (only
+    the outputs of ops that read their inputs' shapes alone; no
+    collective and no ``prim`` op, such as a ``.device`` query), and the
+    elements that transcendental ops take."""
 
     def __init__(self):
         super().__init__()
@@ -249,8 +280,9 @@ class _CostMode(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if not func.is_view:
-            ins = _tensors((args, kwargs))
+        if func.namespace == "aten" and not func.is_view:
+            ins = [] if func.overloadpacket in _SHAPE_ONLY else \
+                _tensors((args, kwargs))
             self.bytes_accessed += sum(map(_bytes, ins)) + sum(
                 map(_bytes, _tensors(out)))
             if func.overloadpacket in _TRANSCENDENTAL and ins:
@@ -334,11 +366,29 @@ def _rank0_mesh(mesh) -> Mesh:
                 groups=groups)
 
 
-def issued_collectives(low: "Lowered") -> dict:
-    """The collectives the cell's sharded call (a train step, a prefill or
-    a decode step) issues on one device (rank 0) of its mesh, counted as
-    it runs once in a fake process group on fake tensors (see the module
-    docstring)."""
+@dataclasses.dataclass
+class ShardedPass:
+    """What rank 0's own sharded call counted in one pass: the
+    collectives it issued (per device, by kind), its FLOPs, bytes
+    accessed and transcendentals, the peak of live bytes beyond its
+    local arguments (None where the pass counted collectives only), its
+    (fake) outputs and the pass's seconds."""
+
+    collectives: dict
+    flops: Optional[float]
+    bytes_accessed: Optional[float]
+    transcendentals: Optional[float]
+    temp_bytes: Optional[int]
+    outputs: tuple
+    seconds: float
+
+
+def sharded_pass(low: "Lowered", costs: bool = True) -> ShardedPass:
+    """The cell's sharded call (a train step, a prefill or a decode step)
+    run once as rank 0 of a fake process group of its mesh's size, on
+    fake tensors at rank 0's local shapes, with every counter open (see
+    the module docstring); ``costs=False`` counts the collectives alone
+    (a base record's), which takes about half the time."""
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
         raise RuntimeError(
@@ -346,22 +396,21 @@ def issued_collectives(low: "Lowered") -> dict:
             "group of its own, and a process group is already initialised "
             "in this process: run the dry run outside it")
     from torch.testing._internal.distributed.fake_pg import FakeStore
+    t0 = time.perf_counter()
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=low.mesh.size)
     try:
         mesh = _rank0_mesh(low.mesh)
-        specs = tree_map(lambda t: t.spec, low.params)
-        with FakeTensorMode():
-            state, ins = low._local_args()
-            if low.cell.kind == "train":
-                step = make_train_step(low.cfg, low.tc, grad_specs=specs,
-                                       mesh=mesh)
-                with count_collectives() as issued:
-                    step(state, ins)
-            else:
-                layout = Layout(low.cfg, mesh, specs)
-                with torch.no_grad(), count_collectives() as issued:
-                    low._call(state, ins, layout)
+        with FakeTensorMode(), contextlib.ExitStack() as ctx:
+            args = low._local_args()
+            if low.cell.kind != "train":
+                ctx.enter_context(torch.no_grad())
+            if costs:
+                flops = ctx.enter_context(FlopCounterMode(display=False))
+                cost = ctx.enter_context(_CostMode())
+                live = ctx.enter_context(_LiveBytes(_tensors(args)))
+            issued = ctx.enter_context(count_collectives())
+            outputs = low._call(*args, mesh=mesh)
     finally:
         dist.destroy_process_group()
     stats = _no_stats()
@@ -369,7 +418,17 @@ def issued_collectives(low: "Lowered") -> dict:
         if n > 1:
             stats[kind]["count"] += 1
             stats[kind]["bytes"] += nbytes
-    return _totals(stats)
+    counts = (float(flops.get_total_flops()), float(cost.bytes_accessed),
+              float(cost.transcendentals), live.peak) if costs else \
+        (None,) * 4
+    return ShardedPass(_totals(stats), *counts, outputs,
+                       time.perf_counter() - t0)
+
+
+def issued_collectives(low: "Lowered") -> dict:
+    """The collectives the cell's sharded call issues on one device (rank
+    0) of its mesh (``sharded_pass``'s, collectives alone)."""
+    return sharded_pass(low, costs=False).collectives
 
 
 def collective_stats(cfg: ArchConfig, cell: ShapeCell, mesh, params,
@@ -459,7 +518,9 @@ def _fake_caches(tree, batch):
 @dataclasses.dataclass
 class Lowered:
     """One cell ready to count: its configs, the parameters' and inputs'
-    ``TensorSpec`` trees, and the seconds they took to build."""
+    ``TensorSpec`` trees, and the seconds they took to build.
+    ``act_dp``: the ``opt`` variant's data axes, which its serving calls
+    take (a train step takes ``tc.act_dp``); None for ``base``."""
 
     cfg: ArchConfig
     cell: ShapeCell
@@ -469,6 +530,11 @@ class Lowered:
     inputs: dict
     param_dtype: Optional[torch.dtype]
     lower_s: float
+    act_dp: Optional[tuple] = None
+
+    @property
+    def optimized(self) -> bool:
+        return self.act_dp is not None
 
     @property
     def batch_shards(self) -> int:
@@ -507,26 +573,45 @@ class Lowered:
             return {"params": params, "opt": adamw_init(params)}, ins
         return params, ins
 
-    def _call(self, state, ins, layout=None):
-        """Run the cell's step once on ``_args``; returns its outputs.
-        The one-device step runs without ``act_dp`` and ``seq_shard``
-        (which need a mesh of processes): it computes the same thing.
-        ``layout``: a serving cell's sharded call, on ``_local_args``."""
+    def _call(self, state, ins, mesh=None):
+        """Run the cell's step once; returns its outputs. Without
+        ``mesh``, a base record's passes: the one-device step on
+        ``_args``, without ``act_dp`` and ``seq_shard`` (they need a mesh
+        of processes), so its costs are the global counts and its
+        temporaries hold every leaf and activation whole over ``model``.
+        With ``mesh`` (rank 0's, in ``sharded_pass``'s fake group): the
+        sharded call on ``_local_args``, with the ``TrainConfig``'s
+        ``act_dp`` and ``seq_shard`` and the serving calls' ``act_dp``,
+        the pass an ``opt`` record reads its costs from too."""
         cfg = self.cfg
-        tc = dataclasses.replace(self.tc, act_dp=None, seq_shard=False)
+        tc, act_dp, layout, sharded = self.tc, self.act_dp, None, {}
+        if mesh is None:
+            tc = dataclasses.replace(tc, act_dp=None, seq_shard=False)
+            act_dp = None
+        else:
+            specs = tree_map(lambda t: t.spec, self.params)
+            layout = Layout(cfg, mesh, specs)
+            sharded = {"grad_specs": specs, "mesh": mesh}
         dtype = _DTYPES[tc.compute_dtype]
         if self.cell.kind == "train":
-            return make_train_step(cfg, tc)(state, ins)
+            return make_train_step(cfg, tc, **sharded)(state, ins)
         if self.cell.kind == "prefill":
             return prefill(cfg, state, ins["tokens"],
                            ins.get("prefix_embeds"), dtype,
-                           block_kv=tc.block_kv, layout=layout)
+                           block_kv=tc.block_kv, act_dp=act_dp,
+                           layout=layout)
         return decode_step(cfg, state, ins["token"], ins["pos"],
-                           ins["caches"], dtype, layout=layout)
+                           ins["caches"], dtype, act_dp=act_dp,
+                           layout=layout)
 
     def compile(self) -> "Compiled":
-        """The counted pass at global shapes, then the memory pass at the
-        per-device batch."""
+        """Base: the counted pass at global shapes, then the memory pass
+        at the per-device batch. ``opt``: rank 0's sharded call, once."""
+        if self.optimized:
+            rank0 = sharded_pass(self)
+            return Compiled(self, rank0.seconds, 0.0, None, None, None,
+                            rank0.temp_bytes,
+                            _output_specs(self, rank0.outputs), rank0)
         t0 = time.perf_counter()
         with FakeTensorMode():
             args = self._args(self.cell.global_batch)
@@ -550,23 +635,30 @@ class Lowered:
 
 
 def _output_specs(low: Lowered, outputs) -> dict:
-    """``TensorSpec`` trees of the outputs, split into the donated part
-    (aliased to arguments) and the rest."""
-    cfg, mesh = low.cfg, low.mesh
-    if low.cell.kind == "train":
+    """``TensorSpec`` trees of the outputs at global shapes, split into
+    the donated part (aliased to arguments) and the rest: the train
+    step's state and its 0-d metrics (of ``outputs``, the call's, one
+    device's or rank 0's), the serving calls' float32 logits of the last
+    position over the padded vocabulary and a prefill's caches,
+    ``cache_spec``'s leaves of the processed sequence (a sliding
+    window's slots at most) in the compute dtype."""
+    cfg, mesh, cell = low.cfg, low.mesh, low.cell
+    if cell.kind == "train":
         state_specs = {"params": low.params, "opt": _opt_specs(low.params)}
         metrics = [TensorSpec((), t.dtype, ()) for t in
                    _tensors(outputs[1])]
         return {"aliased": state_specs, "fresh": metrics}
-    logits, caches = outputs
-    b_axes = low.inputs["token" if low.cell.kind == "decode"
+    B, V = cell.global_batch, padded_vocab(cfg)
+    b_axes = low.inputs["token" if cell.kind == "decode"
                         else "tokens"].spec[0]
     tp = dict(mesh.shape).get("model", 1)
-    vocab = "model" if tp > 1 and logits.shape[-1] % tp == 0 else None
-    lg = TensorSpec(tuple(logits.shape), logits.dtype,
+    vocab = "model" if tp > 1 and V % tp == 0 else None
+    lg = TensorSpec((B, 1, V), torch.float32,
                     spec(_axes(b_axes), None, vocab))
-    if low.cell.kind == "decode":
+    if cell.kind == "decode":
         return {"aliased": low.inputs["caches"], "fresh": [lg]}
+    caches = cache_spec(cfg, B, cell.seq_len + cfg.n_prefix,
+                        _DTYPES[low.tc.compute_dtype], device="meta")
     return {"aliased": [], "fresh": [lg, _tensor_specs(
         caches, cache_specs(cfg, mesh, caches))]}
 
@@ -585,18 +677,35 @@ def _tree_bytes(tree, mesh) -> int:
 
 @dataclasses.dataclass
 class Compiled:
+    """A counted cell. Base: the global counts (``*_global``) and the
+    memory pass's ``temp_bytes``; ``opt``: ``rank0``, the sharded pass,
+    which holds them all (the global counts are None)."""
+
     lowered: Lowered
     compile_s: float
     memory_s: float
-    flops_global: float
-    bytes_accessed_global: float
-    transcendentals_global: float
+    flops_global: Optional[float]
+    bytes_accessed_global: Optional[float]
+    transcendentals_global: Optional[float]
     temp_bytes: int
     outputs: dict
+    rank0: Optional[ShardedPass] = None
+
+    @property
+    def cost_basis(self) -> str:
+        return COST_BASIS if self.rank0 is None else RANK0_BASIS
+
+    @property
+    def temp_basis(self) -> str:
+        return TEMP_BASIS if self.rank0 is None else RANK0_BASIS
 
     def cost_analysis(self) -> dict:
-        """Per device (global / the mesh's device count), with the
-        undivided FLOPs beside."""
+        """Per device: base, global / the mesh's device count, with the
+        undivided FLOPs beside; ``opt``, rank 0's own counts."""
+        if self.rank0 is not None:
+            r = self.rank0
+            return {"flops": r.flops, "bytes accessed": r.bytes_accessed,
+                    "transcendentals": r.transcendentals}
         n = self.lowered.mesh.size
         return {"flops": self.flops_global / n,
                 "bytes accessed": self.bytes_accessed_global / n,
@@ -619,40 +728,51 @@ class Compiled:
 
     def collectives(self) -> dict:
         """Per device, as the cell's sharded call issues them (the module
-        docstring)."""
+        docstring): an ``opt`` cell's from its one pass."""
+        if self.rank0 is not None:
+            return self.rank0.collectives
         return issued_collectives(self.lowered)
 
 
 def lower_cell(cfg: ArchConfig, cell: ShapeCell, mesh,
                train_cfg: Optional[TrainConfig] = None,
-               param_dtype: Optional[torch.dtype] = None) -> Lowered:
+               param_dtype: Optional[torch.dtype] = None,
+               optimized: bool = False) -> Lowered:
     """Build the cell's parameter and input specs (no tensor is
     allocated); ``.compile()`` on the result runs the counted passes.
     ``param_dtype`` casts the weights as a serving engine holds them
-    (default: float32, the reference's)."""
+    (default: float32, the reference's). ``optimized``: the ``opt``
+    variant, ``act_dp = dp_axes(mesh)`` in the default ``TrainConfig``
+    (a ``train_cfg`` given wins, as in the reference) and in the serving
+    calls, counted on rank 0's sharded call (the module docstring)."""
+    act_dp = dp_axes(mesh) if optimized else None
     tc = train_cfg or TrainConfig(
-        block_kv=2048 if cell.seq_len > 8192 else None)
+        block_kv=2048 if cell.seq_len > 8192 else None, act_dp=act_dp)
     t0 = time.perf_counter()
     params, _ = _param_structs(cfg, mesh, param_dtype)
     ins = input_specs(cfg, cell, mesh)
     return Lowered(cfg, cell, mesh, tc, params, ins, param_dtype,
-                   time.perf_counter() - t0)
+                   time.perf_counter() - t0, act_dp)
 
 
 def run_cell(cfg: ArchConfig, cell: ShapeCell, multi_pod: bool,
-             out_dir: Path) -> dict:
+             out_dir: Path, optimized: bool = False) -> dict:
     """Dry-run one cell on a production mesh and write its record (a
-    record already written is read back instead)."""
+    record already written is read back instead); ``optimized``: the
+    ``opt`` variant, tagged ``.opt``."""
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
-    out_path = Path(out_dir) / f"{cfg.name}.{cell.name}.{mesh_name}.json"
+    tag = f"{cfg.name}.{cell.name}.{mesh_name}" + (".opt" if optimized
+                                                    else "")
+    out_path = Path(out_dir) / f"{tag}.json"
     if out_path.exists():
         return json.loads(out_path.read_text())
     t0 = time.perf_counter()
     mesh = make_production_mesh(multi_pod=multi_pod)
     rec = {"arch": cfg.name, "shape": cell.name, "mesh": mesh_name,
-           "kind": cell.kind, "chips": mesh.size, "variant": "base"}
+           "kind": cell.kind, "chips": mesh.size,
+           "variant": "opt" if optimized else "base"}
     try:
-        lowered = lower_cell(cfg, cell, mesh)
+        lowered = lower_cell(cfg, cell, mesh, optimized=optimized)
         compiled = lowered.compile()
         ca = compiled.cost_analysis()
         rec.update({
@@ -661,11 +781,13 @@ def run_cell(cfg: ArchConfig, cell: ShapeCell, multi_pod: bool,
             "compile_s": round(compiled.compile_s, 2),
             "memory_s": round(compiled.memory_s, 2),
             "flops": ca["flops"],
-            "flops_global": ca["flops_global"],
+            **({"flops_global": ca["flops_global"]}
+               if "flops_global" in ca else {}),
             "bytes_accessed": ca["bytes accessed"],
             "transcendentals": ca["transcendentals"],
+            "cost_basis": compiled.cost_basis,
             "memory": compiled.memory_analysis(),
-            "temp_basis": TEMP_BASIS,
+            "temp_basis": compiled.temp_basis,
             "collectives": compiled.collectives(),
             "collectives_basis": compiled.collectives_basis,
         })
@@ -677,10 +799,11 @@ def run_cell(cfg: ArchConfig, cell: ShapeCell, multi_pod: bool,
     return rec
 
 
-def _run_one(arch: str, cell: ShapeCell, multi_pod: bool,
-             out_dir: str) -> dict:
+def _run_one(arch: str, cell: ShapeCell, multi_pod: bool, out_dir: str,
+             optimized: bool) -> dict:
     torch.set_num_threads(1)
-    return run_cell(get_config(arch), cell, multi_pod, Path(out_dir))
+    return run_cell(get_config(arch), cell, multi_pod, Path(out_dir),
+                    optimized)
 
 
 def main(argv=None) -> int:
@@ -690,9 +813,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default="both",
                     choices=["single", "multi", "both"])
     ap.add_argument("--out", default="results/dryrun_torch")
-    ap.add_argument("--variant", default="base", choices=["base"],
-                    help="the reference's 'opt' (act_dp) needs a "
-                    "sharded step on a mesh of processes")
+    ap.add_argument("--variant", default="base", choices=["base", "opt"],
+                    help="opt: rank 0's sharded call with act_dp, the "
+                    "reference's activation-sharding variant")
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells dry-run at once, one process each")
     args = ap.parse_args(argv)
@@ -704,16 +827,17 @@ def main(argv=None) -> int:
              for cell in cells_for(get_config(arch))
              if args.shape == "all" or cell.name in args.shape.split(",")
              for mp in meshes]
+    opt = args.variant == "opt"
     t0 = time.perf_counter()
     if args.jobs > 1:
         pool = concurrent.futures.ProcessPoolExecutor(
             args.jobs, mp_context=multiprocessing.get_context("spawn"))
-        futures = [pool.submit(_run_one, a, c, mp, args.out)
+        futures = [pool.submit(_run_one, a, c, mp, args.out, opt)
                    for a, c, mp in cells]
         results = (f.result() for f in futures)
     else:
         pool = None
-        results = (_run_one(a, c, mp, args.out) for a, c, mp in cells)
+        results = (_run_one(a, c, mp, args.out, opt) for a, c, mp in cells)
     n_ok = n_fail = 0
     try:
         for (arch, cell, mp), rec in zip(cells, results):

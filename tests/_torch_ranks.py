@@ -57,7 +57,13 @@ Cases (dicts with a ``kind``):
   ``NotImplementedError``. ``dtype``: the compute and cache dtype
   (float32 by default). With ``count`` the calls run with
   ``dist.collectives``' primitives wrapped, as in ``count``, and return
-  the prefill's and the first decode's calls instead.
+  the prefill's and the first decode's calls instead. With ``act_dp``
+  the calls take ``act_dp=layout.dp`` (the dry run's ``opt`` variant).
+* ``live``: the peak of live bytes beyond this rank's arguments
+  (``launch.dryrun._LiveBytes``, the dry run's counter, on real
+  tensors) of one sharded step of ``arch`` (``tc`` as in ``steps``) on
+  the global batch ``batches[0]``, and of a ``prefill`` of the global
+  ``prompt`` in bfloat16 with ``act_dp=layout.dp``.
 
 A case's ``moe`` (a dict) replaces fields of the reduced config's
 ``MoECfg``; a ``window`` sets the config's sliding window.
@@ -169,6 +175,8 @@ def _case(case: dict, mesh) -> dict:
         return _count(case, cfg, mesh, shard)
     if case["kind"] == "serve":
         return _serve(case, cfg, mesh, shard)
+    if case["kind"] == "live":
+        return _live(case, cfg, mesh, shard)
     tc = _train_config(case["tc"])
     pspecs = param_specs(cfg, mesh, case["params"])
     if case["kind"] == "restore":
@@ -355,13 +363,15 @@ def _serve(case, cfg, mesh, shard) -> dict:
     mine = lambda ins: {k: t(v) for k, v in shard_serve(  # noqa: E731
         ins, cfg, mesh, mesh.coords).items()}
     tokens = mine({"tokens": case["prompt"]})["tokens"]
+    act_dp = layout.dp if case.get("act_dp") else None
     B = case["prompt"].shape[0]
     out = {"layout": {"attn_tp": layout.attn_tp, "ssm_tp": layout.ssm_tp,
                       "moe_tp": layout.moe_tp, "vocab_tp": layout.vocab_tp,
                       "conv_part": layout.conv_part}}
     calls = []
     with torch.no_grad(), _wrapped(calls if case.get("count") else None):
-        logits, pre = prefill(cfg, params, tokens, None, f32, layout=layout)
+        logits, pre = prefill(cfg, params, tokens, None, f32,
+                              act_dp=act_dp, layout=layout)
         n_pre = len(calls)
         caches = cache_spec(cfg, B, case["s_cache"], f32, cpu,
                             layout=layout)
@@ -371,7 +381,7 @@ def _serve(case, cfg, mesh, shard) -> dict:
             ins = mine(st)
             lg, _ = decode_step(cfg, params, ins["token"], ins["pos"],
                                 caches, f32, rows=ins["rows"],
-                                layout=layout)
+                                act_dp=act_dp, layout=layout)
             steps.append(lg.float().numpy())
             if case.get("count"):
                 return {"prefill": calls[:n_pre], "decode": calls[n_pre:]}
@@ -453,6 +463,38 @@ def _count(case, cfg, mesh, shard) -> dict:
         step(init_state(cfg, tc, params),
              shard_batch(case["batches"][0], cfg, mesh, mesh.coords))
     return {"calls": calls}
+
+
+def _live(case, cfg, mesh, shard) -> dict:
+    """The dry run's live-bytes counter over one real sharded step and
+    one prefill (``act_dp`` the data axes): each call's peak beyond the
+    rank's arguments (the state, parameters and inputs, made before)."""
+    from repro_torch.dist.collectives import Layout
+    from repro_torch.dist.sharding import map_specs, param_specs, \
+        shard_batch, shard_serve
+    from repro_torch.launch.dryrun import _LiveBytes, _tensors
+    from repro_torch.models import prefill
+    from repro_torch.models.weights import params_from_numpy
+    from repro_torch.train.step import init_state, make_train_step
+    cpu = torch.device("cpu")
+    tc = _train_config(case["tc"])
+    pspecs = param_specs(cfg, mesh, case["params"])
+    tensors = lambda d: {k: torch.from_numpy(np.ascontiguousarray(v))  # noqa: E731
+                         for k, v in d.items()}
+    state = init_state(cfg, tc, params_from_numpy(
+        map_specs(shard, pspecs, case["params"]), cpu))
+    batch = tensors(shard_batch(case["batches"][0], cfg, mesh, mesh.coords))
+    step = make_train_step(cfg, tc, grad_specs=pspecs, mesh=mesh)
+    with _LiveBytes(_tensors((state, batch))) as train:
+        step(state, batch)
+    params = params_from_numpy(map_specs(shard, pspecs, case["params"]), cpu)
+    layout = Layout(cfg, mesh, pspecs)
+    tokens = tensors(shard_serve({"tokens": case["prompt"]}, cfg, mesh,
+                                 mesh.coords))["tokens"]
+    with torch.no_grad(), _LiveBytes(_tensors((params, tokens))) as pre:
+        prefill(cfg, params, tokens, None, torch.bfloat16,
+                act_dp=layout.dp, layout=layout)
+    return {"train": train.peak, "prefill": pre.peak}
 
 
 def _knobs(case, cfg, mesh, shard) -> dict:

@@ -11,9 +11,14 @@ what one real sharded step issues on a (2, 2) mesh of gloo processes
 do a prefill and a decode cell's (the sharded serving step); on a mesh
 whose model axis is one position a serving cell's all-gathers equal the
 rule's hand count (``collective_stats``); the count leaves no process
-group behind, refuses to run inside one and allocates nothing. The slow
-test holds argument bytes equal to the reference's compiled
-``memory_analysis``."""
+group behind, refuses to run inside one and allocates nothing. The
+``opt`` variant (rank 0's own sharded call with ``act_dp``): its
+collectives equal a gloo (2, 2) call's with ``act_dp`` and the base
+record's, for train, prefill and decode cells; the peak of live bytes
+its fake pass counts equals the same counter's over rank 0's real gloo
+step and prefill; the CLI writes ``.opt.json`` records beside the base
+ones. The slow tests hold argument bytes equal to the reference's
+compiled ``memory_analysis``, base and ``opt``."""
 import json
 import os
 import subprocess
@@ -268,29 +273,58 @@ COUNTS = [(a, seq) for a in ("granite-3-2b", "deepseek-moe-16b",
                              "mamba2-1.3b") for seq in (False, True)]
 
 
+def _issued(calls) -> dict:
+    """Rank 0's calls by kind, over groups of more than one process."""
+    want = {k: {"count": 0, "bytes": 0} for k in D._COLLECTIVES}
+    for kind, n, nbytes in calls:
+        if n > 1:
+            want[kind]["count"] += 1
+            want[kind]["bytes"] += nbytes
+    return want
+
+
 def _count_tc(seq: bool) -> dict:
     return {"seq_shard": True, "act_dp": ("data",)} if seq else {}
 
 
+# the opt variant's train step: act_dp the data axes, no seq_shard
+ACT_DP = "act_dp"
+OPT_COUNTS = sorted({a for a, _ in COUNTS})
+# the live-bytes counter over a real step and prefill: dense and MoE
+LIVE = ("granite-3-2b", "deepseek-moe-16b")
+
+
 @pytest.fixture(scope="module")
 def issued_2x2(tmp_path_factory):
-    """One real sharded step of each ``COUNTS`` case on a (2, 2) mesh of
-    gloo processes (the default TrainConfig: bf16, remat), on the port's
-    own weights and tiny_train's global batch, with the three primitives
-    wrapped: rank 0's calls."""
+    """One real sharded step of each ``COUNTS`` case, and of each
+    ``OPT_COUNTS`` architecture with ``act_dp=("data",)`` (key ``(arch,
+    ACT_DP)``), on a (2, 2) mesh of gloo processes (the default
+    TrainConfig: bf16, remat), on the port's own weights and
+    tiny_train's global batch, with the three primitives wrapped: rank
+    0's calls. Key ``(arch, "live")``: rank 0's peaks of live bytes (the
+    dry run's counter) over one real step with ``act_dp`` and a bf16
+    prefill of tiny_prefill's prompt with ``act_dp``, for ``LIVE``."""
     rng = np.random.default_rng(0)
-    cases = []
-    for arch, seq in COUNTS:
+    cases, keys = [], []
+    for arch, tc in ([(a, _count_tc(seq)) for a, seq in COUNTS]
+                     + [(a, {"act_dp": ("data",)}) for a in OPT_COUNTS]):
         cfg = get_config(arch).reduced()
         params = tree_map(lambda t: t.numpy(), init_params(cfg, 0, "cpu"))
         shape = (TINY_TRAIN.global_batch, TINY_TRAIN.seq_len)
         batch = {k: rng.integers(0, cfg.vocab, shape).astype(np.int32)
                  for k in ("tokens", "labels")}
         cases.append(dict(kind="count", arch=arch, params=params,
-                          batches=[batch], tc=_count_tc(seq)))
+                          batches=[batch], tc=tc))
+        keys.append((arch, ACT_DP if tc.get("act_dp") and not tc.get(
+            "seq_shard") else bool(tc)))
+        if arch in LIVE and keys[-1][1] == ACT_DP:
+            cases.append(dict(cases[-1], kind="live",
+                              prompt=batch["tokens"]))
+            keys.append((arch, "live"))
     res = RANKS.run({"mesh": dict(data=2, model=2), "cases": cases}, 4,
                     tmp_path_factory.mktemp("count2x2"))
-    return {c: r["calls"] for c, r in zip(COUNTS, res[0]["cases"])}
+    return {k: r if k[1] == "live" else r["calls"]
+            for k, r in zip(keys, res[0]["cases"])}
 
 
 @pytest.mark.parametrize("arch,seq", COUNTS)
@@ -313,6 +347,61 @@ def test_dry_run_counts_what_the_sharded_step_issues(arch, seq, issued_2x2):
     assert not dist.is_initialized()
 
 
+@pytest.mark.parametrize("arch", OPT_COUNTS)
+def test_opt_counts_what_the_sharded_step_issues_with_act_dp(arch,
+                                                            issued_2x2):
+    """An ``opt`` train cell on (2, 2) (``act_dp`` the data axes, no
+    ``seq_shard``): its collectives, read from rank 0's one sharded pass,
+    equal what a real gloo step with ``act_dp`` issued, and equal the
+    base record's: ``act_dp`` alone issues nothing new."""
+    want = _issued(issued_2x2[(arch, ACT_DP)])
+    assert want["all-reduce"]["count"] > 0
+    cfg, mesh = get_config(arch).reduced(), Mesh(("data", "model"), (2, 2))
+    low = D.lower_cell(cfg, TINY_TRAIN, mesh, optimized=True)
+    assert low.tc.act_dp == ("data",) and not low.tc.seq_shard
+    comp = low.compile()
+    assert comp.rank0 is not None and comp.flops_global is None
+    got = comp.collectives()
+    assert {k: got[k] for k in D._COLLECTIVES} == want
+    base = D.lower_cell(cfg, TINY_TRAIN, mesh).compile().collectives()
+    assert got == base
+    assert not dist.is_initialized()
+
+
+def test_opt_train_config_given_wins():
+    """A ``train_cfg`` the caller gives wins over the ``opt`` default, as
+    in the reference; ``act_dp`` stays on the lowered cell for the
+    serving calls, and base cells have none."""
+    mesh = Mesh(("pod", "data", "model"), (2, 2, 2))
+    cfg = get_config("granite-3-2b").reduced()
+    tc = TrainConfig(seq_shard=True, act_dp=("pod", "data"))
+    low = D.lower_cell(cfg, TINY_TRAIN, mesh, tc, optimized=True)
+    assert low.tc is tc and low.act_dp == ("pod", "data")
+    low = D.lower_cell(cfg, TINY["prefill"], mesh, optimized=True)
+    assert low.act_dp == ("pod", "data") and low.tc.act_dp == low.act_dp
+    assert not low.tc.seq_shard
+    base = D.lower_cell(cfg, TINY["prefill"], mesh)
+    assert base.act_dp is None and base.tc.act_dp is None
+
+
+@pytest.mark.parametrize("arch", LIVE)
+def test_opt_peak_equals_the_real_ranks(arch, issued_2x2):
+    """The live bytes the ``opt`` pass counts on fake tensors in a fake
+    group (the temporaries of rank 0's sharded call: gathered leaves made
+    contiguous, autograd's saved tensors inside remat's checkpoint, the
+    gradients the reduce-scatters leave, never the donated state's
+    in-place updates) equal, byte for byte, the same counter's peak over
+    rank 0's real step and prefill on a (2, 2) gloo mesh (the rank's
+    state, parameters and batch counted as its arguments there)."""
+    real = issued_2x2[(arch, "live")]
+    cfg, mesh = get_config(arch).reduced(), Mesh(("data", "model"), (2, 2))
+    for kind, cell in (("train", TINY_TRAIN), ("prefill", TINY["prefill"])):
+        comp = D.lower_cell(cfg, cell, mesh, optimized=True).compile()
+        assert real[kind] > 0
+        assert comp.memory_analysis()["temp_bytes"] == real[kind], kind
+    assert not dist.is_initialized()
+
+
 SERVE_COUNTS = [(a, k) for a in ("granite-3-2b", "deepseek-moe-16b",
                                   "mamba2-1.3b", "qwen3-8b")
                 for k in ("prefill", "decode")]
@@ -326,7 +415,8 @@ def issued_serve_2x2(tmp_path_factory):
     decode step (tiny_decode's 8 rows at one position, caches of 32
     slots) of each architecture on a (2, 2) mesh of gloo processes, in
     bfloat16 as the dry run's default, on the port's own weights, with
-    the three primitives wrapped: rank 0's calls of each."""
+    the three primitives wrapped: rank 0's calls of each; and the same
+    calls with ``act_dp=layout.dp`` (key ``(arch, kind, ACT_DP)``)."""
     rng = np.random.default_rng(1)
     archs = sorted({a for a, _ in SERVE_COUNTS})
     cases = []
@@ -342,9 +432,12 @@ def issued_serve_2x2(tmp_path_factory):
                           prompt=prompt, steps=[step],
                           s_cache=TINY["decode"].seq_len, dtype="bfloat16",
                           count=True))
+    cases += [dict(c, act_dp=True) for c in cases]
     res = RANKS.run({"mesh": dict(data=2, model=2), "cases": cases}, 4,
                     tmp_path_factory.mktemp("serve2x2"))
-    return {(a, k): r[k] for a, r in zip(archs, res[0]["cases"])
+    tags = [()] * len(archs) + [(ACT_DP,)] * len(archs)
+    return {(a, k) + t: r[k] for a, t, r in zip(archs * 2, tags,
+                                                res[0]["cases"])
             for k in ("prefill", "decode")}
 
 
@@ -365,6 +458,23 @@ def test_dry_run_counts_what_the_sharded_serving_step_issues(
     assert comp.collectives_basis == "issued"
     got = comp.collectives()
     assert {k: got[k] for k in D._COLLECTIVES} == want
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("arch,kind", SERVE_COUNTS)
+def test_opt_counts_what_the_sharded_serving_step_issues_with_act_dp(
+        arch, kind, issued_serve_2x2):
+    """An ``opt`` prefill or decode cell on (2, 2): its collectives, from
+    rank 0's one sharded pass with ``act_dp=layout.dp``, equal what the
+    gloo call with ``act_dp`` issued, and the base record's."""
+    want = _issued(issued_serve_2x2[(arch, kind, ACT_DP)])
+    assert want["all-gather"]["count"] > 0
+    cfg, mesh = get_config(arch).reduced(), Mesh(("data", "model"), (2, 2))
+    comp = D.lower_cell(cfg, TINY[kind], mesh, optimized=True).compile()
+    assert comp.lowered.act_dp == ("data",)
+    got = comp.collectives()
+    assert {k: got[k] for k in D._COLLECTIVES} == want
+    assert got == D.lower_cell(cfg, TINY[kind], mesh).compile().collectives()
     assert not dist.is_initialized()
 
 
@@ -517,6 +627,42 @@ def test_cli_writes_reference_records(tmp_path, capsys):
         assert rec["flops"] * chips == rec["flops_global"]
 
 
+def test_cli_writes_opt_records_beside_base(tmp_path, capsys):
+    """``--variant opt`` writes ``<arch>.<shape>.<mesh>.opt.json`` with
+    the reference's keys, ``"variant": "opt"``, rank 0's sharded call as
+    the basis of its costs and temporaries and no ``flops_global``; the
+    base records in the same directory stay as written, and each
+    variant's record is read back, not rewritten, on a second run."""
+    argv = ["--arch", "mamba2-1.3b", "--shape", "long_500k", "--mesh",
+            "both", "--out", str(tmp_path)]
+    assert D.main(argv) == 0
+    meshes = (("pod16x16", 256), ("pod2x16x16", 512))
+    base = {m: (tmp_path / f"mamba2-1.3b.long_500k.{m}.json").read_text()
+            for m, _ in meshes}
+    assert D.main(argv + ["--variant", "opt"]) == 0
+    assert "dry-run complete: 2 ok, 0 failed" in capsys.readouterr().out
+    for mesh, chips in meshes:
+        path = tmp_path / f"mamba2-1.3b.long_500k.{mesh}.opt.json"
+        rec = json.loads(path.read_text())
+        assert REF_KEYS <= set(rec) and rec["ok"] and rec["chips"] == chips
+        assert rec["variant"] == "opt" and "flops_global" not in rec
+        assert rec["cost_basis"] == rec["temp_basis"] == D.RANK0_BASIS
+        assert rec["collectives_basis"] == "issued"
+        b = json.loads(base[mesh])
+        assert b["variant"] == "base" and b["cost_basis"] == D.COST_BASIS
+        for key in ("argument_bytes", "output_bytes", "alias_bytes"):
+            assert rec["memory"][key] == b["memory"][key], key
+        assert rec["collectives"] == b["collectives"]
+        assert rec["memory"]["temp_bytes"] > 0 and rec["flops"] > 0
+        assert (tmp_path / f"mamba2-1.3b.long_500k.{mesh}.json"
+                ).read_text() == base[mesh]
+    opt = {p.name: p.read_text() for p in tmp_path.glob("*.opt.json")}
+    assert D.main(argv + ["--variant", "opt"]) == 0 and D.main(argv) == 0
+    assert {p.name: p.read_text()
+            for p in tmp_path.glob("*.opt.json")} == opt
+    assert len(list(tmp_path.glob("*.json"))) == 4
+
+
 REF_PARITY = r"""
 import os
 os.environ["REPRO_DRYRUN_DEVICES"] = "8"
@@ -530,12 +676,13 @@ from repro.launch.dryrun import collective_stats, lower_cell
 from repro.models import n_blocks
 
 cfg = get_config(sys.argv[1]).reduced()
+optimized = sys.argv[2:] == ["opt"]
 # Auto axes: the sharding propagation the reference's dry run was written
 # for (explicit axes, this jax's default, refuse its embedding gather)
 mesh = jax.make_mesh((2, 2, 2), ("pod", "data", "model"),
                      axis_types=(jax.sharding.AxisType.Auto,) * 3)
 compiled = lower_cell(cfg, ShapeCell("tiny_train", 32, 8, "train"),
-                      mesh).compile()
+                      mesh, optimized=optimized).compile()
 ca = normalize_cost_analysis(compiled.cost_analysis())
 print(json.dumps({
     "arg_bytes": compiled.memory_analysis().argument_size_in_bytes,
@@ -568,3 +715,19 @@ def test_argument_bytes_equal_reference_memory_analysis():
     for k in D._COLLECTIVES:
         print(f"  {k}: port {coll[k]} reference {ref['collectives'][k]}")
     assert mem["argument_bytes"] == ref["arg_bytes"]
+
+
+@pytest.mark.slow
+def test_opt_argument_bytes_equal_reference_memory_analysis():
+    """The reference's ``lower_cell(..., optimized=True)`` of the same
+    cell on 8 fake devices: its argument bytes equal the port's ``opt``
+    record's."""
+    arch = "granite-3-2b"
+    out = subprocess.run([sys.executable, "-c", REF_PARITY, arch, "opt"],
+                         capture_output=True, text=True, timeout=600,
+                         env=_ref_env())
+    assert out.returncode == 0, out.stderr[-3000:]
+    ref = json.loads(out.stdout.strip().splitlines()[-1])
+    comp = D.lower_cell(get_config(arch).reduced(), TINY_TRAIN,
+                        _pod_mesh(), optimized=True).compile()
+    assert comp.memory_analysis()["argument_bytes"] == ref["arg_bytes"]
